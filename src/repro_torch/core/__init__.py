@@ -1,0 +1,4 @@
+"""Tuning core of the port: parameter spaces, annotations, platform
+profiles, the tuning database and the dispatch runtime."""
+from .annotate import DispatchSpec, Tunable, get_tunable, registered, tunable  # noqa: F401
+from .params import Config, Constraint, Param, ParamSpace, PowerOfTwoParam  # noqa: F401

@@ -1,0 +1,110 @@
+"""Shared layer primitives: init, dense, norm, SwiGLU FFN, RoPE, embeddings.
+
+Parameters are plain dicts of tensors with the JAX package's names and
+layouts: a dense weight is ``[d_in, d_out]`` (not ``nn.Linear``'s
+``[out, in]``), so the matmul kernel and its database keys see the same
+operands in both packages.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.runtime import dispatch, fusion_wins
+
+Params = Dict[str, Any]
+
+
+def _init(gen: torch.Generator, shape, dtype, device, scale: Optional[float] = None):
+    """Normal init with the JAX package's scales (``layers._init``)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1.0)
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False) -> Params:
+    p: Params = {"w": _init(gen, (d_in, d_out), dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (+ b): the projection gemm goes through the ``matmul`` dispatch."""
+    if "b" in p and fusion_wins("matmul_bias_act", x, p["w"], p["b"]):
+        return dispatch("matmul_bias_act", x, p["w"], p["b"])
+    y = dispatch("matmul", x, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def norm_init(d: int, dtype, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return dispatch("rmsnorm", x, p["scale"], eps=eps)
+
+
+def rmsnorm_dense(pn: Params, pd: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """rmsnorm(x) through a dense layer: the final-norm -> unembed pair."""
+    if "b" not in pd and fusion_wins("rmsnorm_matmul", x, pn["scale"], pd["w"], eps=eps):
+        return dispatch("rmsnorm_matmul", x, pn["scale"], pd["w"], eps=eps)
+    return dense(pd, rmsnorm(pn, x, eps))
+
+
+def ffn_init(gen, d: int, ff: int, kind: str, dtype, device) -> Params:
+    if kind != "swiglu":
+        raise NotImplementedError(f"the port has the swiglu FFN only, not {kind!r}")
+    return {
+        "wg": _init(gen, (d, ff), dtype, device),
+        "wu": _init(gen, (d, ff), dtype, device),
+        "wd": _init(gen, (ff, d), dtype, device, scale=1.0 / math.sqrt(ff)),
+    }
+
+
+def ffn_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SwiGLU. The gate's fused ``matmul_bias_act`` site comes with the
+    fused kernels; until then the gate is a matmul dispatch then SiLU."""
+    if kind != "swiglu":
+        raise NotImplementedError(f"the port has the swiglu FFN only, not {kind!r}")
+    h = F.silu(dispatch("matmul", x, p["wg"])) * dispatch("matmul", x, p["wu"])
+    return dispatch("matmul", h, p["wd"])
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split RoPE in fp32. x: [..., s, heads, hd]; positions: [s] or
+    broadcastable (e.g. [b, 1])."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs       # [..., s, hd/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def embedding_init(gen, vocab: int, d: int, dtype, device) -> Params:
+    return {"table": _init(gen, (vocab, d), dtype, device, scale=1.0)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed_init(gen, d: int, vocab: int, dtype, device) -> Params:
+    return {"w": _init(gen, (d, vocab), dtype, device)}
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return dispatch("matmul", x, p["w"])

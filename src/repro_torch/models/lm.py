@@ -1,0 +1,109 @@
+"""Top-level language model: embed -> layer stack -> final norm -> unembed.
+
+Public surface, plain functions over dicts of tensors, as in
+``repro.models.lm``:
+    init_params(cfg, seed, device)                -> params
+    forward(params, batch, cfg, run, ...)         -> (hidden, caches)
+    prefill(params, batch, cfg, run, ...)         -> (last_logits, caches)
+    decode_step(params, tokens, caches, pos, ...) -> (logits, caches)
+    init_cache / insert_cache                     -> the slot-pool cache
+
+The port serves; training (loss, chunked cross entropy) comes later.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.platform import resolve_device
+from . import transformer as tf
+from .layers import embed, embedding_init, norm_init, rmsnorm, rmsnorm_dense, unembed, unembed_init
+
+Batch = Dict[str, torch.Tensor]
+
+
+def init_params(cfg: ArchConfig, seed: int = 0,
+                device: Union[str, torch.device, None] = None) -> Dict[str, Any]:
+    """Random parameters from an explicit ``torch.Generator`` seeded with
+    ``seed``, made on ``device`` (default ``cuda``), with the JAX package's
+    init scales. The numbers differ from JAX's for the same seed: tests carry
+    JAX parameters across with :func:`repro_torch.convert.from_jax_params`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.tdtype
+    return {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "segments": tuple(tf.segment_init(gen, cfg, seg, dev) for seg in cfg.segments()),
+        "final_norm": norm_init(cfg.d_model, dt, dev),
+        "lm_head": unembed_init(gen, cfg.d_model, cfg.vocab_size, dt, dev),
+    }
+
+
+def param_count(params) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return sum(param_count(v) for v in params)
+
+
+def forward(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
+            mode: str = "prefill", cache_len: Optional[int] = None, true_len=None):
+    if cfg.frontend is not None:
+        raise NotImplementedError("the port serves token-in/token-out archs only")
+    x = embed(params["embed"], batch["tokens"])
+    x, caches = tf.stack_apply(params["segments"], x, cfg, run, mode,
+                               cache_len=cache_len, true_len=true_len)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+
+
+def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
+            cache_len: Optional[int] = None, true_len=None):
+    """Full-sequence forward emitting caches and the last position's logits.
+
+    ``true_len`` enables bucketed prefill: the batch is right-padded, logits
+    are read at position ``true_len - 1`` and window caches ring-align to
+    ``true_len``; causality keeps the pads out of every real position.
+    """
+    seq = batch["tokens"].shape[1]
+    tl = None if true_len is None else int(true_len)
+    x, caches = forward(params, batch, cfg, run, mode="prefill",
+                        cache_len=cache_len or seq, true_len=tl)
+    last = x[:, -1] if tl is None else x[:, tl - 1]
+    return unembed(params["lm_head"], last), caches
+
+
+def decode_step(params, tokens, caches, pos, cfg: ArchConfig, run: tf.RunConfig):
+    """tokens [b, 1]; pos a scalar or [b] absolute position per row.
+
+    Returns (logits [b, vocab], caches); the caches are updated in place.
+    """
+    x = embed(params["embed"], tokens)
+    x, caches = tf.stack_apply(params["segments"], x, cfg, run, mode="decode",
+                               caches=caches, pos=pos)
+    logits = rmsnorm_dense(params["final_norm"], params["lm_head"], x[:, 0], cfg.norm_eps)
+    return logits, caches
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
+    """Zero-filled cache for a ``batch``-slot decode pool (JAX layout)."""
+    dev = torch.device(device)
+    return tuple(
+        {name: {kk: torch.zeros(shape, dtype=cfg.tdtype, device=dev) for kk in ("k", "v")}
+         for name, shape in seg.items()}
+        for seg in tf.cache_shapes(cfg, batch, cache_len)
+    )
+
+
+def insert_cache(pool, new, slot: int):
+    """Overwrite slot ``slot`` of the pool (batch axis 1 of every leaf) with
+    a batch-1 prefill cache of the same length, in place; returns the pool.
+    The write covers the slot's whole region, so nothing of the previous
+    occupant survives."""
+    for seg_pool, seg_new in zip(pool, new):
+        for name, leaves in seg_pool.items():
+            for kk, t in leaves.items():
+                t[:, slot:slot + 1].copy_(seg_new[name][kk])
+    return pool
