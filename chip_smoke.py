@@ -6,23 +6,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device  — a CUDA card must be present; prints its name, the device
              count and ``nvidia-smi --query-gpu=name,power.limit``;
-2. build   — builds every CUDA kernel of the serving path from
-             ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
-             parallel) and prints nvcc's register / shared-memory / spill
-             report;
-3. kernels — runs each kernel at the serving path's shapes in bf16, at its
-             heuristic config and at one other legal config, holds it
+2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
+             (one nvcc per source, in parallel) and prints nvcc's register /
+             shared-memory / spill report;
+3. kernels — runs each kernel at the serving and training paths' shapes in
+             bf16 (matmul also on the backward's transposed operands), at
+             its heuristic config and at one other legal config, holds it
              against its plain PyTorch version on the card, and times
              kernel, plain version and the one-call PyTorch yardstick with
              CUDA events, beside the card's bound for the same work;
 4. serve   — full-width qwen2_0_5b in bf16 from a seeded random init,
              ServingEngine(max_batch=8, max_seq=2048), 16 staggered
              requests with prompts of 16..1500 tokens and 32 new tokens
-             each; every kernel's launch counter must rise and no dispatch
-             may fall to the reference tier; one prefill's logits are held
-             against the plain (reference-mode) path, and torch.profiler
-             splits a decode step and the largest prefill by kernel;
-5. summary — one ``{"kernels": [...]}`` line, then the last line
+             each; the serving kernels' launch counters must rise and no
+             dispatch may fall to the reference tier; one prefill's logits
+             are held against the plain (reference-mode) path, and
+             torch.profiler splits a decode step and the largest prefill by
+             kernel;
+5. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
+             master copy, batch 4 x seq 2048 from SyntheticPipeline(seed),
+             RunConfig(remat="none", loss_chunk=512), AdamWConfig(
+             warmup_steps=2), 6 steps through the Trainer; step 1's loss and
+             every gradient leaf are held against the plain path
+             (reference mode on the card, same parameters and batch); every
+             loss must be finite, every kernel's launch counter (transposed
+             matmul included) must rise, and no fwd or bwd dispatch may fall
+             to the reference tier; torch.profiler splits one more step by
+             kernel;
+6. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -56,6 +67,23 @@ TOL_LSE = 1e-3
 # activations whose roundings differ (rmsnorm's kernel multiplies by the
 # weight before its cast, the reference after), so a few percent.
 TOL_LOGITS = 5e-2
+# Cross entropy and its lse are fp32 on both sides, sums over 151,936
+# columns in another order: 1e-4 of the value (lse is about 12 here).
+TOL_XENT = 1e-4
+# Train step 1, kernel path vs plain path (reference mode) on the same
+# parameters and batch. Loss: a mean over 8192 tokens of fp32 losses from
+# bf16 logits that went through 24 layers rounded at different places, so
+# the per-token differences (about 1e-2 of a logit) mostly average out;
+# 1e-2 relative. Gradients, per leaf ||g_k - g_p|| / ||g_p||: bf16 leaves
+# whose elements differ by about one rounding (2^-8) plus the layers'
+# accumulated differences; 1e-1.
+TOL_LOSS = 1e-2
+TOL_GRAD = 1e-1
+
+
+SERVE_KERNELS = ("matmul", "rmsnorm", "flash_attention")
+TRAIN_KERNELS = ("matmul", "matmul_transposed", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
+                 "softmax_xent_bwd", "flash_attention", "flash_attention_bwd")
 
 
 def log(msg: str = "") -> None:
@@ -110,9 +138,9 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import LIBRARIES, _build
 
-    names = ["matmul", "rmsnorm", "flash_attention"]
+    names = list(LIBRARIES)
     t0 = time.perf_counter()
     _build.build_all(names)
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} s "
@@ -123,11 +151,14 @@ def phase_build():
                 log(f"[build] {n}: {line.strip()}")
 
 
-def _matmul_case(prof, rows, m, k, n, gen):
+def _matmul_case(prof, rows, m, k, n, gen, ta=False, tb=False):
     from repro_torch.kernels import matmul as mm
 
-    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-    w = (torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    # ta / tb: the operand is a transposed view, as the backward passes it
+    x = torch.randn((k, m) if ta else (m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((n, k) if tb else (k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    x, w = (x.T if ta else x), (w.T if tb else w)
     heur = mm.matmul.default_config(x, w)
     # the other legal config: the first heuristic's pick, which the current
     # one replaced after a card run
@@ -147,7 +178,8 @@ def _matmul_case(prof, rows, m, k, n, gen):
     plain_ms = time_ms(lambda: mm.matmul_plain(x, w))
     lib_ms = time_ms(lambda: torch.matmul(x, w))
     b_ms, b_by = bound(prof, (m * k + k * n + m * n) * 2, 2.0 * m * n * k, prof.peak_flops_bf16)
-    row = dict(shape=f"[{m},{k}]@[{k},{n}] bf16", config=heur, ms=ms, other_config=other,
+    shape = f"[{m},{k}]{'ᵀ' if ta else ''}@[{k},{n}]{'ᵀ' if tb else ''} bf16"
+    row = dict(shape=shape, config=heur, ms=ms, other_config=other,
                other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
@@ -191,13 +223,18 @@ def _rmsnorm_case(prof, rows_out, rows, d, gen):
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
-def _flash_case(prof, rows, s, gen, h=14, kvh=2, d=64):
+def _flash_case(prof, rows, s, gen, h=14, kvh=2, d=64, b=1):
     from repro_torch.kernels import attention as fa
 
-    mk = lambda n: torch.randn((1, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = mk(h), mk(kvh), mk(kvh)
     heur = fa.flash_attention.default_config(q, k, v)
-    other = {"block_q": 64, "block_k": 64} if s >= 64 else {"block_q": 16, "block_k": 32}
+    if s < 64:
+        other = {"block_q": 16, "block_k": 32}
+    elif heur == {"block_q": 64, "block_k": 64}:
+        other = {"block_q": 32, "block_k": 128}      # the pick below a full grid
+    else:
+        other = {"block_q": 64, "block_k": 64}
     p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=True)
     errs = []
     for cfg in (heur, other):
@@ -217,9 +254,9 @@ def _flash_case(prof, rows, s, gen, h=14, kvh=2, d=64):
         ke, ve = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
         lib_ms = time_ms(lambda: sdpa(q, ke, ve, is_causal=True))
     pairs = s * (s + 1) // 2                      # causal (q, k) pairs this run computes
-    nbytes = (2 * h * s * d + 2 * kvh * s * d) * 2 + h * s * 4
-    b_ms, b_by = bound(prof, nbytes, 4.0 * d * pairs * h, prof.peak_flops_bf16)
-    row = dict(shape=f"q[1,{h},{s},{d}] kv[1,{kvh},{s},{d}] causal bf16", config=heur, ms=ms,
+    nbytes = b * ((2 * h * s * d + 2 * kvh * s * d) * 2 + h * s * 4)
+    b_ms, b_by = bound(prof, nbytes, 4.0 * d * pairs * h * b, prof.peak_flops_bf16)
+    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", config=heur, ms=ms,
                other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
@@ -229,36 +266,177 @@ def _flash_case(prof, rows, s, gen, h=14, kvh=2, d=64):
         f"err {row['max_abs_err']:.3g} (row rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
+def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
+    from repro_torch.kernels import rmsnorm as rn
+
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(torch.bfloat16)
+    ct = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
+    _, r = rn.rmsnorm_plain(x, w)
+    heur = rn.rmsnorm_bwd.default_config(ct, x, w, r)
+    other = {"block_rows": 32 if heur["block_rows"] != 32 else 4}
+    p_dx, p_dw = rn.rmsnorm_bwd_plain(ct, x, w, r)
+    errs = []
+    for cfg in (heur, other):
+        dx, dw = rn.rmsnorm_bwd_cuda(ct, x, w, r, **cfg)
+        torch.cuda.synchronize()
+        errs.append(max(rel_err(dx, p_dx), rel_err(dw, p_dw), key=lambda e: e[1]))
+        if errs[-1][1] > TOL_BF16:
+            raise AssertionError(f"rmsnorm_bwd [{rows},{d}] {cfg}: rel err {errs[-1][1]:.3g}")
+    ms = time_ms(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **heur))
+    ms_other = time_ms(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **other))
+    plain_ms = time_ms(lambda: rn.rmsnorm_bwd_plain(ct, x, w, r))
+    nbytes = rows * d * 2 * 3 + d * 2 * 2 + rows * 4          # ct, x, dx; w, dw; invrms
+    b_ms, b_by = bound(prof, nbytes, 8.0 * rows * d, prof.peak_flops_fp32)
+    row = dict(shape=f"[{rows},{d}] bf16", config=heur, ms=ms, other_config=other,
+               other_ms=ms_other, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs))
+    rows_out.append(row)
+    log(f"[kernels] rmsnorm_bwd {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
+        f"plain {plain_ms:.4f}, no library call, bound {b_ms:.4f} ({b_by}); "
+        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+
+
+def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
+    from repro_torch.kernels import xent as xe
+
+    logits = (2 * torch.randn((rows, vocab), generator=gen, device="cuda")).to(torch.bfloat16)
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+    ct = torch.randn((rows,), generator=gen, device="cuda") / rows
+    heur = xe.softmax_xent.default_config(logits, labels)
+    other = {"block_rows": 1, "block_v": 512}
+    p_loss, p_lse = xe.softmax_xent_plain(logits, labels)
+    p_dl = xe.softmax_xent_bwd_plain(ct, logits, labels, p_lse)
+    f_errs, b_errs = [], []
+    for cfg in (heur, other):
+        loss, lse = xe.softmax_xent_cuda(logits, labels, **cfg)
+        dl = xe.softmax_xent_bwd_cuda(ct, logits, labels, lse, **cfg)
+        torch.cuda.synchronize()
+        f_errs.append(max(rel_err(loss, p_loss), rel_err(lse, p_lse), key=lambda e: e[1]))
+        b_errs.append(rel_err(dl, p_dl))
+        if f_errs[-1][1] > TOL_XENT or b_errs[-1][1] > TOL_BF16:
+            raise AssertionError(f"softmax_xent [{rows},{vocab}] {cfg}: fwd rel "
+                                 f"{f_errs[-1][1]:.3g}, bwd rel {b_errs[-1][1]:.3g}")
+    _, lse = xe.softmax_xent_cuda(logits, labels, **heur)
+    n = rows * vocab
+    for name, out, errs, tol, run, plain, lib, nbytes in (
+        ("softmax_xent", fwd_rows, f_errs, TOL_XENT,
+         lambda c: xe.softmax_xent_cuda(logits, labels, **c),
+         lambda: xe.softmax_xent_plain(logits, labels),
+         lambda: torch.nn.functional.cross_entropy(logits, labels, reduction="none"),
+         n * 2 + rows * (8 + 4 + 4)),
+        ("softmax_xent_bwd", bwd_rows, b_errs, TOL_BF16,
+         lambda c: xe.softmax_xent_bwd_cuda(ct, logits, labels, lse, **c),
+         lambda: xe.softmax_xent_bwd_plain(ct, logits, labels, lse), None,
+         n * 2 * 2 + rows * (4 + 8 + 4))):
+        ms = time_ms(lambda: run(heur))
+        ms_other = time_ms(lambda: run(other))
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(prof, nbytes, 4.0 * n, prof.peak_flops_fp32)
+        row = dict(shape=f"[{rows},{vocab}] bf16", config=heur, ms=ms, other_config=other,
+                   other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+                   max_rel_err=max(e[1] for e in errs))
+        out.append(row)
+        lib_s = f"F.cross_entropy {lib_ms:.4f}" if lib_ms is not None else "no library call"
+        log(f"[kernels] {name} {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
+            f"plain {plain_ms:.4f}, {lib_s}, bound {b_ms:.4f} ({b_by}); err "
+            f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {tol})")
+
+
+def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64):
+    from repro_torch.kernels import attention as fa
+
+    mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v, do = mk(h), mk(kvh), mk(kvh), mk(h)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    heur = fa.flash_attention_bwd.default_config(do, q, k, v, o, lse)
+    # the other legal config: the first heuristic's pick at this shape
+    other = {"block_q": 32, "block_k": 64}
+    plain = fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=True)
+    errs = []
+    for cfg in (heur, other):
+        grads = fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, **cfg)
+        torch.cuda.synchronize()
+        errs.append(max((rel_err(g, p) for g, p in zip(grads, plain)), key=lambda e: e[1]))
+        if errs[-1][1] > TOL_BF16:
+            raise AssertionError(f"flash bwd b={b} s={s} {cfg}: rel err {errs[-1][1]:.3g}")
+    del grads, plain
+    ms = time_ms(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, **heur),
+                 iters=5, warmup=1)
+    ms_other = time_ms(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True,
+                                                           **other), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=True),
+                       iters=5, warmup=1)
+    # yardstick: the backward of one SDPA call over the same inputs
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                     iters=5, warmup=1)
+    del out
+    pairs = s * (s + 1) // 2
+    # the least work: 5 matmul-equivalents (s, dp, dv, dq, dk) over the live pairs
+    flops = 5 * 2.0 * d * pairs * h * b
+    nbytes = b * ((4 * h * s * d + 4 * kvh * s * d) * 2 + h * s * 4)
+    b_ms, b_by = bound(prof, nbytes, flops, prof.peak_flops_bf16)
+    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs))
+    rows.append(row)
+    log(f"[kernels] flash_attention_bwd {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
+        f"{other}); plain {plain_ms:.4f}, SDPA backward {lib_ms:.4f}, bound {b_ms:.4f} "
+        f"({b_by}); err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+
+
 def phase_kernels(prof, seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d, ff, kvd, vocab = 896, 4864, 128, 151936
-    results = {"matmul": [], "rmsnorm": [], "flash_attention": []}
-    # Decode (m = 8 slots), the largest prefill bucket (m = 2048) and the
-    # prefill unembed of the last position (m = 1).
+    results = {k: [] for k in ("matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
+                               "softmax_xent_bwd", "flash_attention", "flash_attention_bwd")}
+    # Serving: decode (m = 8 slots), the largest prefill bucket (m = 2048)
+    # and the prefill unembed of the last position (m = 1).
     for m in (8, 2048):
         for k, n in ((d, d), (d, kvd), (d, ff), (ff, d), (d, vocab)):
             if m == 2048 and n == vocab:
                 continue
             _matmul_case(prof, results["matmul"], m, k, n, gen)
     _matmul_case(prof, results["matmul"], 1, d, vocab, gen)
-    for rows in (8, 2048):
-        _rmsnorm_case(prof, results["rmsnorm"], rows, d, gen)
+    # Training (batch 4 x 2048 = 8192 tokens, loss chunks of 2048 rows): a
+    # layer gemm and the unembed chunk forward, and their gradients on the
+    # transposed operands: dx = ct @ w^T, dw = x^T @ ct.
+    tok, rows = 8192, 2048
+    for m, k, n, ta, tb in ((tok, d, ff, False, False), (rows, d, vocab, False, False),
+                            (tok, d, ff, False, True), (ff, tok, d, True, False),
+                            (rows, vocab, d, False, True), (d, rows, vocab, True, False)):
+        _matmul_case(prof, results["matmul"], m, k, n, gen, ta=ta, tb=tb)
+    for r in (8, 2048):
+        _rmsnorm_case(prof, results["rmsnorm"], r, d, gen)
+    _rmsnorm_bwd_case(prof, results["rmsnorm_bwd"], tok, d, gen)
+    _xent_cases(prof, results["softmax_xent"], results["softmax_xent_bwd"], rows, vocab, gen)
     for s in (16, 256, 2048):
         _flash_case(prof, results["flash_attention"], s, gen)
+    _flash_case(prof, results["flash_attention"], 2048, gen, b=4)
+    _flash_bwd_case(prof, results["flash_attention_bwd"], 4, 2048, gen)
     return results
 
 
-def profile(label: str, step, steps: int) -> None:
+def profile(label: str, step, steps: int, wall_ms=None) -> None:
     """Where a step's time goes: torch.profiler (device activity only) over
     a steady window gives the device time by kernel; the device's idle share
-    is taken against the host-clock step timed without the profiler, whose
-    own host cost would otherwise count as idle time."""
-    step()
-    step()
-    t0 = time.perf_counter()
-    for _ in range(steps):
+    is taken against the host-clock step timed without the profiler (timed
+    here, or ``wall_ms`` when the caller timed it), whose own host cost
+    would otherwise count as idle time."""
+    if wall_ms is None:
         step()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        step()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -278,7 +456,7 @@ def profile(label: str, step, steps: int) -> None:
     log(f"[profile] {label}: {wall_ms:.2f} ms host clock ({prof_wall_ms:.2f} ms under the "
         f"profiler), {busy:.2f} ms device busy, device idle {100 * (1 - busy / wall_ms):.1f}% "
         f"(torch.profiler, {steps} steps)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile]   {ms:8.3f} ms/step {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
 
 
@@ -355,7 +533,7 @@ def phase_serve(seed: int):
     snap = rt.telemetry.snapshot()
     log(f"[serve] launches during serving: {launches}")
     log(f"[serve] telemetry tiers: {snap['tiers']} over {snap['calls']} dispatches")
-    missing = [k for k in ("matmul", "rmsnorm", "flash_attention") if launches.get(k, 0) <= 0]
+    missing = [k for k in SERVE_KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
     if snap["tiers"].get("reference", 0):
@@ -417,6 +595,97 @@ def phase_serve(seed: int):
     return launches
 
 
+def phase_train(seed: int):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.convert import batch_to_tensors
+    from repro_torch.core.runtime import runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config("qwen2_0_5b")
+    run = RunConfig(remat="none", loss_chunk=512, microbatches=1)
+    data = DataConfig(seed=seed, batch_size=4, seq_len=2048)
+    steps = 6
+    rt = runtime(name="train")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run, data, adamw.AdamWConfig(warmup_steps=2, total_steps=steps),
+                      TrainerConfig(total_steps=steps, seed=seed), runtime=rt, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{lm.param_count(trainer.params) / 1e6:.1f} M params {cfg.dtype} + fp32 AdamW "
+        f"state; batch {data.batch_size} x {data.seq_len}; init {time.perf_counter() - t0:.1f} s")
+
+    # Step 1's loss and gradients: kernel path against the plain path
+    # (reference mode, remat="full" so its fp32 attention scores are live
+    # for one layer at a time) on the same parameters and batch.
+    batch = batch_to_tensors(SyntheticPipeline(cfg, data).next_batch(), "cuda")
+    names = [n for n, _ in adamw.named_leaves(trainer.params)]
+    loss_k, grads_k = trainer.loss_and_grads(batch)
+    leaves = adamw.leaves(trainer.params)
+    with runtime(mode="reference", name="plain"):
+        loss_p, _ = lm.loss_fn(trainer.params, batch, cfg,
+                               RunConfig(remat="full", loss_chunk=run.loss_chunk))
+        grads_p = torch.autograd.grad(loss_p, leaves)
+    lk, lp = float(loss_k), float(loss_p.detach())
+    loss_rel = abs(lk - lp) / abs(lp)
+    rels = []
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        num = (gk.float() - gp.float()).norm().item()
+        rels.append((num / max(gp.float().norm().item(), 1e-30), name))
+    rels.sort(reverse=True)
+    log(f"[train] step-1 loss kernel path {lk:.6f}, plain path {lp:.6f}: rel {loss_rel:.3e} "
+        f"(tol {TOL_LOSS})")
+    log(f"[train] step-1 gradients, ||g_k - g_p|| / ||g_p|| over {len(rels)} leaves: max "
+        f"{rels[0][0]:.3e} ({rels[0][1]}), median {rels[len(rels) // 2][0]:.3e} (tol {TOL_GRAD})")
+    for rel, name in rels[:8]:
+        log(f"[train]   {rel:.3e}  {name}")
+    del grads_k, grads_p, batch
+    if not (loss_rel <= TOL_LOSS and rels[0][0] <= TOL_GRAD):
+        raise AssertionError(f"kernel path differs from the plain path: loss rel {loss_rel:.3g}, "
+                             f"gradient rel {rels[0][0]:.3g} at {rels[0][1]}")
+
+    rt.telemetry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    metrics = trainer.train()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    snap = rt.telemetry.snapshot()
+    log(f"[train] launches over {steps} steps: {launches}")
+    log(f"[train] telemetry by phase: {snap['phases']}")
+    missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing}")
+    for phase in ("fwd", "bwd"):
+        if snap["phases"].get(phase, {}).get("reference", 0):
+            raise AssertionError(f"{phase} dispatches fell to the reference tier: "
+                                 f"{snap['phases'][phase]}")
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    times = [m["step_time_s"] for m in metrics]
+    timed = times[1:]
+    step_ms = 1e3 * float(np.median(timed))
+    tokens = data.batch_size * data.seq_len
+    log(f"[train] losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    norms = ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+    log(f"[train] grad norms: {norms}")
+    log(f"[train] step times (ms): {', '.join(f'{1e3 * t:.1f}' for t in times)}; step 1 is "
+        f"the warm-up")
+    log(f"[train] step time {step_ms:.2f} ms median of steps 2-{steps}; "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s; peak memory allocated {peak / 2**30:.2f} GiB")
+    profile(f"train step ({tokens} tokens)", trainer.run_one_step, 1, wall_ms=step_ms)
+    return launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -434,24 +703,36 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     results = phase_kernels(prof, args.seed)
-    launches = phase_serve(args.seed)
+    serve_launches = phase_serve(args.seed)
+    train_launches = phase_train(args.seed)
 
-    # The representative shape of each kernel: where the serving path spends
-    # most of that kernel's time (decode unembed, the largest prefill bucket).
+    # The representative shape of each kernel: where its path spends most of
+    # that kernel's time (serving: the decode unembed and the largest prefill
+    # bucket; training: the full-width step's shapes). "launches" counts the
+    # training run, which launches all seven; "launches_serve" the serving
+    # run, for the three kernels it launches.
     pick = {"matmul": "[8,896]@[896,151936] bf16", "rmsnorm": "[2048,896] bf16",
-            "flash_attention": "q[1,14,2048,64] kv[1,2,2048,64] causal bf16"}
+            "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
+            "softmax_xent_bwd": "[2048,151936] bf16",
+            "flash_attention": "q[1,14,2048,64] kv[1,2,2048,64] causal bf16",
+            "flash_attention_bwd": "q[4,14,2048,64] kv[4,2,2048,64] causal bf16"}
     entries = []
     for name, rows in results.items():
         top = next(r for r in rows if r["shape"] == pick[name])
         src, replaces = KERNEL_SOURCES[name]
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches.get(name, 0), "shape": top["shape"],
+            "launches": train_launches.get(name, 0), "shape": top["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "shapes": rows,
-        })
+        }
+        if name in SERVE_KERNELS:
+            entry["launches_serve"] = serve_launches.get(name, 0)
+        if name == "matmul":
+            entry["launches_transposed"] = train_launches.get("matmul_transposed", 0)
+        entries.append(entry)
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)
     log(json.dumps({"kernels": entries}))

@@ -5,6 +5,7 @@ The caller turns the JAX ``lm.init_params`` tree into numpy arrays (e.g.
 builds the port's tree from it. Names and layouts are the same; the one
 structural change is that each segment's leading ``layers`` (scan) axis is
 unstacked into a list of super-blocks, since the port loops over layers.
+:func:`batch_to_tensors` carries a batch dict across the same way.
 """
 from __future__ import annotations
 
@@ -47,4 +48,18 @@ def from_jax_params(np_params, cfg: ArchConfig,
     out = {k: _tree(v, lambda a: to_tensor(a, dev))
            for k, v in np_params.items() if k != "segments"}
     out["segments"] = tuple(segments)
+    return out
+
+
+def batch_to_tensors(batch, device: Union[str, torch.device, None] = None):
+    """A batch dict of numpy arrays (the JAX package's ``SyntheticPipeline``
+    or the port's) as tensors on ``device``: integer arrays (tokens,
+    labels) as int64, the index type of PyTorch's embedding gather; float
+    arrays keep their dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in batch.items():
+        a = np.asarray(a)
+        t = to_tensor(a, dev)
+        out[name] = t.long() if a.dtype.kind in "iu" else t
     return out

@@ -32,10 +32,31 @@ class DispatchSpec:
       function applied to the kernel's primal output to undo the rewrite.
     * ``data_parallel_args`` — canonical args whose leading dim is batch-like
       (kept for key compatibility; the port has no mesh yet).
-    * ``vjp`` / ``bwd`` — the backward plan; accepted and not yet used (the
-      port serves, it does not train yet).
+    * ``vjp`` — how a kernel-mode dispatch is differentiated (the runtime
+      wraps the bound variant in a ``torch.autograd.Function``):
+
+      * ``"dispatch"`` — the backward is itself a set of dispatch sites:
+        ``bwd`` runs under ``dispatch_phase("bwd")`` and routes each
+        gradient through the runtime with its own database key. Falls back
+        to ``"reference"`` when the runtime has ``bwd_dispatch=False`` or no
+        ``bwd`` is declared.
+      * ``"reference"`` — the backward is the autograd VJP of the reference
+        on the saved arguments (the ``*_bwd`` tunables use it, so their own
+        dispatch can be differentiated again: grad-of-grad).
+      * ``"none"`` — no backward: a dispatch whose inputs require grad
+        raises rather than return a tensor cut out of the graph.
+    * ``bwd`` — the backward plan of ``vjp="dispatch"``, called as
+      ``bwd(ct, *canonical_args, **call_kwargs)``, or with ``residuals > 0``
+      as ``bwd(ct, *canonical_args, primal, *aux, **call_kwargs)``; returns
+      one gradient per canonical arg (``None`` for integer args such as
+      labels).
     * ``residuals`` — the kernel returns ``(primal, *aux)`` with this many
-      auxiliary outputs; dispatch hands callers the primal only.
+      auxiliary outputs (flash attention's lse, rmsnorm's inverse rms,
+      softmax-xent's lse); dispatch saves them for ``bwd`` and hands callers
+      the primal only.
+    * ``bwd_via`` — the registered tunables ``bwd`` dispatches, where they
+      are not a same-name ``*_bwd`` sibling (matmul's plan dispatches
+      ``matmul`` itself on transposed operands).
     """
 
     reference: Optional[Callable] = None
@@ -45,6 +66,7 @@ class DispatchSpec:
     vjp: str = "reference"
     bwd: Optional[Callable] = None
     residuals: int = 0
+    bwd_via: Tuple[str, ...] = ()
 
     def reference_for(self, tunable: "Tunable") -> Optional[Callable]:
         return self.reference if self.reference is not None else tunable.reference

@@ -8,7 +8,19 @@ and each task sees its own scope.
 
 Resolution runs a pipeline of policies, ``ExactHit -> Heuristic ->
 Reference`` by default, with a bounded LRU cache of resolutions per
-runtime. :class:`Telemetry` counts which tier served each kernel x bucket.
+runtime. :class:`Telemetry` counts which tier served each kernel x bucket,
+per dispatch phase (``fwd``, ``bwd``, ``opt``).
+
+A kernel-mode dispatch is differentiable: the bound variant runs inside a
+``torch.autograd.Function`` (:class:`KernelCall`) whose backward follows the
+tunable's ``DispatchSpec.vjp``. With ``vjp="dispatch"`` the backward plan
+runs under ``dispatch_phase("bwd")`` and each gradient is a dispatch site of
+its own, resolved through the same runtime with its own database key; this
+is the counterpart of ``repro.core.runtime._kernel_call``'s ``custom_vjp``.
+A kernel writes into a fresh ``torch.empty`` output through ctypes, so
+without this wrapper its output would carry no ``grad_fn`` and the layer
+would silently drop out of the graph; a dispatch that has no backward and
+whose inputs require grad raises instead.
 
 Two differences from ``repro.core.runtime``, both on purpose:
 
@@ -18,10 +30,13 @@ Two differences from ``repro.core.runtime``, both on purpose:
 from __future__ import annotations
 
 import collections
+import contextlib
 import contextvars
 import dataclasses
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 from .annotate import DispatchSpec, Tunable, get_tunable
 from .database import TuningDatabase
@@ -31,6 +46,30 @@ from .tuner import _args_key, first_device
 
 _MODES = ("kernel", "reference")
 TIERS = ("override", "exact", "heuristic", "reference")
+
+# Dispatch phases: forward sites, gradient sites (dispatches made while a
+# backward plan runs) and the optimizer update (the trainer tags it "opt").
+PHASES = ("fwd", "bwd", "opt")
+
+_phase_ctx: "contextvars.ContextVar[str]" = contextvars.ContextVar(
+    "repro_torch_dispatch_phase", default="fwd"
+)
+
+
+@contextlib.contextmanager
+def dispatch_phase(phase: str):
+    """Tag every dispatch in this scope with ``phase`` ('fwd'|'bwd'|'opt')."""
+    if phase not in PHASES:
+        raise ValueError(f"phase {phase!r} not in {PHASES}")
+    tok = _phase_ctx.set(phase)
+    try:
+        yield
+    finally:
+        _phase_ctx.reset(tok)
+
+
+def current_phase() -> str:
+    return _phase_ctx.get()
 
 
 @dataclasses.dataclass
@@ -103,8 +142,10 @@ class Telemetry:
 
     ``tiers`` counts dispatches per tier; ``by_key`` is ``{db key: {tier:
     count}}`` (reference-mode and ``config=`` dispatches, which compute no
-    key, count under ``"<kernel>|*"``); ``cache_hits`` / ``calls`` measure
-    the resolution cache, ``cache_evictions`` its bound.
+    key, count under ``"<kernel>|*"``); ``phases`` is ``{phase: {tier:
+    count}}`` and ``by_key_phase`` ``{phase: {db key: {tier: count}}}``;
+    ``cache_hits`` / ``calls`` measure the resolution cache,
+    ``cache_evictions`` its bound.
     """
 
     def __init__(self):
@@ -115,6 +156,8 @@ class Telemetry:
         with self._lock:
             self.tiers: Dict[str, int] = {}
             self.by_key: Dict[str, Dict[str, int]] = {}
+            self.phases: Dict[str, Dict[str, int]] = {}
+            self.by_key_phase: Dict[str, Dict[str, Dict[str, int]]] = {}
             self.calls = 0
             self.cache_hits = 0
             self.cache_evictions = 0
@@ -122,12 +165,17 @@ class Telemetry:
     def record(self, kernel: str, key: Optional[str], tier: str,
                cached: bool = False) -> None:
         k = key if key is not None else f"{kernel}|*"
+        phase = _phase_ctx.get()
         with self._lock:
             self.calls += 1
             self.cache_hits += int(cached)
             self.tiers[tier] = self.tiers.get(tier, 0) + 1
             per = self.by_key.setdefault(k, {})
             per[tier] = per.get(tier, 0) + 1
+            ph = self.phases.setdefault(phase, {})
+            ph[tier] = ph.get(tier, 0) + 1
+            pk = self.by_key_phase.setdefault(phase, {}).setdefault(k, {})
+            pk[tier] = pk.get(tier, 0) + 1
 
     def record_eviction(self, count: int = 1) -> None:
         with self._lock:
@@ -144,6 +192,9 @@ class Telemetry:
                 "tiers": dict(self.tiers),
                 "tier_rates": {t: n / total for t, n in self.tiers.items()},
                 "by_key": {k: dict(v) for k, v in self.by_key.items()},
+                "phases": {p: dict(v) for p, v in self.phases.items()},
+                "by_key_phase": {p: {k: dict(v) for k, v in per.items()}
+                                 for p, per in self.by_key_phase.items()},
             }
 
     def report(self) -> str:
@@ -157,6 +208,11 @@ class Telemetry:
             if tier in snap["tiers"]:
                 lines.append(f"  tier {tier:<9} {snap['tiers'][tier]}"
                              f" ({100 * snap['tier_rates'][tier]:.0f}%)")
+        for phase in PHASES:
+            per = snap["phases"].get(phase)
+            if per:
+                detail = ", ".join(f"{t}={per[t]}" for t in TIERS if t in per)
+                lines.append(f"  phase {phase:<8} {sum(per.values())} ({detail})")
         for key in sorted(snap["by_key"]):
             per = snap["by_key"][key]
             detail = ", ".join(f"{t}={per[t]}" for t in TIERS if t in per)
@@ -178,7 +234,8 @@ class TunedRuntime:
 
     Records are keyed under the platform of the device the call's tensors
     live on (``h100-sxm``, ``torch-cpu``, ...). The resolution cache holds
-    at most ``cache_capacity`` entries (LRU).
+    at most ``cache_capacity`` entries (LRU). ``bwd_dispatch=False`` turns
+    every ``vjp="dispatch"`` backward into the reference VJP.
     """
 
     def __init__(
@@ -187,6 +244,7 @@ class TunedRuntime:
         mode: Union[str, object] = _INHERIT,
         policy: Union[Sequence[ResolutionPolicy], None, object] = _INHERIT,
         cache_capacity: Union[int, object] = _INHERIT,
+        bwd_dispatch: Union[bool, object] = _INHERIT,
         name: str = "",
         _is_root: bool = False,
     ):
@@ -207,6 +265,7 @@ class TunedRuntime:
             tuple(pol) if pol is not None else default_policy()
         )
         self.cache_capacity = max(0, int(inherit(cache_capacity, "cache_capacity", 4096)))
+        self.bwd_dispatch = bool(inherit(bwd_dispatch, "bwd_dispatch", True))
         self.name = name or ("default" if _is_root else f"runtime@{id(self):x}")
         self.telemetry = Telemetry()
         # key -> (db it was resolved against, Resolution)
@@ -289,14 +348,19 @@ class TunedRuntime:
 
     # -- dispatch ------------------------------------------------------------
     def dispatch(self, tunable: Union[str, Tunable], *args,
-                 config: Optional[Config] = None, **kwargs):
+                 config: Optional[Config] = None,
+                 dp_dims: Optional[Dict[int, int]] = None, **kwargs):
         """Execute one tunable through this runtime.
 
         Reference mode wins over everything, ``config=`` included. In kernel
         mode ``config=`` bypasses resolution (tier ``override``); otherwise
         the resolved config runs on the canonical args, and the Reference
-        tier runs the spec's reference on the original args.
+        tier runs the spec's reference on the original args. A kernel-mode
+        call is differentiable through :class:`KernelCall`. ``dp_dims`` is
+        the JAX package's local-shard keying of transposed operands; on one
+        device it changes nothing and is accepted for call-site parity.
         """
+        del dp_dims
         tunable = _as_tunable(tunable)
         spec = tunable.dispatch or _DEFAULT_SPEC
         if not self.kernel_mode_active:
@@ -310,8 +374,7 @@ class TunedRuntime:
             if res.config is None:
                 return _reference_call(tunable, spec, args, kwargs)
             config = res.config
-        out = tunable.variant(**config)(*cargs, **kwargs)
-        return restore(out[0] if spec.residuals else out)
+        return restore(_kernel_call(self, tunable, spec, config, cargs, kwargs))
 
     def fusion_wins(self, tunable: Union[str, Tunable], *args, **kwargs) -> bool:
         """Whether a fused-epilogue site should dispatch fused here.
@@ -335,6 +398,105 @@ def _reference_call(tunable: Tunable, spec: DispatchSpec, args, kwargs):
     if ref is None:
         raise TypeError(f"tunable {tunable.name!r} has no reference implementation")
     return ref(*args, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What :class:`KernelCall` needs beyond the tensors: the runtime the
+    forward ran under (re-entered by the backward, which autograd may run
+    on another thread), the bound variant and its backward mode."""
+
+    runtime: "TunedRuntime"
+    tunable: Tunable
+    spec: DispatchSpec
+    variant: Any
+    mode: str                       # "dispatch" | "reference"
+    kwargs: Dict[str, Any]
+
+
+class KernelCall(torch.autograd.Function):
+    """One bound kernel variant on canonical args, with its backward.
+
+    Forward runs the variant and saves ``(args, primal, *aux)`` (the primal
+    and aux only under the residual contract, as ``repro``'s ``custom_vjp``
+    does). Backward re-enters the forward's runtime and, under
+    ``dispatch_phase("bwd")``, runs either the spec's backward plan
+    (``mode="dispatch"``) or the autograd VJP of the reference on the saved
+    args (``mode="reference"``), then aligns one gradient per arg with the
+    arg's dtype, ``None`` for integer args.
+    """
+
+    @staticmethod
+    def forward(ctx, plan: _Plan, *cargs):
+        out = plan.variant(*cargs, **plan.kwargs)
+        n_res = plan.spec.residuals
+        primal, aux = (out[0], tuple(out[1:])) if n_res else (out, ())
+        ctx.plan, ctx.n_args = plan, len(cargs)
+        if n_res:
+            ctx.save_for_backward(*cargs, primal, *aux)
+        else:
+            ctx.save_for_backward(*cargs)
+        return tuple(primal) if isinstance(primal, (tuple, list)) else primal
+
+    @staticmethod
+    def backward(ctx, *cts):
+        plan, n = ctx.plan, ctx.n_args
+        saved = ctx.saved_tensors
+        args, rest = saved[:n], saved[n:]
+        cts = tuple(c.contiguous() for c in cts)
+        ct = cts[0] if len(cts) == 1 else cts
+        with plan.runtime, dispatch_phase("bwd"):
+            if plan.mode == "dispatch":
+                grads = plan.spec.bwd(ct, *args, *rest, **plan.kwargs)
+            else:
+                from ..kernels.ref import vjp
+
+                ref = plan.spec.reference_for(plan.tunable)
+                grads = vjp(lambda *a: ref(*a, **plan.kwargs), args, ct)
+        return (None,) + _match_grads(plan.tunable.name, grads, args,
+                                      ctx.needs_input_grad[1:])
+
+
+def _match_grads(name: str, grads, args, needs) -> tuple:
+    """One gradient per canonical arg: ``None`` where none is needed or the
+    arg is not floating point (labels), zeros where the plan gave none, else
+    the gradient in the arg's dtype (``_match_cotangents`` in ``repro``)."""
+    grads = tuple(grads)
+    if len(grads) != len(args):
+        raise ValueError(f"backward plan of {name} returned {len(grads)} gradients "
+                         f"for {len(args)} args")
+    out = []
+    for g, a, need in zip(grads, args, needs):
+        if not need or not a.is_floating_point():
+            out.append(None)
+        elif g is None:
+            out.append(torch.zeros_like(a))
+        else:
+            out.append(g.to(a.dtype))
+    return tuple(out)
+
+
+def _kernel_call(runtime: "TunedRuntime", tunable: Tunable, spec: DispatchSpec,
+                 config: Config, cargs: tuple, kwargs: Dict[str, Any]):
+    """Run one bound variant on canonical args; differentiable when an input
+    requires grad (see :class:`KernelCall`), the bare variant otherwise."""
+    variant = tunable.variant(**config)
+    needs_grad = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in cargs)
+    if not needs_grad:
+        out = variant(*cargs, **kwargs)
+        return out[0] if spec.residuals else out
+    mode = spec.vjp
+    if mode == "dispatch" and (spec.bwd is None or not runtime.bwd_dispatch):
+        mode = "reference"
+    if mode == "reference" and spec.reference_for(tunable) is None:
+        mode = "none"
+    if mode == "none":
+        raise RuntimeError(
+            f"{tunable.name}: a kernel-mode dispatch of inputs that require grad, but "
+            f"the tunable declares no backward (vjp={spec.vjp!r}); its output would "
+            "carry no gradient")
+    return KernelCall.apply(_Plan(runtime, tunable, spec, variant, mode, kwargs), *cargs)
 
 
 def _as_tunable(t: Union[str, Tunable]) -> Tunable:
@@ -373,17 +535,20 @@ def runtime(
     mode: Union[str, object] = _INHERIT,
     policy: Union[Sequence[ResolutionPolicy], None, object] = _INHERIT,
     cache_capacity: Union[int, object] = _INHERIT,
+    bwd_dispatch: Union[bool, object] = _INHERIT,
     name: str = "",
 ) -> TunedRuntime:
     """Create a scoped dispatch runtime (use as ``with runtime(...)``)."""
-    return TunedRuntime(db=db, mode=mode, policy=policy,
-                        cache_capacity=cache_capacity, name=name)
+    return TunedRuntime(db=db, mode=mode, policy=policy, cache_capacity=cache_capacity,
+                        bwd_dispatch=bwd_dispatch, name=name)
 
 
 def dispatch(tunable: Union[str, Tunable], *args,
-             config: Optional[Config] = None, **kwargs):
+             config: Optional[Config] = None,
+             dp_dims: Optional[Dict[int, int]] = None, **kwargs):
     """Dispatch through whichever runtime is active at the call."""
-    return current_runtime().dispatch(tunable, *args, config=config, **kwargs)
+    return current_runtime().dispatch(tunable, *args, config=config, dp_dims=dp_dims,
+                                      **kwargs)
 
 
 def fusion_wins(tunable: Union[str, Tunable], *args, **kwargs) -> bool:

@@ -2,7 +2,15 @@
 //
 // Replaces the TPU kernel repro/kernels/matmul.py:_matmul_kernel (driven by
 // matmul_pallas). Same function: fp32 accumulation, output in the input
-// dtype. Row-major contiguous operands only.
+// dtype (C row-major, contiguous).
+//
+// Each operand is read in the layout in which it is stored, so the
+// backward's transposed operands (ct @ w^T, x^T @ ct) need no copy: an
+// operand is either row-major (element (r, c) at p[r*ld + c]) or
+// transposed, i.e. column-major (element (r, c) at p[c*ld + r]), with its
+// own leading dimension ld. A transposed tile is staged in shared memory in
+// its stored layout (contiguous along the logical rows) and read by the
+// WMMA col_major fragments, so both layouts load 16 bytes a thread.
 //
 // One CTA computes one (bm x bn) tile of C, looping over k in bk slices
 // inside the block (the TPU's sequential k grid axis). Each slice of A and
@@ -21,18 +29,20 @@
 // later change.
 #include <mma.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 // Stage the (rows x cols) tile at (r0, c0) of the row-major [R, C] matrix
-// into shared memory with leading dimension ld, zero beyond the edge.
-// `vec` (16-byte loads) requires C a multiple of the vector width and a
-// 16-byte aligned base; the caller checks both.
+// with leading dimension lds into shared memory with leading dimension ld,
+// zero beyond the edge. `vec` (16-byte loads) requires lds a multiple of
+// the vector width and a 16-byte aligned base; the caller checks both.
 template <typename T>
 __device__ __forceinline__ void load_tile(T* __restrict__ dst, int ld,
-                                          const T* __restrict__ src, int R, int C,
+                                          const T* __restrict__ src, int lds, int R, int C,
                                           int r0, int c0, int rows, int cols, bool vec) {
   const int tid = threadIdx.x, nt = blockDim.x;
   if (vec) {
@@ -44,31 +54,49 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst, int ld,
       T* d = dst + r * ld + c;
       if (gr < R && gc + V <= C) {
         *reinterpret_cast<uint4*>(d) =
-            __ldg(reinterpret_cast<const uint4*>(src + (size_t)gr * C + gc));
+            __ldg(reinterpret_cast<const uint4*>(src + (size_t)gr * lds + gc));
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e)
-          d[e] = (gr < R && gc + e < C) ? src[(size_t)gr * C + gc + e] : from_f32<T>(0.f);
+          d[e] = (gr < R && gc + e < C) ? src[(size_t)gr * lds + gc + e] : from_f32<T>(0.f);
       }
     }
   } else {
     for (int i = tid; i < rows * cols; i += nt) {
       const int r = i / cols, c = i % cols;
       const int gr = r0 + r, gc = c0 + c;
-      dst[r * ld + c] = (gr < R && gc < C) ? src[(size_t)gr * C + gc] : from_f32<T>(0.f);
+      dst[r * ld + c] = (gr < R && gc < C) ? src[(size_t)gr * lds + gc] : from_f32<T>(0.f);
     }
   }
 }
 
-template <int FM>
+// The (rows x cols) tile at (r0, c0) of a logical [R, C] operand stored
+// row-major (TR = false) or transposed (TR = true), into shared memory in
+// the stored layout: dst[r*ld + c] or dst[c*ld + r].
+template <bool TR, typename T>
+__device__ __forceinline__ void load_operand(T* __restrict__ dst, int ld,
+                                             const T* __restrict__ src, int lds, int R,
+                                             int C, int r0, int c0, int rows, int cols,
+                                             bool vec) {
+  if (TR)
+    load_tile(dst, ld, src, lds, C, R, c0, r0, cols, rows, vec);
+  else
+    load_tile(dst, ld, src, lds, R, C, r0, c0, rows, cols, vec);
+}
+
+template <int FM, bool TA, bool TB>
 __global__ void __launch_bounds__(512)
 matmul_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
-            int m, int n, int k, int bm, int bn, int bk, bool vec) {
+            int m, int n, int k, int lda_g, int ldb_g, int bm, int bn, int bk, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = bk + 8, ldb = bn + 8, ldc = bn + 4;
+  // Shared tiles in the stored layout: A [bm][bk] or [bk][bm], B [bk][bn]
+  // or [bn][bk], each row padded by 8 elements against bank conflicts.
+  const int lda = (TA ? bm : bk) + 8, ldb = (TB ? bk : bn) + 8, ldc = bn + 4;
   bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + bm * lda;
+  bf16* Bs = As + (bm + 8) * (bk + 8);
   float* Cs = reinterpret_cast<float*>(smem);  // reused after the k loop
+  using LayoutA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
+  using LayoutB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
 
   const int warp = threadIdx.x / 32;
   const int warps_n = bn / 32;
@@ -82,16 +110,22 @@ matmul_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __rest
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int k0 = 0; k0 < k; k0 += bk) {
-    load_tile(As, lda, A, m, k, row0, k0, bm, bk, vec);
-    load_tile(Bs, ldb, B, k, n, k0, col0, bk, bn, vec);
+    load_operand<TA>(As, lda, A, lda_g, m, k, row0, k0, bm, bk, vec);
+    load_operand<TB>(Bs, ldb, B, ldb_g, k, n, k0, col0, bk, bn, vec);
     __syncthreads();
     for (int kk = 0; kk < bk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b[2];
 #pragma unroll
-      for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(a[i], As + (wr + i * 16) * lda + kk, lda);
+      for (int i = 0; i < FM; ++i) {
+        const int r = wr + i * 16;
+        wmma::load_matrix_sync(a[i], TA ? As + kk * lda + r : As + r * lda + kk, lda);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs + kk * ldb + wc + j * 16, ldb);
+      for (int j = 0; j < 2; ++j) {
+        const int c = wc + j * 16;
+        wmma::load_matrix_sync(b[j], TB ? Bs + c * ldb + kk : Bs + kk * ldb + c, ldb);
+      }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -113,14 +147,15 @@ matmul_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __rest
   }
 }
 
-template <int FM>
+template <int FM, bool TA, bool TB>
 __global__ void __launch_bounds__(512)
 matmul_f32(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-           int m, int n, int k, int bm, int bn, int bk, bool vec) {
+           int m, int n, int k, int lda_g, int ldb_g, int bm, int bn, int bk, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = bk + 4, ldb = bn + 4;
+  // Shared tiles in the stored layout, as in the bf16 kernel.
+  const int lda = (TA ? bm : bk) + 4, ldb = (TB ? bk : bn) + 4;
   float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + bm * lda;
+  float* Bs = As + (bm + 4) * (bk + 4);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warps_n = bn / 32;
@@ -132,13 +167,16 @@ matmul_f32(const float* __restrict__ A, const float* __restrict__ B, float* __re
   for (int i = 0; i < 16 * FM; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < k; k0 += bk) {
-    load_tile(As, lda, A, m, k, row0, k0, bm, bk, vec);
-    load_tile(Bs, ldb, B, k, n, k0, col0, bk, bn, vec);
+    load_operand<TA>(As, lda, A, lda_g, m, k, row0, k0, bm, bk, vec);
+    load_operand<TB>(Bs, ldb, B, ldb_g, k, n, k0, col0, bk, bn, vec);
     __syncthreads();
     for (int kk = 0; kk < bk; ++kk) {
-      const float b = Bs[kk * ldb + col];
+      const float b = TB ? Bs[col * ldb + kk] : Bs[kk * ldb + col];
 #pragma unroll
-      for (int i = 0; i < 16 * FM; ++i) acc[i] = fmaf(As[(wr + i) * lda + kk], b, acc[i]);
+      for (int i = 0; i < 16 * FM; ++i) {
+        const int r = wr + i;
+        acc[i] = fmaf(TA ? As[kk * lda + r] : As[r * lda + kk], b, acc[i]);
+      }
     }
     __syncthreads();
   }
@@ -154,54 +192,83 @@ matmul_f32(const float* __restrict__ A, const float* __restrict__ B, float* __re
 static bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 // Shared-memory bytes of one CTA; kernels/matmul.py mirrors this formula.
+// Each staged tile is padded on both sides so either layout fits.
 extern "C" int repro_matmul_smem_bytes(int dtype, int bm, int bn, int bk) {
   if (dtype == REPRO_BF16) {
-    const int stage = (bm * (bk + 8) + bk * (bn + 8)) * 2;
+    const int stage = ((bm + 8) * (bk + 8) + (bk + 8) * (bn + 8)) * 2;
     const int out = bm * (bn + 4) * 4;
     return stage > out ? stage : out;
   }
-  return (bm * (bk + 4) + bk * (bn + 4)) * 4;
+  return ((bm + 4) * (bk + 4) + (bk + 4) * (bn + 4)) * 4;
 }
 
+template <typename T, int FM, bool TA, bool TB, typename K>
+static cudaError_t launch_one(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
+                              const void* a, const void* b, void* c, int m, int n, int k,
+                              int lda, int ldb, int bm, int bn, int bk, bool vec) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                     static_cast<T*>(c), m, n, k, lda, ldb, bm, bn, bk, vec);
+  return cudaSuccess;
+}
+
+template <typename T, int FM>
+static cudaError_t launch_layout(bool ta, bool tb, dim3 grid, int threads, int smem,
+                                 cudaStream_t s, const void* a, const void* b, void* c, int m,
+                                 int n, int k, int lda, int ldb, int bm, int bn, int bk,
+                                 bool vec) {
+#define REPRO_MM(TA, TB)                                                                      \
+  if (ta == TA && tb == TB) {                                                                 \
+    if constexpr (sizeof(T) == 2)                                                             \
+      return launch_one<T, FM, TA, TB>(matmul_bf16<FM, TA, TB>, grid, threads, smem, s, a, b, \
+                                       c, m, n, k, lda, ldb, bm, bn, bk, vec);                \
+    else                                                                                      \
+      return launch_one<T, FM, TA, TB>(matmul_f32<FM, TA, TB>, grid, threads, smem, s, a, b,  \
+                                       c, m, n, k, lda, ldb, bm, bn, bk, vec);                \
+  }
+  REPRO_MM(false, false)
+  REPRO_MM(false, true)
+  REPRO_MM(true, false)
+  REPRO_MM(true, true)
+#undef REPRO_MM
+  return cudaErrorInvalidValue;
+}
+
+// C[m,n] = A[m,k] @ B[k,n]. ta/tb: operand stored transposed (column-major);
+// lda/ldb: its leading dimension (the stride of its stored rows).
 extern "C" int repro_matmul(const void* a, const void* b, void* c, int m, int n, int k,
-                            int dtype, int bm, int bn, int bk, void* stream) {
+                            int ta, int tb, int lda, int ldb, int dtype, int bm, int bn,
+                            int bk, void* stream) {
   if (!pow2(bm) || bm < 16 || !pow2(bn) || bn < 32 || !pow2(bk) || bk < 16)
     return cudaErrorInvalidValue;
   const int fm = bm == 16 ? 1 : 2;
   const int threads = 32 * (bm / (16 * fm)) * (bn / 32);
   if (threads > 512) return cudaErrorInvalidValue;
   if (m <= 0 || n <= 0) return cudaSuccess;
+  if (lda < (ta ? m : k) || ldb < (tb ? k : n)) return cudaErrorInvalidValue;
   const dim3 grid((n + bn - 1) / bn, (m + bm - 1) / bm);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   const int smem = repro_matmul_smem_bytes(dtype, bm, bn, bk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(b) % 16 == 0);
+  const int V = dtype == REPRO_BF16 ? 8 : 4;
+  const bool vec = aligned && lda % V == 0 && ldb % V == 0;
   cudaError_t err;
   if (dtype == REPRO_BF16) {
-    const bool vec = aligned && k % 8 == 0 && n % 8 == 0;
-    const bf16 *A = static_cast<const bf16*>(a), *B = static_cast<const bf16*>(b);
-    bf16* C = static_cast<bf16*>(c);
-    if (fm == 1) {
-      if ((err = allow_smem(matmul_bf16<1>, smem)) != cudaSuccess) return err;
-      matmul_bf16<1><<<grid, threads, smem, s>>>(A, B, C, m, n, k, bm, bn, bk, vec);
-    } else {
-      if ((err = allow_smem(matmul_bf16<2>, smem)) != cudaSuccess) return err;
-      matmul_bf16<2><<<grid, threads, smem, s>>>(A, B, C, m, n, k, bm, bn, bk, vec);
-    }
+    err = fm == 1 ? launch_layout<bf16, 1>(ta, tb, grid, threads, smem, s, a, b, c, m, n, k,
+                                           lda, ldb, bm, bn, bk, vec)
+                  : launch_layout<bf16, 2>(ta, tb, grid, threads, smem, s, a, b, c, m, n, k,
+                                           lda, ldb, bm, bn, bk, vec);
   } else if (dtype == REPRO_F32) {
-    const bool vec = aligned && k % 4 == 0 && n % 4 == 0;
-    const float *A = static_cast<const float*>(a), *B = static_cast<const float*>(b);
-    float* C = static_cast<float*>(c);
-    if (fm == 1) {
-      if ((err = allow_smem(matmul_f32<1>, smem)) != cudaSuccess) return err;
-      matmul_f32<1><<<grid, threads, smem, s>>>(A, B, C, m, n, k, bm, bn, bk, vec);
-    } else {
-      if ((err = allow_smem(matmul_f32<2>, smem)) != cudaSuccess) return err;
-      matmul_f32<2><<<grid, threads, smem, s>>>(A, B, C, m, n, k, bm, bn, bk, vec);
-    }
+    err = fm == 1 ? launch_layout<float, 1>(ta, tb, grid, threads, smem, s, a, b, c, m, n, k,
+                                            lda, ldb, bm, bn, bk, vec)
+                  : launch_layout<float, 2>(ta, tb, grid, threads, smem, s, a, b, c, m, n, k,
+                                            lda, ldb, bm, bn, bk, vec);
   } else {
     return cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -11,6 +11,12 @@ limits come from the H100, not from the TPU's VMEM: at most 512 threads a
 CTA (one warp per 16x32 or 32x32 sub-tile, under ``__launch_bounds__``) and
 at most 227 KB of shared memory a block.
 
+Training differentiates it by the backward plan :func:`_matmul_bwd`:
+``dx = ct @ w^T`` and ``dw = x^T @ ct``, both ``matmul`` dispatch sites
+themselves. The kernel reads each operand in the layout in which it is
+stored (row-major or transposed, with its own leading dimension), so the
+transposed views are never copied.
+
 On a CPU tensor the wrapper runs :func:`matmul_plain`, the kernel's
 function in plain PyTorch; on a CUDA tensor it launches the kernel or
 raises.
@@ -38,8 +44,8 @@ def smem_bytes(c, dtype_bytes: int) -> int:
     """Shared memory of one CTA (mirrors repro_matmul_smem_bytes)."""
     bm, bn, bk = c["bm"], c["bn"], c["bk"]
     if dtype_bytes == 2:
-        return max((bm * (bk + 8) + bk * (bn + 8)) * 2, bm * (bn + 4) * 4)
-    return (bm * (bk + 4) + bk * (bn + 4)) * 4
+        return max(((bm + 8) * (bk + 8) + (bk + 8) * (bn + 8)) * 2, bm * (bn + 4) * 4)
+    return ((bm + 4) * (bk + 4) + (bk + 4) * (bn + 4)) * 4
 
 
 MATMUL_SPACE = ParamSpace(
@@ -69,12 +75,41 @@ def _matmul_heuristic(x, w):
 
 
 def _matmul_canon(x, w):
-    """Flatten leading dims to rows: [..., k] @ [k, n], row-major."""
+    """Flatten leading dims to rows: [..., k] @ [k, n]. A 2-D operand keeps
+    its layout (the backward's transposed views reach the kernel as they
+    are stored)."""
     if x.dim() == 2:
-        return (x.contiguous(), w), lambda out: out
+        return (x, w), lambda out: out
     lead = x.shape[:-1]
-    return ((x.reshape(-1, x.shape[-1]).contiguous(), w),
+    return ((x.reshape(-1, x.shape[-1]), w),
             lambda out: out.reshape(*lead, out.shape[-1]))
+
+
+def _matmul_bwd(ct, x, w, **kwargs):
+    """Backward plan: dL/dx = ct [m,n] @ w^T [n,k] and dL/dw = x^T [k,m] @
+    ct [m,n], each a ``matmul`` dispatch site with its own database key (the
+    keys of ``repro.kernels.matmul._matmul_bwd``). ``dp_dims`` names the
+    token dim of the transposed operand for sharded keying in the JAX
+    package; on one device it changes nothing."""
+    from ..core.runtime import dispatch
+
+    dx = dispatch("matmul", ct, w.T, **kwargs)
+    dw = dispatch("matmul", x.T, ct, dp_dims={0: 1, 1: 0}, **kwargs)
+    return dx, dw
+
+
+def layout(t: torch.Tensor):
+    """(transposed, leading dim) of a 2-D operand as the kernel reads it:
+    row-major (element (r, c) at r*ld + c) or transposed (at c*ld + r).
+    Raises for any other strides."""
+    r, c = t.shape
+    s0, s1 = t.stride()
+    if (c == 1 or s1 == 1) and (r == 1 or s0 >= c):
+        return False, (s0 if r > 1 else c)
+    if (r == 1 or s0 == 1) and (c == 1 or s1 >= r):
+        return True, (s1 if c > 1 else r)
+    raise ValueError(f"matmul kernel takes row-major or transposed operands, got shape "
+                     f"{tuple(t.shape)} with strides {t.stride()}")
 
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -83,24 +118,26 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int, bk: int) -> torch.Tensor:
-    """Launch csrc/matmul.cu on CUDA tensors."""
+    """Launch csrc/matmul.cu on CUDA tensors; either operand may be a
+    transposed view."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul takes [m,k] @ [k,n], got {tuple(x.shape)} @ {tuple(w.shape)}")
     if x.dtype != w.dtype or x.dtype not in _DTYPES:
         raise TypeError(f"matmul kernel takes matching f32 or bf16 operands, got {x.dtype}, {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("matmul kernel takes row-major contiguous operands only")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
+    (ta, lda), (tb, ldb) = layout(x), layout(w)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     fn = _build.entry("matmul", "repro_matmul",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, _DTYPES[x.dtype],
-             bm, bn, bk, _build.stream_ptr(x.device))
-    _build.check("matmul", err, f"matmul {m}x{k}x{n} bm={bm} bn={bn} bk={bk}")
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, int(ta), int(tb), lda, ldb,
+             _DTYPES[x.dtype], bm, bn, bk, _build.stream_ptr(x.device))
+    _build.check("matmul", err, f"matmul {m}x{k}x{n} ta={ta} tb={tb} bm={bm} bn={bn} bk={bk}")
     _build.LAUNCHES["matmul"] += 1
+    if ta or tb:
+        _build.LAUNCHES["matmul_transposed"] += 1
     return out
 
 
@@ -109,7 +146,8 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int, bk: int) 
     space=MATMUL_SPACE,
     reference=ref.matmul,
     heuristic=_matmul_heuristic,
-    dispatch=DispatchSpec(canonicalize=_matmul_canon),
+    dispatch=DispatchSpec(canonicalize=_matmul_canon, vjp="dispatch", bwd=_matmul_bwd,
+                          bwd_via=("matmul",)),
 )
 def matmul(x, w, *, bm: int, bn: int, bk: int):
     if x.is_cuda:

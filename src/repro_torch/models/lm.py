@@ -4,20 +4,26 @@ Public surface, plain functions over dicts of tensors, as in
 ``repro.models.lm``:
     init_params(cfg, seed, device)                -> params
     forward(params, batch, cfg, run, ...)         -> (hidden, caches)
+    loss_fn(params, batch, cfg, run)              -> (loss, {"xent", "aux"})
     prefill(params, batch, cfg, run, ...)         -> (last_logits, caches)
     decode_step(params, tokens, caches, pos, ...) -> (logits, caches)
     init_cache / insert_cache                     -> the slot-pool cache
 
-The port serves; training (loss, chunked cross entropy) comes later.
+The loss never holds [batch, seq, vocab] logits at once: they are made and
+consumed one sequence chunk at a time (``RunConfig.loss_chunk``), each
+chunk an unembed ``matmul`` dispatch followed by a ``softmax_xent``
+dispatch.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.platform import resolve_device
+from ..core.runtime import dispatch
 from . import transformer as tf
 from .layers import embed, embedding_init, norm_init, rmsnorm, rmsnorm_dense, unembed, unembed_init
 
@@ -50,13 +56,52 @@ def param_count(params) -> int:
 
 
 def forward(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
-            mode: str = "prefill", cache_len: Optional[int] = None, true_len=None):
+            mode: str = "train", cache_len: Optional[int] = None, true_len=None):
+    """Embed, the layer stack and the final norm: (hidden, caches)."""
     if cfg.frontend is not None:
-        raise NotImplementedError("the port serves token-in/token-out archs only")
+        raise NotImplementedError("the port has token-in/token-out archs only")
     x = embed(params["embed"], batch["tokens"])
     x, caches = tf.stack_apply(params["segments"], x, cfg, run, mode,
                                cache_len=cache_len, true_len=true_len)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+
+
+def _chunked_xent(lm_head, x, labels, mask, loss_chunk: int):
+    """Mean cross entropy over the tokens ``mask`` keeps, one sequence chunk
+    of the unembed at a time (a Python loop where ``repro`` scans). Padding
+    and masking as in ``repro.models.lm._chunked_xent``."""
+    b, s, d = x.shape
+    chunk = min(loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, x.shape[1], chunk):
+        xx = x[:, c0:c0 + chunk].reshape(b * chunk, d)
+        mm = mask[:, c0:c0 + chunk].reshape(-1)
+        logits = unembed(lm_head, xx)
+        losses = dispatch("softmax_xent", logits, labels[:, c0:c0 + chunk].reshape(-1))
+        tot = tot + (losses * mm).sum()
+        cnt = cnt + mm.sum()
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
+            aux_weight: float = 0.01):
+    """(loss, {"xent", "aux"}): the chunked cross entropy plus ``aux_weight``
+    times the auxiliary loss, which is 0 here (the port's FFNs are dense;
+    MoE load balancing comes with the MoE slice)."""
+    x, _ = forward(params, batch, cfg, run, mode="train")
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    xent = _chunked_xent(params["lm_head"], x, labels, mask.float(), run.loss_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+    return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
 def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,

@@ -6,26 +6,46 @@ super-blocks (one per repeat), each ``{"l{i}": layer params}``. Caches keep
 the JAX layout: per segment ``{"l{i}": {"k": [repeats, b, clen, kv, hd],
 "v": ...}}``.
 
-Two modes share one code path: ``prefill`` (full sequence, emits caches)
-and ``decode`` (one token, updates caches in place).
+Three modes share one code path: ``train`` (full sequence, no caches),
+``prefill`` (full sequence, emits caches) and ``decode`` (one token,
+updates caches in place). In ``train`` mode ``RunConfig.remat="full"``
+wraps each layer in ``torch.utils.checkpoint`` (non-reentrant): only the
+layer's input is kept and the layer runs again in the backward.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..core.runtime import current_runtime
 from . import attention as attn
 from .layers import ffn_apply, ffn_init, norm_init, rmsnorm
+
+REMAT = ("none", "full")
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Chunking of the plain attention path; changes no math."""
+    """Runtime knobs that change no math: attention chunking of the plain
+    path, rematerialization, the sequence chunk of the loss and gradient
+    accumulation steps (``repro``'s names and defaults, except ``remat``:
+    the port has ``"none"`` and ``"full"``; the JAX default ``"dots"``,
+    which keeps matmul outputs, is not ported yet and raises)."""
 
+    remat: str = "none"
     q_chunk: int = 512
     k_chunk: int = 1024
+    loss_chunk: int = 512
+    microbatches: int = 1
+
+    def __post_init__(self):
+        if self.remat not in REMAT:
+            raise NotImplementedError(f"remat={self.remat!r}: the port has {REMAT}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got {self.microbatches}")
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -64,7 +84,11 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
     common = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.hd,
                   rope_theta=cfg.rope_theta, window=spec.window)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if mode == "prefill":
+    if mode == "train":
+        y = attn.attention_forward(p["mixer"], h, q_chunk=run.q_chunk, k_chunk=run.k_chunk,
+                                   **common)
+        new_cache = None
+    elif mode == "prefill":
         y, new_cache = attn.attention_forward(
             p["mixer"], h, q_chunk=run.q_chunk, k_chunk=run.k_chunk,
             return_cache=True, cache_len=cache, true_len=true_len, **common)
@@ -72,17 +96,41 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
         y, new_cache = attn.attention_decode(p["mixer"], h, cache, pos,
                                              k_chunk=run.k_chunk, **common)
     else:
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
     x = x + y
     if spec.ffn != "none":
         x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.ffn_kind)
     return x, new_cache
 
 
+def _train_layer(block, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig):
+    """One layer in train mode; under ``remat="full"`` a checkpointed one.
+
+    The recompute runs inside the backward, which autograd may run on
+    another thread; the layer enters the runtime active at the forward so
+    the recompute resolves under the same scope."""
+    if run.remat == "none":
+        return layer_apply(block, x, spec, cfg, run, "train")[0]
+    rt = current_runtime()
+
+    def fn(xx):
+        with rt:
+            return layer_apply(block, xx, spec, cfg, run, "train")[0]
+
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+
+
 def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                 caches=None, pos=None, cache_len=None, true_len=None):
     """Apply all segments. Returns (x, caches): prefill builds them in the
-    JAX layout, decode updates ``caches`` in place and returns it."""
+    JAX layout, decode updates ``caches`` in place and returns it, train
+    returns None."""
+    if mode == "train":
+        for seg, blocks in zip(cfg.segments(), segments_params):
+            for block in blocks:
+                for i, spec in enumerate(seg.pattern):
+                    x = _train_layer(block[f"l{i}"], x, spec, cfg, run)
+        return x, None
     out_caches = []
     for si, (seg, blocks) in enumerate(zip(cfg.segments(), segments_params)):
         per_layer = {f"l{i}": [] for i in range(len(seg.pattern))}

@@ -22,7 +22,9 @@ from repro_torch.core import platform  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import xent as xe  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -100,3 +102,37 @@ def test_bf16_params_cross_bit_for_bit():
     t = to_tensor(a, torch.device("cpu"))
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+def test_scan_sees_the_training_modules():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("kernels/xent.py", "optim/adamw.py", "data/pipeline.py", "train/trainer.py",
+                "launch/train.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
+def test_train_entry_points_raise_without_a_card(no_card):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.train import Trainer
+
+    cfg = get_config("qwen2_0_5b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen2_0_5b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, RunConfig(), DataConfig(batch_size=2, seq_len=8))
+
+
+def test_training_wrappers_never_fall_back_off_the_cpu():
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        rn.rmsnorm_bwd(meta(8, 16), meta(8, 16), meta(16), meta(8), block_rows=8)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        xe.softmax_xent(meta(8, 300), meta(8).long(), block_rows=4, block_v=512)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        xe.softmax_xent_bwd(meta(8), meta(8, 300), meta(8).long(), meta(8), block_rows=4,
+                            block_v=512)
+    q = meta(1, 4, 16, 16)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fa.flash_attention_bwd(q, q, meta(1, 2, 16, 16), meta(1, 2, 16, 16), q, meta(1, 4, 16),
+                               block_q=16, block_k=32)
