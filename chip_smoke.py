@@ -71,14 +71,21 @@ TOL_LOGITS = 5e-2
 # columns in another order: 1e-4 of the value (lse is about 12 here).
 TOL_XENT = 1e-4
 # Train step 1, kernel path vs plain path (reference mode) on the same
-# parameters and batch. Loss: a mean over 8192 tokens of fp32 losses from
-# bf16 logits that went through 24 layers rounded at different places, so
-# the per-token differences (about 1e-2 of a logit) mostly average out;
-# 1e-2 relative. Gradients, per leaf ||g_k - g_p|| / ||g_p||: bf16 leaves
-# whose elements differ by about one rounding (2^-8) plus the layers'
-# accumulated differences; 1e-1.
-TOL_LOSS = 1e-2
-TOL_GRAD = 1e-1
+# parameters and batch; limits set from sound card runs (NVIDIA H100 80GB
+# HBM3, 700 W), each reading listed in PERF.md. Loss: a mean over 8192
+# tokens of fp32 losses whose bf16 logits were rounded at different
+# places; sound runs read 1.6e-5 and 2.5e-5 relative, the limit is 1e-3.
+# At random init the loss stays near log V whatever the layers compute, so
+# the gradients carry the check. Per leaf ||g_k - g_p|| / ||g_p||: sound
+# runs read a median of 7.9e-3 and at most 1.56e-2 on every leaf but the
+# k-projection biases, limit 3e-2. The k bias's gradient is a sum over all
+# positions of dk, most of which cancels (a per-row shift of the scores
+# leaves softmax unchanged; only RoPE keeps the shift from being exact),
+# so it is a small difference of large terms: readings 1.55e-2 to 2.02e-2,
+# limit 4e-2. A GQA group's q head left out of dk/dv reads about 0.14.
+TOL_LOSS = 1e-3
+TOL_GRAD = 3e-2
+TOL_GRAD_KBIAS = 4e-2
 
 
 SERVE_KERNELS = ("matmul", "rmsnorm", "flash_attention")
@@ -151,7 +158,7 @@ def phase_build():
                 log(f"[build] {n}: {line.strip()}")
 
 
-def _matmul_case(prof, rows, m, k, n, gen, ta=False, tb=False):
+def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False):
     from repro_torch.kernels import matmul as mm
 
     # ta / tb: the operand is a transposed view, as the backward passes it
@@ -179,7 +186,7 @@ def _matmul_case(prof, rows, m, k, n, gen, ta=False, tb=False):
     lib_ms = time_ms(lambda: torch.matmul(x, w))
     b_ms, b_by = bound(prof, (m * k + k * n + m * n) * 2, 2.0 * m * n * k, prof.peak_flops_bf16)
     shape = f"[{m},{k}]{'ᵀ' if ta else ''}@[{k},{n}]{'ᵀ' if tb else ''} bf16"
-    row = dict(shape=shape, config=heur, ms=ms, other_config=other,
+    row = dict(shape=shape, path=path, config=heur, ms=ms, other_config=other,
                other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
@@ -189,7 +196,7 @@ def _matmul_case(prof, rows, m, k, n, gen, ta=False, tb=False):
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
-def _rmsnorm_case(prof, rows_out, rows, d, gen):
+def _rmsnorm_case(prof, rows_out, rows, d, gen, path):
     from repro_torch.kernels import rmsnorm as rn
 
     x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -213,7 +220,7 @@ def _rmsnorm_case(prof, rows_out, rows, d, gen):
               if hasattr(torch.nn.functional, "rms_norm") else None)
     nbytes = rows * d * 2 * 2 + d * 2 + rows * 4
     b_ms, b_by = bound(prof, nbytes, 4.0 * rows * d, prof.peak_flops_fp32)
-    row = dict(shape=f"[{rows},{d}] bf16", config=heur, ms=ms, other_config=other,
+    row = dict(shape=f"[{rows},{d}] bf16", path=path, config=heur, ms=ms, other_config=other,
                other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
@@ -223,7 +230,7 @@ def _rmsnorm_case(prof, rows_out, rows, d, gen):
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
-def _flash_case(prof, rows, s, gen, h=14, kvh=2, d=64, b=1):
+def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1):
     from repro_torch.kernels import attention as fa
 
     mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -256,10 +263,10 @@ def _flash_case(prof, rows, s, gen, h=14, kvh=2, d=64, b=1):
     pairs = s * (s + 1) // 2                      # causal (q, k) pairs this run computes
     nbytes = b * ((2 * h * s * d + 2 * kvh * s * d) * 2 + h * s * 4)
     b_ms, b_by = bound(prof, nbytes, 4.0 * d * pairs * h * b, prof.peak_flops_bf16)
-    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", path=path,
+               config=heur, ms=ms, other_config=other, other_ms=ms_other, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
     log(f"[kernels] flash_attention {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
         f"{other}); plain {plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); "
@@ -286,15 +293,23 @@ def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
     ms = time_ms(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **heur))
     ms_other = time_ms(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **other))
     plain_ms = time_ms(lambda: rn.rmsnorm_bwd_plain(ct, x, w, r))
+    # yardstick: the backward of one F.rms_norm call over the same inputs
+    # (its forward graph built once, outside the timer)
+    lib_ms = None
+    if hasattr(torch.nn.functional, "rms_norm"):
+        xg, wg = (t.detach().clone().requires_grad_() for t in (x, w))
+        y = torch.nn.functional.rms_norm(xg, (d,), wg, 1e-6)
+        lib_ms = time_ms(lambda: torch.autograd.grad(y, (xg, wg), ct, retain_graph=True))
+        del y
     nbytes = rows * d * 2 * 3 + d * 2 * 2 + rows * 4          # ct, x, dx; w, dw; invrms
     b_ms, b_by = bound(prof, nbytes, 8.0 * rows * d, prof.peak_flops_fp32)
-    row = dict(shape=f"[{rows},{d}] bf16", config=heur, ms=ms, other_config=other,
-               other_ms=ms_other, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+    row = dict(shape=f"[{rows},{d}] bf16", path="train", config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
     rows_out.append(row)
     log(f"[kernels] rmsnorm_bwd {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, no library call, bound {b_ms:.4f} ({b_by}); "
+        f"plain {plain_ms:.4f}, F.rms_norm backward {lib_ms}, bound {b_ms:.4f} ({b_by}); "
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
@@ -319,6 +334,11 @@ def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
             raise AssertionError(f"softmax_xent [{rows},{vocab}] {cfg}: fwd rel "
                                  f"{f_errs[-1][1]:.3g}, bwd rel {b_errs[-1][1]:.3g}")
     _, lse = xe.softmax_xent_cuda(logits, labels, **heur)
+    # yardstick of the backward: autograd of one F.cross_entropy call,
+    # (softmax - onehot) * ct, its forward graph built once outside the timer
+    lg = logits.detach().clone().requires_grad_()
+    ce = torch.nn.functional.cross_entropy(lg, labels, reduction="none")
+    ce_ct = ct.to(ce.dtype)
     n = rows * vocab
     for name, out, errs, tol, run, plain, lib, nbytes in (
         ("softmax_xent", fwd_rows, f_errs, TOL_XENT,
@@ -328,19 +348,21 @@ def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
          n * 2 + rows * (8 + 4 + 4)),
         ("softmax_xent_bwd", bwd_rows, b_errs, TOL_BF16,
          lambda c: xe.softmax_xent_bwd_cuda(ct, logits, labels, lse, **c),
-         lambda: xe.softmax_xent_bwd_plain(ct, logits, labels, lse), None,
+         lambda: xe.softmax_xent_bwd_plain(ct, logits, labels, lse),
+         lambda: torch.autograd.grad(ce, lg, ce_ct, retain_graph=True),
          n * 2 * 2 + rows * (4 + 8 + 4))):
         ms = time_ms(lambda: run(heur))
         ms_other = time_ms(lambda: run(other))
         plain_ms = time_ms(plain)
-        lib_ms = time_ms(lib) if lib is not None else None
+        lib_ms = time_ms(lib)
         b_ms, b_by = bound(prof, nbytes, 4.0 * n, prof.peak_flops_fp32)
-        row = dict(shape=f"[{rows},{vocab}] bf16", config=heur, ms=ms, other_config=other,
+        row = dict(shape=f"[{rows},{vocab}] bf16", path="train", config=heur, ms=ms,
+                   other_config=other,
                    other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                    max_rel_err=max(e[1] for e in errs))
         out.append(row)
-        lib_s = f"F.cross_entropy {lib_ms:.4f}" if lib_ms is not None else "no library call"
+        lib_s = f"F.cross_entropy{'' if name == 'softmax_xent' else ' backward'} {lib_ms:.4f}"
         log(f"[kernels] {name} {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
             f"plain {plain_ms:.4f}, {lib_s}, bound {b_ms:.4f} ({b_by}); err "
             f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {tol})")
@@ -382,10 +404,10 @@ def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64):
     flops = 5 * 2.0 * d * pairs * h * b
     nbytes = b * ((4 * h * s * d + 4 * kvh * s * d) * 2 + h * s * 4)
     b_ms, b_by = bound(prof, nbytes, flops, prof.peak_flops_bf16)
-    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", path="train",
+               config=heur, ms=ms, other_config=other, other_ms=ms_other, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
     log(f"[kernels] flash_attention_bwd {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
         f"{other}); plain {plain_ms:.4f}, SDPA backward {lib_ms:.4f}, bound {b_ms:.4f} "
@@ -403,23 +425,24 @@ def phase_kernels(prof, seed: int):
         for k, n in ((d, d), (d, kvd), (d, ff), (ff, d), (d, vocab)):
             if m == 2048 and n == vocab:
                 continue
-            _matmul_case(prof, results["matmul"], m, k, n, gen)
-    _matmul_case(prof, results["matmul"], 1, d, vocab, gen)
-    # Training (batch 4 x 2048 = 8192 tokens, loss chunks of 2048 rows): a
-    # layer gemm and the unembed chunk forward, and their gradients on the
-    # transposed operands: dx = ct @ w^T, dw = x^T @ ct.
+            _matmul_case(prof, results["matmul"], m, k, n, gen, "serve")
+    _matmul_case(prof, results["matmul"], 1, d, vocab, gen, "serve")
+    # Training (batch 4 x 2048 = 8192 tokens, loss chunks of 2048 rows):
+    # every layer gemm x[tok,k] @ w[k,n] (q/o, k/v, gate/up, down) and the
+    # unembed chunk, each forward and with its two gradients on transposed
+    # operands: dx = ct @ w^T (m=tok, k=n, n=k) and dw = x^T @ ct (m=k, k=tok).
     tok, rows = 8192, 2048
-    for m, k, n, ta, tb in ((tok, d, ff, False, False), (rows, d, vocab, False, False),
-                            (tok, d, ff, False, True), (ff, tok, d, True, False),
-                            (rows, vocab, d, False, True), (d, rows, vocab, True, False)):
-        _matmul_case(prof, results["matmul"], m, k, n, gen, ta=ta, tb=tb)
-    for r in (8, 2048):
-        _rmsnorm_case(prof, results["rmsnorm"], r, d, gen)
+    for t, k, n in ((tok, d, d), (tok, d, kvd), (tok, d, ff), (tok, ff, d), (rows, d, vocab)):
+        for m, kk, nn, ta, tb in ((t, k, n, False, False), (t, n, k, False, True),
+                                  (k, t, n, True, False)):
+            _matmul_case(prof, results["matmul"], m, kk, nn, gen, "train", ta=ta, tb=tb)
+    for r, path in ((8, "serve"), (2048, "serve"), (tok, "train")):
+        _rmsnorm_case(prof, results["rmsnorm"], r, d, gen, path)
     _rmsnorm_bwd_case(prof, results["rmsnorm_bwd"], tok, d, gen)
     _xent_cases(prof, results["softmax_xent"], results["softmax_xent_bwd"], rows, vocab, gen)
     for s in (16, 256, 2048):
-        _flash_case(prof, results["flash_attention"], s, gen)
-    _flash_case(prof, results["flash_attention"], 2048, gen, b=4)
+        _flash_case(prof, results["flash_attention"], s, gen, "serve")
+    _flash_case(prof, results["flash_attention"], 2048, gen, "train", b=4)
     _flash_bwd_case(prof, results["flash_attention_bwd"], 4, 2048, gen)
     return results
 
@@ -637,16 +660,22 @@ def phase_train(seed: int):
         num = (gk.float() - gp.float()).norm().item()
         rels.append((num / max(gp.float().norm().item(), 1e-30), name))
     rels.sort(reverse=True)
+    kbias = lambda name: name.endswith("/mixer/k/b")
+    rk = [r for r in rels if kbias(r[1])]
+    ro = [r for r in rels if not kbias(r[1])]
     log(f"[train] step-1 loss kernel path {lk:.6f}, plain path {lp:.6f}: rel {loss_rel:.3e} "
         f"(tol {TOL_LOSS})")
-    log(f"[train] step-1 gradients, ||g_k - g_p|| / ||g_p|| over {len(rels)} leaves: max "
-        f"{rels[0][0]:.3e} ({rels[0][1]}), median {rels[len(rels) // 2][0]:.3e} (tol {TOL_GRAD})")
-    for rel, name in rels[:8]:
+    log(f"[train] step-1 gradients, ||g_k - g_p|| / ||g_p|| over {len(rels)} leaves: median "
+        f"{rels[len(rels) // 2][0]:.3e}; {len(ro)} leaves other than the k biases: max "
+        f"{ro[0][0]:.3e} ({ro[0][1]}) (tol {TOL_GRAD}); {len(rk)} k biases: max "
+        f"{rk[0][0]:.3e} ({rk[0][1]}), min {rk[-1][0]:.3e} (tol {TOL_GRAD_KBIAS})")
+    for rel, name in ro[:4] + rk[:4]:
         log(f"[train]   {rel:.3e}  {name}")
     del grads_k, grads_p, batch
-    if not (loss_rel <= TOL_LOSS and rels[0][0] <= TOL_GRAD):
-        raise AssertionError(f"kernel path differs from the plain path: loss rel {loss_rel:.3g}, "
-                             f"gradient rel {rels[0][0]:.3g} at {rels[0][1]}")
+    bad = ([r for r in ro if r[0] > TOL_GRAD] + [r for r in rk if r[0] > TOL_GRAD_KBIAS])
+    if loss_rel > TOL_LOSS or bad:
+        raise AssertionError(f"kernel path differs from the plain path: loss rel {loss_rel:.3g} "
+                             f"(tol {TOL_LOSS}); leaves over their limit: {bad[:8]}")
 
     rt.telemetry.reset()
     torch.cuda.synchronize()
@@ -706,32 +735,36 @@ def main() -> int:
     serve_launches = phase_serve(args.seed)
     train_launches = phase_train(args.seed)
 
-    # The representative shape of each kernel: where its path spends most of
-    # that kernel's time (serving: the decode unembed and the largest prefill
-    # bucket; training: the full-width step's shapes). "launches" counts the
-    # training run, which launches all seven; "launches_serve" the serving
-    # run, for the three kernels it launches.
-    pick = {"matmul": "[8,896]@[896,151936] bf16", "rmsnorm": "[2048,896] bf16",
-            "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
-            "softmax_xent_bwd": "[2048,151936] bf16",
-            "flash_attention": "q[1,14,2048,64] kv[1,2,2048,64] causal bf16",
-            "flash_attention_bwd": "q[4,14,2048,64] kv[4,2,2048,64] causal bf16"}
+    # Each entry pairs the training run's launches with a training shape;
+    # the three kernels that serving also launches carry a "serve" object
+    # that pairs the serving run's launches with a serving shape. The
+    # representative shapes: training's unembed chunk and full-step shapes,
+    # serving's decode unembed, largest prefill bucket and b=1 attention.
+    pick = {"train": {"matmul": "[2048,896]@[896,151936] bf16", "rmsnorm": "[8192,896] bf16",
+                      "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
+                      "softmax_xent_bwd": "[2048,151936] bf16",
+                      "flash_attention": "q[4,14,2048,64] kv[4,2,2048,64] causal bf16",
+                      "flash_attention_bwd": "q[4,14,2048,64] kv[4,2,2048,64] causal bf16"},
+            "serve": {"matmul": "[8,896]@[896,151936] bf16", "rmsnorm": "[2048,896] bf16",
+                      "flash_attention": "q[1,14,2048,64] kv[1,2,2048,64] causal bf16"}}
+    timing_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def at(name, path, launches):
+        top = next(r for r in results[name] if r["path"] == path
+                   and r["shape"] == pick[path][name])
+        return {"path": path, "launches": launches.get(name, 0),
+                **{k: top[k] for k in timing_keys}}
+
     entries = []
     for name, rows in results.items():
-        top = next(r for r in rows if r["shape"] == pick[name])
         src, replaces = KERNEL_SOURCES[name]
-        entry = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": train_launches.get(name, 0), "shape": top["shape"],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "shapes": rows,
-        }
-        if name in SERVE_KERNELS:
-            entry["launches_serve"] = serve_launches.get(name, 0)
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "max_abs_err": max(r["max_abs_err"] for r in rows),
+                 **at(name, "train", train_launches), "shapes": rows}
         if name == "matmul":
             entry["launches_transposed"] = train_launches.get("matmul_transposed", 0)
+        if name in SERVE_KERNELS:
+            entry["serve"] = at(name, "serve", serve_launches)
         entries.append(entry)
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)

@@ -54,9 +54,6 @@ class DispatchSpec:
       auxiliary outputs (flash attention's lse, rmsnorm's inverse rms,
       softmax-xent's lse); dispatch saves them for ``bwd`` and hands callers
       the primal only.
-    * ``bwd_via`` — the registered tunables ``bwd`` dispatches, where they
-      are not a same-name ``*_bwd`` sibling (matmul's plan dispatches
-      ``matmul`` itself on transposed operands).
     """
 
     reference: Optional[Callable] = None
@@ -66,7 +63,6 @@ class DispatchSpec:
     vjp: str = "reference"
     bwd: Optional[Callable] = None
     residuals: int = 0
-    bwd_via: Tuple[str, ...] = ()
 
     def reference_for(self, tunable: "Tunable") -> Optional[Callable]:
         return self.reference if self.reference is not None else tunable.reference

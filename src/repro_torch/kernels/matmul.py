@@ -146,8 +146,7 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int, bk: int) 
     space=MATMUL_SPACE,
     reference=ref.matmul,
     heuristic=_matmul_heuristic,
-    dispatch=DispatchSpec(canonicalize=_matmul_canon, vjp="dispatch", bwd=_matmul_bwd,
-                          bwd_via=("matmul",)),
+    dispatch=DispatchSpec(canonicalize=_matmul_canon, vjp="dispatch", bwd=_matmul_bwd),
 )
 def matmul(x, w, *, bm: int, bn: int, bk: int):
     if x.is_cuda:
