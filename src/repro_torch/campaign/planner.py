@@ -1,0 +1,358 @@
+"""Workload planner: deployment scenarios -> concrete tuning jobs.
+
+A tuning job is (kernel x argument shapes x dtype x key extra), the
+granularity of one database record. The port of ``repro.campaign.planner``
+for the dense decoders the port runs, with the same jobs, keys, weights and
+scenario names:
+
+* :func:`plan_training_jobs` -- every dispatch site of the one-card
+  training step, forward and backward: the projections and FFN gemms with
+  their two transposed-operand gradients, the fused FFN activation site,
+  the norms and their ``rmsnorm_bwd``, the chunked loss's unembed gemms,
+  ``softmax_xent`` and ``softmax_xent_bwd``, causal flash attention and its
+  backward;
+* :func:`plan_train_jobs` -- the shorter shape-level roster (forward sites
+  only);
+* :func:`plan_serving_jobs` -- every slot-pool bucket a continuous
+  :class:`~repro_torch.serving.engine.ServingEngine` runs: batch-1
+  admission prefills at each power-of-two sequence bucket and the decode
+  pool at the full slot width, with the fused final-norm -> unembed site.
+
+The planner evaluates nothing. Leading (token) dims are capped by
+``max_tokens``; its default admits the 8,192-token step of the one-card
+trainer (batch 4 x 2048), whose sites the JAX default of 4,096 would cap
+into keys the step never looks up. SSM, MoE and xLSTM mixers are not
+ported: a config that has them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from ..configs.base import SHAPES, ArchConfig, ShapeSpec, get_config
+from ..core.database import make_key, shape_bucket
+from ..core.tuner import promoted_dtype
+from ..models.transformer import RunConfig
+
+# The tunables a campaign tunes by default: the ported kernels' dispatch
+# sites, the *_bwd ones being the backward plane (matmul gradients reuse
+# matmul). A record for a fused site is what opts the site into fusion.
+DEFAULT_KERNELS = (
+    "matmul",
+    "rmsnorm",
+    "flash_attention",
+    "softmax_xent",
+    "rmsnorm_bwd",
+    "flash_attention_bwd",
+    "softmax_xent_bwd",
+    "matmul_bias_act",
+    "rmsnorm_matmul",
+)
+
+MAX_TOKENS = 8192
+
+_ACT_OF_FFN = {"swiglu": "silu", "geglu": "gelu", "gelu": "gelu"}
+
+
+def _register_tunables() -> None:
+    from ..core.runtime import ensure_registered
+
+    ensure_registered()
+
+
+@dataclasses.dataclass
+class TuningJob:
+    """One schedulable unit of tuning work and its execution state."""
+
+    kernel: str                                   # tunable registry name
+    arg_shapes: Tuple[Tuple[int, ...], ...]       # tensors to materialize
+    arg_dtypes: Tuple[str, ...]                   # one dtype per arg (JAX spelling)
+    key_extra: str = ""                           # e.g. flash attention's "cTruew0"
+    scenarios: Tuple[str, ...] = ()               # provenance, e.g. "qwen2_0_5b/train_2k@dp1"
+    weight: float = 1.0                           # executions of this site per step
+    # set by the scheduler
+    priority: float = 0.0                         # roofline seconds at stake per step
+    budget: int = 0                               # search evaluations allotted
+    # set by the runner (persisted in the manifest, so a run resumes)
+    status: str = "pending"                       # pending | done | poisoned
+    attempts: int = 0
+    evaluations: int = 0
+    best_objective: float = 0.0
+    default_objective: float = 0.0
+    seeded: bool = False                          # warm-started from a neighbour
+    error: str = ""
+
+    def db_key(self, platform: str) -> str:
+        """The key ``tuner._args_key`` gives the call: every shape and the
+        promoted dtype of every arg."""
+        return make_key(self.kernel, platform, self.arg_shapes,
+                        promoted_dtype(self.arg_dtypes), self.key_extra)
+
+    def bucketed_shapes(self) -> Tuple[Tuple[int, ...], ...]:
+        return tuple(shape_bucket(s) for s in self.arg_shapes)
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "TuningJob":
+        d = dict(d)
+        d["arg_shapes"] = tuple(tuple(int(x) for x in s) for s in d["arg_shapes"])
+        d["arg_dtypes"] = tuple(d["arg_dtypes"])
+        d["scenarios"] = tuple(d.get("scenarios", ()))
+        return TuningJob(**d)
+
+
+def _adder(jobs: List[TuningJob], kernels: Sequence[str]):
+    def add(kernel, shapes, dtypes, weight, scen, extra=""):
+        if kernel in kernels and weight > 0:
+            jobs.append(TuningJob(
+                kernel=kernel,
+                arg_shapes=tuple(tuple(int(x) for x in s) for s in shapes),
+                arg_dtypes=tuple(dtypes),
+                key_extra=extra,
+                scenarios=(scen,),
+                weight=float(weight),
+            ))
+    return add
+
+
+def _site_counts(cfg: ArchConfig) -> Dict[str, float]:
+    """Per-step executions of each site family: attention mixers, dense
+    FFNs and norms (pre-mixer, and pre-FFN where the layer has one), plus
+    each distinct attention window. Raises for the mixers and FFNs the port
+    has not ported."""
+    n_attn = n_ffn = n_norm = 0.0
+    windows: Dict[int, float] = {}
+    for seg in cfg.segments():
+        for spec in seg.pattern:
+            if spec.mixer != "attn" or spec.ffn not in ("dense", "none"):
+                raise NotImplementedError(
+                    f"{cfg.name}: the port plans attention mixers with dense FFNs only, "
+                    f"not mixer {spec.mixer!r} with ffn {spec.ffn!r}")
+            n_attn += seg.repeats
+            windows[spec.window] = windows.get(spec.window, 0.0) + seg.repeats
+            n_norm += seg.repeats
+            if spec.ffn == "dense":
+                n_ffn += seg.repeats
+                n_norm += seg.repeats
+    return {"attn": n_attn, "ffn": n_ffn, "norm": n_norm, "windows": windows}
+
+
+def default_run(cfg: ArchConfig, shape: ShapeSpec) -> RunConfig:
+    """The run config the port's launcher trains ``shape`` with."""
+    if shape.name == "train_smoke":
+        return RunConfig(remat="none", loss_chunk=32, q_chunk=32, k_chunk=32)
+    return RunConfig(remat="none", loss_chunk=512)
+
+
+def plan_train_jobs(
+    cfg: ArchConfig,
+    shape: ShapeSpec,
+    kernels: Sequence[str] = DEFAULT_KERNELS,
+    max_tokens: int = MAX_TOKENS,
+    max_seq: int = 4096,
+) -> List[TuningJob]:
+    """The shape-level forward roster of one (arch x train/prefill shape)."""
+    _register_tunables()
+    d, hd = cfg.d_model, cfg.hd
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    f = cfg.dtype
+    scen = f"{cfg.name}/{shape.name}"
+    B, S = shape.global_batch, shape.seq_len
+    T = max(1, min(max_tokens, B * S))
+    counts = _site_counts(cfg)
+    jobs: List[TuningJob] = []
+    add = _adder(jobs, kernels)
+
+    add("matmul", [(T, d), (d, H * hd)], [f, f], counts["attn"], scen)
+    if cfg.d_ff > 0:
+        add("matmul", [(T, d), (d, cfg.d_ff)], [f, f], counts["ffn"], scen)
+    # The JAX roster counts two norms a layer whatever its FFN.
+    add("rmsnorm", [(T, d), (d,)], [f, f], 2 * counts["attn"], scen)
+    if shape.kind == "train":
+        add("softmax_xent", [(T, cfg.vocab_size), (T,)], [f, "int32"], 1.0, scen)
+    s_att = max(1, min(S, max_seq))
+    b_att = max(1, min(B, max_tokens // s_att))
+    q = (b_att, H, s_att, hd)
+    kv = (b_att, KV, s_att, hd)
+    add("flash_attention", [q, kv, kv], [f, f, f], counts["attn"], scen, extra="cTruew0")
+    return jobs
+
+
+def plan_training_jobs(
+    cfg: ArchConfig,
+    shape: ShapeSpec,
+    run: Optional[RunConfig] = None,
+    kernels: Sequence[str] = DEFAULT_KERNELS,
+    max_tokens: int = MAX_TOKENS,
+    max_seq: int = 4096,
+) -> List[TuningJob]:
+    """Every dispatch site of the one-card training step, forward and
+    backward, at the shapes the step looks up (one device: nothing is
+    sharded, the scenarios read ``@dp1``).
+
+    Each gemm site adds its two gradients, dL/dx = ct[m,n] @ wT[n,k] and
+    dL/dw = xT[k,m] @ ct[m,n]; each norm, loss and attention site adds its
+    ``*_bwd`` tunable with the forward's saved residuals as keyed operands
+    (inverse rms, lse, attention output and lse). The FFN's activation
+    up-projection adds the fused ``matmul_bias_act`` candidate (zero bias,
+    the activation in the key), whose backward runs on the gemm jobs.
+    ``run`` supplies ``microbatches`` and ``loss_chunk`` (default: the
+    launcher's for this shape).
+    """
+    _register_tunables()
+    run = run if run is not None else default_run(cfg, shape)
+    d, hd = cfg.d_model, cfg.hd
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    f = cfg.dtype
+    B, S = shape.global_batch, shape.seq_len
+    b_loc = max(1, B // max(1, int(run.microbatches)))    # per-microbatch batch
+    scen = f"{cfg.name}/{shape.name}@dp1"
+    s = min(S, max_seq)
+    T = min(b_loc * s, max_tokens)
+    counts = _site_counts(cfg)
+    n_attn, n_ffn, n_norm = counts["attn"], counts["ffn"], counts["norm"]
+    jobs: List[TuningJob] = []
+    add = _adder(jobs, kernels)
+
+    def add_gemm(m, kdim, n, weight):
+        add("matmul", [(m, kdim), (kdim, n)], [f, f], weight, scen)
+        add("matmul", [(m, n), (n, kdim)], [f, f], weight, scen)     # dL/dx
+        add("matmul", [(kdim, m), (m, n)], [f, f], weight, scen)     # dL/dw
+
+    add_gemm(T, d, H * hd, n_attn)                                   # q proj
+    add_gemm(T, d, KV * hd, 2 * n_attn)                              # k, v proj
+    add_gemm(T, H * hd, d, n_attn)                                   # o proj
+    if cfg.d_ff > 0 and n_ffn > 0:
+        n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
+        add_gemm(T, d, cfg.d_ff, n_up * n_ffn)
+        add_gemm(T, cfg.d_ff, d, n_ffn)
+        act = _ACT_OF_FFN.get(cfg.ffn_kind)
+        if act:
+            add("matmul_bias_act", [(T, d), (d, cfg.d_ff), (cfg.d_ff,)], [f, f, f], n_ffn,
+                scen, extra=f"a{act}")
+    # Norm rows: the layers' norms and the final norm, with the backward's
+    # cotangent, x, weight and the saved per-row fp32 inverse rms.
+    add("rmsnorm", [(T, d), (d,)], [f, f], n_norm + 1, scen)
+    add("rmsnorm_bwd", [(T, d), (T, d), (d,), (T,)], [f, f, f, "float32"], n_norm + 1, scen)
+    if shape.kind == "train":
+        chunk = max(1, min(int(run.loss_chunk), s))
+        rows = min(b_loc * chunk, max_tokens)
+        n_chunks = max(1.0, s / chunk)
+        add_gemm(rows, d, cfg.vocab_size, n_chunks)
+        add("softmax_xent", [(rows, cfg.vocab_size), (rows,)], [f, "int32"], n_chunks, scen)
+        add("softmax_xent_bwd", [(rows,), (rows, cfg.vocab_size), (rows,), (rows,)],
+            ["float32", f, "int32", "float32"], n_chunks, scen)
+    b_att = max(1, min(b_loc, max_tokens // max(1, s)))
+    q = (b_att, H, s, hd)
+    kv = (b_att, KV, s, hd)
+    lse_s = (b_att, H, s)
+    for w, n in sorted(counts["windows"].items()):
+        add("flash_attention", [q, kv, kv], [f, f, f], n, scen, extra=f"cTruew{w}")
+        add("flash_attention_bwd", [q, q, kv, kv, q, lse_s], [f, f, f, f, f, "float32"], n,
+            scen, extra=f"cTruew{w}")
+    return jobs
+
+
+def _seq_buckets(max_seq: int, min_seq: int = 16) -> List[int]:
+    seqs: List[int] = []
+    s = min_seq
+    while s < max_seq:
+        seqs.append(s)
+        s <<= 1
+    seqs.append(shape_bucket((max_seq,))[0])
+    return sorted(set(seqs))
+
+
+def serving_buckets(max_batch: int, max_seq: int, min_seq: int = 16) -> List[Tuple[int, int]]:
+    """The (batch, seq bucket) pairs a slot-pool engine runs: batch-1
+    admission prefills and the full-width decode pool at each bucket."""
+    seqs = _seq_buckets(max_seq, min_seq)
+    return sorted({(1, s) for s in seqs} | {(max_batch, s) for s in seqs})
+
+
+def plan_serving_jobs(
+    cfg: ArchConfig,
+    max_batch: int = 8,
+    max_seq: int = 256,
+    kernels: Sequence[str] = DEFAULT_KERNELS,
+    max_tokens: int = MAX_TOKENS,
+) -> List[TuningJob]:
+    """Kernel jobs for every slot-pool bucket a ServingEngine runs.
+
+    Admission prefills run at batch 1 x seq bucket (s token rows, causal
+    attention over [1, H, s, hd], the unembed of the last real position at
+    one row); the decode pool runs every tick at ``max_batch`` rows, with
+    the fused final-norm -> unembed candidate, weighted by the s ticks a
+    request spends at that depth.
+    """
+    if cfg.frontend is not None:
+        return []
+    _register_tunables()
+    d, hd = cfg.d_model, cfg.hd
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    f = cfg.dtype
+    counts = _site_counts(cfg)
+    n_attn, n_ffn = counts["attn"], counts["ffn"]
+    n_norm = 2 * n_attn                   # JAX's serving roster: two norms a layer
+    n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
+    jobs: List[TuningJob] = []
+    add = _adder(jobs, kernels)
+    B = max_batch
+    for s in _seq_buckets(max_seq):
+        if s <= max_tokens:
+            scen = f"{cfg.name}/serve_prefill_b1s{s}"
+            add("matmul", [(s, d), (d, H * hd)], [f, f], n_attn, scen)
+            add("matmul", [(s, d), (d, KV * hd)], [f, f], 2 * n_attn, scen)
+            add("matmul", [(s, H * hd), (H * hd, d)], [f, f], n_attn, scen)
+            if cfg.d_ff > 0:
+                add("matmul", [(s, d), (d, cfg.d_ff)], [f, f], n_up * n_ffn, scen)
+                add("matmul", [(s, cfg.d_ff), (cfg.d_ff, d)], [f, f], n_ffn, scen)
+            add("matmul", [(1, d), (d, cfg.vocab_size)], [f, f], 1.0, scen)
+            add("rmsnorm", [(s, d), (d,)], [f, f], n_norm, scen)
+            q, kv = (1, H, s, hd), (1, KV, s, hd)
+            add("flash_attention", [q, kv, kv], [f, f, f], n_attn, scen, extra="cTruew0")
+        if B * s > max_tokens:
+            continue
+        scen = f"{cfg.name}/serve_decode_b{B}s{s}"
+        add("matmul", [(B, d), (d, H * hd)], [f, f], n_attn * s, scen)
+        add("matmul", [(B, d), (d, KV * hd)], [f, f], 2 * n_attn * s, scen)
+        add("matmul", [(B, H * hd), (H * hd, d)], [f, f], n_attn * s, scen)
+        if cfg.d_ff > 0:
+            add("matmul", [(B, d), (d, cfg.d_ff)], [f, f], n_up * n_ffn * s, scen)
+            add("matmul", [(B, cfg.d_ff), (cfg.d_ff, d)], [f, f], n_ffn * s, scen)
+        add("matmul", [(B, d), (d, cfg.vocab_size)], [f, f], float(s), scen)
+        add("rmsnorm", [(B, d), (d,)], [f, f], n_norm * s, scen)
+        add("rmsnorm_matmul", [(B, d), (d,), (d, cfg.vocab_size)], [f, f, f], float(s), scen)
+    return jobs
+
+
+def plan_jobs(
+    arch_names: Sequence[str],
+    train_shapes: Sequence[str] = ("train_2k",),
+    serving: Optional[Tuple[int, int]] = (8, 2048),
+    kernels: Sequence[str] = DEFAULT_KERNELS,
+    reduced: bool = False,
+    max_tokens: int = MAX_TOKENS,
+    max_seq: int = 4096,
+    run: Optional[RunConfig] = None,
+) -> List[TuningJob]:
+    """The whole campaign workload, in a fixed order: each arch's training
+    step (every dispatch site, forward and backward) for each train shape
+    and, with ``serving=(max_batch, max_seq)``, its serving buckets.
+    ``reduced`` plans the small smoke configs."""
+    _register_tunables()
+    jobs: List[TuningJob] = []
+    for name in arch_names:
+        cfg = get_config(name)
+        if reduced:
+            cfg = cfg.reduced()
+        for shape_name in train_shapes:
+            jobs.extend(plan_training_jobs(cfg, SHAPES[shape_name], run=run, kernels=kernels,
+                                           max_tokens=max_tokens, max_seq=max_seq))
+        if serving is not None:
+            jobs.extend(plan_serving_jobs(cfg, serving[0], serving[1], kernels=kernels,
+                                          max_tokens=max_tokens))
+    jobs.sort(key=lambda j: (j.kernel, j.arg_shapes, j.key_extra, j.scenarios))
+    return jobs

@@ -1,1 +1,1 @@
-from .base import ArchConfig, LayerSpec, Segment, get_config  # noqa: F401
+from .base import SHAPES, ArchConfig, LayerSpec, Segment, ShapeSpec, get_config  # noqa: F401

@@ -4,13 +4,15 @@ Same :class:`ArchConfig` fields, ``segments()`` decomposition and
 ``reduced()`` smoke config, so one config means the same model in both
 packages; ``tdtype`` returns the torch dtype where the JAX package's
 ``jdtype`` returns a jnp dtype. Only the architectures the port serves are
-registered.
+registered. ``SHAPES`` holds the training shapes a campaign plans: the JAX
+package's ``train_4k`` and ``train_smoke``, and ``train_2k``, the one-card
+step (batch 4 x 2048) the port's launcher and smoke run take.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -161,6 +163,21 @@ class ArchConfig:
         return dataclasses.replace(
             self, num_layers=layers, dtype="float32", **scale
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "train_smoke": ShapeSpec("train_smoke", 64, 8, "train"),
+    "train_2k": ShapeSpec("train_2k", 2_048, 4, "train"),
+}
 
 
 ARCH_NAMES = ("qwen2_0_5b",)

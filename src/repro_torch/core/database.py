@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import tempfile
 import threading
@@ -65,6 +66,34 @@ def make_key(
     return key
 
 
+def split_key(key: str) -> Tuple[str, str, Tuple[Tuple[int, ...], ...], str, str]:
+    """Inverse of :func:`make_key`: (kernel, platform, shapes, dtype, extra)."""
+    parts = key.split("|")
+    kernel, platform = parts[0], parts[1] if len(parts) > 1 else "?"
+    shapes: Tuple[Tuple[int, ...], ...] = ()
+    if len(parts) > 2 and parts[2]:
+        shapes = tuple(tuple(int(d) for d in s.split("x") if d)
+                       for s in parts[2].split("/") if s)
+    dtype = parts[3] if len(parts) > 3 else ""
+    extra = "|".join(parts[4:]) if len(parts) > 4 else ""
+    return kernel, platform, shapes, dtype, extra
+
+
+def shape_distance(a: Sequence[Sequence[int]], b: Sequence[Sequence[int]]) -> float:
+    """Sum over all dims of |log2(a_d) - log2(b_d)| between two bucketed
+    shape tuples; infinite when the ranks differ."""
+    if len(a) != len(b):
+        return math.inf
+    total = 0.0
+    for sa, sb in zip(a, b):
+        if len(sa) != len(sb):
+            return math.inf
+        for da, db in zip(sa, sb):
+            da, db = max(int(da), 1), max(int(db), 1)
+            total += abs(math.log2(da) - math.log2(db))
+    return total
+
+
 @dataclasses.dataclass
 class Record:
     key: str
@@ -86,8 +115,9 @@ class Record:
 class TuningDatabase:
     """JSON-file-backed store with atomic writes and an in-memory cache.
 
-    Cover sets written by the JAX campaign tooling are carried through load
-    and save untouched; the port reads none yet.
+    Cover sets ("kernel|platform" -> entries ``{"config", "support",
+    "share"}``, broadest first) are the campaign's fallback for shape
+    buckets it never tuned (the ``CoverSet`` tier).
     """
 
     def __init__(self, path: Optional[str] = None):
@@ -149,6 +179,56 @@ class TuningDatabase:
 
     def __len__(self) -> int:
         return len(self._records)
+
+    # -- cover sets ---------------------------------------------------------
+    @staticmethod
+    def cover_key(kernel: str, platform: str) -> str:
+        return f"{kernel}|{platform}"
+
+    def covers(self) -> Dict[str, List[Dict[str, Any]]]:
+        return {k: [dict(e) for e in v] for k, v in self._covers.items()}
+
+    def put_cover(self, kernel: str, platform: str, entries: Sequence[Dict[str, Any]],
+                  save: bool = True) -> None:
+        """Store the cover set of (kernel, platform), broadest entry first."""
+        with self._lock:
+            self._covers[self.cover_key(kernel, platform)] = [dict(e) for e in entries]
+            if save:
+                self.save()
+
+    def lookup_cover(self, kernel: str, platform: str,
+                     shapes: Optional[Sequence[Sequence[int]]] = None) -> List[Dict[str, Any]]:
+        """Cover entries of (kernel, platform); with ``shapes``, nearest
+        support first (least log2 distance of the bucketed shapes), ties in
+        stored order."""
+        entries = self._covers.get(self.cover_key(kernel, platform), [])
+        if shapes is None:
+            return [dict(e) for e in entries]
+        q = tuple(shape_bucket(s) for s in shapes)
+
+        def dist(entry: Dict[str, Any]) -> float:
+            ds = [shape_distance(q, [tuple(dim) for dim in sup])
+                  for sup in entry.get("support") or []]
+            ds = [d for d in ds if d < math.inf]
+            return min(ds) if ds else math.inf
+
+        order = sorted(range(len(entries)), key=lambda i: (dist(entries[i]), i))
+        return [dict(entries[i]) for i in order]
+
+    # -- bulk ---------------------------------------------------------------
+    def export(self, path: str, platform: Optional[str] = None) -> "TuningDatabase":
+        """Write a standalone database at ``path`` holding one platform's
+        records and cover sets (all of them when ``platform`` is None): the
+        file a deployment ships beside the code."""
+        out = TuningDatabase(None)
+        for rec in self.records():
+            if platform is None or split_key(rec.key)[1] == platform:
+                out.put(rec, save=False)
+        out._covers = {k: [dict(e) for e in v] for k, v in self._covers.items()
+                       if platform is None or k.split("|")[-1] == platform}
+        out.path = path
+        out.save()
+        return out
 
 
 def now() -> float:

@@ -3,15 +3,17 @@
 A :class:`Param` is one knob with a finite ordered domain; a
 :class:`ParamSpace` is the cartesian product of knobs filtered by
 cross-knob :class:`Constraint`s (e.g. "the tile's shared memory must fit
-one block"). Same semantics and config-key format as ``repro.core.params``;
-the search helpers come with the tuner.
+one block"). Same semantics, config-key format and random draws as
+``repro.core.params``, so a search strategy seeded alike proposes the same
+configs in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+import random
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 Config = Dict[str, Any]
 
@@ -32,6 +34,24 @@ class Param:
     @property
     def cardinality(self) -> int:
         return len(self.choices)
+
+    def index_of(self, value: Any) -> int:
+        try:
+            return self.choices.index(value)
+        except ValueError:
+            raise KeyError(f"value {value!r} not in domain of param {self.name!r}") from None
+
+    def neighbors(self, value: Any) -> List[Any]:
+        """Adjacent choices in domain order (the coordinate-descent moves)."""
+        i = self.index_of(value)
+        return [self.choices[j] for j in (i - 1, i + 1) if 0 <= j < len(self.choices)]
+
+    def sample(self, rng: random.Random) -> Any:
+        return rng.choice(self.choices)
+
+
+def EnumParam(name: str, choices: Sequence[Any]) -> Param:
+    return Param(name, tuple(choices))
 
 
 def PowerOfTwoParam(name: str, lo: int, hi: int) -> Param:
@@ -68,6 +88,10 @@ class ParamSpace:
             raise ValueError(f"duplicate param names: {names}")
         self.params: Tuple[Param, ...] = tuple(params)
         self.constraints: Tuple[Constraint, ...] = tuple(constraints)
+        self._by_name = {p.name: p for p in self.params}
+
+    def __getitem__(self, name: str) -> Param:
+        return self._by_name[name]
 
     @property
     def names(self) -> Tuple[str, ...]:
@@ -98,6 +122,45 @@ class ParamSpace:
             cfg = dict(zip(self.names, combo))
             if all(c(cfg) for c in self.constraints):
                 yield cfg
+
+    def _ok(self, config: Config) -> bool:
+        return all(c(config) for c in self.constraints)
+
+    def sample(self, rng: random.Random, max_tries: int = 1000) -> Config:
+        """One random valid config (rejection sampling, then a scan of the
+        valid configs so tight constraints still make progress)."""
+        for _ in range(max_tries):
+            cfg = {p.name: p.sample(rng) for p in self.params}
+            if self._ok(cfg):
+                return cfg
+        valid = list(itertools.islice(self.enumerate(), 10000))
+        if not valid:
+            raise RuntimeError("search space is empty: "
+                               + "; ".join(c.reason for c in self.constraints))
+        return rng.choice(valid)
+
+    def neighbors(self, config: Config) -> List[Config]:
+        """Valid one-knob-step neighbors (the hillclimb/annealing move set)."""
+        out: List[Config] = []
+        for p in self.params:
+            for v in p.neighbors(config[p.name]):
+                cand = dict(config)
+                cand[p.name] = v
+                if self._ok(cand):
+                    out.append(cand)
+        return out
+
+    def random_neighbor(self, config: Config, rng: random.Random) -> Config:
+        nbrs = self.neighbors(config)
+        return rng.choice(nbrs) if nbrs else dict(config)
+
+    def crossover(self, a: Config, b: Config, rng: random.Random) -> Config:
+        """Uniform crossover (genetic search); ``a`` when no child is valid."""
+        for _ in range(32):
+            child = {name: (a if rng.random() < 0.5 else b)[name] for name in self.names}
+            if self._ok(child):
+                return child
+        return dict(a)
 
     def default(self) -> Config:
         """First valid config in enumeration order."""

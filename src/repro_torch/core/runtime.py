@@ -6,10 +6,13 @@ it. Runtimes nest (inner wins; unspecified fields inherit from the runtime
 active at construction) and live on a context-local stack, so each thread
 and each task sees its own scope.
 
-Resolution runs a pipeline of policies, ``ExactHit -> Heuristic ->
-Reference`` by default, with a bounded LRU cache of resolutions per
-runtime. :class:`Telemetry` counts which tier served each kernel x bucket,
-per dispatch phase (``fwd``, ``bwd``, ``opt``).
+Resolution runs a pipeline of policies, ``ExactHit -> TuneNow -> CoverSet
+-> Heuristic -> Reference`` by default (TuneNow acts only where tuning is
+allowed), with a bounded LRU cache of resolutions per runtime (and an
+optional time to live). Keys are namespaced by the platform of the call's
+device unless the runtime pins ``platform=``. :class:`Telemetry` counts
+which tier served each kernel x bucket, per dispatch phase (``fwd``,
+``bwd``, ``opt``).
 
 A kernel-mode dispatch is differentiable: the bound variant runs inside a
 ``torch.autograd.Function`` (:class:`KernelCall`) whose backward follows the
@@ -34,18 +37,19 @@ import contextlib
 import contextvars
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .annotate import DispatchSpec, Tunable, get_tunable
-from .database import TuningDatabase
+from .database import TuningDatabase, split_key
 from .params import Config
 from .platform import platform_key
 from .tuner import _args_key, first_device
 
 _MODES = ("kernel", "reference")
-TIERS = ("override", "exact", "heuristic", "reference")
+TIERS = ("override", "exact", "tune", "cover", "heuristic", "reference")
 
 # Dispatch phases: forward sites, gradient sites (dispatches made while a
 # backward plan runs) and the optimizer update (the trainer tags it "opt").
@@ -80,6 +84,12 @@ class ResolutionRequest:
     args: tuple                      # canonicalized positional args
     key: str
     db: TuningDatabase
+    key_extra: str = ""
+    platform: str = ""
+    # Per-call tuning permission (the runtime's default unless the caller
+    # of resolve() overrode it, as warmup(allow_tune=True) does).
+    allow_tune: bool = False
+    tune_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -115,6 +125,36 @@ class ExactHit(ResolutionPolicy):
         return None
 
 
+class TuneNow(ResolutionPolicy):
+    """Tune the bucket on the spot (writes the record), where the runtime
+    or the resolve() call allows it."""
+
+    name = "tune"
+
+    def resolve(self, req: ResolutionRequest) -> Optional[Resolution]:
+        if not req.allow_tune:
+            return None
+        from .tuner import autotune
+
+        res = autotune(req.tunable, req.args, db=req.db, key_extra=req.key_extra,
+                       platform=req.platform, **req.tune_kwargs)
+        return Resolution(dict(res.best_config), self.name)
+
+
+class CoverSet(ResolutionPolicy):
+    """The nearest cover-set entry: a measured config for an unseen bucket."""
+
+    name = "cover"
+
+    def resolve(self, req: ResolutionRequest) -> Optional[Resolution]:
+        shapes = split_key(req.key)[2]
+        for entry in req.db.lookup_cover(req.tunable.name, req.platform, shapes):
+            cfg = entry.get("config")
+            if cfg is not None and req.tunable.space.is_valid(cfg):
+                return Resolution(dict(cfg), self.name)
+        return None
+
+
 class Heuristic(ResolutionPolicy):
     """The shape heuristic default. Always succeeds."""
 
@@ -134,7 +174,7 @@ class Reference(ResolutionPolicy):
 
 
 def default_policy() -> Tuple[ResolutionPolicy, ...]:
-    return (ExactHit(), Heuristic(), Reference())
+    return (ExactHit(), TuneNow(), CoverSet(), Heuristic(), Reference())
 
 
 class Telemetry:
@@ -233,9 +273,13 @@ class TunedRuntime:
     """A scoped dispatch context: db x mode x policy x cache x telemetry.
 
     Records are keyed under the platform of the device the call's tensors
-    live on (``h100-sxm``, ``torch-cpu``, ...). The resolution cache holds
-    at most ``cache_capacity`` entries (LRU). ``bwd_dispatch=False`` turns
-    every ``vjp="dispatch"`` backward into the reference VJP.
+    live on (``h100-sxm``, ``torch-cpu``, ...), or under ``platform`` when
+    one is pinned (a database namespace of its own). The resolution cache
+    holds at most ``cache_capacity`` entries (LRU), each for at most
+    ``cache_ttl`` seconds when that is set. ``allow_tune`` lets the TuneNow
+    tier tune a missing bucket on the spot with ``tune_kwargs``.
+    ``bwd_dispatch=False`` turns every ``vjp="dispatch"`` backward into the
+    reference VJP.
     """
 
     def __init__(
@@ -243,7 +287,11 @@ class TunedRuntime:
         db: Union[TuningDatabase, None, object] = _INHERIT,
         mode: Union[str, object] = _INHERIT,
         policy: Union[Sequence[ResolutionPolicy], None, object] = _INHERIT,
+        allow_tune: Union[bool, object] = _INHERIT,
+        tune_kwargs: Union[Dict[str, Any], None, object] = _INHERIT,
+        platform: Union[str, None, object] = _INHERIT,
         cache_capacity: Union[int, object] = _INHERIT,
+        cache_ttl: Union[float, None, object] = _INHERIT,
         bwd_dispatch: Union[bool, object] = _INHERIT,
         name: str = "",
         _is_root: bool = False,
@@ -264,12 +312,17 @@ class TunedRuntime:
         self.policy: Tuple[ResolutionPolicy, ...] = (
             tuple(pol) if pol is not None else default_policy()
         )
+        self.allow_tune = bool(inherit(allow_tune, "allow_tune", False))
+        self.tune_kwargs: Dict[str, Any] = dict(
+            tune_kwargs if tune_kwargs not in (_INHERIT, None) else {})
+        self.platform: Optional[str] = inherit(platform, "platform", None)
         self.cache_capacity = max(0, int(inherit(cache_capacity, "cache_capacity", 4096)))
+        self.cache_ttl: Optional[float] = inherit(cache_ttl, "cache_ttl", None)
         self.bwd_dispatch = bool(inherit(bwd_dispatch, "bwd_dispatch", True))
         self.name = name or ("default" if _is_root else f"runtime@{id(self):x}")
         self.telemetry = Telemetry()
-        # key -> (db it was resolved against, Resolution)
-        self._cache: "collections.OrderedDict[str, Tuple[TuningDatabase, Resolution]]" = (
+        # key -> (db it was resolved against, Resolution, monotonic stamp)
+        self._cache: "collections.OrderedDict[str, Tuple[TuningDatabase, Resolution, float]]" = (
             collections.OrderedDict()
         )
         self._cache_lock = threading.Lock()
@@ -296,13 +349,23 @@ class TunedRuntime:
     def cache_size(self) -> int:
         return len(self._cache)
 
+    def clear_cache(self) -> None:
+        """Drop every cached resolution (after changing the database)."""
+        with self._cache_lock:
+            self._cache.clear()
+
     def _cache_get(self, key: str) -> Optional[Resolution]:
+        now = time.monotonic()
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
                 return None
-            db, res = hit
+            db, res, stamp = hit
             if db is not self.db:
+                return None
+            if self.cache_ttl is not None and now - stamp > self.cache_ttl:
+                del self._cache[key]
+                self.telemetry.record_eviction()
                 return None
             self._cache.move_to_end(key)
             return res
@@ -312,7 +375,7 @@ class TunedRuntime:
             return
         evicted = 0
         with self._cache_lock:
-            self._cache[key] = (self.db, res)
+            self._cache[key] = (self.db, res, time.monotonic())
             self._cache.move_to_end(key)
             while len(self._cache) > self.cache_capacity:
                 self._cache.popitem(last=False)
@@ -321,19 +384,34 @@ class TunedRuntime:
             self.telemetry.record_eviction(evicted)
 
     # -- resolution ----------------------------------------------------------
+    def platform_for(self, cargs: Sequence[Any]) -> str:
+        """The pinned platform, else the platform of the call's device."""
+        return self.platform or platform_key(first_device(cargs))
+
     def key_for(self, tunable: Tunable, cargs: Sequence[Any], key_extra: str = "") -> str:
-        return _args_key(tunable, cargs, platform_key(first_device(cargs)), key_extra)
+        return _args_key(tunable, cargs, self.platform_for(cargs), key_extra)
 
     def resolve(self, tunable: Union[str, Tunable], args: Sequence[Any],
-                key_extra: str = "") -> Resolution:
-        """Run the policy pipeline for (tunable, canonical args), cached."""
+                key_extra: str = "", allow_tune: Optional[bool] = None,
+                tune_kwargs: Optional[Dict[str, Any]] = None) -> Resolution:
+        """Run the policy pipeline for (tunable, canonical args), cached.
+
+        ``allow_tune`` / ``tune_kwargs`` override the runtime's own for this
+        call only; a cached resolution wins over ``allow_tune=True``
+        (``clear_cache()`` first to tune buckets already resolved).
+        """
         tunable = _as_tunable(tunable)
-        key = self.key_for(tunable, args, key_extra)
+        platform = self.platform_for(args)
+        key = _args_key(tunable, args, platform, key_extra)
         hit = self._cache_get(key)
         if hit is not None:
             self.telemetry.record(tunable.name, key, hit.tier, cached=True)
             return hit
-        req = ResolutionRequest(tunable=tunable, args=tuple(args), key=key, db=self.db)
+        req = ResolutionRequest(
+            tunable=tunable, args=tuple(args), key=key, db=self.db, key_extra=key_extra,
+            platform=platform,
+            allow_tune=self.allow_tune if allow_tune is None else bool(allow_tune),
+            tune_kwargs={**self.tune_kwargs, **(tune_kwargs or {})})
         res = None
         for pol in self.policy:
             res = pol.resolve(req)
@@ -379,14 +457,27 @@ class TunedRuntime:
     def fusion_wins(self, tunable: Union[str, Tunable], *args, **kwargs) -> bool:
         """Whether a fused-epilogue site should dispatch fused here.
 
-        False until the fused kernels (``matmul_bias_act``,
-        ``rmsnorm_matmul``) are ported: every site keeps its unfused chain.
+        True iff the kernel path is active and the database holds a record
+        with a valid config for the canonical call's exact key: a campaign
+        that tuned the fused site opts it in, and every other site keeps
+        its unfused chain (and its own records). A pure lookup: no
+        telemetry, no cache write, no tuning.
         """
-        return False
+        if not self.kernel_mode_active:
+            return False
+        try:
+            tunable = _as_tunable(tunable)
+        except KeyError:
+            return False
+        spec = tunable.dispatch or _DEFAULT_SPEC
+        cargs, _ = spec.canon(args)
+        rec = self.db.lookup(self.key_for(tunable, cargs, spec.extra_for(kwargs)))
+        return rec is not None and tunable.space.is_valid(rec.config)
 
     def __repr__(self) -> str:
         db = self.db.path or "memory"
-        return (f"<TunedRuntime {self.name} mode={self.mode} db={db} "
+        plat = self.platform or "detected"
+        return (f"<TunedRuntime {self.name} mode={self.mode} db={db} platform={plat} "
                 f"policy=({', '.join(p.name for p in self.policy)})>")
 
 
@@ -534,12 +625,18 @@ def runtime(
     db: Union[TuningDatabase, None, object] = _INHERIT,
     mode: Union[str, object] = _INHERIT,
     policy: Union[Sequence[ResolutionPolicy], None, object] = _INHERIT,
+    allow_tune: Union[bool, object] = _INHERIT,
+    tune_kwargs: Union[Dict[str, Any], None, object] = _INHERIT,
+    platform: Union[str, None, object] = _INHERIT,
     cache_capacity: Union[int, object] = _INHERIT,
+    cache_ttl: Union[float, None, object] = _INHERIT,
     bwd_dispatch: Union[bool, object] = _INHERIT,
     name: str = "",
 ) -> TunedRuntime:
     """Create a scoped dispatch runtime (use as ``with runtime(...)``)."""
-    return TunedRuntime(db=db, mode=mode, policy=policy, cache_capacity=cache_capacity,
+    return TunedRuntime(db=db, mode=mode, policy=policy, allow_tune=allow_tune,
+                        tune_kwargs=tune_kwargs, platform=platform,
+                        cache_capacity=cache_capacity, cache_ttl=cache_ttl,
                         bwd_dispatch=bwd_dispatch, name=name)
 
 

@@ -1,7 +1,21 @@
-"""Database keys for tunable calls.
+"""The tuner: space x search x evaluator -> the best correct variant, and
+the database keys of tunable calls.
 
-Only the key function is ported so far; the tuner loop (search, wall-clock
-evaluation behind the correctness gate) comes with the training slice.
+The loop of ``repro.core.tuner.autotune``:
+
+  1. the tunable's reference runs once on the call's device, giving the
+     outputs every variant is held against;
+  2. the search proposes configs (``seed_configs`` first: transfer tuning);
+  3. each config is bound to a variant, run, held against the reference
+     (the correctness gate) and timed; a refused launch or a gate failure
+     prunes it;
+  4. the best survivor, or the heuristic config when the budget did not
+     beat it, is written to the database under the call's key.
+
+All of it runs under ``torch.no_grad()`` and calls the bound variants
+directly, never through the dispatch runtime's autograd plane. The JAX
+package's TPU legality pre-pass (its grid models) has no counterpart: each
+Hopper space's constraints keep illegal tiles out of the search.
 
 Keys must read exactly as the JAX package writes them, so dtypes are
 spelled the JAX way (``bfloat16``, never ``torch.bfloat16``) and the key
@@ -9,13 +23,23 @@ dtype is the promotion of every array argument's dtype by JAX's rules.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Optional, Sequence
+import logging
+import time
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from .annotate import Tunable
-from .database import make_key
+from .database import Record, TuningDatabase, make_key, now
+from .evaluate import Evaluator, WallClockEvaluator
+from .params import Config
+from .platform import platform_key
+from .search import CoordinateDescent, SearchAlgorithm, SearchResult, Trial
+from .search.base import INVALID
+
+log = logging.getLogger("repro_torch.tuner")
 
 _JAX_NAMES = {
     torch.float32: "float32",
@@ -50,11 +74,13 @@ def _promote(dtypes: tuple) -> torch.dtype:
     return out
 
 
-def promoted_dtype(dtypes: Sequence[torch.dtype]) -> str:
-    """Order-independent key dtype: the promotion of all array dtypes."""
+def promoted_dtype(dtypes: Sequence[Any]) -> str:
+    """Order-independent key dtype: the promotion of all array dtypes
+    (torch dtypes, or their JAX names such as ``"bfloat16"``)."""
     if not dtypes:
         return "f32"
-    return dtype_name(_promote(tuple(dtypes)))
+    return dtype_name(_promote(tuple(getattr(torch, d) if isinstance(d, str) else d
+                                     for d in dtypes)))
 
 
 def _args_key(tunable: Tunable, args: Sequence[Any], platform: str,
@@ -73,3 +99,117 @@ def first_device(args: Sequence[Any]) -> Optional[torch.device]:
         if isinstance(a, torch.Tensor):
             return a.device
     return None
+
+
+@dataclasses.dataclass
+class TuningResult:
+    best_config: Config
+    best_objective: float
+    default_objective: float          # the heuristic config's time
+    evaluations: int
+    search: SearchResult
+
+
+def autotune(
+    tunable: Tunable,
+    args: Sequence[Any],
+    search: Optional[SearchAlgorithm] = None,
+    evaluator: Optional[Evaluator] = None,
+    db: Optional[TuningDatabase] = None,
+    key_extra: str = "",
+    save: bool = True,
+    seed_configs: Optional[Sequence[Config]] = None,
+    platform: Optional[str] = None,
+    call_kwargs: Optional[Dict[str, Any]] = None,
+) -> TuningResult:
+    """Tune ``tunable`` on the concrete tensors ``args`` and bank the winner.
+
+    ``db`` defaults to the active runtime's database and ``platform`` to the
+    platform of the tensors' device. ``call_kwargs`` (``act=...``,
+    ``causal=...``) go to every variant and to the reference, so the search
+    measures the function the call site runs; without them both run at the
+    tunable's defaults, as the JAX package's tuner does.
+    """
+    from .runtime import current_runtime
+
+    search = search or CoordinateDescent(budget=48)
+    evaluator = evaluator or WallClockEvaluator()
+    db = db if db is not None else current_runtime().db
+    platform = platform or platform_key(first_device(args))
+    kw = dict(call_kwargs or {})
+
+    with torch.no_grad():
+        reference = None
+        if tunable.reference is not None:
+            reference = tunable.reference(*args, **kw)
+
+        def measure(config: Config):
+            variant = tunable.variant(**config)
+            return evaluator.evaluate(lambda *a: variant(*a, **kw), args, reference=reference)
+
+        def objective(config: Config) -> Trial:
+            m = measure(config)
+            meta = dict(m.meta)
+            if not m.ok:
+                meta["pruned"] = m.error
+                log.debug("variant %s pruned: %s", config, m.error)
+            return Trial(config=config, objective=m.objective, ok=m.ok, meta=meta)
+
+        t0 = time.perf_counter()
+        result = search.run(tunable.space, objective, seeds=tuple(seed_configs or ()))
+        elapsed = time.perf_counter() - t0
+        if result.best is None:
+            raise RuntimeError(f"autotuning {tunable.name}: no valid variant found "
+                               f"({result.evaluations} evaluations)")
+        # The heuristic config is the untuned program; a budget too small to
+        # beat it keeps it as the winner, so tuning never regresses.
+        default_cfg = tunable.default_config(*args)
+        base = measure(default_cfg)
+    default_obj = base.objective if base.ok else INVALID
+    best_config, best_objective = result.best_config, result.best_objective
+    if base.ok and tunable.space.is_valid(default_cfg) and default_obj < best_objective:
+        best_config, best_objective = dict(default_cfg), default_obj
+
+    key = _args_key(tunable, args, platform, key_extra)
+    db.put(Record(key=key, config=best_config, objective=best_objective,
+                  evaluator=evaluator.name, evaluations=result.evaluations, timestamp=now(),
+                  meta={"search": search.name, "default_objective": default_obj,
+                        "search_seconds": elapsed}),
+           save=save)
+    log.info("tuned %s: %.3gs -> %.3gs in %d evals", key, default_obj, best_objective,
+             result.evaluations)
+    return TuningResult(best_config=best_config, best_objective=best_objective,
+                        default_objective=default_obj, evaluations=result.evaluations,
+                        search=result)
+
+
+def tune_or_lookup(
+    tunable: Tunable,
+    args: Sequence[Any],
+    db: Optional[TuningDatabase] = None,
+    allow_tune: bool = False,
+    key_extra: str = "",
+    allow_cover: bool = True,
+    **tune_kwargs,
+) -> Config:
+    """Config resolution outside a runtime: an exact record, else a tuning
+    run (``allow_tune``), else the nearest cover-set entry, else the shape
+    heuristic."""
+    from .runtime import current_runtime
+
+    db = db if db is not None else current_runtime().db
+    platform = platform_key(first_device(args))
+    key = _args_key(tunable, args, platform, key_extra)
+    rec = db.lookup(key)
+    if rec is not None and tunable.space.is_valid(rec.config):
+        return dict(rec.config)
+    if allow_tune:
+        return autotune(tunable, args, db=db, key_extra=key_extra, platform=platform,
+                        **tune_kwargs).best_config
+    if allow_cover:
+        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        for entry in db.lookup_cover(tunable.name, platform, shapes):
+            cfg = entry.get("config")
+            if cfg is not None and tunable.space.is_valid(cfg):
+                return dict(cfg)
+    return tunable.default_config(*args)

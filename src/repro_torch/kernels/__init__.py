@@ -2,10 +2,11 @@
 
 Importing this package registers the tunables (``matmul``, ``rmsnorm``,
 ``rmsnorm_bwd``, ``softmax_xent``, ``softmax_xent_bwd``, ``flash_attention``,
-``flash_attention_bwd``) and builds nothing: a kernel's CUDA library is
+``flash_attention_bwd``, ``matmul_bias_act``, ``rmsnorm_matmul``) and builds
+nothing: a kernel's CUDA library is
 built at its first launch (see :mod:`._build`).
 """
-from . import attention, matmul, rmsnorm, xent  # noqa: F401
+from . import attention, fused, matmul, rmsnorm, xent  # noqa: F401
 from ._build import launch_counts, reset_launch_counts  # noqa: F401
 
 # Each ported kernel: its CUDA source and the TPU kernel it replaces.
@@ -24,8 +25,12 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/attention.py:33"),
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/attention.py:269"),
+    "matmul_bias_act": ("src/repro_torch/kernels/csrc/matmul_bias_act.cu",
+                        "src/repro/kernels/fused.py:57"),
+    "rmsnorm_matmul": ("src/repro_torch/kernels/csrc/rmsnorm_matmul.cu",
+                       "src/repro/kernels/fused.py:220"),
 }
 
 # The CUDA sources, one shared library each (built in parallel).
 LIBRARIES = ("matmul", "rmsnorm", "rmsnorm_bwd", "xent", "flash_attention",
-             "flash_attention_bwd")
+             "flash_attention_bwd", "matmul_bias_act", "rmsnorm_matmul")

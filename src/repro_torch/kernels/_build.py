@@ -9,8 +9,10 @@ reused). :func:`build_all` starts one ``nvcc`` per source at once. The
 each library.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises when that is not 0, since a refused launch never runs
-and a later synchronise would not report it.
+:func:`check` raises :class:`CudaError`, which carries the CUDA code, when
+that is not 0, since a refused launch never runs and a later synchronise
+would not report it. The tuner tells a refused launch (a config the card
+cannot run) from a fault by that code.
 
 ``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel and nowhere else.
@@ -147,12 +149,21 @@ def entry(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
     return fn
 
 
+class CudaError(RuntimeError):
+    """A C entry point returned CUDA error ``code``."""
+
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+
+
 def check(name: str, err: int, what: str) -> None:
-    """Raise when a C entry point of csrc/<name>.cu returned a CUDA error."""
+    """Raise :class:`CudaError` when a C entry point of csrc/<name>.cu
+    returned a CUDA error."""
     if err != 0:
         fn = load(name).repro_error_string
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"{what}: CUDA error {err} ({fn(err).decode()})")
+        raise CudaError(err, f"{what}: CUDA error {err} ({fn(err).decode()})")
 
 
 def stream_ptr(device) -> int:

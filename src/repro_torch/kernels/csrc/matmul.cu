@@ -36,40 +36,6 @@
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-// Stage the (rows x cols) tile at (r0, c0) of the row-major [R, C] matrix
-// with leading dimension lds into shared memory with leading dimension ld,
-// zero beyond the edge. `vec` (16-byte loads) requires lds a multiple of
-// the vector width and a 16-byte aligned base; the caller checks both.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* __restrict__ dst, int ld,
-                                          const T* __restrict__ src, int lds, int R, int C,
-                                          int r0, int c0, int rows, int cols, bool vec) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    const int vcols = cols / V;
-    for (int i = tid; i < rows * vcols; i += nt) {
-      const int r = i / vcols, c = (i % vcols) * V;
-      const int gr = r0 + r, gc = c0 + c;
-      T* d = dst + r * ld + c;
-      if (gr < R && gc + V <= C) {
-        *reinterpret_cast<uint4*>(d) =
-            __ldg(reinterpret_cast<const uint4*>(src + (size_t)gr * lds + gc));
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          d[e] = (gr < R && gc + e < C) ? src[(size_t)gr * lds + gc + e] : from_f32<T>(0.f);
-      }
-    }
-  } else {
-    for (int i = tid; i < rows * cols; i += nt) {
-      const int r = i / cols, c = i % cols;
-      const int gr = r0 + r, gc = c0 + c;
-      dst[r * ld + c] = (gr < R && gc < C) ? src[(size_t)gr * lds + gc] : from_f32<T>(0.f);
-    }
-  }
-}
-
 // The (rows x cols) tile at (r0, c0) of a logical [R, C] operand stored
 // row-major (TR = false) or transposed (TR = true), into shared memory in
 // the stored layout: dst[r*ld + c] or dst[c*ld + r].

@@ -1,0 +1,275 @@
+"""Fused-epilogue tunables: ``matmul_bias_act`` and ``rmsnorm_matmul``.
+
+Replace the TPU kernels ``repro/kernels/fused.py:_mba_kernel``
+(``matmul_bias_act_pallas``) and ``_rmm_kernel``
+(``rmsnorm_matmul_pallas``):
+
+* ``matmul_bias_act`` -- ``act(x @ w + b)``: a gemm whose epilogue adds the
+  bias and applies the activation (none, gelu in its tanh form, silu) to
+  the fp32 accumulator, so the [m, n] pre-activation never round-trips
+  through device memory. CUDA source ``csrc/matmul_bias_act.cu``: the tile
+  loop of ``csrc/matmul.cu`` on row-major operands, over matmul's knob
+  space (the epilogue reads the bias straight from device memory and
+  needs no shared memory of its own).
+* ``rmsnorm_matmul`` -- ``rmsnorm(x, scale) @ w``: each CTA normalises its
+  rows into shared memory and streams the weight through in k slices.
+  CUDA source ``csrc/rmsnorm_matmul.cu``, whose header says why the TPU's
+  resident (d, bn) weight tile does not come across.
+
+Model sites take these only where the tuning database holds an exact record
+for the call (``runtime.fusion_wins``); everywhere else they keep their
+unfused dispatches. The backward plans decompose onto the ``matmul``,
+``rmsnorm`` and ``rmsnorm_bwd`` dispatch sites, so the unfused records
+serve the gradients.
+
+On a CPU tensor each wrapper runs its plain version, which follows the
+kernel's arithmetic and cast order; on a CUDA tensor it launches the kernel
+or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core.platform import H100_SXM
+from . import _build, ref
+from .matmul import MATMUL_SPACE, _matmul_heuristic
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ACTS = {"none": 0, "gelu": 1, "silu": 2}
+MAX_THREADS = 512
+
+
+def _check_2d(name: str, *ts):
+    if any(t.dim() != 2 for t in ts):
+        raise ValueError(f"{name} takes 2-D operands, got {[tuple(t.shape) for t in ts]}")
+
+
+def _check_common(name: str, *ts):
+    dtype, device = ts[0].dtype, ts[0].device
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in ts):
+        raise TypeError(f"{name} kernel takes matching f32 or bf16 tensors, got "
+                        f"{[t.dtype for t in ts]}")
+    if any(t.device != device for t in ts):
+        raise ValueError(f"{name} tensors on different devices")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} kernel takes contiguous tensors only")
+
+
+# ---------------------------------------------------------------------------
+# matmul_bias_act: the gemm with a bias + activation epilogue
+# ---------------------------------------------------------------------------
+
+# The kernel's tile loop, threads and shared memory are matmul's
+# (repro_matmul_bias_act_smem_bytes is matmul's formula), so its legal
+# tiles on the H100 are matmul's.
+FUSED_MATMUL_SPACE = MATMUL_SPACE
+
+
+def _mba_heuristic(x, w, b):
+    """The matmul heuristic (JAX's ``_mba_heuristic``), whose picks lie in
+    this space."""
+    return _matmul_heuristic(x, w)
+
+
+def _mba_canon(x, w, b):
+    """Flatten leading dims to rows, as matmul's canonicalisation does."""
+    if x.dim() == 2:
+        return (x, w, b), lambda out: out
+    lead = x.shape[:-1]
+    return ((x.reshape(-1, x.shape[-1]), w, b),
+            lambda out: out.reshape(*lead, out.shape[-1]))
+
+
+def _mba_bwd(ct, x, w, b, act: str = "none", **kwargs):
+    """Backward plan, decomposed onto ``matmul`` dispatch sites: the
+    pre-activation the fused forward never stored is one matmul dispatch
+    again, the epilogue's cotangent g = act'(h) * ct is plain torch, and dx,
+    dw are the transposed-operand gemms (``repro``'s ``_mba_bwd``)."""
+    from ..core.runtime import dispatch
+
+    if act == "none":
+        g = ct
+    else:
+        h = dispatch("matmul", x, w) + b
+        g = ref.vjp(lambda hh: ref.apply_act(hh.float(), act), (h,), ct.float())[0]
+        g = g.to(ct.dtype)
+    dx = dispatch("matmul", g, w.T, **kwargs)
+    dw = dispatch("matmul", x.T, g, dp_dims={0: 1, 1: 0}, **kwargs)
+    db = g.sum(dim=0).to(b.dtype)
+    return dx, dw, db
+
+
+def matmul_bias_act_plain(x, w, b, act: str = "none"):
+    """The kernel's function in plain PyTorch: fp32 product, bias and
+    activation in fp32, one cast."""
+    return ref.matmul_bias_act(x, w, b, act)
+
+
+def matmul_bias_act_cuda(x, w, b, *, bm: int, bn: int, bk: int, act: str = "none"):
+    """Launch csrc/matmul_bias_act.cu on CUDA tensors."""
+    _check_2d("matmul_bias_act", x, w)
+    if x.shape[1] != w.shape[0] or b.shape != (w.shape[1],):
+        raise ValueError(f"matmul_bias_act takes [m,k] @ [k,n] + [n], got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if act not in ACTS:
+        raise ValueError(f"unknown fused activation {act!r}")
+    _check_common("matmul_bias_act", x, w, b)
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn = _build.entry("matmul_bias_act", "repro_matmul_bias_act",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+             _DTYPES[x.dtype], ACTS[act], bm, bn, bk, _build.stream_ptr(x.device))
+    _build.check("matmul_bias_act", err,
+                 f"matmul_bias_act {m}x{k}x{n} act={act} bm={bm} bn={bn} bk={bk}")
+    _build.LAUNCHES["matmul_bias_act"] += 1
+    return out
+
+
+@tunable(
+    "matmul_bias_act",
+    space=FUSED_MATMUL_SPACE,
+    reference=ref.matmul_bias_act,
+    heuristic=_mba_heuristic,
+    dispatch=DispatchSpec(
+        # Same shapes, another epilogue: a record of its own.
+        key_extra=lambda kw: f"a{kw.get('act', 'none')}",
+        canonicalize=_mba_canon,
+        vjp="dispatch",
+        bwd=_mba_bwd,
+    ),
+)
+def matmul_bias_act(x, w, b, *, bm: int, bn: int, bk: int, act: str = "none"):
+    if x.is_cuda:
+        return matmul_bias_act_cuda(x, w, b, bm=bm, bn=bn, bk=bk, act=act)
+    if x.device.type == "cpu":
+        return matmul_bias_act_plain(x, w, b, act)
+    raise RuntimeError(f"matmul_bias_act has no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm_matmul: the norm as the gemm's prologue
+# ---------------------------------------------------------------------------
+
+RMM_BK = 64                 # rows of the weight staged per k step (the .cu's RMM_BK)
+# The space's shared-memory limit is taken at a model width of 1024 in
+# bf16, which admits 64-row blocks; a wider or fp32 call whose row block
+# does not fit is refused at launch and the heuristic picks fewer rows.
+D_NOMINAL = 1024
+
+
+def rmm_smem_bytes(c, d: int, dtype_bytes: int) -> int:
+    """Shared memory of one CTA (mirrors repro_rmsnorm_matmul_smem_bytes)."""
+    bm, bn = c["bm"], c["bn"]
+    dk = -(-d // RMM_BK) * RMM_BK
+    if dtype_bytes == 2:
+        return bm * (dk + 8) * 2 + max((RMM_BK + 8) * (bn + 8) * 2, bm * (bn + 4) * 4)
+    return (bm * (dk + 4) + RMM_BK * (bn + 4)) * 4
+
+
+def _rmm_threads(c) -> int:
+    fm = 1 if c["bm"] == 16 else 2
+    return 32 * (c["bm"] // (16 * fm)) * (c["bn"] // 32)
+
+
+RMSNORM_MATMUL_SPACE = ParamSpace(
+    [
+        PowerOfTwoParam("bm", 16, 128),
+        PowerOfTwoParam("bn", 32, 256),
+    ],
+    [
+        Constraint(lambda c: _rmm_threads(c) <= MAX_THREADS,
+                   "CTA exceeds 512 threads (one warp per 32x32 output sub-tile)"),
+        Constraint(lambda c: rmm_smem_bytes(c, D_NOMINAL, 2) <= H100_SXM.smem_per_block,
+                   "normalised row block and weight stage exceed the 227 KB of shared "
+                   "memory a block may use"),
+    ],
+)
+
+
+def _rmm_heuristic(x, scale, w):
+    """JAX's pick (rows and columns at the next power of two, at most 128
+    and between 128 and 1024) clipped to this space, then fewer rows while
+    the row block of this width and dtype does not fit a block."""
+    m = 1
+    for s in x.shape[:-1]:
+        m *= int(s)
+    d, n = x.shape[-1], w.shape[1]
+    pick = lambda dim, cap: min(cap, max(8, 1 << (int(dim) - 1).bit_length()))
+    cfg = {"bm": min(max(pick(m, 128), 16), 128),
+           "bn": min(max(128, min(pick(n, 512), 1024)), 256)}
+    nbytes = x.element_size()
+    while cfg["bm"] > 16 and (_rmm_threads(cfg) > MAX_THREADS
+                              or rmm_smem_bytes(cfg, d, nbytes) > H100_SXM.smem_per_block):
+        cfg["bm"] //= 2
+    return cfg
+
+
+def _rmm_canon(x, scale, w):
+    """Flatten leading dims to rows: [..., d] -> [rows, d]."""
+    if x.dim() == 2:
+        return (x, scale, w), lambda out: out
+    lead = x.shape[:-1]
+    return ((x.reshape(-1, x.shape[-1]), scale, w),
+            lambda out: out.reshape(*lead, out.shape[-1]))
+
+
+def _rmm_bwd(ct, x, scale, w, eps: float = 1e-6, **kwargs):
+    """Backward plan, decomposed onto the ``rmsnorm``, ``matmul`` and
+    ``rmsnorm_bwd`` dispatch sites (``repro``'s ``_rmm_bwd``): the
+    normalised rows are one rmsnorm dispatch again, the projection's
+    gradients are transposed-operand gemms, and the norm's gradient goes
+    through rmsnorm_bwd with the inverse rms rebuilt from x."""
+    from ..core.runtime import dispatch
+
+    xn = dispatch("rmsnorm", x, scale, eps=eps)
+    d_xn = dispatch("matmul", ct, w.T, **kwargs)
+    dw = dispatch("matmul", xn.T, ct, dp_dims={0: 1, 1: 0}, **kwargs)
+    xf = x.float()
+    invrms = torch.rsqrt((xf * xf).mean(dim=-1) + eps)
+    dx, dscale = dispatch("rmsnorm_bwd", d_xn, x, scale, invrms, **kwargs)
+    return dx, dscale, dw
+
+
+def rmsnorm_matmul_plain(x, scale, w, eps: float = 1e-6):
+    """The kernel's function in plain PyTorch, in its cast order."""
+    return ref.rmsnorm_matmul(x, scale, w, eps)
+
+
+def rmsnorm_matmul_cuda(x, scale, w, *, bm: int, bn: int, eps: float = 1e-6):
+    """Launch csrc/rmsnorm_matmul.cu on CUDA tensors."""
+    _check_2d("rmsnorm_matmul", x, w)
+    if x.shape[1] != w.shape[0] or scale.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm_matmul takes [m,d], [d], [d,n], got {tuple(x.shape)}, "
+                         f"{tuple(scale.shape)}, {tuple(w.shape)}")
+    _check_common("rmsnorm_matmul", x, scale, w)
+    m, d = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn = _build.entry("rmsnorm_matmul", "repro_rmsnorm_matmul",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), scale.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, d,
+             float(eps), _DTYPES[x.dtype], bm, bn, _build.stream_ptr(x.device))
+    _build.check("rmsnorm_matmul", err, f"rmsnorm_matmul {m}x{d}x{n} bm={bm} bn={bn}")
+    _build.LAUNCHES["rmsnorm_matmul"] += 1
+    return out
+
+
+@tunable(
+    "rmsnorm_matmul",
+    space=RMSNORM_MATMUL_SPACE,
+    reference=ref.rmsnorm_matmul,
+    heuristic=_rmm_heuristic,
+    dispatch=DispatchSpec(canonicalize=_rmm_canon, vjp="dispatch", bwd=_rmm_bwd),
+)
+def rmsnorm_matmul(x, scale, w, *, bm: int, bn: int, eps: float = 1e-6):
+    if x.is_cuda:
+        return rmsnorm_matmul_cuda(x, scale, w, bm=bm, bn=bn, eps=eps)
+    if x.device.type == "cpu":
+        return rmsnorm_matmul_plain(x, scale, w, eps)
+    raise RuntimeError(f"rmsnorm_matmul has no kernel for device {x.device}")

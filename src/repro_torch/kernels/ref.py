@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -36,6 +37,33 @@ def rmsnorm_res(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     """:func:`rmsnorm` plus its per-row inverse rms ([rows] fp32)."""
     r = _invrms(x, eps)
     return (x.float() * r).to(x.dtype) * weight, r[..., 0]
+
+
+def apply_act(h: torch.Tensor, act: str) -> torch.Tensor:
+    """The fused epilogues' activations; gelu is the tanh form, as
+    ``jax.nn.gelu``'s default."""
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "silu":
+        return F.silu(h)
+    if act == "none":
+        return h
+    raise ValueError(f"unknown fused activation {act!r}")
+
+
+def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    act: str = "none") -> torch.Tensor:
+    """act([m, k] @ [k, n] + b): the bias added and the activation applied
+    to the fp32 product, one cast to x.dtype at the end."""
+    h = torch.matmul(x.float(), w.float()) + b.float()
+    return apply_act(h, act).to(x.dtype)
+
+
+def rmsnorm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``matmul(rmsnorm(x, scale), w)``: the norm cast to x.dtype before its
+    scale, as :func:`rmsnorm` does, then the fp32-accumulated product."""
+    return matmul(rmsnorm(x, scale, eps), w)
 
 
 def _scores(q, k, causal: bool, scale: Optional[float], window: int):

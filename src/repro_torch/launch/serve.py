@@ -1,7 +1,9 @@
 """Serving launcher: the continuous-batching engine on one card.
 
 The engine gets its own scoped dispatch runtime: pass a tuning database
-with ``--db`` and every kernel the model calls resolves against it; the run
+with ``--db`` and every kernel the model calls resolves against it;
+``--warmup`` resolves every slot-pool bucket before the first request, and
+``--platform`` keys the lookups under another platform's namespace. The run
 ends with the runtime's telemetry report (which tier served each kernel x
 bucket) and each kernel's launch count.
 
@@ -9,6 +11,8 @@ bucket) and each kernel's launch count.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b
     # reduced config on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --smoke --device cpu
+    # a campaign's database, every bucket resolved up front:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --db h100.db.json --warmup
 """
 from __future__ import annotations
 
@@ -39,6 +43,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--db", default=None, help="tuning database for this platform")
     ap.add_argument("--mode", default="kernel", choices=("kernel", "reference"))
+    ap.add_argument("--warmup", action="store_true",
+                    help="resolve every slot-pool bucket before serving")
+    ap.add_argument("--platform", default=None,
+                    help="database namespace (default: the device's platform key)")
     args = ap.parse_args(argv)
     if args.db and not os.path.exists(args.db):
         # a typo'd path would open as an empty database and every bucket
@@ -51,9 +59,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cfg = cfg.reduced()
     params = lm.init_params(cfg, seed=args.seed, device=device)
     rt = runtime(db=TuningDatabase(args.db) if args.db else None, mode=args.mode,
-                 name="serve")
+                 platform=args.platform, name="serve")
     engine = ServingEngine(cfg, RunConfig(), params,
                            EngineConfig(max_batch=8, max_seq=args.max_seq), runtime=rt)
+    if args.warmup:
+        resolved = engine.warmup()
+        print(f"warmup resolved {len(resolved)} bucket keys")
     rs = np.random.RandomState(args.seed)
     for i in range(args.requests):
         engine.submit(Request(

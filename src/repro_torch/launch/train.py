@@ -1,8 +1,10 @@
 """Training launcher: the one-device trainer under a pinned dispatch runtime.
 
 ``--db`` points every kernel the step runs, forward and backward, at a
-tuning database for this platform; ``--mode`` picks the kernel path or the
-reference path. The run ends with the runtime's telemetry report (which
+tuning database for this platform (``--platform`` keys the lookups under
+another platform's namespace); ``--mode`` picks the kernel path or the
+reference path, and ``--bwd-dispatch off`` differentiates every kernel
+through its reference instead of its dispatched backward plan. The run ends with the runtime's telemetry report (which
 tier served each kernel x bucket, split into the fwd / bwd / opt phases)
 and each kernel's launch count.
 
@@ -11,6 +13,9 @@ and each kernel's launch count.
     # reduced config on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \\
         --steps 2 --device cpu
+    # from a campaign's database:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 6 \\
+        --db h100.db.json --mode kernel
 """
 from __future__ import annotations
 
@@ -40,6 +45,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=None, help="global batch (default 8 smoke, 4)")
     ap.add_argument("--seq", type=int, default=None, help="sequence length (default 64 smoke, 2048)")
+    ap.add_argument("--platform", default=None,
+                    help="database namespace (default: the device's platform key)")
+    ap.add_argument("--bwd-dispatch", default="on", choices=("on", "off"),
+                    help="off: differentiate every kernel through its reference, not its "
+                         "dispatched backward plan")
     args = ap.parse_args(argv)
     if args.db and not os.path.exists(args.db):
         # a typo'd path would open as an empty database and every bucket
@@ -55,6 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         batch, seq = args.batch or 4, args.seq or 2048
         run = RunConfig(remat="none", loss_chunk=512)
     rt = runtime(db=TuningDatabase(args.db) if args.db else None, mode=args.mode,
+                 platform=args.platform, bwd_dispatch=args.bwd_dispatch == "on",
                  name="train")
     trainer = Trainer(cfg, run, DataConfig(seed=args.seed, batch_size=batch, seq_len=seq),
                       AdamWConfig(total_steps=args.steps),

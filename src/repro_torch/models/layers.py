@@ -58,23 +58,47 @@ def rmsnorm_dense(pn: Params, pd: Params, x: torch.Tensor, eps: float = 1e-6) ->
     return dense(pd, rmsnorm(pn, x, eps))
 
 
+FFN_KINDS = ("swiglu", "geglu", "gelu", "relu2")
+
+
 def ffn_init(gen, d: int, ff: int, kind: str, dtype, device) -> Params:
-    if kind != "swiglu":
-        raise NotImplementedError(f"the port has the swiglu FFN only, not {kind!r}")
-    return {
-        "wg": _init(gen, (d, ff), dtype, device),
-        "wu": _init(gen, (d, ff), dtype, device),
-        "wd": _init(gen, (ff, d), dtype, device, scale=1.0 / math.sqrt(ff)),
-    }
+    if kind in ("swiglu", "geglu"):
+        return {
+            "wg": _init(gen, (d, ff), dtype, device),
+            "wu": _init(gen, (d, ff), dtype, device),
+            "wd": _init(gen, (ff, d), dtype, device, scale=1.0 / math.sqrt(ff)),
+        }
+    if kind in ("gelu", "relu2"):
+        return {
+            "wu": _init(gen, (d, ff), dtype, device),
+            "wd": _init(gen, (ff, d), dtype, device, scale=1.0 / math.sqrt(ff)),
+        }
+    raise ValueError(f"unknown ffn kind {kind!r}")
+
+
+def _act_matmul(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
+    """act(x @ w): the fused ``matmul_bias_act`` dispatch (with a zero bias)
+    where the database holds a record for this site, else the matmul
+    dispatch followed by the activation (gelu in its tanh form)."""
+    zb = torch.zeros((w.shape[-1],), dtype=x.dtype, device=x.device)
+    if fusion_wins("matmul_bias_act", x, w, zb, act=act):
+        return dispatch("matmul_bias_act", x, w, zb, act=act)
+    y = dispatch("matmul", x, w)
+    return F.silu(y) if act == "silu" else F.gelu(y, approximate="tanh")
 
 
 def ffn_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """SwiGLU. The gate's fused ``matmul_bias_act`` site comes with the
-    fused kernels; until then the gate is a matmul dispatch then SiLU."""
-    if kind != "swiglu":
-        raise NotImplementedError(f"the port has the swiglu FFN only, not {kind!r}")
-    h = F.silu(dispatch("matmul", x, p["wg"])) * dispatch("matmul", x, p["wu"])
-    return dispatch("matmul", h, p["wd"])
+    mm = lambda a, w: dispatch("matmul", a, w)
+    if kind == "swiglu":
+        return mm(_act_matmul(x, p["wg"], "silu") * mm(x, p["wu"]), p["wd"])
+    if kind == "geglu":
+        return mm(_act_matmul(x, p["wg"], "gelu") * mm(x, p["wu"]), p["wd"])
+    if kind == "gelu":
+        return mm(_act_matmul(x, p["wu"], "gelu"), p["wd"])
+    if kind == "relu2":
+        h = F.relu(mm(x, p["wu"]))
+        return mm(h * h, p["wd"])
+    raise ValueError(kind)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -23,6 +23,9 @@ request alone.
 holds each prefill's seconds by bucket and each decode step's seconds,
 taken on the host clock around work that ends in a copy of the logits to
 the host (which waits for the device).
+
+:meth:`ServingEngine.warmup` resolves every slot-pool bucket's kernel
+configs up front, typically against a campaign's exported database.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.database import shape_bucket
-from ..core.runtime import TunedRuntime
+from ..core.database import TuningDatabase, shape_bucket
+from ..core.runtime import TunedRuntime, current_runtime
 from ..models import lm
 from ..models.transformer import RunConfig
 
@@ -248,3 +251,67 @@ class ServingEngine:
                     done.append(s.req)
                     self._slots[i] = None     # freed: next arrival admits here
         return sorted(done, key=lambda r: r._order)
+
+    # ---------------------------------------------------------------- warmup
+    def serving_buckets(self) -> List[tuple]:
+        """The (batch, seq bucket) pairs this engine runs."""
+        from ..campaign.planner import serving_buckets
+
+        return serving_buckets(self.ecfg.max_batch, self.ecfg.max_seq,
+                               min_seq=self.ecfg.min_prefill_bucket)
+
+    def warmup(self, db: Optional[TuningDatabase] = None, allow_tune: bool = False,
+               install: bool = True, max_tokens: int = 65536,
+               **tune_kwargs) -> Dict[str, Optional[Dict]]:
+        """Resolve the kernel configs of every slot-pool bucket up front.
+
+        Every admission-prefill and decode-pool site the engine will
+        dispatch (``plan_serving_jobs``) resolves through the engine's
+        runtime, so its resolution cache is hot and its telemetry shows
+        which tier serves each bucket before the first request. With
+        ``allow_tune`` a missing bucket is tuned on the spot (on seeded
+        tensors); otherwise resolution needs only shapes, dtypes and the
+        device, and runs on uninitialized tensors.
+
+        ``db``: with an engine runtime, the database is pinned on it (its
+        cached resolutions dropped). Without one, ``install=True`` gives the
+        engine a runtime of its own on ``db``, so serving reads the database
+        that was warmed; ``install=False`` resolves against ``db`` on a
+        throwaway runtime and leaves serving as it was.
+
+        Returns ``{db key: config}`` (``None`` where a policy chose the
+        reference).
+        """
+        from ..campaign.planner import plan_serving_jobs
+        from ..campaign.runner import materialize_args
+        from ..core.annotate import get_tunable
+
+        rt = self.runtime
+        if rt is not None:
+            if db is not None and db is not rt.db:
+                rt.db = db
+                rt.clear_cache()
+        elif db is not None and install:
+            rt = self.runtime = TunedRuntime(db=db, name="serve")
+        elif db is not None:
+            rt = TunedRuntime(db=db, name="warmup")
+        else:
+            rt = current_runtime()
+        if allow_tune:
+            rt.clear_cache()       # cached resolutions would shadow TuneNow
+        jobs = plan_serving_jobs(self.cfg, self.ecfg.max_batch, self.ecfg.max_seq,
+                                 max_tokens=max_tokens)
+        resolved: Dict[str, Optional[Dict]] = {}
+        for job in jobs:
+            if allow_tune:
+                args = materialize_args(job, device=self.device)
+            else:
+                args = tuple(torch.empty(shape, dtype=getattr(torch, dtype), device=self.device)
+                             for shape, dtype in zip(job.arg_shapes, job.arg_dtypes))
+            key = job.db_key(rt.platform_for(args))
+            if key in resolved:
+                continue
+            res = rt.resolve(get_tunable(job.kernel), args, key_extra=job.key_extra,
+                             allow_tune=allow_tune or None, tune_kwargs=tune_kwargs or None)
+            resolved[key] = res.config
+        return resolved

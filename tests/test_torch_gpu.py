@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
+from repro_torch.kernels import fused as fu  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import xent as xe  # noqa: E402
@@ -251,3 +252,95 @@ def test_dispatch_plane_gradcheck_on_the_card(cuda):
     with runtime(mode="reference"):
         gr = torch.autograd.grad(dispatch("softmax_xent", logits, labels).sum(), logits)[0]
     _close(gk, gr, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (5, 100, 37), (33, 64, 130),
+                                   (300, 896, 4864), (1, 40, 1000)])
+@pytest.mark.parametrize("act", ["none", "gelu", "silu"])
+@pytest.mark.parametrize("config", [None, {"bm": 32, "bn": 64, "bk": 16},
+                                    {"bm": 128, "bn": 128, "bk": 64}])
+def test_matmul_bias_act_kernel_matches_plain(cuda, dtype, m, k, n, act, config):
+    rs = np.random.RandomState(m + k + n)
+    x, w = _t(rs, (m, k), dtype, cuda), _t(rs, (k, n), dtype, cuda, k ** -0.5)
+    b = _t(rs, (n,), dtype, cuda, 0.5)
+    cfg = config or fu.matmul_bias_act.default_config(x, w, b)
+    out = fu.matmul_bias_act_cuda(x, w, b, act=act, **cfg)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    _close(out, fu.matmul_bias_act_plain(x, w, b, act), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,n", [(8, 896, 151936), (5, 100, 37), (33, 64, 130),
+                                   (17, 896, 1000), (1, 33, 65), (130, 896, 4864)])
+@pytest.mark.parametrize("config", [None, {"bm": 16, "bn": 32}, {"bm": 32, "bn": 128}])
+def test_rmsnorm_matmul_kernel_matches_plain(cuda, dtype, m, d, n, config):
+    rs = np.random.RandomState(m + d + n)
+    x = _t(rs, (m, d), dtype, cuda)
+    s = (1 + 0.1 * _t(rs, (d,), torch.float32, cuda)).to(dtype)
+    w = _t(rs, (d, n), dtype, cuda, d ** -0.5)
+    cfg = config or fu.rmsnorm_matmul.default_config(x, s, w)
+    out = fu.rmsnorm_matmul_cuda(x, s, w, **cfg)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    _close(out, fu.rmsnorm_matmul_plain(x, s, w), dtype)
+
+
+def test_fused_wrappers_count_their_launches(cuda):
+    kernels.reset_launch_counts()
+    x, w = torch.randn(4, 64, device=cuda), torch.randn(64, 32, device=cuda)
+    fu.matmul_bias_act(x, w, torch.zeros(32, device=cuda), act="silu", bm=16, bn=32, bk=16)
+    fu.rmsnorm_matmul(x, torch.ones(64, device=cuda), w, bm=16, bn=32)
+    fu.matmul_bias_act_plain(x, w, torch.zeros(32, device=cuda), "silu")
+    assert kernels.launch_counts() == {"matmul_bias_act": 1, "rmsnorm_matmul": 1}
+
+
+def test_wallclock_evaluator_on_the_card(cuda):
+    """CUDA-event timing of a kernel variant behind the correctness gate; a
+    row block too large for shared memory is a refused launch, pruned with
+    its CUDA code; a wrong variant fails the gate."""
+    from repro_torch.core.evaluate import REFUSED_LAUNCH_CODES, WallClockEvaluator
+
+    rs = np.random.RandomState(0)
+    x, s = _t(rs, (64, 896), torch.float32, cuda), _t(rs, (896,), torch.float32, cuda)
+    w = _t(rs, (896, 512), torch.float32, cuda, 896 ** -0.5)
+    ref = fu.rmsnorm_matmul_plain(x, s, w)
+    ev = WallClockEvaluator(repeats=3, warmup=1)
+    ok = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, bm=16, bn=64), (x, s, w), ref)
+    assert ok.ok and 0 < ok.objective < 1.0 and len(ok.meta["times"]) == 3
+    # fp32 at d = 896: a 64-row block plus the stage needs 297 KB
+    big = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, bm=64, bn=256), (x, s, w), ref)
+    assert not big.ok and big.error.startswith("refused launch")
+    assert any(f"CUDA error {c})" in big.error for c in REFUSED_LAUNCH_CODES)
+    bad = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, bm=16, bn=64) * 1.1, (x, s, w), ref)
+    assert not bad.ok and bad.error == "correctness gate failed"
+    # the card still runs after the refused launch
+    again = fu.rmsnorm_matmul_cuda(x, s, w, bm=16, bn=64)
+    torch.cuda.synchronize()
+    _close(again, ref, torch.float32)
+
+
+def test_fused_dispatch_gradients_on_the_card(cuda):
+    """The fused tunables' backward plans (matmul, rmsnorm, rmsnorm_bwd
+    dispatch sites) against the reference path's autograd gradients."""
+    from repro_torch.core.runtime import dispatch, runtime
+
+    rs = np.random.RandomState(0)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda).requires_grad_()
+    cases = [
+        ("matmul_bias_act", (t(24, 40), t(40, 56), t(56)), {"act": "silu"}),
+        ("matmul_bias_act", (t(2, 9, 40), t(40, 56), t(56)), {"act": "gelu"}),
+        ("rmsnorm_matmul", (t(2, 9, 48), (1 + 0.1 * t(48)).detach().requires_grad_(),
+                            t(48, 40)), {"eps": 1e-6}),
+    ]
+    for name, args, kw in cases:
+        grads = {}
+        for mode in ("kernel", "reference"):
+            with runtime(mode=mode):
+                out = dispatch(name, *args, **kw)
+                ct = torch.from_numpy(np.random.RandomState(1).randn(*out.shape)
+                                      .astype(np.float32)).to(cuda)
+                grads[mode] = torch.autograd.grad(out, args, ct)
+        for gk, gr in zip(grads["kernel"], grads["reference"]):
+            _close(gk, gr, torch.float32)

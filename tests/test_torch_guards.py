@@ -136,3 +136,57 @@ def test_training_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         fa.flash_attention_bwd(q, q, meta(1, 2, 16, 16), meta(1, 2, 16, 16), q, meta(1, 4, 16),
                                block_q=16, block_k=32)
+
+
+def test_scan_sees_the_campaign_and_search_modules():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("campaign/planner.py", "campaign/scheduler.py", "campaign/runner.py",
+                "campaign/transfer.py", "campaign/cli.py", "campaign/__main__.py",
+                "core/search/base.py", "core/search/exhaustive.py",
+                "core/search/random_search.py", "core/search/coordinate.py",
+                "core/search/anneal.py", "core/search/genetic.py", "core/evaluate.py",
+                "kernels/fused.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
+def test_campaign_entry_points_raise_without_a_card(no_card, tmp_path):
+    from repro_torch.campaign import cli, planner, runner, scheduler
+    from repro_torch.core.database import TuningDatabase
+    from repro_torch.core.platform import TORCH_CPU
+
+    manifest = str(tmp_path / "c.json")
+    for argv in (["plan", "--reduced", "--out", manifest],
+                 ["export", "--db", str(tmp_path / "db.json"), "--out", str(tmp_path / "o")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    jobs = planner.plan_serving_jobs(get_config("qwen2_0_5b").reduced(), 2, 16)
+    scheduler.build_manifest(jobs, 40, path=manifest, profile=TORCH_CPU, min_budget=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", "--manifest", manifest, "--db", str(tmp_path / "db.json")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_campaign(scheduler.CampaignManifest.load(manifest), TuningDatabase(None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen2_0_5b", "--smoke", "--warmup", "--platform", "x"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen2_0_5b", "--smoke", "--steps", "1", "--bwd-dispatch", "off"])
+
+
+def test_fused_wrappers_never_fall_back_off_the_cpu():
+    from repro_torch.kernels import fused as fu
+
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fu.matmul_bias_act(meta(8, 16), meta(16, 32), meta(32), bm=16, bn=32, bk=16)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fu.rmsnorm_matmul(meta(8, 16), meta(16), meta(16, 32), bm=16, bn=32)
+
+
+def test_train_launcher_switches_the_backward_plane(capsys):
+    train.main(["--arch", "qwen2_0_5b", "--smoke", "--steps", "1", "--device", "cpu",
+                "--bwd-dispatch", "off"])
+    out = capsys.readouterr().out
+    assert "phase fwd" in out and "phase bwd" not in out     # reference VJPs dispatch nothing
+    train.main(["--arch", "qwen2_0_5b", "--smoke", "--steps", "1", "--device", "cpu",
+                "--platform", "h100-sxm"])
+    out = capsys.readouterr().out
+    assert "phase bwd" in out and "|h100-sxm|" in out and "|torch-cpu|" not in out
