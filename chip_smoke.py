@@ -19,6 +19,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              card, and times kernel, plain version and the one-call
              PyTorch yardstick (where one call computes the same function)
              with CUDA events, beside the card's bound for the same work;
+   The hybrid's kernels join them: ssm_scan at b=1, s=2048, d_inner
+             16384 (xc bf16) and at a ragged s=1500, d_inner 16380;
+             ssm_update at the 8-slot pool; flash attention at 64/8 heads
+             of 128; the hybrid's bf16 in_proj and fp32 dt_proj / out_proj
+             gemms;
 4. serve   — full-width qwen2_0_5b in bf16 from a seeded random init,
              ServingEngine(max_batch=8, max_seq=2048), 16 staggered
              requests with prompts of 16..1500 tokens and 32 new tokens
@@ -27,7 +32,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
              are held against the plain (reference-mode) path, and
              torch.profiler splits a decode step and the largest prefill by
              kernel;
-5. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
+5. hybrid  — full-width Jamba-1.5-Large without experts (num_experts=0:
+             a dense SwiGLU FFN on every layer) cut to one super-block of
+             8 layers (1 attention + 7 Mamba), bf16 from a seeded random
+             init (about 9.0 B parameters, 18 GB; the serve phase's are
+             freed first), ServingEngine(max_batch=8, max_seq=2048), 8
+             staggered requests with prompts of 16..1500 tokens, prefilled
+             at exact length, 16 new tokens each, half greedy; ssm_scan
+             must launch 7 times a prefill and ssm_update 7 times a decode
+             step, matmul, rmsnorm and flash attention must launch, and no
+             dispatch may fall to the reference tier; the 1500-token
+             prompt's prefill logits are held against the plain path, and
+             torch.profiler splits a decode step and that prefill by
+             kernel;
+6. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
              master copy, batch 4 x seq 2048 from SyntheticPipeline(seed),
              RunConfig(remat="none", loss_chunk=512), AdamWConfig(
              warmup_steps=2), 6 steps through the Trainer; step 1's loss and
@@ -37,7 +55,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              matmul included) must rise, and no fwd or bwd dispatch may fall
              to the reference tier; torch.profiler splits one more step by
              kernel;
-6. campaign — plans full-width qwen2_0_5b (the train phase's step, every
+7. campaign — plans full-width qwen2_0_5b (the train phase's step, every
              dispatch site forward and backward, and serving at
              max_batch=8, max_seq=2048), tunes every job on the card with
              the CUDA-event WallClockEvaluator behind the correctness gate
@@ -47,7 +65,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              trials, pruned trials by reason, seconds, and per kernel the
              tuned configs' time beside the heuristic configs' from the
              same calls;
-7. tuned   — on that database: ServingEngine.warmup and a few staggered
+8. tuned   — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode) and matmul_bias_act
@@ -55,7 +73,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              gate and one prefill's logits TOL_LOGITS, both against the
              plain path; the tuned step time is printed beside the train
              phase's heuristic step time (reported, not claimed);
-8. summary — one ``{"kernels": [...]}`` line, then the last line
+9. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -109,9 +127,19 @@ TOL_XENT = 1e-4
 TOL_LOSS = 1e-3
 TOL_GRAD = 3e-2
 TOL_GRAD_KBIAS = 4e-2
+# fp32 gemms (the hybrid's dt_proj and out_proj): both sides sum in fp32
+# (TF32 off), in another order over k up to 16,384 terms: 1e-4 of max|plain|.
+TOL_F32_GEMM = 1e-4
+# The selective scan's y and final state are fp32 on both sides. The kernel
+# takes exp as one ex2.approx (relative error about 2^-22), the plain
+# version as torch.exp2, and the y sums run in another order: about 1e-7 a
+# step, carried along the recurrence for as long as its decay keeps it
+# (dA = exp(dt * A) up to 0.999 here): 1e-4 of max|plain|.
+TOL_SSM = 1e-4
 
 
 SERVE_KERNELS = ("matmul", "rmsnorm", "flash_attention")
+HYBRID_KERNELS = SERVE_KERNELS + ("ssm_scan", "ssm_update")
 TRAIN_KERNELS = ("matmul", "matmul_transposed", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
                  "softmax_xent_bwd", "flash_attention", "flash_attention_bwd")
 
@@ -181,19 +209,20 @@ def phase_build():
                 log(f"[build] {n}: {line.strip()}")
 
 
-def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False):
+def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch.bfloat16):
     from repro_torch.kernels import matmul as mm
 
     # ta / tb: the operand is a transposed view, as the backward passes it
-    x = torch.randn((k, m) if ta else (m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn((k, m) if ta else (m, k), generator=gen, device="cuda").to(dtype)
     w = (torch.randn((n, k) if tb else (k, n), generator=gen, device="cuda")
-         * k ** -0.5).to(torch.bfloat16)
+         * k ** -0.5).to(dtype)
     x, w = (x.T if ta else x), (w.T if tb else w)
     heur = mm.matmul.default_config(x, w)
     # the other legal config: the first heuristic's pick, which the current
     # one replaced after a card run
     other = {"bm": 16, "bn": 32, "bk": 32} if m <= 16 else {"bm": 128, "bn": 32, "bk": 32}
     plain = mm.matmul_plain(x, w)
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32_GEMM
     errs = []
     for cfg in (heur, other):
         if not mm.MATMUL_SPACE.is_valid(cfg):
@@ -201,14 +230,17 @@ def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False):
         out = mm.matmul_cuda(x, w, **cfg)
         torch.cuda.synchronize()
         errs.append(rel_err(out, plain))
-        if errs[-1][1] > TOL_BF16:
-            raise AssertionError(f"matmul {m}x{k}x{n} {cfg}: rel err {errs[-1][1]:.3g} > {TOL_BF16}")
+        if errs[-1][1] > tol:
+            raise AssertionError(f"matmul {m}x{k}x{n} {cfg}: rel err {errs[-1][1]:.3g} > {tol}")
     ms = time_ms(lambda: mm.matmul_cuda(x, w, **heur))
     ms_other = time_ms(lambda: mm.matmul_cuda(x, w, **other))
     plain_ms = time_ms(lambda: mm.matmul_plain(x, w))
     lib_ms = time_ms(lambda: torch.matmul(x, w))
-    b_ms, b_by = bound(prof, (m * k + k * n + m * n) * 2, 2.0 * m * n * k, prof.peak_flops_bf16)
-    shape = f"[{m},{k}]{'ᵀ' if ta else ''}@[{k},{n}]{'ᵀ' if tb else ''} bf16"
+    esize = x.element_size()
+    peak = prof.peak_flops_bf16 if dtype == torch.bfloat16 else prof.peak_flops_fp32
+    b_ms, b_by = bound(prof, (m * k + k * n + m * n) * esize, 2.0 * m * n * k, peak)
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = f"[{m},{k}]{'ᵀ' if ta else ''}@[{k},{n}]{'ᵀ' if tb else ''} {dname}"
     row = dict(shape=shape, path=path, config=heur, ms=ms, other_config=other,
                other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, max_abs_err=max(e[0] for e in errs),
@@ -216,7 +248,7 @@ def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False):
     rows.append(row)
     log(f"[kernels] matmul {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
         f"plain {plain_ms:.4f}, torch.matmul {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); "
-        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {tol})")
 
 
 def _rmsnorm_case(prof, rows_out, rows, d, gen, path):
@@ -510,12 +542,112 @@ def _rmm_case(prof, rows, m, d, n, gen, path):
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
+def sfu_rate(prof) -> float:
+    """exp2 evaluations a second: 16 a clock an SM (NVIDIA's arithmetic
+    instruction throughput table for compute capability 9.0) at the card's
+    maximum SM clock as nvidia-smi reads it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    return 16.0 * prof.sm_count * float(mhz) * 1e6
+
+
+def _ssm_bound(prof, sfu, nbytes, steps, ds):
+    """(ms, by) of the selective scan's work: the bytes, against its fp32
+    operations (6 a state element a step: dt * A, the state's multiply-add,
+    the dt * x * B term, y's multiply-add) and its exponentials (one a state
+    element a step) on the SFUs, whichever is slower."""
+    t_bytes = nbytes / prof.hbm_bandwidth * 1e3
+    t_ops = max(6.0 * steps * ds / prof.peak_flops_fp32, steps * ds / sfu) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ssm_inputs(gen, lead, di, ds, state_scale):
+    """The mixer's ranges at init: xc bf16, dt = softplus(. - 2) > 0, B and
+    C of unit scale, A = -(1..ds) on every channel."""
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds).contiguous()
+    return ((0.5 * rn(*lead, di)).to(torch.bfloat16),
+            torch.nn.functional.softplus(0.5 * rn(*lead, di) - 2.0), rn(*lead, ds), rn(*lead, ds),
+            A, state_scale * rn(lead[0], di, ds))
+
+
+def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, ds=16):
+    from repro_torch.kernels import ssm_scan as ss
+
+    args = _ssm_inputs(gen, (b, s), di, ds, 0.0)        # prefill starts from h = 0
+    heur = ss.ssm_scan.default_config(*args)
+    other = {"chunk": 32, "block_d": 128}
+    other = other if heur != other else {"chunk": 64, "block_d": 32}
+    p_y, p_h = ss.ssm_scan_plain(*args)
+    errs = []
+    for cfg in (heur, other):
+        if not ss.SSM_SCAN_SPACE.is_valid(cfg):
+            raise AssertionError(f"illegal ssm_scan config {cfg}")
+        y, hn = ss.ssm_scan_cuda(*args, **cfg)
+        torch.cuda.synchronize()
+        errs.append(max(rel_err(y, p_y), rel_err(hn, p_h), key=lambda e: e[1]))
+        if errs[-1][1] > TOL_SSM:
+            raise AssertionError(f"ssm_scan b={b} s={s} di={di} {cfg}: rel err "
+                                 f"{errs[-1][1]:.3g} > {TOL_SSM}")
+    del y, hn, p_y, p_h
+    ms = time_ms(lambda: ss.ssm_scan_cuda(*args, **heur))
+    ms_other = time_ms(lambda: ss.ssm_scan_cuda(*args, **other))
+    plain_ms = time_ms(lambda: ss.ssm_scan_plain(*args), iters=2, warmup=1)
+    # xc bf16; dt, y fp32 [b,s,di]; B, C [b,s,ds]; A; h0 and hN [b,di,ds]
+    nbytes = b * s * di * (2 + 4 + 4) + b * s * ds * 8 + di * ds * 4 + 2 * b * di * ds * 4
+    b_ms, b_by = _ssm_bound(prof, sfu, nbytes, b * s * di, ds)
+    row = dict(shape=f"b={b} s={s} di={di} ds={ds} xc bf16", path="hybrid", config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs))
+    rows.append(row)
+    log(f"[kernels] ssm_scan {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
+        f"plain {plain_ms:.4f}, no one-call yardstick, bound {b_ms:.4f} ({b_by}); err "
+        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_SSM})")
+
+
+def _ssm_update_case(prof, rows, b, di, gen, sfu, ds=16):
+    from repro_torch.kernels import ssm_scan as ss
+
+    args = _ssm_inputs(gen, (b,), di, ds, 0.3)
+    heur = ss.ssm_update.default_config(*args)
+    other = {"block_b": 8, "block_d": 128}
+    other = other if heur != other else {"block_b": 1, "block_d": 256}
+    p_y, p_h = ss.ssm_update_plain(*args)
+    errs = []
+    for cfg in (heur, other):
+        if not ss.SSM_UPDATE_SPACE.is_valid(cfg):
+            raise AssertionError(f"illegal ssm_update config {cfg}")
+        y, hn = ss.ssm_update_cuda(*args, **cfg)
+        torch.cuda.synchronize()
+        errs.append(max(rel_err(y, p_y), rel_err(hn, p_h), key=lambda e: e[1]))
+        if errs[-1][1] > TOL_SSM:
+            raise AssertionError(f"ssm_update b={b} di={di} {cfg}: rel err "
+                                 f"{errs[-1][1]:.3g} > {TOL_SSM}")
+    ms = time_ms(lambda: ss.ssm_update_cuda(*args, **heur))
+    ms_other = time_ms(lambda: ss.ssm_update_cuda(*args, **other))
+    plain_ms = time_ms(lambda: ss.ssm_update_plain(*args))
+    # xc bf16, dt, y [b,di]; B, C [b,ds]; A [di,ds]; h and h_new [b,di,ds]
+    nbytes = b * di * (2 + 4 + 4) + b * ds * 8 + di * ds * 4 + 2 * b * di * ds * 4
+    b_ms, b_by = _ssm_bound(prof, sfu, nbytes, b * di, ds)
+    row = dict(shape=f"b={b} di={di} ds={ds} xc bf16", path="hybrid", config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs))
+    rows.append(row)
+    log(f"[kernels] ssm_update {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
+        f"plain {plain_ms:.4f}, no one-call yardstick, bound {b_ms:.4f} ({b_by}); err "
+        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_SSM}); the 8 MB "
+        f"state stays in L2 between the timed launches")
+
+
 def phase_kernels(prof, seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d, ff, kvd, vocab = 896, 4864, 128, 151936
     results = {k: [] for k in ("matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
                                "softmax_xent_bwd", "flash_attention", "flash_attention_bwd",
-                               "matmul_bias_act", "rmsnorm_matmul")}
+                               "matmul_bias_act", "rmsnorm_matmul", "ssm_scan", "ssm_update")}
     # Serving: decode (m = 8 slots), the largest prefill bucket (m = 2048)
     # and the prefill unembed of the last position (m = 1).
     for m in (8, 2048):
@@ -549,6 +681,25 @@ def phase_kernels(prof, seed: int):
         _mba_case(prof, results["matmul_bias_act"], m, d, n, act, gen, "train")
     for m in (8, 13):
         _rmm_case(prof, results["rmsnorm_matmul"], m, d, vocab, gen, "serve")
+    # The hybrid (Jamba-1.5-Large: d_model 8192, d_inner 16384, dt_rank 512,
+    # d_state 16, 64/8 heads of 128): the scan at the longest prefill and at
+    # a ragged one whose d_inner no block_d divides, the decode update at
+    # the 8-slot pool, attention at head dim 128 in groups of 8, and the
+    # Mamba gemms at decode (m = 8) and prefill (m = 2048) rows: in_proj in
+    # bf16, dt_proj and out_proj in fp32.
+    sfu = sfu_rate(prof)
+    log(f"[kernels] SFU exp2 rate {sfu / 1e12:.3f} T/s (16 a clock an SM at the maximum SM "
+        f"clock)")
+    _ssm_scan_case(prof, results["ssm_scan"], 1, 2048, 16384, gen, sfu)
+    _ssm_scan_case(prof, results["ssm_scan"], 1, 1500, 16380, gen, sfu)
+    _ssm_update_case(prof, results["ssm_update"], 8, 16384, gen, sfu)
+    _flash_case(prof, results["flash_attention"], 2048, gen, "hybrid", h=64, kvh=8, d=128)
+    dm, di, dtr = 8192, 16384, 512
+    for m in (8, 2048):
+        _matmul_case(prof, results["matmul"], m, dm, 2 * di, gen, "hybrid")
+        _matmul_case(prof, results["matmul"], m, dtr, di, gen, "hybrid", dtype=torch.float32)
+        _matmul_case(prof, results["matmul"], m, di, dm, gen, "hybrid", dtype=torch.float32)
+        _rmsnorm_case(prof, results["rmsnorm"], m, dm, gen, "hybrid")
     return results
 
 
@@ -720,6 +871,142 @@ def phase_serve(seed: int):
             agree += int((ref == r.output).sum())
             total += len(ref)
     log(f"[serve] greedy tokens equal on both paths: {agree}/{total} = {agree / total:.3f}")
+    return launches
+
+
+HYBRID_LENGTHS = (16, 1500, 37, 700, 129, 1024, 300, 8)
+
+
+def phase_hybrid(seed: int):
+    """Serve full-width Jamba-1.5-Large without experts, one super-block."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import runtime
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("jamba_1_5_large"), num_experts=0,
+                              experts_per_token=0, num_layers=8)
+    n_mamba = sum(spec.mixer == "mamba" for seg in cfg.segments() for spec in seg.pattern)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = lm.param_count(params)
+    log(f"[hybrid] {cfg.name} without experts: {cfg.num_layers} layers (1 attention + "
+        f"{n_mamba} Mamba), d_model {cfg.d_model}, d_inner {cfg.mamba_expand * cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params {cfg.dtype}, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+    run = RunConfig()
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in HYBRID_LENGTHS]
+
+    def requests(greedy_only=False):
+        return [Request(prompt=p, max_new_tokens=16, temperature=0.0 if i % 2 == 0 else 0.8,
+                        seed=seed + i, arrival_time=float(2 * i))
+                for i, p in enumerate(prompts) if not (greedy_only and i % 2)]
+
+    rt = runtime(name="hybrid")
+    engine = ServingEngine(cfg, run, params, ecfg, runtime=rt)
+    for r in requests():
+        engine.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    snap = rt.telemetry.snapshot()
+    log(f"[hybrid] launches during serving: {launches}")
+    log(f"[hybrid] telemetry tiers: {snap['tiers']} over {snap['calls']} dispatches")
+    missing = [k for k in HYBRID_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the hybrid path: {missing}")
+    if snap["tiers"].get("reference", 0):
+        raise AssertionError(f"{snap['tiers']['reference']} dispatches fell to the reference tier")
+    want = {"ssm_scan": n_mamba * st["prefill_calls"], "ssm_update": n_mamba * st["decode_steps"]}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"expected {n_mamba} ssm_scan launches a prefill and {n_mamba} "
+                             f"ssm_update launches a decode step: {want}, counted {got}")
+    if st["prefill_tokens"] != sum(HYBRID_LENGTHS):
+        raise AssertionError(f"prefill tokens {st['prefill_tokens']}: not at exact length")
+    for r in done:
+        out = r.output
+        if out is None or len(out) != 16 or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad output for a {len(r.prompt)}-token prompt: {out}")
+    tok_s = st["tokens_out"] / wall
+    log(f"[hybrid] served {len(done)} requests, {st['tokens_out']} tokens in {wall:.2f} s: "
+        f"{tok_s:.1f} tokens/s; {st['decode_steps']} decode steps, {st['prefill_calls']} "
+        f"prefills of {st['prefill_tokens']} tokens (exact length); ssm_scan {got['ssm_scan']} "
+        f"= {n_mamba} x {st['prefill_calls']}, ssm_update {got['ssm_update']} = {n_mamba} x "
+        f"{st['decode_steps']}")
+    for L in sorted(engine.timings["prefill_s"]):
+        ts = engine.timings["prefill_s"][L]
+        log(f"[hybrid] prefill {L} tokens: {1e3 * float(np.median(ts)):.2f} ms")
+    dec = engine.timings["decode_s"]
+    log(f"[hybrid] decode step (8 slots): {1e3 * float(np.median(dec)):.2f} ms median of "
+        f"{len(dec)} (p90 {1e3 * float(np.percentile(dec, 90)):.2f} ms)")
+    w_bytes = (n_params - params["embed"]["table"].numel()) * 2
+    log(f"[hybrid] computed floor of a decode step: {w_bytes / 1e9:.3f} GB of weights / "
+        f"3.35 TB/s = {w_bytes / 3.35e12 * 1e3:.3f} ms (computed, not measured)")
+    log(f"[hybrid] peak memory allocated: {peak / 2**30:.2f} GiB")
+
+    probe = prompts[HYBRID_LENGTHS.index(1500)]
+    toks = torch.from_numpy(probe.astype(np.int64))[None].cuda()
+    caches = lm.init_cache(cfg, ecfg.max_batch, ecfg.max_seq, "cuda")
+    tokens = torch.zeros((ecfg.max_batch, 1), dtype=torch.long, device="cuda")
+    pos = torch.arange(ecfg.max_batch, device="cuda") * 200 + 50
+
+    def decode():
+        with torch.inference_mode():
+            lm.decode_step(params, tokens, caches, pos, cfg, run)[0].float().cpu()
+
+    def prefill():
+        with torch.inference_mode():
+            lm.prefill(params, {"tokens": toks}, cfg, run, cache_len=ecfg.max_seq,
+                       true_len=1500)[0].float().cpu()
+
+    profile("hybrid decode step (8 slots)", decode, 5)
+    profile("hybrid prefill 1500 tokens", prefill, 2)
+    del caches
+
+    logits = {}
+    with torch.inference_mode():
+        for mode in ("kernel", "reference"):
+            with runtime(mode=mode):
+                logits[mode], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
+                                             cache_len=ecfg.max_seq, true_len=1500)
+    lk, lr = logits["kernel"].float(), logits["reference"].float()
+    if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab_size)):
+        raise AssertionError(f"kernel-path logits not finite / shape {tuple(lk.shape)}")
+    abs_err, rel = rel_err(lk, lr)
+    log(f"[hybrid] prefill logits (1500 tokens) kernel vs plain path: max abs {abs_err:.4g}, "
+        f"rel to max|plain| {rel:.3e} (tol {TOL_LOGITS}); argmax {int(lk.argmax())} vs "
+        f"{int(lr.argmax())}")
+    if rel > TOL_LOGITS:
+        raise AssertionError(f"hybrid prefill logits differ: rel {rel:.3g} > {TOL_LOGITS}")
+
+    ref_engine = ServingEngine(cfg, run, params, ecfg, runtime=runtime(mode="reference"))
+    for r in requests(greedy_only=True):
+        ref_engine.submit(r)
+    ref_out = {len(r.prompt): r.output for r in ref_engine.serve()}
+    agree = total = 0
+    for r in done:
+        if r.temperature == 0:
+            ref = ref_out[len(r.prompt)]
+            agree += int((ref == r.output).sum())
+            total += len(ref)
+    log(f"[hybrid] greedy tokens equal on both paths: {agree}/{total} = {agree / total:.3f}")
+    log(f"[hybrid] phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1021,6 +1308,8 @@ def main() -> int:
     phase_build()
     results = phase_kernels(prof, args.seed)
     serve_launches = phase_serve(args.seed)
+    hybrid_launches = phase_hybrid(args.seed)
+    torch.cuda.empty_cache()
     train_launches, heuristic_step_ms = phase_train(args.seed)
     with tempfile.TemporaryDirectory() as workdir:
         db_path, _ = phase_campaign(args.seed, args.campaign_budget, workdir)
@@ -1032,9 +1321,13 @@ def main() -> int:
     # kernels run only on the tuned database: matmul_bias_act's entry pairs
     # the tuned training run's launches with the gate projection, and
     # rmsnorm_matmul's (a serving kernel) the tuned serving run's launches
-    # with the decode unembed. The representative shapes: training's
-    # unembed chunk and full-step shapes, serving's decode unembed, largest
-    # prefill bucket and b=1 attention.
+    # with the decode unembed. The two SSM kernels run only on the hybrid
+    # path: their entries pair the hybrid serving run's launches with the
+    # longest prefill's scan and the pool's update, and the three serving
+    # kernels carry a "hybrid" object as well. The representative shapes:
+    # training's unembed chunk and full-step shapes, serving's decode
+    # unembed, largest prefill bucket and b=1 attention, the hybrid's fp32
+    # out_proj at prefill and its attention at head dim 128.
     pick = {"train": {"matmul": "[2048,896]@[896,151936] bf16", "rmsnorm": "[8192,896] bf16",
                       "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
                       "softmax_xent_bwd": "[2048,151936] bf16",
@@ -1043,9 +1336,15 @@ def main() -> int:
                       "matmul_bias_act": "[8192,896]@[896,4864] bf16 asilu"},
             "serve": {"matmul": "[8,896]@[896,151936] bf16", "rmsnorm": "[2048,896] bf16",
                       "flash_attention": "q[1,14,2048,64] kv[1,2,2048,64] causal bf16",
-                      "rmsnorm_matmul": "[8,896]x[896,151936] bf16"}}
+                      "rmsnorm_matmul": "[8,896]x[896,151936] bf16"},
+            "hybrid": {"matmul": "[2048,16384]@[16384,8192] f32", "rmsnorm": "[2048,8192] bf16",
+                       "flash_attention": "q[1,64,2048,128] kv[1,8,2048,128] causal bf16",
+                       "ssm_scan": "b=1 s=2048 di=16384 ds=16 xc bf16",
+                       "ssm_update": "b=8 di=16384 ds=16 xc bf16"}}
     main_path = {"matmul_bias_act": ("train", tuned_train),
-                 "rmsnorm_matmul": ("serve", tuned_serve)}
+                 "rmsnorm_matmul": ("serve", tuned_serve),
+                 "ssm_scan": ("hybrid", hybrid_launches),
+                 "ssm_update": ("hybrid", hybrid_launches)}
     timing_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(name, path, launches):
@@ -1065,6 +1364,7 @@ def main() -> int:
             entry["launches_transposed"] = train_launches.get("matmul_transposed", 0)
         if name in SERVE_KERNELS:
             entry["serve"] = at(name, "serve", serve_launches)
+            entry["hybrid"] = at(name, "hybrid", hybrid_launches)
         entries.append(entry)
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)

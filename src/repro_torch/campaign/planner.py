@@ -16,13 +16,16 @@ scenario names:
 * :func:`plan_serving_jobs` -- every slot-pool bucket a continuous
   :class:`~repro_torch.serving.engine.ServingEngine` runs: batch-1
   admission prefills at each power-of-two sequence bucket and the decode
-  pool at the full slot width, with the fused final-norm -> unembed site.
+  pool at the full slot width, with the fused final-norm -> unembed site;
+  a hybrid arch adds its Mamba layers' projections with the ``ssm_scan``
+  site at each prefill bucket and the ``ssm_update`` site in the pool.
 
 The planner evaluates nothing. Leading (token) dims are capped by
 ``max_tokens``; its default admits the 8,192-token step of the one-card
 trainer (batch 4 x 2048), whose sites the JAX default of 4,096 would cap
-into keys the step never looks up. SSM, MoE and xLSTM mixers are not
-ported: a config that has them raises.
+into keys the step never looks up. MoE layers and the xLSTM mixers are not
+ported, and Mamba layers are served but not trained yet: a config that
+needs what the port lacks raises.
 """
 from __future__ import annotations
 
@@ -47,9 +50,12 @@ DEFAULT_KERNELS = (
     "softmax_xent_bwd",
     "matmul_bias_act",
     "rmsnorm_matmul",
+    "ssm_scan",
+    "ssm_update",
 )
 
 MAX_TOKENS = 8192
+F32 = "float32"
 
 _ACT_OF_FFN = {"swiglu": "silu", "geglu": "gelu", "gelu": "gelu"}
 
@@ -118,25 +124,44 @@ def _adder(jobs: List[TuningJob], kernels: Sequence[str]):
 
 
 def _site_counts(cfg: ArchConfig) -> Dict[str, float]:
-    """Per-step executions of each site family: attention mixers, dense
-    FFNs and norms (pre-mixer, and pre-FFN where the layer has one), plus
-    each distinct attention window. Raises for the mixers and FFNs the port
-    has not ported."""
-    n_attn = n_ffn = n_norm = 0.0
+    """Per-step executions of each site family: attention and Mamba mixers,
+    dense FFNs, layers, and norms (pre-mixer, and pre-FFN where the layer
+    has one), plus each distinct attention window. Raises for the mixers
+    and FFNs the port has not ported."""
+    n_attn = n_mamba = n_ffn = n_norm = 0.0
     windows: Dict[int, float] = {}
     for seg in cfg.segments():
         for spec in seg.pattern:
-            if spec.mixer != "attn" or spec.ffn not in ("dense", "none"):
+            if spec.mixer not in ("attn", "mamba") or spec.ffn not in ("dense", "none"):
                 raise NotImplementedError(
-                    f"{cfg.name}: the port plans attention mixers with dense FFNs only, "
-                    f"not mixer {spec.mixer!r} with ffn {spec.ffn!r}")
-            n_attn += seg.repeats
-            windows[spec.window] = windows.get(spec.window, 0.0) + seg.repeats
+                    f"{cfg.name}: the port plans attention mixers and Mamba mixers with "
+                    f"dense FFNs only, not mixer {spec.mixer!r} with ffn {spec.ffn!r}")
+            if spec.mixer == "attn":
+                n_attn += seg.repeats
+                windows[spec.window] = windows.get(spec.window, 0.0) + seg.repeats
+            else:
+                n_mamba += seg.repeats
             n_norm += seg.repeats
             if spec.ffn == "dense":
                 n_ffn += seg.repeats
                 n_norm += seg.repeats
-    return {"attn": n_attn, "ffn": n_ffn, "norm": n_norm, "windows": windows}
+    return {"attn": n_attn, "mamba": n_mamba, "ffn": n_ffn, "norm": n_norm,
+            "layers": n_attn + n_mamba, "windows": windows}
+
+
+def _train_counts(cfg: ArchConfig) -> Dict[str, float]:
+    """:func:`_site_counts` of a config the port can train."""
+    counts = _site_counts(cfg)
+    if counts["mamba"]:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba layers are served but not trained yet (ROADMAP, hybrid "
+            f"training: ssm_scan_bwd and ssm_update_bwd, the training planner rows)")
+    return counts
+
+
+def _mamba_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(d_inner, d_state, dt_rank) as ``ssm.mamba_init`` derives them."""
+    return cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state, max(1, -(-cfg.d_model // 16))
 
 
 def default_run(cfg: ArchConfig, shape: ShapeSpec) -> RunConfig:
@@ -161,7 +186,7 @@ def plan_train_jobs(
     scen = f"{cfg.name}/{shape.name}"
     B, S = shape.global_batch, shape.seq_len
     T = max(1, min(max_tokens, B * S))
-    counts = _site_counts(cfg)
+    counts = _train_counts(cfg)
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
 
@@ -211,7 +236,7 @@ def plan_training_jobs(
     scen = f"{cfg.name}/{shape.name}@dp1"
     s = min(S, max_seq)
     T = min(b_loc * s, max_tokens)
-    counts = _site_counts(cfg)
+    counts = _train_counts(cfg)
     n_attn, n_ffn, n_norm = counts["attn"], counts["ffn"], counts["norm"]
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
@@ -294,8 +319,9 @@ def plan_serving_jobs(
     H, KV = cfg.num_heads, cfg.num_kv_heads
     f = cfg.dtype
     counts = _site_counts(cfg)
-    n_attn, n_ffn = counts["attn"], counts["ffn"]
-    n_norm = 2 * n_attn                   # JAX's serving roster: two norms a layer
+    n_attn, n_ffn, n_mamba = counts["attn"], counts["ffn"], counts["mamba"]
+    n_norm = 2 * counts["layers"]         # JAX's serving roster: two norms a layer
+    di, ds, dtr = _mamba_dims(cfg)
     n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
@@ -313,6 +339,14 @@ def plan_serving_jobs(
             add("rmsnorm", [(s, d), (d,)], [f, f], n_norm, scen)
             q, kv = (1, H, s, hd), (1, KV, s, hd)
             add("flash_attention", [q, kv, kv], [f, f, f], n_attn, scen, extra="cTruew0")
+            # Mamba at prefill: the projections over s rows, dt_proj and
+            # out_proj in fp32, and the batch-1 scan
+            add("matmul", [(s, d), (d, 2 * di)], [f, f], n_mamba, scen)
+            add("matmul", [(s, di), (di, dtr + 2 * ds)], [f, f], n_mamba, scen)
+            add("matmul", [(s, dtr), (dtr, di)], [F32, F32], n_mamba, scen)
+            add("matmul", [(s, di), (di, d)], [F32, F32], n_mamba, scen)
+            add("ssm_scan", [(1, s, di), (1, s, di), (1, s, ds), (1, s, ds), (di, ds),
+                             (1, di, ds)], [f, F32, F32, F32, F32, F32], n_mamba, scen)
         if B * s > max_tokens:
             continue
         scen = f"{cfg.name}/serve_decode_b{B}s{s}"
@@ -325,6 +359,13 @@ def plan_serving_jobs(
         add("matmul", [(B, d), (d, cfg.vocab_size)], [f, f], float(s), scen)
         add("rmsnorm", [(B, d), (d,)], [f, f], n_norm * s, scen)
         add("rmsnorm_matmul", [(B, d), (d,), (d, cfg.vocab_size)], [f, f, f], float(s), scen)
+        # Mamba in the pool: the projections at B rows and one ssm_update
+        add("matmul", [(B, d), (d, 2 * di)], [f, f], n_mamba * s, scen)
+        add("matmul", [(B, di), (di, dtr + 2 * ds)], [f, f], n_mamba * s, scen)
+        add("matmul", [(B, dtr), (dtr, di)], [F32, F32], n_mamba * s, scen)
+        add("matmul", [(B, di), (di, d)], [F32, F32], n_mamba * s, scen)
+        add("ssm_update", [(B, di), (B, di), (B, ds), (B, ds), (di, ds), (B, di, ds)],
+            [f, F32, F32, F32, F32, F32], n_mamba * s, scen)
     return jobs
 
 

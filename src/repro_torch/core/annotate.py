@@ -50,6 +50,8 @@ class DispatchSpec:
       as ``bwd(ct, *canonical_args, primal, *aux, **call_kwargs)``; returns
       one gradient per canonical arg (``None`` for integer args such as
       labels).
+    * ``example`` — ``() -> (args, call_kwargs)``: small seeded CPU inputs
+      of the site, for a check of the tunable against its reference.
     * ``residuals`` — the kernel returns ``(primal, *aux)`` with this many
       auxiliary outputs (flash attention's lse, rmsnorm's inverse rms,
       softmax-xent's lse); dispatch saves them for ``bwd`` and hands callers
@@ -63,6 +65,7 @@ class DispatchSpec:
     vjp: str = "reference"
     bwd: Optional[Callable] = None
     residuals: int = 0
+    example: Optional[Callable[[], Tuple[tuple, Dict[str, Any]]]] = None
 
     def reference_for(self, tunable: "Tunable") -> Optional[Callable]:
         return self.reference if self.reference is not None else tunable.reference

@@ -118,6 +118,34 @@ def softmax_xent_res(logits: torch.Tensor, labels: torch.Tensor):
     return lse - label_logit, lse
 
 
+def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             A: torch.Tensor, h0: torch.Tensor):
+    """Sequential S6 selective scan over time, one live state.
+
+    xc [b,s,di] (model dtype), dt [b,s,di] fp32 (post-softplus), B/C
+    [b,s,ds] fp32, A [di,ds] fp32 (negative), h0 [b,di,ds] fp32 carry-in.
+    Returns (y [b,s,di] fp32, hN [b,di,ds] fp32).
+    """
+    xf = xc.float()
+    h = h0.float()
+    ys = []
+    for t in range(xc.shape[1]):
+        dA = torch.exp(dt[:, t, :, None] * A)
+        h = dA * h + (dt[:, t] * xf[:, t])[..., None] * B[:, t, None, :]
+        ys.append((h * C[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(xf.shape)
+    return y, h
+
+
+def ssm_update(xc: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+               A: torch.Tensor, h: torch.Tensor):
+    """One fused decode step of the selective scan: xc/dt [b,di], B/C
+    [b,ds], A [di,ds], h [b,di,ds]. Returns (y [b,di] fp32, h_new fp32)."""
+    dA = torch.exp(dt[..., None] * A)
+    hn = dA * h + (dt * xc.float())[..., None] * B[:, None, :]
+    return (hn * C[:, None, :]).sum(-1), hn
+
+
 def vjp(fn: Callable, primals: Sequence[torch.Tensor], ct):
     """Gradients of ``fn(*primals)`` against the cotangent(s) ``ct``, one per
     primal (``None`` for a primal that is not floating point).

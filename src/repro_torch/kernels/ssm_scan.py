@@ -1,0 +1,281 @@
+"""Selective scan (Mamba S6): the ``ssm_scan`` and ``ssm_update``
+tunables and their CUDA kernels.
+
+The recurrence is ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * xc_t) * B_t``,
+``y_t = h_t . C_t``, with an fp32 carry. Two dispatch sites, as in
+``repro.kernels.ssm_scan``:
+
+* ``ssm_scan`` -- prefill over ``[b, s, di]``. Replaces the TPU kernel
+  ``repro/kernels/ssm_scan.py:_ssm_scan_kernel`` (``ssm_scan_pallas``).
+  Its Reference tier is :func:`ssm_scan_chunked`, the port of the JAX
+  package's chunked form with the same signature and ``chunk`` knob.
+  PyTorch has no stable associative scan, so it steps through time inside
+  each chunk: the same recurrence, with a peak live tensor of
+  ``[b, di, ds]`` (never ``[b, s, di, ds]``).
+* ``ssm_update`` -- one decode step over ``[b, di]``. Replaces
+  ``repro/kernels/ssm_scan.py:_ssm_update_kernel`` (``ssm_update_pallas``).
+
+Both kernels are in ``csrc/ssm_scan.cu``, whose header says what bounds
+them on an H100 and what the design does about that. The kernels take
+``exp`` as ``exp2`` of ``dt * (A * log2 e)``; the plain versions
+:func:`ssm_scan_plain` and :func:`ssm_update_plain` do the same. A thread
+keeps one channel's states in registers, so ``d_state`` is at most
+:data:`MAX_STATE`.
+
+Knobs, worked out for the H100 (not the TPU's VMEM): the scan's
+``block_d`` is the CTA's channel count (threads, at most 512 under the
+kernel's launch bounds) and ``chunk`` the time steps a slice stages in
+shared memory, ``chunk * (2 * block_d + 2 * d_state) * 4`` bytes within the
+227 KB a block may use. The update's CTA is ``block_d`` channels by
+``block_b`` rows, at most 1,024 threads.
+
+No backward: serving is the path these kernels are on. A kernel-mode
+dispatch on tensors that need a gradient raises (``vjp="none"``); hybrid
+training, with ``ssm_scan_bwd`` and ``ssm_update_bwd``, is a later slice.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core.platform import H100_SXM
+from . import _build, ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_STATE = 16
+SCAN_MAX_THREADS = 512
+LOG2E = 1.0 / math.log(2.0)
+
+
+def scan_smem_bytes(c, ds: int = MAX_STATE) -> int:
+    """Shared memory of one scan CTA (mirrors repro_ssm_scan_smem_bytes)."""
+    return c["chunk"] * (2 * c["block_d"] + 2 * ds) * 4
+
+
+SSM_SCAN_SPACE = ParamSpace(
+    [
+        PowerOfTwoParam("chunk", 8, 256),
+        PowerOfTwoParam("block_d", 32, SCAN_MAX_THREADS),
+    ],
+    [
+        Constraint(lambda c: scan_smem_bytes(c) <= H100_SXM.smem_per_block,
+                   "chunk x block_d slice exceeds 227 KB of shared memory"),
+    ],
+)
+
+SSM_UPDATE_SPACE = ParamSpace(
+    [
+        PowerOfTwoParam("block_b", 1, 64),
+        PowerOfTwoParam("block_d", 32, 1024),
+    ],
+    [
+        Constraint(lambda c: c["block_b"] * c["block_d"] <= H100_SXM.max_threads_per_block,
+                   "block_b x block_d exceeds 1024 threads a CTA"),
+    ],
+)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _ssm_scan_heuristic(xc, dt, B, C, A, h0):
+    """The widest CTA (up to 256 channels) that still gives every SM a CTA:
+    at b = 1, d_inner = 16384 that is 64 channels (256 CTAs). 64-step
+    slices, fewer for a shorter prompt."""
+    b, s, di = xc.shape
+    bd = 256
+    while bd > 32 and b * -(-di // bd) < H100_SXM.sm_count:
+        bd //= 2
+    return {"chunk": min(64, max(8, _pow2_at_least(s))), "block_d": bd}
+
+
+def _ssm_update_heuristic(xc, dt, B, C, A, h):
+    """128 channels by two rows a CTA (one row at b = 1): 512 CTAs at the
+    8-slot pool, d_inner = 16384."""
+    return {"block_b": 1 if xc.shape[0] == 1 else 2, "block_d": 128}
+
+
+def _contiguous(*args):
+    """B and C reach the sites as column slices of the x_proj output: the
+    kernels take dense rows."""
+    return tuple(a.contiguous() for a in args), lambda out: out
+
+
+def _inputs(rs, lead, di, ds):
+    """Seeded inputs in the ranges the mixer gives (dt > 0 after softplus,
+    A < 0): xc, dt [*lead, di], B, C [*lead, ds], A [di, ds], state
+    [lead[0], di, ds]."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return (t(rs.randn(*lead, di) * 0.5), t(np.abs(rs.randn(*lead, di)) * 0.1 + 0.01),
+            t(rs.randn(*lead, ds) * 0.5), t(rs.randn(*lead, ds) * 0.5),
+            t(-np.abs(rs.randn(di, ds)) - 0.1), t(rs.randn(lead[0], di, ds) * 0.3))
+
+
+def _ssm_scan_example():
+    """b=2, s=12, di=8, ds=4: s is not a multiple of the smallest chunk."""
+    return _inputs(np.random.RandomState(0), (2, 12), 8, 4), {}
+
+
+def _ssm_update_example():
+    return _inputs(np.random.RandomState(2), (3,), 8, 4), {}
+
+
+# ---------------------------------------------------------------------------
+# Reference tier: the chunked form
+# ---------------------------------------------------------------------------
+
+
+def ssm_scan_chunked(xc, dt, B, C, A, h0, *, chunk: int = 32):
+    """The ``ssm_scan`` tunable's Reference tier: same signature and result
+    as :func:`ref.ssm_scan`, walked ``chunk`` steps at a time (the chunk's
+    ``dt * xc`` products taken at once, then its steps in order). Stops at
+    s, so the state is h at step s-1 for any s. Peak live tensor
+    ``[b, di, ds]``."""
+    b, s, di = xc.shape
+    chunk = max(1, min(int(chunk), s))
+    h = h0.float()
+    y = torch.empty((b, s, di), dtype=torch.float32, device=xc.device)
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        dbx = dt[:, c0:c1] * xc[:, c0:c1].float()               # [b, c, di]
+        for t in range(c1 - c0):
+            dA = torch.exp(dt[:, c0 + t, :, None] * A)
+            h = dA * h + dbx[:, t, :, None] * B[:, c0 + t, None, :]
+            y[:, c0 + t] = (h * C[:, c0 + t, None, :]).sum(-1)
+    return y, h
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan
+# ---------------------------------------------------------------------------
+
+
+def ssm_scan_plain(xc, dt, B, C, A, h0):
+    """The scan kernel's function in plain PyTorch: (y, hN), both fp32,
+    stepping through time with exp taken as exp2 of the log2-scaled A."""
+    a2 = A.float() * LOG2E
+    xf = xc.float()
+    h = h0.float()
+    y = torch.empty(xc.shape, dtype=torch.float32, device=xc.device)
+    for t in range(xc.shape[1]):
+        h = torch.exp2(dt[:, t, :, None] * a2) * h + (dt[:, t] * xf[:, t])[..., None] \
+            * B[:, t, None, :]
+        y[:, t] = (h * C[:, t, None, :]).sum(-1)
+    return y, h
+
+
+def _check_ssm(name, xc, dt, B, C, A, h, lead):
+    """Shapes, dtypes, contiguity and device of either kernel's inputs;
+    ``lead`` is (b, s) for the scan and (b,) for the update."""
+    di, ds = A.shape
+    want = {"xc": lead + (di,), "dt": lead + (di,), "B": lead + (ds,), "C": lead + (ds,),
+            "h": (lead[0], di, ds)}
+    for n, t in (("xc", xc), ("dt", dt), ("B", B), ("C", C), ("h", h)):
+        if tuple(t.shape) != want[n]:
+            raise ValueError(f"{name}: {n} has shape {tuple(t.shape)}, expected {want[n]}")
+    if xc.dtype not in _DTYPES:
+        raise TypeError(f"{name} kernel takes xc in f32 or bf16, got {xc.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, B, C, A, h)):
+        raise TypeError(f"{name} kernel takes dt, B, C, A and the state in fp32")
+    if ds > MAX_STATE:
+        raise ValueError(f"{name} kernel keeps at most {MAX_STATE} states a channel in "
+                         f"registers, got d_state={ds}")
+    if not all(t.is_contiguous() for t in (xc, dt, B, C, A, h)):
+        raise ValueError(f"{name} kernel takes contiguous tensors only")
+    if len({t.device for t in (xc, dt, B, C, A, h)}) != 1:
+        raise ValueError(f"{name} tensors on different devices")
+
+
+def ssm_scan_cuda(xc, dt, B, C, A, h0, *, chunk: int, block_d: int):
+    """Launch the scan of csrc/ssm_scan.cu on CUDA tensors: (y, hN)."""
+    if xc.dim() != 3 or A.dim() != 2:
+        raise ValueError(f"ssm_scan takes xc [b,s,di] and A [di,ds], got {tuple(xc.shape)}, "
+                         f"{tuple(A.shape)}")
+    b, s, di = xc.shape
+    ds = A.shape[1]
+    _check_ssm("ssm_scan", xc, dt, B, C, A, h0, (b, s))
+    if scan_smem_bytes({"chunk": chunk, "block_d": block_d}, ds) > H100_SXM.smem_per_block:
+        raise ValueError(f"ssm_scan: chunk={chunk} x block_d={block_d} exceeds "
+                         f"{H100_SXM.smem_per_block} B of shared memory")
+    y = torch.empty((b, s, di), dtype=torch.float32, device=xc.device)
+    hn = torch.empty((b, di, ds), dtype=torch.float32, device=xc.device)
+    fn = _build.entry("ssm_scan", "repro_ssm_scan",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    err = fn(xc.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
+             h0.data_ptr(), y.data_ptr(), hn.data_ptr(), b, s, di, ds, _DTYPES[xc.dtype],
+             chunk, block_d, _build.stream_ptr(xc.device))
+    _build.check("ssm_scan", err, f"ssm_scan b={b} s={s} di={di} ds={ds} chunk={chunk} "
+                                  f"block_d={block_d}")
+    _build.LAUNCHES["ssm_scan"] += 1
+    return y, hn
+
+
+@tunable(
+    "ssm_scan",
+    space=SSM_SCAN_SPACE,
+    reference=ssm_scan_chunked,
+    heuristic=_ssm_scan_heuristic,
+    # A is the [di, ds] state matrix (a weight, never batch-sharded).
+    dispatch=DispatchSpec(canonicalize=_contiguous, example=_ssm_scan_example,
+                          data_parallel_args=(0, 1, 2, 3, 5), vjp="none"),
+)
+def ssm_scan(xc, dt, B, C, A, h0, *, chunk: int, block_d: int):
+    if xc.is_cuda:
+        return ssm_scan_cuda(xc, dt, B, C, A, h0, chunk=chunk, block_d=block_d)
+    if xc.device.type == "cpu":
+        return ssm_scan_plain(xc, dt, B, C, A, h0)
+    raise RuntimeError(f"ssm_scan has no kernel for device {xc.device}")
+
+
+# ---------------------------------------------------------------------------
+# ssm_update
+# ---------------------------------------------------------------------------
+
+
+def ssm_update_plain(xc, dt, B, C, A, h):
+    """The update kernel's function in plain PyTorch: (y, h_new), fp32."""
+    dA = torch.exp2(dt[..., None] * (A.float() * LOG2E))
+    hn = dA * h + (dt * xc.float())[..., None] * B[:, None, :]
+    return (hn * C[:, None, :]).sum(-1), hn
+
+
+def ssm_update_cuda(xc, dt, B, C, A, h, *, block_b: int, block_d: int):
+    """Launch the decode update of csrc/ssm_scan.cu on CUDA tensors."""
+    if xc.dim() != 2 or A.dim() != 2:
+        raise ValueError(f"ssm_update takes xc [b,di] and A [di,ds], got {tuple(xc.shape)}, "
+                         f"{tuple(A.shape)}")
+    b, di = xc.shape
+    ds = A.shape[1]
+    _check_ssm("ssm_update", xc, dt, B, C, A, h, (b,))
+    y = torch.empty((b, di), dtype=torch.float32, device=xc.device)
+    hn = torch.empty((b, di, ds), dtype=torch.float32, device=xc.device)
+    fn = _build.entry("ssm_scan", "repro_ssm_update",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(xc.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
+             h.data_ptr(), y.data_ptr(), hn.data_ptr(), b, di, ds, _DTYPES[xc.dtype], block_b,
+             block_d, _build.stream_ptr(xc.device))
+    _build.check("ssm_scan", err, f"ssm_update b={b} di={di} ds={ds} block_b={block_b} "
+                                  f"block_d={block_d}")
+    _build.LAUNCHES["ssm_update"] += 1
+    return y, hn
+
+
+@tunable(
+    "ssm_update",
+    space=SSM_UPDATE_SPACE,
+    reference=ref.ssm_update,
+    heuristic=_ssm_update_heuristic,
+    dispatch=DispatchSpec(canonicalize=_contiguous, example=_ssm_update_example,
+                          data_parallel_args=(0, 1, 2, 3, 5), vjp="none"),
+)
+def ssm_update(xc, dt, B, C, A, h, *, block_b: int, block_d: int):
+    if xc.is_cuda:
+        return ssm_update_cuda(xc, dt, B, C, A, h, block_b=block_b, block_d=block_d)
+    if xc.device.type == "cpu":
+        return ssm_update_plain(xc, dt, B, C, A, h)
+    raise RuntimeError(f"ssm_update has no kernel for device {xc.device}")

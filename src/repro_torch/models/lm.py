@@ -110,7 +110,9 @@ def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
 
     ``true_len`` enables bucketed prefill: the batch is right-padded, logits
     are read at position ``true_len - 1`` and window caches ring-align to
-    ``true_len``; causality keeps the pads out of every real position.
+    ``true_len``; causality keeps the pads out of every real position. A
+    Mamba layer's state would integrate the pads, so an arch with one is
+    prefilled at exact length (the engine does so).
     """
     seq = batch["tokens"].shape[1]
     tl = None if true_len is None else int(true_len)
@@ -133,11 +135,12 @@ def decode_step(params, tokens, caches, pos, cfg: ArchConfig, run: tf.RunConfig)
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
-    """Zero-filled cache for a ``batch``-slot decode pool (JAX layout)."""
+    """Zero-filled cache for a ``batch``-slot decode pool (JAX layout), each
+    leaf in its own dtype (the Mamba state ``h`` in fp32)."""
     dev = torch.device(device)
     return tuple(
-        {name: {kk: torch.zeros(shape, dtype=cfg.tdtype, device=dev) for kk in ("k", "v")}
-         for name, shape in seg.items()}
+        {name: {kk: torch.zeros(shape, dtype=dt, device=dev) for kk, (shape, dt) in leaves.items()}
+         for name, leaves in seg.items()}
         for seg in tf.cache_shapes(cfg, batch, cache_len)
     )
 

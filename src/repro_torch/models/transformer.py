@@ -1,14 +1,18 @@
-"""Block assembly for attention + dense-FFN decoders.
+"""Block assembly for decoders of attention and Mamba mixers with dense FFNs.
 
 Where the JAX package scans over stacked super-block params, the port
 loops over layers in Python: ``params["segments"][si]`` is a list of
 super-blocks (one per repeat), each ``{"l{i}": layer params}``. Caches keep
-the JAX layout: per segment ``{"l{i}": {"k": [repeats, b, clen, kv, hd],
-"v": ...}}``.
+the JAX layout: per segment ``{"l{i}": leaves}``, each leaf stacked over
+the repeats, ``{"k": [repeats, b, clen, kv, hd], "v": ...}`` for an
+attention layer and ``{"h": [repeats, b, di, ds] (fp32), "conv": [repeats,
+b, d_conv - 1, di]}`` for a Mamba layer.
 
 Three modes share one code path: ``train`` (full sequence, no caches),
 ``prefill`` (full sequence, emits caches) and ``decode`` (one token,
-updates caches in place). In ``train`` mode ``RunConfig.remat="full"``
+updates caches in place: attention writes its new row into the pool, and
+the Mamba state, which ``mamba_decode`` returns as new tensors, is copied
+back into the pool's slices). In ``train`` mode ``RunConfig.remat="full"``
 wraps each layer in ``torch.utils.checkpoint`` (non-reentrant): only the
 layer's input is kept and the layer runs again in the backward.
 """
@@ -22,6 +26,7 @@ import torch.utils.checkpoint
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.runtime import current_runtime
 from . import attention as attn
+from . import ssm
 from .layers import ffn_apply, ffn_init, norm_init, rmsnorm
 
 REMAT = ("none", "full")
@@ -49,20 +54,24 @@ class RunConfig:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
-        raise NotImplementedError(f"the port has attention mixers only, not {spec.mixer!r}")
+    if spec.mixer not in ("attn", "mamba"):
+        raise NotImplementedError(f"the port has attention and Mamba mixers, not "
+                                  f"{spec.mixer!r} (the xLSTM mixers are a later slice)")
     if spec.ffn not in ("dense", "none"):
-        raise NotImplementedError(f"the port has dense FFNs only, not {spec.ffn!r}")
+        raise NotImplementedError(f"the port has dense FFNs only, not {spec.ffn!r}: MoE "
+                                  f"layers come with the MoE slice (expert_gemm)")
 
 
 def layer_init(gen, cfg: ArchConfig, spec: LayerSpec, device):
     _check_spec(spec)
     dt = cfg.tdtype
-    p = {
-        "norm1": norm_init(cfg.d_model, dt, device),
-        "mixer": attn.attention_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                                     cfg.hd, dt, device, qkv_bias=cfg.qkv_bias),
-    }
+    if spec.mixer == "attn":
+        mixer = attn.attention_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.hd, dt, device, qkv_bias=cfg.qkv_bias)
+    else:
+        mixer = ssm.mamba_init(gen, cfg.d_model, dt, device, expand=cfg.mamba_expand,
+                               d_state=cfg.mamba_d_state)
+    p = {"norm1": norm_init(cfg.d_model, dt, device), "mixer": mixer}
     if spec.ffn != "none":
         p["norm2"] = norm_init(cfg.d_model, dt, device)
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt, device)
@@ -84,7 +93,16 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
     common = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.hd,
                   rope_theta=cfg.rope_theta, window=spec.window)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if mode == "train":
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
+    if spec.mixer == "mamba":
+        if mode == "train":
+            y, new_cache = ssm.mamba_forward(p["mixer"], h), None
+        elif mode == "prefill":
+            y, new_cache = ssm.mamba_forward(p["mixer"], h, return_state=True)
+        else:
+            y, new_cache = ssm.mamba_decode(p["mixer"], h, cache)
+    elif mode == "train":
         y = attn.attention_forward(p["mixer"], h, q_chunk=run.q_chunk, k_chunk=run.k_chunk,
                                    **common)
         new_cache = None
@@ -95,8 +113,6 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
     elif mode == "decode":
         y, new_cache = attn.attention_decode(p["mixer"], h, cache, pos,
                                              k_chunk=run.k_chunk, **common)
-    else:
-        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
     x = x + y
     if spec.ffn != "none":
         x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.ffn_kind)
@@ -143,6 +159,9 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                     c = cache_len
                 x, nc = layer_apply(block[name], x, spec, cfg, run, mode, c, pos,
                                     true_len=true_len)
+                if mode == "decode" and spec.mixer == "mamba":
+                    for kk, t in nc.items():      # the new state into the pool's slice
+                        c[kk].copy_(t)
                 if mode == "prefill":
                     per_layer[name].append(nc)
         if mode == "prefill":
@@ -154,13 +173,23 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):
-    """Per segment ``{"l{i}": shape of its stacked k (and v) cache}``."""
+    """Per segment ``{"l{i}": {leaf: (stacked shape, dtype)}}``: ``k`` and
+    ``v`` in the model dtype for attention, ``h`` (fp32) and ``conv`` for
+    Mamba."""
     out = []
     for seg in cfg.segments():
         sb = {}
         for i, spec in enumerate(seg.pattern):
             _check_spec(spec)
-            sb[f"l{i}"] = (seg.repeats,) + attn.attention_cache_shape(
-                batch, cache_len, cfg.num_kv_heads, cfg.hd, spec.window)
+            if spec.mixer == "attn":
+                shape = attn.attention_cache_shape(batch, cache_len, cfg.num_kv_heads, cfg.hd,
+                                                   spec.window)
+                leaves = {"k": (shape, cfg.tdtype), "v": (shape, cfg.tdtype)}
+            else:
+                leaves = ssm.mamba_state_shapes(batch, cfg.d_model, cfg.tdtype,
+                                                expand=cfg.mamba_expand,
+                                                d_state=cfg.mamba_d_state)
+            sb[f"l{i}"] = {kk: ((seg.repeats,) + shape, dt)
+                           for kk, (shape, dt) in leaves.items()}
         out.append(sb)
     return tuple(out)

@@ -7,8 +7,10 @@ at ``max_seq`` on the parameters' device, plus host-side state per slot
 serve loop:
 
     admit   — while a slot is free and a request has arrived, right-pad its
-              prompt to a power-of-two bucket, prefill it at batch 1 and
-              copy the fresh cache over the slot's whole region;
+              prompt to a power-of-two bucket (an arch with a Mamba mixer
+              prefills at the exact prompt length: its state integrates
+              every token, pads included), prefill it at batch 1 and copy
+              the fresh cache over the slot's whole region;
     decode  — one step over the whole pool per tick, with a position per
               slot; empty slots decode a dummy token that is never read;
     retire  — a slot whose request reached its ``max_new_tokens`` is freed
@@ -115,6 +117,8 @@ class ServingEngine:
         self.device = params["embed"]["table"].device
         self.clock = clock
         self.runtime = runtime
+        self._has_ssm = any(spec.mixer != "attn" for seg in cfg.segments()
+                            for spec in seg.pattern)
         self._caches = lm.init_cache(cfg, ecfg.max_batch, ecfg.max_seq, self.device)
         self._slots: List[Optional[_Slot]] = [None] * ecfg.max_batch
         self.queue: List[Request] = []
@@ -125,7 +129,7 @@ class ServingEngine:
         self.stats: Dict[str, int] = {
             "decode_steps": 0,
             "prefill_calls": 0,
-            "prefill_tokens": 0,      # padded (bucketed) prefill tokens
+            "prefill_tokens": 0,      # prefill tokens, bucket padding included
             "slot_steps_active": 0,
             "slot_steps_idle": 0,
             "tokens_out": 0,
@@ -156,6 +160,9 @@ class ServingEngine:
         return True
 
     def _bucket_len(self, prompt_len: int) -> int:
+        if self._has_ssm:
+            # pad tokens would step the recurrent state: exact length
+            return prompt_len
         b = max(self.ecfg.min_prefill_bucket, shape_bucket((prompt_len,))[0])
         return min(b, self.ecfg.max_seq)
 

@@ -113,7 +113,8 @@ def test_full_width_plan_has_one_job_per_fused_site():
     t, _ = _full_plan()
     d = scheduler.dedupe_jobs(t, "h100-sxm")
     assert len(d) == 73
-    assert {j.kernel for j in d} == set(KERNELS)
+    # every default kernel but the selective scan's two, which qwen2_0_5b has no site for
+    assert {j.kernel for j in d} == set(KERNELS) - {"ssm_scan", "ssm_update"}
     (rmm,) = [j for j in d if j.kernel == "rmsnorm_matmul"]
     assert rmm.arg_shapes == ((8, 896), (896,), (896, 151936))
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import fused as fu  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import xent as xe  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -344,3 +345,107 @@ def test_fused_dispatch_gradients_on_the_card(cuda):
                 grads[mode] = torch.autograd.grad(out, args, ct)
         for gk, gr in zip(grads["kernel"], grads["reference"]):
             _close(gk, gr, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Selective scan: every legal config of both spaces on ragged shapes
+# ---------------------------------------------------------------------------
+
+SCAN_CONFIGS = list(ss.SSM_SCAN_SPACE.enumerate())
+UPDATE_CONFIGS = list(ss.SSM_UPDATE_SPACE.enumerate())
+
+
+def _ssm_inputs(rs, lead, di, ds, dtype, device):
+    """The mixer's ranges: dt > 0 after softplus, A < 0, a nonzero carry."""
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return (f(rs.randn(*lead, di) * 0.5).to(dtype), f(np.abs(rs.randn(*lead, di)) * 0.1 + 0.01),
+            f(rs.randn(*lead, ds) * 0.5), f(rs.randn(*lead, ds) * 0.5),
+            f(-np.abs(rs.randn(di, ds)) - 0.1), f(rs.randn(lead[0], di, ds) * 0.3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,ds", [(1, 37, 100, 16), (2, 129, 300, 16), (3, 1, 33, 4),
+                                       (1, 64, 64, 7)])
+@pytest.mark.parametrize("config", SCAN_CONFIGS, ids=ss.SSM_SCAN_SPACE.config_key)
+def test_ssm_scan_kernel_matches_plain(cuda, dtype, b, s, di, ds, config):
+    """y and the final state are fp32 on both sides: f32 tolerance, xc in
+    either dtype (the plain version widens the same bf16 values)."""
+    args = _ssm_inputs(np.random.RandomState(s + di), (b, s), di, ds, dtype, cuda)
+    y, hn = ss.ssm_scan_cuda(*args, **config)
+    torch.cuda.synchronize()
+    p_y, p_h = ss.ssm_scan_plain(*args)
+    assert y.dtype == hn.dtype == torch.float32
+    _close(y, p_y, torch.float32)
+    _close(hn, p_h, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,di,ds", [(8, 16384, 16), (3, 100, 16), (1, 33, 5)])
+@pytest.mark.parametrize("config", UPDATE_CONFIGS, ids=ss.SSM_UPDATE_SPACE.config_key)
+def test_ssm_update_kernel_matches_plain(cuda, dtype, b, di, ds, config):
+    args = _ssm_inputs(np.random.RandomState(b + di), (b,), di, ds, dtype, cuda)
+    y, hn = ss.ssm_update_cuda(*args, **config)
+    torch.cuda.synchronize()
+    p_y, p_h = ss.ssm_update_plain(*args)
+    _close(y, p_y, torch.float32)
+    _close(hn, p_h, torch.float32)
+
+
+def test_ssm_update_unaligned_rows_match_plain(cuda):
+    """B, C and the state as contiguous views 4 bytes past an aligned base:
+    the kernel takes its scalar path there, its 16-byte one otherwise."""
+    xc, dt, B, C, A, h = _ssm_inputs(np.random.RandomState(1), (3,), 100, 16, torch.float32,
+                                     cuda)
+    shifted = lambda t: torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+    args = (xc, dt, shifted(B), shifted(C), A, shifted(h))
+    assert all(a.is_contiguous() for a in args) and args[2].data_ptr() % 16 == 4
+    y, hn = ss.ssm_update_cuda(*args, block_b=2, block_d=32)
+    torch.cuda.synchronize()
+    p_y, p_h = ss.ssm_update_plain(*args)
+    _close(y, p_y, torch.float32)
+    _close(hn, p_h, torch.float32)
+
+
+def test_ssm_wrappers_count_only_kernel_launches(cuda):
+    args = _ssm_inputs(np.random.RandomState(0), (1, 9), 64, 16, torch.float32, cuda)
+    kernels.reset_launch_counts()
+    ss.ssm_scan(*args)
+    ss.ssm_scan_plain(*args)
+    ss.ssm_update(*(a[:, 0] if a.dim() == 3 and i < 4 else a for i, a in enumerate(args)))
+    ss.ssm_scan(*(a.cpu() for a in args))
+    assert kernels.launch_counts() == {"ssm_scan": 1, "ssm_update": 1}
+
+
+def test_reduced_hybrid_on_card_matches_cpu(cuda):
+    """Reduced Jamba without experts (16 layers, f32): a prefill at an exact
+    ragged length and two decode steps on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+
+    cfg = dataclasses.replace(get_config("jamba_1_5_large").reduced(), num_experts=0,
+                              experts_per_token=0)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    to = lambda t: t.to(cuda) if isinstance(t, torch.Tensor) else (
+        {k: to(v) for k, v in t.items()} if isinstance(t, dict) else type(t)(to(v) for v in t))
+    on_card = to(params)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 29)))
+    run = RunConfig(q_chunk=16, k_chunk=16)
+    kernels.reset_launch_counts()
+    logits = {}
+    with torch.inference_mode():
+        for name, p, dev in (("gpu", on_card, cuda), ("cpu", params, "cpu")):
+            lg, caches = lm.prefill(p, {"tokens": toks.to(dev)}, cfg, run, cache_len=48)
+            out = [lg]
+            for step in range(2):
+                lg, caches = lm.decode_step(p, torch.tensor([[step + 3]], device=dev), caches,
+                                            torch.tensor([29 + step], device=dev), cfg, run)
+                out.append(lg)
+            logits[name] = torch.cat(out).cpu()
+    assert kernels.launch_counts()["ssm_scan"] == 14
+    assert kernels.launch_counts()["ssm_update"] == 28
+    # 16 layers of fp32 sums in another order: 1e-4 of max|logit|
+    err = (logits["gpu"] - logits["cpu"]).abs().max().item()
+    assert err <= 1e-4 * logits["cpu"].abs().max().item(), err

@@ -1,0 +1,320 @@
+"""The hybrid slice: reduced Jamba-1.5-Large without experts (1 attention
++ 7 Mamba layers a super-block, dense SwiGLU FFNs, f32, 16 layers) in the
+port against the JAX package.
+
+The JAX ``init_params`` output crosses through numpy with
+``from_jax_params``. Held against JAX: every parameter leaf with its dtype;
+prefill logits and caches at exact prompt lengths (an SSM arch prefills at
+exact length), in kernel mode (JAX: Pallas in interpret mode; port: the
+kernels' plain versions) and in reference mode; three decode steps at a
+vector ``pos`` from a two-slot pool; the serving engine's tokens; the
+serving plan. The port's engine serves any arrival pattern as it serves
+each request alone, and a freed slot's Mamba state never reaches its next
+occupant.
+
+Tolerance: 1e-5 of max|logit| (at least 1), as for the dense model: the
+same fp32 math through 16 layers, with sums taken in another order.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import repro  # noqa: E402
+import repro_torch  # noqa: E402
+from repro.campaign import planner as jplanner  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.distributed.sharding import Layout  # noqa: E402
+from repro.launch.mesh import make_host_mesh  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models.transformer import RunConfig as JRun  # noqa: E402
+from repro.serving import engine as jeng  # noqa: E402
+from repro_torch.campaign import planner  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.convert import from_jax_params  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.transformer import RunConfig  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
+
+JRUN = JRun(remat="none", q_chunk=16, k_chunk=16)
+RUN = RunConfig(q_chunk=16, k_chunk=16)
+CACHE_LEN = 48
+TOL = 1e-5
+DENSE = dict(num_experts=0, experts_per_token=0)
+
+
+def _dense(get, reduced=True):
+    cfg = dataclasses.replace(get("jamba_1_5_large"), **DENSE)
+    return cfg.reduced() if reduced else cfg
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg, cfg = _dense(j_get_config), _dense(get_config)
+    params, _ = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
+    return jcfg, cfg, params, tparams
+
+
+def _close(t, j):
+    j = np.asarray(j, np.float32)
+    t = t.float().numpy()
+    assert t.shape == j.shape
+    assert np.abs(t - j).max() <= TOL * max(np.abs(j).max(), 1.0), np.abs(t - j).max()
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def test_the_config_is_the_jax_one():
+    jcfg, cfg = _dense(j_get_config, False), _dense(get_config, False)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    assert [(s.mixer, s.ffn) for s in cfg.segments()[0].pattern] == \
+        [("attn", "dense")] + [("mamba", "dense")] * 7
+    assert get_config("jamba-1.5-large-398b") is get_config("jamba_1_5_large")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_converted_params_carry_every_leaf_with_its_dtype(dtype):
+    jcfg = dataclasses.replace(_dense(j_get_config), dtype=dtype, num_layers=8)
+    cfg = dataclasses.replace(_dense(get_config), dtype=dtype, num_layers=8)
+    params, _ = jlm.init_params(jax.random.PRNGKey(3), jcfg)
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    tparams = from_jax_params(np_params, cfg, device="cpu")
+    own = lm.init_params(cfg, 0, "cpu")
+    jl = {name: leaf for name, leaf in _leaves(
+        {k: v for k, v in np_params.items() if k != "segments"})}
+    for name, leaf in _leaves(np_params["segments"][0]):
+        jl[f"/segments/0/0{name}"] = leaf[0]
+    tl, ol = dict(_leaves(tparams)), dict(_leaves(own))
+    assert set(tl) == set(jl) == set(ol)
+    for name, a in jl.items():
+        assert tuple(tl[name].shape) == a.shape == tuple(ol[name].shape), name
+        assert str(tl[name].dtype).split(".")[1] == str(a.dtype) == str(ol[name].dtype).split(".")[1], name
+        np.testing.assert_array_equal(tl[name].float().numpy(), a.astype(np.float32))
+    fp32 = {n.rsplit("/", 1)[1] for n, t in tl.items() if t.dtype == torch.float32}
+    want = {"dt_bias", "A_log", "D"} if dtype == "bfloat16" else {n.rsplit("/", 1)[1] for n in tl}
+    assert fp32 == want
+
+
+def _prefill_both(model, mode, toks):
+    jcfg, cfg, params, tparams = model
+    L = toks.shape[1]
+    with repro.runtime(mode=mode):
+        jl, jc = jlm.prefill(params, {"tokens": jnp.asarray(toks)}, jcfg, JRUN,
+                             cache_len=CACHE_LEN, true_len=jnp.asarray(L))
+    with repro_torch.runtime(mode=mode), torch.inference_mode():
+        tl, tc = lm.prefill(tparams, {"tokens": torch.from_numpy(toks).long()}, cfg, RUN,
+                            cache_len=CACHE_LEN, true_len=L)
+    return (jl, jc), (tl, tc)
+
+
+@pytest.mark.parametrize("mode", ["kernel", "reference"])
+@pytest.mark.parametrize("length", [2, 8, 19, 37])
+def test_prefill_matches_jax(model, mode, length):
+    toks = np.random.RandomState(length).randint(0, 256, (1, length)).astype(np.int32)
+    (jl, jc), (tl, tc) = _prefill_both(model, mode, toks)
+    _close(tl, jl)
+    _close(tc[0]["l0"]["k"], jc[0]["l0"]["k"])
+    for i in (1, 7):
+        for leaf in ("h", "conv"):
+            _close(tc[0][f"l{i}"][leaf], jc[0][f"l{i}"][leaf])
+    assert tc[0]["l1"]["h"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("mode", ["kernel", "reference"])
+def test_three_decode_steps_at_vector_pos_match_jax(model, mode):
+    """Two slots prefilled at different lengths, inserted into a pool, then
+    three decode steps with pos = [L0 + t, L1 + t]: the logits and the pool's
+    Mamba state after each step."""
+    jcfg, cfg, params, tparams = model
+    lens = (21, 8)
+    j_pool = jlm.init_cache(jcfg, 2, CACHE_LEN)
+    t_pool = lm.init_cache(cfg, 2, CACHE_LEN, "cpu")
+    assert t_pool[0]["l1"]["h"].dtype == torch.float32
+    for slot, L in enumerate(lens):
+        toks = np.random.RandomState(L).randint(0, 256, (1, L)).astype(np.int32)
+        (_, jc), (_, tc) = _prefill_both(model, mode, toks)
+        j_pool = jlm.insert_cache(j_pool, jc, slot)
+        lm.insert_cache(t_pool, tc, slot)
+    rs = np.random.RandomState(9)
+    for step in range(3):
+        tokens = rs.randint(0, 256, (2, 1)).astype(np.int32)
+        pos = np.array(lens, np.int32) + step
+        with repro.runtime(mode=mode):
+            jl, j_pool = jlm.decode_step(params, jnp.asarray(tokens), j_pool,
+                                         jnp.asarray(pos), jcfg, JRUN)
+        with repro_torch.runtime(mode=mode), torch.inference_mode():
+            tl, t_pool = lm.decode_step(tparams, torch.from_numpy(tokens).long(), t_pool,
+                                        torch.from_numpy(pos).long(), cfg, RUN)
+        _close(tl, jl)
+        for leaf in ("h", "conv"):
+            _close(t_pool[0]["l3"][leaf], j_pool[0]["l3"][leaf])
+        _close(t_pool[0]["l0"]["v"], j_pool[0]["l0"]["v"])
+
+
+def test_decode_writes_the_mamba_state_back_into_the_pool(model):
+    _, cfg, _, tparams = model
+    pool = lm.init_cache(cfg, 2, CACHE_LEN, "cpu")
+    before = {k: t.clone() for k, t in pool[0]["l2"].items()}
+    with repro_torch.runtime(), torch.inference_mode():
+        _, out = lm.decode_step(tparams, torch.tensor([[5], [6]]), pool, torch.tensor([0, 0]),
+                                cfg, RUN)
+    assert out is pool
+    for k in ("h", "conv"):
+        assert not torch.equal(pool[0]["l2"][k], before[k]), k
+
+
+def test_decode_dispatches_every_kernel_on_the_path(model):
+    _, cfg, _, tparams = model
+    toks = torch.from_numpy(np.arange(13)[None]).long()
+    with repro_torch.runtime() as rt, torch.inference_mode():
+        _, caches = lm.prefill(tparams, {"tokens": toks}, cfg, RUN, cache_len=CACHE_LEN)
+        lm.decode_step(tparams, toks[:, :1], caches, torch.tensor([13]), cfg, RUN)
+    kernels = {k.split("|")[0] for k in rt.telemetry.by_key}
+    assert kernels == {"matmul", "rmsnorm", "flash_attention", "ssm_scan", "ssm_update"}
+    assert set(rt.telemetry.tiers) == {"heuristic"}
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def _prompt(length: int, seed: int) -> np.ndarray:
+    return np.random.RandomState(10_000 + 17 * length + seed).randint(0, 256, length).astype(np.int32)
+
+
+def _engine(cfg, tparams, max_batch=3, **kw):
+    return ServingEngine(cfg, RUN, tparams, EngineConfig(max_batch=max_batch, max_seq=CACHE_LEN,
+                                                         **kw),
+                         runtime=repro_torch.runtime())
+
+
+def test_same_tokens_as_the_jax_engine(model):
+    jcfg, cfg, params, tparams = model
+    spec = [(8, 5, 0.0, 0), (19, 4, 0.8, 1), (2, 6, 0.0, 2), (11, 4, 1.0, 3)]
+    j_engine = jeng.ServingEngine(
+        jcfg, JRUN, params, make_host_mesh(), Layout(),
+        jeng.EngineConfig(max_batch=3, max_seq=CACHE_LEN), runtime=repro.runtime(mode="reference"))
+    t_engine = _engine(cfg, tparams)
+    for eng, R in ((j_engine, jeng.Request), (t_engine, Request)):
+        for i, (L, n, temp, seed) in enumerate(spec):
+            eng.submit(R(prompt=_prompt(L, seed), max_new_tokens=n, temperature=temp,
+                         seed=seed, arrival_time=float(i)))
+    j_done, t_done = j_engine.serve(), t_engine.serve()
+    assert [r.output.tolist() for r in t_done] == [r.output.tolist() for r in j_done]
+    assert t_engine.stats["decode_steps"] == j_engine.stats["decode_steps"]
+    # exact-length prefill: no bucket padding
+    assert t_engine.stats["prefill_tokens"] == j_engine.stats["prefill_tokens"] \
+        == sum(L for L, *_ in spec)
+    assert sorted(t_engine.timings["prefill_s"]) == sorted(L for L, *_ in spec)
+
+
+_SOLO = {}
+
+
+def _solo_greedy(cfg, tparams, prompt, max_new):
+    key = (prompt.tobytes(), max_new)
+    if key not in _SOLO:
+        with torch.inference_mode():
+            toks = torch.from_numpy(prompt.astype(np.int64))[None]
+            logits, caches = lm.prefill(tparams, {"tokens": toks}, cfg, RUN, cache_len=CACHE_LEN)
+            out = [int(logits[0].argmax())]
+            for step in range(min(max_new, CACHE_LEN - len(prompt)) - 1):
+                logits, caches = lm.decode_step(tparams, torch.tensor([[out[-1]]]), caches,
+                                                torch.tensor(len(prompt) + step), cfg, RUN)
+                out.append(int(logits[0].argmax()))
+        _SOLO[key] = np.asarray(out, np.int32)
+    return _SOLO[key]
+
+
+@pytest.mark.parametrize("case_seed", range(3))
+def test_any_arrival_pattern_matches_solo(model, case_seed):
+    _, cfg, _, tparams = model
+    rs = np.random.RandomState(700 + case_seed)
+    eng = _engine(cfg, tparams)
+    t = 0.0
+    reqs = []
+    for _ in range(rs.randint(2, 6)):
+        t += int(rs.randint(0, 5))
+        reqs.append(Request(prompt=_prompt(int(rs.choice([2, 8, 13])), int(rs.randint(3))),
+                            max_new_tokens=int(rs.randint(1, 6)), arrival_time=t))
+    for r in reqs:
+        eng.submit(r)
+    done = eng.serve()
+    assert len(done) == len(reqs) and all(s is None for s in eng._slots)
+    assert eng.stats["prefill_tokens"] == sum(len(r.prompt) for r in reqs)
+    for r in done:
+        np.testing.assert_array_equal(r.output, _solo_greedy(cfg, tparams, r.prompt,
+                                                             r.max_new_tokens))
+
+
+def test_freed_slot_state_never_leaks(model):
+    """One slot, two requests in turn: the second occupant decodes as it
+    would alone, though the first left its Mamba state and conv tail in the
+    slot (an 8-token prompt after a 17-token one)."""
+    _, cfg, _, tparams = model
+    one = _engine(cfg, tparams, max_batch=1)
+    a = Request(prompt=_prompt(17, 0), max_new_tokens=10)
+    b = Request(prompt=_prompt(8, 1), max_new_tokens=7)
+    one.submit(a)
+    one.submit(b)
+    da, db = one.serve()
+    assert da.slot == db.slot == 0
+    np.testing.assert_array_equal(db.output, _solo_greedy(cfg, tparams, b.prompt, 7))
+    np.testing.assert_array_equal(da.output, _solo_greedy(cfg, tparams, a.prompt, 10))
+
+
+def test_warmup_covers_the_hybrid_sites(model):
+    _, cfg, _, tparams = model
+    eng = _engine(cfg, tparams)
+    resolved = eng.warmup()
+    kernels = {k.split("|")[0] for k in resolved}
+    assert {"ssm_scan", "ssm_update", "matmul", "rmsnorm", "flash_attention"} <= kernels
+
+
+# ---------------------------------------------------------------------------
+# Planner and errors
+# ---------------------------------------------------------------------------
+
+FIELDS = ("kernel", "arg_shapes", "arg_dtypes", "key_extra", "weight", "scenarios")
+
+
+def _rows(jobs):
+    return [tuple(getattr(j, f) for f in FIELDS) for j in jobs]
+
+
+@pytest.mark.parametrize("reduced,serving,max_tokens", [
+    (True, (2, 32), 4096), (True, (8, 128), 8192), (False, (8, 2048), 8192)],
+    ids=["reduced-2x32", "reduced-8x128", "full-8x2048"])
+def test_serving_plan_equals_jax(reduced, serving, max_tokens):
+    jcfg, tcfg = _dense(j_get_config, reduced), _dense(get_config, reduced)
+    if not reduced:                       # one super-block, as the card serves it
+        jcfg, tcfg = (dataclasses.replace(c, num_layers=8) for c in (jcfg, tcfg))
+    t = planner.plan_serving_jobs(tcfg, *serving, max_tokens=max_tokens)
+    j = jplanner.plan_serving_jobs(jcfg, *serving, kernels=planner.DEFAULT_KERNELS,
+                                   max_tokens=max_tokens)
+    assert _rows(t) == _rows(j)
+    assert {x.kernel for x in t} >= {"ssm_scan", "ssm_update"}
+    if not reduced:
+        (scan,) = [x for x in t if x.kernel == "ssm_scan" and x.arg_shapes[0][1] == 2048]
+        assert scan.arg_shapes[0] == (1, 2048, 16384) and scan.weight == 7
+
+
+def test_errors_name_the_missing_slice():
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        lm.init_params(get_config("jamba_1_5_large").reduced(), 0, "cpu")
+    with pytest.raises(NotImplementedError, match="hybrid training"):
+        planner.plan_training_jobs(_dense(get_config), SHAPES["train_2k"])
+    with pytest.raises(NotImplementedError, match="hybrid training"):
+        planner.plan_train_jobs(_dense(get_config), SHAPES["train_2k"])

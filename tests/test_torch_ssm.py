@@ -1,0 +1,256 @@
+"""The port's selective scan and Mamba mixer against the JAX package's.
+
+Inputs are made from a seed with numpy and go through both packages:
+
+* ``ssm_scan``: the port's plain version (the CPU side of its kernel's
+  wrapper) and its Reference tier ``ssm_scan_chunked`` against the JAX
+  Pallas kernel in interpret mode, the JAX ``ssm_scan_chunked`` and the
+  sequential ``ref.ssm_scan`` -- y and the final state, xc in f32 and bf16,
+  a nonzero carry-in, ragged tails (s = 1, 12, 37 at chunk 8) and a
+  d_inner (12) that is not a multiple of the kernel's block_d (8).
+* ``ssm_update``: the same against ``ssm_update_pallas`` and
+  ``ref.ssm_update`` at b = 3 and a ragged d_inner.
+* The Mamba mixer (``mamba_forward`` with and without its state,
+  ``mamba_decode``) against JAX at d = 64 with the JAX parameters carried
+  across, in kernel and in reference mode, prompts shorter than the conv
+  tail included; the port's prefill -> decode state continuity.
+
+Tolerance: 1e-5 of max|reference| (at least 1 for the mixer's outputs).
+Both sides compute in fp32; the kernels take exp as exp2 of a log2-scaled
+A and the sums run in another order, each about 1e-7 relative, over at
+most 37 steps of a recurrence whose factor is at most 1.
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import repro  # noqa: E402
+import repro_torch  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.convert import to_tensor  # noqa: E402
+from repro_torch.core.annotate import registered  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+
+# the module (``repro.kernels`` re-exports the tunable under its name)
+jss = importlib.import_module("repro.kernels.ssm_scan")
+
+TOL = 1e-5
+D_MIX = 64
+
+
+def _close(t, j, floor=1e-6):
+    j = np.asarray(j, np.float32)
+    t = t.detach().float().numpy()
+    assert t.shape == j.shape
+    assert np.abs(t - j).max() <= TOL * max(np.abs(j).max(), floor), np.abs(t - j).max()
+
+
+def _inputs(seed, lead, di, ds, xdtype):
+    """numpy inputs in the mixer's ranges: dt > 0, A < 0, a nonzero carry."""
+    rs = np.random.RandomState(seed)
+    f = np.float32
+    xc = (rs.randn(*lead, di) * 0.5).astype(f)
+    if xdtype == "bfloat16":             # values bf16 can hold, on both sides
+        xc = np.asarray(jnp.asarray(xc, jnp.bfloat16).astype(jnp.float32))
+    return (xc, (np.abs(rs.randn(*lead, di)) * 0.1 + 0.01).astype(f),
+            (rs.randn(*lead, ds) * 0.5).astype(f), (rs.randn(*lead, ds) * 0.5).astype(f),
+            (-np.abs(rs.randn(di, ds)) - 0.1).astype(f),
+            (rs.randn(lead[0], di, ds) * 0.3).astype(f))
+
+
+def _both(arrays, xdtype):
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[xdtype]
+    j = [jnp.asarray(a) for a in arrays]
+    j[0] = j[0].astype(xdtype)
+    t = [torch.from_numpy(np.array(a)) for a in arrays]
+    t[0] = t[0].to(tdt)
+    return j, t
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 12, 37])
+def test_ssm_scan_matches_jax(s, xdtype):
+    j, t = _both(_inputs(s, (2, s), 12, 4, xdtype), xdtype)
+    jy_k, jh_k = jss.ssm_scan_pallas(*j, chunk=8, block_d=8, interpret=True)
+    jy_c, jh_c = jss.ssm_scan_chunked(*j, chunk=8)
+    jy_r, jh_r = jref.ssm_scan(*j)
+    ty_p, th_p = ss.ssm_scan(*t, chunk=8, block_d=32)       # the wrapper: plain on the CPU
+    ty_c, th_c = ss.ssm_scan_chunked(*t, chunk=8)
+    ty_r, th_r = ref.ssm_scan(*t)
+    assert ty_p.dtype == th_p.dtype == torch.float32
+    for ty, th in ((ty_p, th_p), (ty_c, th_c), (ty_r, th_r)):
+        for jy, jh in ((jy_k, jh_k), (jy_c, jh_c), (jy_r, jh_r)):
+            _close(ty, jy)
+            _close(th, jh)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_ssm_update_matches_jax(xdtype):
+    j, t = _both(_inputs(7, (3,), 12, 4, xdtype), xdtype)
+    jy_k, jh_k = jss.ssm_update_pallas(*j, block_b=8, block_d=8, interpret=True)
+    jy_r, jh_r = jref.ssm_update(*j)
+    ty_p, th_p = ss.ssm_update(*t, block_b=2, block_d=32)
+    ty_r, th_r = ref.ssm_update(*t)
+    for ty, th in ((ty_p, th_p), (ty_r, th_r)):
+        for jy, jh in ((jy_k, jh_k), (jy_r, jh_r)):
+            _close(ty, jy)
+            _close(th, jh)
+
+
+def test_chunked_form_is_one_recurrence_for_every_chunk():
+    _, t = _both(_inputs(3, (2, 37), 12, 4, "float32"), "float32")
+    y0, h0 = ref.ssm_scan(*t)
+    for chunk in (1, 8, 16, 37, 64):
+        y, h = ss.ssm_scan_chunked(*t, chunk=chunk)
+        torch.testing.assert_close(y, y0, rtol=0, atol=0)
+        torch.testing.assert_close(h, h0, rtol=0, atol=0)
+
+
+def test_every_tunable_example_matches_its_reference():
+    """Each tunable that declares an example runs it (plain on the CPU) and
+    matches its reference."""
+    with_example = {n: t for n, t in registered().items() if t.dispatch and t.dispatch.example}
+    assert {"ssm_scan", "ssm_update"} <= set(with_example)
+    for name, tun in with_example.items():
+        args, kw = tun.dispatch.example()
+        out, want = tun(*args, **kw), tun.dispatch.reference_for(tun)(*args, **kw)
+        for o, w in zip(out, want):
+            torch.testing.assert_close(o, w, rtol=TOL, atol=TOL * w.abs().max().item())
+
+
+def test_heuristics_are_legal_at_the_served_shapes():
+    for b, s, di in ((1, 2048, 16384), (1, 1500, 16384), (1, 8, 16384), (1, 37, 128)):
+        xc = torch.empty((b, s, di))
+        cfg = ss.ssm_scan.default_config(xc, xc, *(torch.empty(0),) * 4)
+        assert ss.SSM_SCAN_SPACE.is_valid(cfg)
+    assert ss.ssm_scan.default_config(torch.empty((1, 2048, 16384)), None, None, None, None,
+                                      None) == {"chunk": 64, "block_d": 64}
+    xd = torch.empty((8, 16384))
+    cfg = ss.ssm_update.default_config(xd, xd, None, None, None, None)
+    assert ss.SSM_UPDATE_SPACE.is_valid(cfg) and cfg == {"block_b": 2, "block_d": 128}
+    assert not ss.SSM_SCAN_SPACE.is_valid({"chunk": 256, "block_d": 512})
+    assert not ss.SSM_UPDATE_SPACE.is_valid({"block_b": 64, "block_d": 1024})
+
+
+def test_wrappers_check_before_they_launch():
+    """The CUDA wrappers refuse what the kernels do not take before building
+    anything, and a tensor on neither the CPU nor a card raises."""
+    _, (xc, dt, B, C, A, h0) = _both(_inputs(0, (1, 5), 8, 4, "float32"), "float32")
+    with pytest.raises(ValueError, match="at most 16 states"):
+        big = torch.zeros(8, 32)
+        ss.ssm_scan_cuda(xc, dt, torch.zeros(1, 5, 32), torch.zeros(1, 5, 32), big,
+                         torch.zeros(1, 8, 32), chunk=8, block_d=32)
+    with pytest.raises(TypeError, match="fp32"):
+        ss.ssm_scan_cuda(xc, dt.double(), B, C, A, h0, chunk=8, block_d=32)
+    with pytest.raises(ValueError, match="shape"):
+        ss.ssm_update_cuda(xc[:, 0], dt[:, 0], B[:, 0], C[:, 0], A, h0[:, :4], block_b=1,
+                           block_d=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_update_cuda(xc[:, 0], dt[:, 0], B[:, 0], C[:, 0], A.T.contiguous().T, h0,
+                           block_b=1, block_d=32)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        ss.ssm_scan(*(t.to("meta") for t in (xc, dt, B, C, A, h0)), chunk=8, block_d=32)
+
+
+def test_kernel_dispatch_refuses_a_gradient():
+    """No backward in this slice: a kernel-mode dispatch on tensors that
+    need a gradient raises instead of returning a tensor cut from the graph."""
+    _, t = _both(_inputs(0, (1, 5), 8, 4, "float32"), "float32")
+    t[0].requires_grad_()
+    with repro_torch.runtime(), pytest.raises(RuntimeError, match="declares no backward"):
+        repro_torch.dispatch("ssm_scan", *t)
+
+
+# ---------------------------------------------------------------------------
+# The Mamba mixer
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mixer():
+    jp, _ = jssm.mamba_init(jax.random.PRNGKey(0), D_MIX, jnp.float32)
+    tp = {k: to_tensor(np.asarray(v), torch.device("cpu")) for k, v in jp.items()}
+    return jp, tp
+
+
+def _x(seed, s, b=2):
+    return (np.random.RandomState(seed).randn(b, s, D_MIX) * 0.5).astype(np.float32)
+
+
+def test_mamba_params_carry_every_leaf_with_its_dtype():
+    jp, _ = jssm.mamba_init(jax.random.PRNGKey(1), D_MIX, jnp.bfloat16)
+    tp = {k: to_tensor(np.asarray(v), torch.device("cpu")) for k, v in jp.items()}
+    mine = ssm.mamba_init(torch.Generator().manual_seed(0), D_MIX, torch.bfloat16, "cpu")
+    assert set(tp) == set(jp) == set(mine)
+    for k, v in jp.items():
+        assert tuple(tp[k].shape) == tuple(v.shape) == tuple(mine[k].shape), k
+        assert str(tp[k].dtype).split(".")[1] == str(v.dtype) == str(mine[k].dtype).split(".")[1]
+        np.testing.assert_array_equal(tp[k].float().numpy(), np.asarray(v.astype(jnp.float32)))
+    assert {k for k, v in mine.items() if v.dtype == torch.float32} == {"dt_bias", "A_log", "D"}
+    torch.testing.assert_close(mine["A_log"], tp["A_log"])
+
+
+@pytest.mark.parametrize("mode", ["kernel", "reference"])
+@pytest.mark.parametrize("s", [2, 8, 13])
+def test_mamba_forward_matches_jax(mixer, mode, s):
+    jp, tp = mixer
+    x = _x(s, s)
+    with repro.runtime(mode=mode):
+        jy = jssm.mamba_forward(jp, jnp.asarray(x))
+        jy2, jst = jssm.mamba_forward(jp, jnp.asarray(x), return_state=True)
+    with repro_torch.runtime(mode=mode), torch.inference_mode():
+        ty = ssm.mamba_forward(tp, torch.from_numpy(x))
+        ty2, tst = ssm.mamba_forward(tp, torch.from_numpy(x), return_state=True)
+    _close(ty, jy, floor=1.0)
+    _close(ty2, jy2, floor=1.0)
+    _close(tst["h"], jst["h"], floor=1.0)
+    _close(tst["conv"], jst["conv"], floor=1.0)      # zero-padded in front when s < 3
+    assert tst["conv"].shape == (2, 3, 2 * D_MIX) and tst["h"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("mode", ["kernel", "reference"])
+def test_mamba_decode_matches_jax(mixer, mode):
+    jp, tp = mixer
+    x = _x(5, 9)
+    with repro.runtime(mode=mode):
+        _, jst = jssm.mamba_forward(jp, jnp.asarray(x[:, :8]), return_state=True)
+        jy, jst2 = jssm.mamba_decode(jp, jnp.asarray(x[:, 8:]), jst)
+    with repro_torch.runtime(mode=mode), torch.inference_mode():
+        _, tst = ssm.mamba_forward(tp, torch.from_numpy(x[:, :8]), return_state=True)
+        ty, tst2 = ssm.mamba_decode(tp, torch.from_numpy(x[:, 8:]), tst)
+    _close(ty, jy, floor=1.0)
+    for k in ("h", "conv"):
+        _close(tst2[k], jst2[k], floor=1.0)
+
+
+@pytest.mark.parametrize("s_prefix", [1, 2, 13, 17])
+def test_mamba_prefill_state_continuity(mixer, s_prefix):
+    """Prefill s tokens then decode the rest one at a time equals the
+    full-length forward, for prefixes shorter than the conv tail too; the
+    decoded outputs also match JAX's own continuation."""
+    jp, tp = mixer
+    x = _x(1, 24)
+    with repro_torch.runtime(), torch.inference_mode():
+        y_full = ssm.mamba_forward(tp, torch.from_numpy(x))
+        y_pre, st = ssm.mamba_forward(tp, torch.from_numpy(x[:, :s_prefix]), return_state=True)
+        ys = [y_pre]
+        for t in range(s_prefix, 24):
+            yt, st = ssm.mamba_decode(tp, torch.from_numpy(x[:, t:t + 1]), st)
+            ys.append(yt)
+    y_cont = torch.cat(ys, 1)
+    torch.testing.assert_close(y_cont, y_full, rtol=2e-4, atol=2e-5)
+    with repro.runtime(mode="reference"):
+        jy, jst = jssm.mamba_forward(jp, jnp.asarray(x[:, :s_prefix]), return_state=True)
+        jys = [jy]
+        for t in range(s_prefix, 24):
+            jyt, jst = jssm.mamba_decode(jp, jnp.asarray(x[:, t:t + 1]), jst)
+            jys.append(jyt)
+    _close(y_cont, jnp.concatenate(jys, 1), floor=1.0)
