@@ -24,6 +24,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ssm_update at the 8-slot pool; flash attention at 64/8 heads
              of 128; the hybrid's bf16 in_proj and fp32 dt_proj / out_proj
              gemms;
+   And Mixtral-8x7B's: expert_gemm at the decode pool's capacity 2, at
+             prefill capacities 640 and 2560 (gate/up and down), on the
+             backward's transposed views at 640 and at a ragged 37 (torch.bmm
+             is its one-call yardstick); flash attention at 32/8 heads of
+             128 with the 4096 window over 8192 positions; its projections
+             and norms at decode and prefill rows;
 4. serve   — full-width qwen2_0_5b in bf16 from a seeded random init,
              ServingEngine(max_batch=8, max_seq=2048), 16 staggered
              requests with prompts of 16..1500 tokens and 32 new tokens
@@ -45,7 +51,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
              prompt's prefill logits are held against the plain path, and
              torch.profiler splits a decode step and that prefill by
              kernel;
-6. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
+6. moe     — full-width Mixtral-8x7B cut to 8 of its 32 layers (11.9 B
+             bf16 parameters from a seeded random init; the earlier phases'
+             are freed first), ServingEngine(max_batch=8, max_seq=8192), 8
+             staggered requests with prompts of 8..5000 tokens (the 5000 one
+             passes the 4096 window: flash masks by it and the decode cache
+             rolls), 16 new tokens each, half greedy; expert_gemm must launch
+             exactly 24 times a prefill and 24 times a decode step, matmul,
+             rmsnorm and flash attention must launch, and no dispatch may
+             fall to the reference tier; one full-width MoE layer, fed one
+             input, must take the same routes on the kernel and the plain
+             path and agree within TOL_MOE_LAYER; the 5000-token prompt's
+             prefill logits are held against the plain path on the kernel
+             path's routes (TOL_LOGITS) and against the plain path routing on
+             its own (TOL_MOE_LOGITS_FREE, with the count of tokens whose
+             routes flip between the two); prints the share of
+             (token, choice) routes capacity drops at decode, and
+             torch.profiler splits a decode step and that prefill by kernel;
+7. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
              master copy, batch 4 x seq 2048 from SyntheticPipeline(seed),
              RunConfig(remat="none", loss_chunk=512), AdamWConfig(
              warmup_steps=2), 6 steps through the Trainer; step 1's loss and
@@ -55,7 +78,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              matmul included) must rise, and no fwd or bwd dispatch may fall
              to the reference tier; torch.profiler splits one more step by
              kernel;
-7. campaign — plans full-width qwen2_0_5b (the train phase's step, every
+8. campaign — plans full-width qwen2_0_5b (the train phase's step, every
              dispatch site forward and backward, and serving at
              max_batch=8, max_seq=2048), tunes every job on the card with
              the CUDA-event WallClockEvaluator behind the correctness gate
@@ -65,7 +88,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              trials, pruned trials by reason, seconds, and per kernel the
              tuned configs' time beside the heuristic configs' from the
              same calls;
-8. tuned   — on that database: ServingEngine.warmup and a few staggered
+9. tuned   — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode) and matmul_bias_act
@@ -73,7 +96,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              gate and one prefill's logits TOL_LOGITS, both against the
              plain path; the tuned step time is printed beside the train
              phase's heuristic step time (reported, not claimed);
-9. summary — one ``{"kernels": [...]}`` line, then the last line
+10. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -136,10 +159,27 @@ TOL_F32_GEMM = 1e-4
 # step, carried along the recurrence for as long as its decay keeps it
 # (dA = exp(dt * A) up to 0.999 here): 1e-4 of max|plain|.
 TOL_SSM = 1e-4
+# One full-width MoE layer (Mixtral-8x7B, bf16), kernel path vs plain path
+# on one input, routes equal: the gate and up products may round one bf16
+# step apart (TOL_BF16's argument), silu(g) * u rounds once more, and the
+# down product sums 14,336 such terms, whose errors have random signs:
+# 2e-2 of max|plain| covers the three roundings.
+TOL_MOE_LAYER = 2e-2
+# Whole-model MoE prefill logits. On the same routes (the plain path takes
+# the kernel path's expert ids) the dense argument holds: TOL_LOGITS. Left
+# to route on its own, the plain path sends tokens whose router scores
+# nearly tie to other experts: in the first sound card run (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md) 2 tokens of 5000 in layer 1 rising to
+# 364 in layer 8, the last token's in layer 8, where the layer gate read
+# 5.9e-3 and the logits 0.2457 of max|plain|. A flipped route gives the
+# token another expert's output, so that comparison is bounded only by
+# the readings: 0.5, twice the one reading.
+TOL_MOE_LOGITS_FREE = 0.5
 
 
 SERVE_KERNELS = ("matmul", "rmsnorm", "flash_attention")
 HYBRID_KERNELS = SERVE_KERNELS + ("ssm_scan", "ssm_update")
+MOE_KERNELS = SERVE_KERNELS + ("expert_gemm",)
 TRAIN_KERNELS = ("matmul", "matmul_transposed", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
                  "softmax_xent_bwd", "flash_attention", "flash_attention_bwd")
 
@@ -285,7 +325,7 @@ def _rmsnorm_case(prof, rows_out, rows, d, gen, path):
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
-def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1):
+def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1, window=0, iters=20):
     from repro_torch.kernels import attention as fa
 
     mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -297,28 +337,39 @@ def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1):
         other = {"block_q": 32, "block_k": 128}      # the pick below a full grid
     else:
         other = {"block_q": 64, "block_k": 64}
-    p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    kw = dict(causal=True, window=window)
+    p_out, p_lse = fa.flash_attention_plain(q, k, v, **kw)
     errs = []
     for cfg in (heur, other):
-        out, lse = fa.flash_attention_cuda(q, k, v, causal=True, **cfg)
+        out, lse = fa.flash_attention_cuda(q, k, v, **kw, **cfg)
         torch.cuda.synchronize()
         errs.append((rel_err(out, p_out)[0], row_rel_err(out, p_out)))
         lse_err = (lse - p_lse).abs().max().item()
         if errs[-1][1] > TOL_BF16 or lse_err > TOL_LSE:
             raise AssertionError(f"flash s={s} {cfg}: out row rel {errs[-1][1]:.3g}, lse {lse_err:.3g}")
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True, **heur))
-    ms_other = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True, **other))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
+    del out, lse, p_out, p_lse
+    tk = dict(iters=iters, warmup=min(3, iters))
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw, **heur), **tk)
+    ms_other = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw, **other), **tk)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), **tk)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
-        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    if window:      # one call with the window as a boolean mask (True: attend)
+        qi = torch.arange(s, device="cuda")
+        dist = qi[:, None] - qi[None, :]
+        mask = (dist >= 0) & (dist < window)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), **tk)
+        del mask, dist
+    elif tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), **tk)
     else:       # no GQA flag: the yardstick gets k/v expanded beforehand
         ke, ve = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
-        lib_ms = time_ms(lambda: sdpa(q, ke, ve, is_causal=True))
-    pairs = s * (s + 1) // 2                      # causal (q, k) pairs this run computes
+        lib_ms = time_ms(lambda: sdpa(q, ke, ve, is_causal=True), **tk)
+    w = min(window or s, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w        # (q, k) pairs this run computes
     nbytes = b * ((2 * h * s * d + 2 * kvh * s * d) * 2 + h * s * 4)
     b_ms, b_by = bound(prof, nbytes, 4.0 * d * pairs * h * b, prof.peak_flops_bf16)
-    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", path=path,
+    wname = f" w{window}" if window else ""
+    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal{wname} bf16", path=path,
                config=heur, ms=ms, other_config=other, other_ms=ms_other, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
@@ -542,6 +593,50 @@ def _rmm_case(prof, rows, m, d, n, gen, path):
         f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
+def _egemm_case(prof, rows, e, c, k, n, gen, path, form="x@w", iters=20):
+    """expert_gemm at [e,c,k] @ [e,k,n]; ``form`` "ct@wT" and "xT@ct" pass
+    the backward's swapaxes views as they come: dx = ct[e,c,k] @
+    swapaxes(w)[e,k,n] of a w stored [e,n,k], and dw = swapaxes(x)[e,c,k] @
+    ct[e,k,n] of an x stored [e,k,c]."""
+    from repro_torch.kernels import moe_gemm as mg
+
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x = rn(e, k, c).transpose(1, 2) if form == "xT@ct" else rn(e, c, k)
+    w = (rn(e, n, k).transpose(1, 2) if form == "ct@wT" else rn(e, k, n)) * k ** -0.5
+    if x.is_contiguous() == (form == "xT@ct") or w.is_contiguous() == (form == "ct@wT"):
+        raise AssertionError(f"expert_gemm {form}: operands not in the form's layout")
+    heur = mg.expert_gemm.default_config(x, w)
+    other = {"bc": 16, "bn": 128, "bk": 64} if c <= 16 else {"bc": 128, "bn": 64, "bk": 32}
+    plain = mg.expert_gemm_plain(x, w)
+    errs = []
+    for cfg in (heur, other):
+        if not mg.EXPERT_GEMM_SPACE.is_valid(cfg):
+            raise AssertionError(f"illegal expert_gemm config {cfg}")
+        out = mg.expert_gemm_cuda(x, w, **cfg)
+        torch.cuda.synchronize()
+        errs.append(rel_err(out, plain))
+        if errs[-1][1] > TOL_BF16:
+            raise AssertionError(f"expert_gemm {form} [{e},{c},{k}]@[{e},{k},{n}] {cfg}: rel "
+                                 f"err {errs[-1][1]:.3g} > {TOL_BF16}")
+    del out, plain
+    tk = dict(iters=iters, warmup=min(3, iters))
+    ms = time_ms(lambda: mg.expert_gemm_cuda(x, w, **heur), **tk)
+    ms_other = time_ms(lambda: mg.expert_gemm_cuda(x, w, **other), **tk)
+    plain_ms = time_ms(lambda: mg.expert_gemm_plain(x, w), **tk)
+    lib_ms = time_ms(lambda: torch.bmm(x, w), **tk)
+    b_ms, b_by = bound(prof, (e * c * k + e * k * n + e * c * n) * 2, 2.0 * e * c * k * n,
+                       prof.peak_flops_bf16)
+    tx, tw = ("ᵀ" if form == "xT@ct" else ""), ("ᵀ" if form == "ct@wT" else "")
+    row = dict(shape=f"[{e},{c},{k}]{tx}@[{e},{k},{n}]{tw} bf16", path=path, config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(er[0] for er in errs),
+               max_rel_err=max(er[1] for er in errs))
+    rows.append(row)
+    log(f"[kernels] expert_gemm {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
+        f"plain {plain_ms:.4f}, torch.bmm {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); err "
+        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+
+
 def sfu_rate(prof) -> float:
     """exp2 evaluations a second: 16 a clock an SM (NVIDIA's arithmetic
     instruction throughput table for compute capability 9.0) at the card's
@@ -647,7 +742,8 @@ def phase_kernels(prof, seed: int):
     d, ff, kvd, vocab = 896, 4864, 128, 151936
     results = {k: [] for k in ("matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
                                "softmax_xent_bwd", "flash_attention", "flash_attention_bwd",
-                               "matmul_bias_act", "rmsnorm_matmul", "ssm_scan", "ssm_update")}
+                               "matmul_bias_act", "rmsnorm_matmul", "ssm_scan", "ssm_update",
+                               "expert_gemm")}
     # Serving: decode (m = 8 slots), the largest prefill bucket (m = 2048)
     # and the prefill unembed of the last position (m = 1).
     for m in (8, 2048):
@@ -700,6 +796,27 @@ def phase_kernels(prof, seed: int):
         _matmul_case(prof, results["matmul"], m, dtr, di, gen, "hybrid", dtype=torch.float32)
         _matmul_case(prof, results["matmul"], m, di, dm, gen, "hybrid", dtype=torch.float32)
         _rmsnorm_case(prof, results["rmsnorm"], m, dm, gen, "hybrid")
+    # Mixtral-8x7B (d_model 4096, 8 experts of width 14336 top-2, 32/8 heads
+    # of 128, window 4096, vocab 32000): the expert gemms at the capacities
+    # of the 8-slot pool (2), the 2048 and 8192 prefill buckets (640, 2560)
+    # and a ragged 37, gate/up and down; the two gradient forms at 640; the
+    # windowed attention of the 8192 bucket; projections and norms at decode
+    # and prefill rows, and the decode unembed.
+    E, dm, ff = 8, 4096, 14336
+    for c in (2, 640, 2560):
+        big = 5 if c == 2560 else 20
+        _egemm_case(prof, results["expert_gemm"], E, c, dm, ff, gen, "moe", iters=big)
+        _egemm_case(prof, results["expert_gemm"], E, c, ff, dm, gen, "moe", iters=big)
+    _egemm_case(prof, results["expert_gemm"], E, 640, ff, dm, gen, "moe", form="ct@wT")
+    _egemm_case(prof, results["expert_gemm"], E, dm, 640, ff, gen, "moe", form="xT@ct")
+    _egemm_case(prof, results["expert_gemm"], E, 37, dm, ff, gen, "moe")
+    _flash_case(prof, results["flash_attention"], 8192, gen, "moe", h=32, kvh=8, d=128,
+                window=4096, iters=3)
+    for m in (8, 8192):
+        for k, n in ((dm, dm), (dm, 1024)):
+            _matmul_case(prof, results["matmul"], m, k, n, gen, "moe")
+        _rmsnorm_case(prof, results["rmsnorm"], m, dm, gen, "moe")
+    _matmul_case(prof, results["matmul"], 8, dm, 32000, gen, "moe")
     return results
 
 
@@ -1010,6 +1127,239 @@ def phase_hybrid(seed: int):
     return launches
 
 
+MOE_LENGTHS = (8, 16, 37, 300, 1024, 1500, 2048, 5000)
+
+
+class RouteTap:
+    """Records the expert ids of every ``moe._route`` call while active
+    (the router is plain torch, so recording changes nothing it computes),
+    each with its ``valid`` mask and the rows ``active()`` names live.
+
+    With ``replay`` (the ``calls`` of an earlier tap, in order), each call
+    takes the recorded expert ids instead of its own top-k and weights them
+    by its own router probabilities: the plain path on the kernel path's
+    routes."""
+
+    def __init__(self, active=None, replay=None):
+        self.calls = []
+        self.active = active
+        self.replay = None if replay is None else iter(replay)
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = orig = moe._route
+
+        def tap(router_w, x2, top_k, valid=None):
+            out = orig(router_w, x2, top_k, valid=valid)
+            if self.replay is not None:
+                ids = next(self.replay)[0]
+                probs = torch.softmax(x2.float() @ router_w, dim=-1)
+                w = probs.gather(1, ids)
+                w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+                if valid is not None:
+                    w = w * valid.float()[:, None]
+                out = (w, ids, out[2])
+            live = None if self.active is None else self.active()
+            self.calls.append((out[1].detach(), valid, live))
+            return out
+
+        moe._route = tap
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._orig
+
+
+def capacity_drops(ids, n_experts: int, cap: int):
+    """[n, k] bool: which (token, choice) pairs of one unmasked dispatch go
+    over their expert's capacity, in moe_apply's token-major order."""
+    flat = ids.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, n_experts)
+    pos = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+    return (pos >= cap).reshape(ids.shape)
+
+
+def phase_moe(seed: int):
+    """Serve full-width Mixtral-8x7B, 8 of its 32 layers."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import runtime
+    from repro_torch.models import lm, moe
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), num_layers=8)
+    per_call = 3 * cfg.num_layers                  # gate, up, down in every layer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = lm.param_count(params)
+    log(f"[moe] {cfg.name}: {cfg.num_layers} of 32 layers, d_model {cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token} of width {cfg.d_ff}, window "
+        f"{cfg.window}; {n_params / 1e9:.3f} B params {cfg.dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    ecfg = EngineConfig(max_batch=8, max_seq=8192)
+    run = RunConfig()
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in MOE_LENGTHS]
+
+    rt = runtime(name="moe")
+    engine = ServingEngine(cfg, run, params, ecfg, runtime=rt)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(prompt=p, max_new_tokens=16, temperature=0.0 if i % 2 == 0
+                              else 0.8, seed=seed + i, arrival_time=float(2 * i)))
+    live = lambda: [s is not None for s in engine._slots]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with RouteTap(live) as tap:
+        done = engine.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    snap = rt.telemetry.snapshot()
+    log(f"[moe] launches during serving: {launches}")
+    log(f"[moe] telemetry tiers: {snap['tiers']} over {snap['calls']} dispatches")
+    missing = [k for k in MOE_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the MoE path: {missing}")
+    if snap["tiers"].get("reference", 0):
+        raise AssertionError(f"{snap['tiers']['reference']} dispatches fell to the reference tier")
+    calls = st["prefill_calls"] + st["decode_steps"]
+    if launches.get("expert_gemm", 0) != per_call * calls:
+        raise AssertionError(f"expected {per_call} expert_gemm launches a prefill and a decode "
+                             f"step, {per_call} x {calls} calls: counted "
+                             f"{launches.get('expert_gemm', 0)}")
+    for r in done:
+        out = r.output
+        if out is None or len(out) != 16 or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad output for a {len(r.prompt)}-token prompt: {out}")
+    # capacity drops at decode: the pool's 8 rows, free slots included
+    cap = moe.expert_capacity(ecfg.max_batch, cfg.num_experts, cfg.experts_per_token,
+                              cfg.capacity_factor)
+    pairs = dropped = live_pairs = live_dropped = 0
+    for ids, valid, rows in tap.calls:
+        if valid is not None:
+            continue                                 # a prefill: pads masked
+        drop = capacity_drops(ids.cpu(), cfg.num_experts, cap)
+        alive = torch.tensor(rows)[:, None].expand_as(drop)
+        pairs += drop.numel()
+        dropped += int(drop.sum())
+        live_pairs += int(alive.sum())
+        live_dropped += int((drop & alive).sum())
+    tok_s = st["tokens_out"] / wall
+    log(f"[moe] served {len(done)} requests, {st['tokens_out']} tokens in {wall:.2f} s: "
+        f"{tok_s:.1f} tokens/s; {st['decode_steps']} decode steps, {st['prefill_calls']} "
+        f"prefills of {st['prefill_tokens']} tokens (buckets); expert_gemm "
+        f"{launches['expert_gemm']} = {per_call} x {calls}")
+    log(f"[moe] decode capacity {cap} an expert: {dropped}/{pairs} = {dropped / max(pairs, 1):.3f} "
+        f"of the pool's (token, choice) routes dropped over {len(tap.calls)} dispatches; "
+        f"{live_dropped}/{live_pairs} = {live_dropped / max(live_pairs, 1):.3f} of the live "
+        f"slots' routes")
+    for b in sorted(engine.timings["prefill_s"]):
+        ts = engine.timings["prefill_s"][b]
+        log(f"[moe] prefill bucket {b}: {1e3 * float(np.median(ts)):.2f} ms median of {len(ts)}")
+    dec = engine.timings["decode_s"]
+    log(f"[moe] decode step (8 slots): {1e3 * float(np.median(dec)):.2f} ms median of "
+        f"{len(dec)} (p90 {1e3 * float(np.percentile(dec, 90)):.2f} ms)")
+    w_bytes = (n_params - params["embed"]["table"].numel()) * 2
+    log(f"[moe] computed floor of a decode step: {w_bytes / 1e9:.3f} GB of weights / "
+        f"3.35 TB/s = {w_bytes / 3.35e12 * 1e3:.3f} ms (computed, not measured)")
+    log(f"[moe] peak memory allocated: {peak / 2**30:.2f} GiB")
+    del engine, tap
+
+    probe = prompts[MOE_LENGTHS.index(5000)]
+    toks = torch.zeros((1, 8192), dtype=torch.long, device="cuda")
+    toks[0, :5000] = torch.from_numpy(probe.astype(np.int64))
+    caches = lm.init_cache(cfg, ecfg.max_batch, ecfg.max_seq, "cuda")
+    tokens = torch.zeros((ecfg.max_batch, 1), dtype=torch.long, device="cuda")
+    pos = torch.arange(ecfg.max_batch, device="cuda") * 900 + 50     # 50 .. 6350: rolled
+
+    def decode():
+        with torch.inference_mode():
+            lm.decode_step(params, tokens, caches, pos, cfg, run)[0].float().cpu()
+
+    def prefill():
+        with torch.inference_mode():
+            lm.prefill(params, {"tokens": toks}, cfg, run, cache_len=ecfg.max_seq,
+                       true_len=5000)[0].float().cpu()
+
+    for label, step in (("decode step", decode), ("prefill", prefill)):
+        kernels.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        got = kernels.launch_counts().get("expert_gemm", 0)
+        if got != per_call:
+            raise AssertionError(f"one {label}: {got} expert_gemm launches, not {per_call}")
+        log(f"[moe] one {label}: {got} expert_gemm launches")
+    profile("moe decode step (8 slots)", decode, 5)
+    profile("moe prefill 5000 tokens (bucket 8192)", prefill, 1)
+    del caches
+
+    # One full-width MoE layer on one input: kernel path vs plain path.
+    x = torch.randn((1, 2048, cfg.d_model), generator=torch.Generator(device="cuda")
+                    .manual_seed(seed), device="cuda").to(torch.bfloat16)
+    layer = params["segments"][0][0]["l0"]["moe"]
+    outs = {}
+    with torch.inference_mode(), RouteTap() as tap:
+        for mode in ("kernel", "reference"):
+            with runtime(mode=mode):
+                outs[mode], _ = moe.moe_apply(layer, x, top_k=cfg.experts_per_token,
+                                              ffn_kind=cfg.ffn_kind,
+                                              capacity_factor=cfg.capacity_factor)
+    if not torch.equal(tap.calls[0][0], tap.calls[1][0]):
+        raise AssertionError("the MoE layer routed one input differently on the two paths")
+    abs_err, rel = rel_err(outs["kernel"], outs["reference"])
+    log(f"[moe] one MoE layer, 2048 tokens (capacity 640), routes equal: kernel vs plain path "
+        f"max abs {abs_err:.4g}, rel to max|plain| {rel:.3e} (tol {TOL_MOE_LAYER})")
+    if not torch.isfinite(outs["kernel"]).all() or rel > TOL_MOE_LAYER:
+        raise AssertionError(f"MoE layer differs: rel {rel:.3g} > {TOL_MOE_LAYER}")
+    del outs, x
+
+    # The 5000-token prompt's prefill logits: the kernel path against the
+    # plain path routing on its own, and against the plain path on the
+    # kernel path's routes.
+    logits, taps = {}, {}
+    with torch.inference_mode():
+        for mode, replay in (("kernel", None), ("reference", None),
+                             ("pinned", "kernel")):
+            with RouteTap(replay=replay and taps[replay].calls) as taps[mode], \
+                    runtime(mode="kernel" if mode == "kernel" else "reference"):
+                logits[mode], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
+                                             cache_len=ecfg.max_seq, true_len=5000)
+    ka, ra = taps["kernel"].calls, taps["reference"].calls
+    flips = [int((a[0][:5000] != b[0][:5000]).any(-1).sum()) for a, b in zip(ka, ra)]
+    last = [int((a[0][4999] != b[0][4999]).any()) for a, b in zip(ka, ra)]
+    lk = logits["kernel"].float()
+    if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab_size)):
+        raise AssertionError(f"kernel-path logits not finite / shape {tuple(lk.shape)}")
+    abs_p, rel_p = rel_err(lk, logits["pinned"].float())
+    abs_f, rel_f = rel_err(lk, logits["reference"].float())
+    log(f"[moe] prefill logits (5000 tokens, bucket 8192), kernel path vs plain path on the "
+        f"kernel path's routes: max abs {abs_p:.4g}, rel to max|plain| {rel_p:.3e} (tol "
+        f"{TOL_LOGITS}); vs plain path routing on its own: max abs {abs_f:.4g}, rel "
+        f"{rel_f:.3e} (tol {TOL_MOE_LOGITS_FREE}); argmax {int(lk.argmax())}, "
+        f"{int(logits['pinned'].argmax())}, {int(logits['reference'].argmax())}; tokens whose "
+        f"routes differ between the free paths, by layer: {flips} of 5000 (the last token: "
+        f"{last})")
+    if rel_p > TOL_LOGITS or rel_f > TOL_MOE_LOGITS_FREE:
+        raise AssertionError(f"MoE prefill logits differ: rel {rel_p:.3g} on the same routes "
+                             f"(tol {TOL_LOGITS}), {rel_f:.3g} on free routes (tol "
+                             f"{TOL_MOE_LOGITS_FREE})")
+    log(f"[moe] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def gate_step1(trainer, cfg, run, data, tag: str) -> None:
     """Step 1's loss and gradients: the trainer's kernel path against the
     plain path (reference mode, remat="full" so its fp32 attention scores
@@ -1309,6 +1659,7 @@ def main() -> int:
     results = phase_kernels(prof, args.seed)
     serve_launches = phase_serve(args.seed)
     hybrid_launches = phase_hybrid(args.seed)
+    moe_launches = phase_moe(args.seed)
     torch.cuda.empty_cache()
     train_launches, heuristic_step_ms = phase_train(args.seed)
     with tempfile.TemporaryDirectory() as workdir:
@@ -1327,7 +1678,11 @@ def main() -> int:
     # kernels carry a "hybrid" object as well. The representative shapes:
     # training's unembed chunk and full-step shapes, serving's decode
     # unembed, largest prefill bucket and b=1 attention, the hybrid's fp32
-    # out_proj at prefill and its attention at head dim 128.
+    # out_proj at prefill and its attention at head dim 128. expert_gemm runs
+    # only on the MoE path: its entry pairs the moe serving run's launches
+    # with the decode pool's gate projection, and the three serving kernels
+    # carry a "moe" object too (the decode unembed, the 8192 bucket's norm
+    # and its windowed attention).
     pick = {"train": {"matmul": "[2048,896]@[896,151936] bf16", "rmsnorm": "[8192,896] bf16",
                       "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
                       "softmax_xent_bwd": "[2048,151936] bf16",
@@ -1340,11 +1695,15 @@ def main() -> int:
             "hybrid": {"matmul": "[2048,16384]@[16384,8192] f32", "rmsnorm": "[2048,8192] bf16",
                        "flash_attention": "q[1,64,2048,128] kv[1,8,2048,128] causal bf16",
                        "ssm_scan": "b=1 s=2048 di=16384 ds=16 xc bf16",
-                       "ssm_update": "b=8 di=16384 ds=16 xc bf16"}}
+                       "ssm_update": "b=8 di=16384 ds=16 xc bf16"},
+            "moe": {"matmul": "[8,4096]@[4096,32000] bf16", "rmsnorm": "[8192,4096] bf16",
+                    "flash_attention": "q[1,32,8192,128] kv[1,8,8192,128] causal w4096 bf16",
+                    "expert_gemm": "[8,2,4096]@[8,4096,14336] bf16"}}
     main_path = {"matmul_bias_act": ("train", tuned_train),
                  "rmsnorm_matmul": ("serve", tuned_serve),
                  "ssm_scan": ("hybrid", hybrid_launches),
-                 "ssm_update": ("hybrid", hybrid_launches)}
+                 "ssm_update": ("hybrid", hybrid_launches),
+                 "expert_gemm": ("moe", moe_launches)}
     timing_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(name, path, launches):
@@ -1365,6 +1724,7 @@ def main() -> int:
         if name in SERVE_KERNELS:
             entry["serve"] = at(name, "serve", serve_launches)
             entry["hybrid"] = at(name, "hybrid", hybrid_launches)
+            entry["moe"] = at(name, "moe", moe_launches)
         entries.append(entry)
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)

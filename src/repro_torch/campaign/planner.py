@@ -18,13 +18,16 @@ scenario names:
   admission prefills at each power-of-two sequence bucket and the decode
   pool at the full slot width, with the fused final-norm -> unembed site;
   a hybrid arch adds its Mamba layers' projections with the ``ssm_scan``
-  site at each prefill bucket and the ``ssm_update`` site in the pool.
+  site at each prefill bucket and the ``ssm_update`` site in the pool, and
+  an MoE arch its ``expert_gemm`` sites at each bucket's capacity.
 
-The planner evaluates nothing. Leading (token) dims are capped by
-``max_tokens``; its default admits the 8,192-token step of the one-card
-trainer (batch 4 x 2048), whose sites the JAX default of 4,096 would cap
-into keys the step never looks up. MoE layers and the xLSTM mixers are not
-ported, and Mamba layers are served but not trained yet: a config that
+MoE layers add their grouped ``expert_gemm`` sites keyed on (experts x
+capacity x hidden), with the two transposed-operand gradients in training,
+as the JAX planner does. The planner evaluates nothing. Leading (token)
+dims are capped by ``max_tokens``; its default admits the 8,192-token step
+of the one-card trainer (batch 4 x 2048), whose sites the JAX default of
+4,096 would cap into keys the step never looks up. The xLSTM mixers are
+not ported, and Mamba layers are served but not trained yet: a config that
 needs what the port lacks raises.
 """
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ..configs.base import SHAPES, ArchConfig, ShapeSpec, get_config
 from ..core.database import make_key, shape_bucket
 from ..core.tuner import promoted_dtype
+from ..models.moe import expert_capacity
 from ..models.transformer import RunConfig
 
 # The tunables a campaign tunes by default: the ported kernels' dispatch
@@ -52,6 +56,7 @@ DEFAULT_KERNELS = (
     "rmsnorm_matmul",
     "ssm_scan",
     "ssm_update",
+    "expert_gemm",
 )
 
 MAX_TOKENS = 8192
@@ -125,28 +130,37 @@ def _adder(jobs: List[TuningJob], kernels: Sequence[str]):
 
 def _site_counts(cfg: ArchConfig) -> Dict[str, float]:
     """Per-step executions of each site family: attention and Mamba mixers,
-    dense FFNs, layers, and norms (pre-mixer, and pre-FFN where the layer
-    has one), plus each distinct attention window. Raises for the mixers
-    and FFNs the port has not ported."""
-    n_attn = n_mamba = n_ffn = n_norm = 0.0
+    dense FFNs, MoE FFNs, layers, and norms (pre-mixer, and pre-FFN where
+    the layer has one), plus each distinct attention window. Raises for the
+    mixers the port has not ported."""
+    n_attn = n_mamba = n_ffn = n_moe = n_norm = 0.0
     windows: Dict[int, float] = {}
     for seg in cfg.segments():
         for spec in seg.pattern:
-            if spec.mixer not in ("attn", "mamba") or spec.ffn not in ("dense", "none"):
+            if spec.mixer not in ("attn", "mamba"):
                 raise NotImplementedError(
-                    f"{cfg.name}: the port plans attention mixers and Mamba mixers with "
-                    f"dense FFNs only, not mixer {spec.mixer!r} with ffn {spec.ffn!r}")
+                    f"{cfg.name}: the port plans attention mixers and Mamba mixers, not "
+                    f"mixer {spec.mixer!r}")
             if spec.mixer == "attn":
                 n_attn += seg.repeats
                 windows[spec.window] = windows.get(spec.window, 0.0) + seg.repeats
             else:
                 n_mamba += seg.repeats
             n_norm += seg.repeats
-            if spec.ffn == "dense":
-                n_ffn += seg.repeats
+            if spec.ffn != "none":
                 n_norm += seg.repeats
-    return {"attn": n_attn, "mamba": n_mamba, "ffn": n_ffn, "norm": n_norm,
+            if spec.ffn in ("dense", "moe+dense"):
+                n_ffn += seg.repeats
+            if "moe" in spec.ffn:
+                n_moe += seg.repeats
+    return {"attn": n_attn, "mamba": n_mamba, "ffn": n_ffn, "moe": n_moe, "norm": n_norm,
             "layers": n_attn + n_mamba, "windows": windows}
+
+
+def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """``expert_capacity`` of an MoE layer of ``cfg`` over ``n_tokens``."""
+    return expert_capacity(n_tokens, cfg.num_experts, cfg.experts_per_token,
+                           cfg.capacity_factor)
 
 
 def _train_counts(cfg: ArchConfig) -> Dict[str, float]:
@@ -202,6 +216,12 @@ def plan_train_jobs(
     q = (b_att, H, s_att, hd)
     kv = (b_att, KV, s_att, hd)
     add("flash_attention", [q, kv, kv], [f, f, f], counts["attn"], scen, extra="cTruew0")
+    # MoE expert FFN: capacity from the step's whole token count, capped
+    if counts["moe"] > 0:
+        e, cap = cfg.num_experts, min(max_tokens, _capacity(cfg, B * S))
+        n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
+        add("expert_gemm", [(e, cap, d), (e, d, cfg.d_ff)], [f, f], n_up * counts["moe"], scen)
+        add("expert_gemm", [(e, cap, cfg.d_ff), (e, cfg.d_ff, d)], [f, f], counts["moe"], scen)
     return jobs
 
 
@@ -246,6 +266,13 @@ def plan_training_jobs(
         add("matmul", [(m, n), (n, kdim)], [f, f], weight, scen)     # dL/dx
         add("matmul", [(kdim, m), (m, n)], [f, f], weight, scen)     # dL/dw
 
+    def add_egemm(e, c, kdim, n, weight):
+        """An expert_gemm site and its two gradients, dL/dx = ct[e,c,n] @
+        wT[e,n,k] and dL/dw = xT[e,k,c] @ ct[e,c,n] (``_expert_gemm_bwd``)."""
+        add("expert_gemm", [(e, c, kdim), (e, kdim, n)], [f, f], weight, scen)
+        add("expert_gemm", [(e, c, n), (e, n, kdim)], [f, f], weight, scen)
+        add("expert_gemm", [(e, kdim, c), (e, c, n)], [f, f], weight, scen)
+
     add_gemm(T, d, H * hd, n_attn)                                   # q proj
     add_gemm(T, d, KV * hd, 2 * n_attn)                              # k, v proj
     add_gemm(T, H * hd, d, n_attn)                                   # o proj
@@ -277,6 +304,13 @@ def plan_training_jobs(
         add("flash_attention", [q, kv, kv], [f, f, f], n, scen, extra=f"cTruew{w}")
         add("flash_attention_bwd", [q, q, kv, kv, q, lse_s], [f, f, f, f, f, "float32"], n,
             scen, extra=f"cTruew{w}")
+    # MoE expert FFN: capacity from the microbatch's whole token count
+    # (expert_gemm args are not batch-sharded), capped like every leading dim
+    if counts["moe"] > 0:
+        e, cap = cfg.num_experts, min(max_tokens, _capacity(cfg, b_loc * S))
+        n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
+        add_egemm(e, cap, d, cfg.d_ff, n_up * counts["moe"])          # wg/wu
+        add_egemm(e, cap, cfg.d_ff, d, counts["moe"])                 # wd
     return jobs
 
 
@@ -319,9 +353,10 @@ def plan_serving_jobs(
     H, KV = cfg.num_heads, cfg.num_kv_heads
     f = cfg.dtype
     counts = _site_counts(cfg)
-    n_attn, n_ffn, n_mamba = counts["attn"], counts["ffn"], counts["mamba"]
+    n_attn, n_ffn, n_mamba, n_moe = counts["attn"], counts["ffn"], counts["mamba"], counts["moe"]
     n_norm = 2 * counts["layers"]         # JAX's serving roster: two norms a layer
     di, ds, dtr = _mamba_dims(cfg)
+    e = cfg.num_experts
     n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
@@ -347,6 +382,10 @@ def plan_serving_jobs(
             add("matmul", [(s, di), (di, d)], [F32, F32], n_mamba, scen)
             add("ssm_scan", [(1, s, di), (1, s, di), (1, s, ds), (1, s, ds), (di, ds),
                              (1, di, ds)], [f, F32, F32, F32, F32, F32], n_mamba, scen)
+            # MoE at prefill: the bucket's s tokens set the capacity
+            cap = _capacity(cfg, s) if n_moe else 0
+            add("expert_gemm", [(e, cap, d), (e, d, cfg.d_ff)], [f, f], n_up * n_moe, scen)
+            add("expert_gemm", [(e, cap, cfg.d_ff), (e, cfg.d_ff, d)], [f, f], n_moe, scen)
         if B * s > max_tokens:
             continue
         scen = f"{cfg.name}/serve_decode_b{B}s{s}"
@@ -366,6 +405,10 @@ def plan_serving_jobs(
         add("matmul", [(B, di), (di, d)], [F32, F32], n_mamba * s, scen)
         add("ssm_update", [(B, di), (B, di), (B, ds), (B, ds), (di, ds), (B, di, ds)],
             [f, F32, F32, F32, F32, F32], n_mamba * s, scen)
+        # MoE in the pool: the B slots (free ones included) set the capacity
+        cap = _capacity(cfg, B) if n_moe else 0
+        add("expert_gemm", [(e, cap, d), (e, d, cfg.d_ff)], [f, f], n_up * n_moe * s, scen)
+        add("expert_gemm", [(e, cap, cfg.d_ff), (e, cfg.d_ff, d)], [f, f], n_moe * s, scen)
     return jobs
 
 

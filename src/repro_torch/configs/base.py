@@ -3,10 +3,10 @@
 Same :class:`ArchConfig` fields, ``segments()`` decomposition and
 ``reduced()`` smoke config, so one config means the same model in both
 packages; ``tdtype`` returns the torch dtype where the JAX package's
-``jdtype`` returns a jnp dtype. Only the architectures the port serves are
-registered: ``jamba_1_5_large`` comes with its MoE layers, which the
-model raises on until the MoE slice; its dense variant is
-``dataclasses.replace(cfg, num_experts=0, experts_per_token=0)``.
+``jdtype`` returns a jnp dtype. Only the architectures the port runs are
+registered: ``qwen2_0_5b``, ``jamba_1_5_large`` (with its MoE layers; its
+dense variant, ``dataclasses.replace(cfg, num_experts=0,
+experts_per_token=0)``, is what fits one card) and ``mixtral_8x7b``.
 ``SHAPES`` holds the training shapes a campaign plans: the JAX package's
 ``train_4k`` and ``train_smoke``, and ``train_2k``, the one-card step
 (batch 4 x 2048) the port's launcher and smoke run take.
@@ -183,9 +183,10 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
-ARCH_NAMES = ("qwen2_0_5b", "jamba_1_5_large")
+ARCH_NAMES = ("qwen2_0_5b", "jamba_1_5_large", "mixtral_8x7b")
 
-_ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "jamba-1.5-large-398b": "jamba_1_5_large"}
+_ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "jamba-1.5-large-398b": "jamba_1_5_large",
+            "mixtral-8x7b": "mixtral_8x7b"}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -5,6 +5,10 @@ Block structure: 8-layer super-block = 1 attention + 7 mamba layers, MoE FFN
 every 2nd layer (16 experts, top-2). 72 = 9 super-blocks. Mamba state is
 O(1) in sequence => sub-quadratic: long_500k runs (attention layers keep a
 full-length KV cache; 9 of 72 layers).
+
+One super-block's four MoE layers alone hold 38.7 B expert parameters, so on
+one 80 GB card the port serves the dense variant (``num_experts=0``); the
+MoE layers run at reduced size, and wait for expert parallelism on cards.
 """
 from .base import ArchConfig
 

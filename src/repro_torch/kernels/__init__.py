@@ -3,11 +3,11 @@
 Importing this package registers the tunables (``matmul``, ``rmsnorm``,
 ``rmsnorm_bwd``, ``softmax_xent``, ``softmax_xent_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``matmul_bias_act``, ``rmsnorm_matmul``,
-``ssm_scan``, ``ssm_update``) and builds
+``ssm_scan``, ``ssm_update``, ``expert_gemm``) and builds
 nothing: a kernel's CUDA library is
 built at its first launch (see :mod:`._build`).
 """
-from . import attention, fused, matmul, rmsnorm, ssm_scan, xent  # noqa: F401
+from . import attention, fused, matmul, moe_gemm, rmsnorm, ssm_scan, xent  # noqa: F401
 from ._build import launch_counts, reset_launch_counts  # noqa: F401
 
 # Each ported kernel: its CUDA source and the TPU kernel it replaces.
@@ -34,8 +34,11 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/ssm_scan.py:94"),
     "ssm_update": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                    "src/repro/kernels/ssm_scan.py:300"),
+    "expert_gemm": ("src/repro_torch/kernels/csrc/expert_gemm.cu",
+                    "src/repro/kernels/moe_gemm.py:35"),
 }
 
 # The CUDA sources, one shared library each (built in parallel).
 LIBRARIES = ("matmul", "rmsnorm", "rmsnorm_bwd", "xent", "flash_attention",
-             "flash_attention_bwd", "matmul_bias_act", "rmsnorm_matmul", "ssm_scan")
+             "flash_attention_bwd", "matmul_bias_act", "rmsnorm_matmul", "ssm_scan",
+             "expert_gemm")

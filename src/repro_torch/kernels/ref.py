@@ -146,6 +146,12 @@ def ssm_update(xc: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Ten
     return (hn * C[:, None, :]).sum(-1), hn
 
 
+def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped expert gemm: [e, c, k] @ [e, k, n] -> [e, c, n], fp32
+    accumulation, output in x.dtype."""
+    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+
+
 def vjp(fn: Callable, primals: Sequence[torch.Tensor], ct):
     """Gradients of ``fn(*primals)`` against the cotangent(s) ``ct``, one per
     primal (``None`` for a primal that is not floating point).

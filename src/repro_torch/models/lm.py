@@ -3,7 +3,7 @@
 Public surface, plain functions over dicts of tensors, as in
 ``repro.models.lm``:
     init_params(cfg, seed, device)                -> params
-    forward(params, batch, cfg, run, ...)         -> (hidden, caches)
+    forward(params, batch, cfg, run, ...)         -> (hidden, aux, caches)
     loss_fn(params, batch, cfg, run)              -> (loss, {"xent", "aux"})
     prefill(params, batch, cfg, run, ...)         -> (last_logits, caches)
     decode_step(params, tokens, caches, pos, ...) -> (logits, caches)
@@ -57,13 +57,15 @@ def param_count(params) -> int:
 
 def forward(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
             mode: str = "train", cache_len: Optional[int] = None, true_len=None):
-    """Embed, the layer stack and the final norm: (hidden, caches)."""
+    """Embed, the layer stack and the final norm: (hidden, aux, caches),
+    ``aux`` the MoE layers' load-balancing loss summed (0 without
+    experts)."""
     if cfg.frontend is not None:
         raise NotImplementedError("the port has token-in/token-out archs only")
     x = embed(params["embed"], batch["tokens"])
-    x, caches = tf.stack_apply(params["segments"], x, cfg, run, mode,
-                               cache_len=cache_len, true_len=true_len)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+    x, aux, caches = tf.stack_apply(params["segments"], x, cfg, run, mode,
+                                    cache_len=cache_len, true_len=true_len)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caches
 
 
 def _chunked_xent(lm_head, x, labels, mask, loss_chunk: int):
@@ -92,15 +94,13 @@ def _chunked_xent(lm_head, x, labels, mask, loss_chunk: int):
 def loss_fn(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
             aux_weight: float = 0.01):
     """(loss, {"xent", "aux"}): the chunked cross entropy plus ``aux_weight``
-    times the auxiliary loss, which is 0 here (the port's FFNs are dense;
-    MoE load balancing comes with the MoE slice)."""
-    x, _ = forward(params, batch, cfg, run, mode="train")
+    times the MoE load-balancing loss (0 without experts)."""
+    x, aux, _ = forward(params, batch, cfg, run, mode="train")
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
     xent = _chunked_xent(params["lm_head"], x, labels, mask.float(), run.loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
     return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
@@ -110,14 +110,15 @@ def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
 
     ``true_len`` enables bucketed prefill: the batch is right-padded, logits
     are read at position ``true_len - 1`` and window caches ring-align to
-    ``true_len``; causality keeps the pads out of every real position. A
+    ``true_len``; causality keeps the pads out of every real position, and
+    MoE layers route only the real tokens (pads take no capacity). A
     Mamba layer's state would integrate the pads, so an arch with one is
     prefilled at exact length (the engine does so).
     """
     seq = batch["tokens"].shape[1]
     tl = None if true_len is None else int(true_len)
-    x, caches = forward(params, batch, cfg, run, mode="prefill",
-                        cache_len=cache_len or seq, true_len=tl)
+    x, _, caches = forward(params, batch, cfg, run, mode="prefill",
+                           cache_len=cache_len or seq, true_len=tl)
     last = x[:, -1] if tl is None else x[:, tl - 1]
     return unembed(params["lm_head"], last), caches
 
@@ -128,8 +129,8 @@ def decode_step(params, tokens, caches, pos, cfg: ArchConfig, run: tf.RunConfig)
     Returns (logits [b, vocab], caches); the caches are updated in place.
     """
     x = embed(params["embed"], tokens)
-    x, caches = tf.stack_apply(params["segments"], x, cfg, run, mode="decode",
-                               caches=caches, pos=pos)
+    x, _, caches = tf.stack_apply(params["segments"], x, cfg, run, mode="decode",
+                                  caches=caches, pos=pos)
     logits = rmsnorm_dense(params["final_norm"], params["lm_head"], x[:, 0], cfg.norm_eps)
     return logits, caches
 

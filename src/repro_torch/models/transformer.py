@@ -1,4 +1,5 @@
-"""Block assembly for decoders of attention and Mamba mixers with dense FFNs.
+"""Block assembly for decoders of attention and Mamba mixers with dense,
+MoE or MoE-plus-dense FFNs.
 
 Where the JAX package scans over stacked super-block params, the port
 loops over layers in Python: ``params["segments"][si]`` is a list of
@@ -14,7 +15,10 @@ updates caches in place: attention writes its new row into the pool, and
 the Mamba state, which ``mamba_decode`` returns as new tensors, is copied
 back into the pool's slices). In ``train`` mode ``RunConfig.remat="full"``
 wraps each layer in ``torch.utils.checkpoint`` (non-reentrant): only the
-layer's input is kept and the layer runs again in the backward.
+layer's input is kept and the layer runs again in the backward. Every
+layer returns its MoE load-balancing loss (0 without experts), and
+``stack_apply`` sums them; prefill passes ``true_len`` to the MoE layers
+too, so bucket pads take no expert capacity, and decode passes none.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.utils.checkpoint
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.runtime import current_runtime
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm
 from .layers import ffn_apply, ffn_init, norm_init, rmsnorm
 
@@ -35,15 +40,17 @@ REMAT = ("none", "full")
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Runtime knobs that change no math: attention chunking of the plain
-    path, rematerialization, the sequence chunk of the loss and gradient
-    accumulation steps (``repro``'s names and defaults, except ``remat``:
-    the port has ``"none"`` and ``"full"``; the JAX default ``"dots"``,
-    which keeps matmul outputs, is not ported yet and raises)."""
+    path, rematerialization, the sequence chunk of the loss, the MoE
+    dispatch formulation and gradient accumulation steps (``repro``'s names
+    and defaults, except ``remat``: the port has ``"none"`` and ``"full"``;
+    the JAX default ``"dots"``, which keeps matmul outputs, is not ported
+    yet and raises)."""
 
     remat: str = "none"
     q_chunk: int = 512
     k_chunk: int = 1024
     loss_chunk: int = 512
+    moe_dispatch: str = "scatter"   # scatter | dense
     microbatches: int = 1
 
     def __post_init__(self):
@@ -57,9 +64,6 @@ def _check_spec(spec: LayerSpec) -> None:
     if spec.mixer not in ("attn", "mamba"):
         raise NotImplementedError(f"the port has attention and Mamba mixers, not "
                                   f"{spec.mixer!r} (the xLSTM mixers are a later slice)")
-    if spec.ffn not in ("dense", "none"):
-        raise NotImplementedError(f"the port has dense FFNs only, not {spec.ffn!r}: MoE "
-                                  f"layers come with the MoE slice (expert_gemm)")
 
 
 def layer_init(gen, cfg: ArchConfig, spec: LayerSpec, device):
@@ -74,7 +78,11 @@ def layer_init(gen, cfg: ArchConfig, spec: LayerSpec, device):
     p = {"norm1": norm_init(cfg.d_model, dt, device), "mixer": mixer}
     if spec.ffn != "none":
         p["norm2"] = norm_init(cfg.d_model, dt, device)
-        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt, device)
+        if "moe" in spec.ffn:
+            p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, dt, device,
+                                        cfg.ffn_kind)
+        if spec.ffn in ("dense", "moe+dense"):
+            p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt, device)
     return p
 
 
@@ -87,8 +95,9 @@ def segment_init(gen, cfg: ArchConfig, seg, device):
 
 def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: str,
                 cache=None, pos=None, true_len=None):
-    """Returns (x, new_cache). ``cache`` is the cache length in prefill mode
-    and the layer's cache dict in decode mode."""
+    """Returns (x, aux, new_cache): ``aux`` the MoE load-balancing loss
+    (None for a layer without experts). ``cache`` is the cache length in prefill
+    mode and the layer's cache dict in decode mode."""
     _check_spec(spec)
     common = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.hd,
                   rope_theta=cfg.rope_theta, window=spec.window)
@@ -114,39 +123,64 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
         y, new_cache = attn.attention_decode(p["mixer"], h, cache, pos,
                                              k_chunk=run.k_chunk, **common)
     x = x + y
+    aux = None
     if spec.ffn != "none":
-        x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.ffn_kind)
-    return x, new_cache
+        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y2 = None
+        if "moe" in spec.ffn:
+            y2, aux = moe_mod.moe_apply(
+                p["moe"], h2, top_k=cfg.experts_per_token, ffn_kind=cfg.ffn_kind,
+                capacity_factor=cfg.capacity_factor, dispatch=run.moe_dispatch,
+                true_len=true_len)
+        if spec.ffn in ("dense", "moe+dense"):
+            yd = ffn_apply(p["ffn"], h2, cfg.ffn_kind)
+            y2 = yd if y2 is None else y2 + yd
+        x = x + y2
+    return x, aux, new_cache
 
 
 def _train_layer(block, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig):
-    """One layer in train mode; under ``remat="full"`` a checkpointed one.
+    """One layer in train mode, (x, aux); under ``remat="full"`` a
+    checkpointed one.
 
     The recompute runs inside the backward, which autograd may run on
     another thread; the layer enters the runtime active at the forward so
     the recompute resolves under the same scope."""
     if run.remat == "none":
-        return layer_apply(block, x, spec, cfg, run, "train")[0]
+        return layer_apply(block, x, spec, cfg, run, "train")[:2]
     rt = current_runtime()
 
     def fn(xx):
         with rt:
-            return layer_apply(block, xx, spec, cfg, run, "train")[0]
+            return layer_apply(block, xx, spec, cfg, run, "train")[:2]
 
     return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
 
 
 def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                 caches=None, pos=None, cache_len=None, true_len=None):
-    """Apply all segments. Returns (x, caches): prefill builds them in the
-    JAX layout, decode updates ``caches`` in place and returns it, train
-    returns None."""
+    """Apply all segments. Returns (x, aux, caches): ``aux`` the layers'
+    MoE losses summed; prefill builds the caches in the JAX layout, decode
+    updates ``caches`` in place and returns it, train returns None."""
+    aux_total = None
+
+    def add_aux(aux):
+        nonlocal aux_total
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+
+    def total():
+        if aux_total is None:
+            return torch.zeros((), dtype=torch.float32, device=x.device)
+        return aux_total
+
     if mode == "train":
         for seg, blocks in zip(cfg.segments(), segments_params):
             for block in blocks:
                 for i, spec in enumerate(seg.pattern):
-                    x = _train_layer(block[f"l{i}"], x, spec, cfg, run)
-        return x, None
+                    x, aux = _train_layer(block[f"l{i}"], x, spec, cfg, run)
+                    add_aux(aux)
+        return x, total(), None
     out_caches = []
     for si, (seg, blocks) in enumerate(zip(cfg.segments(), segments_params)):
         per_layer = {f"l{i}": [] for i in range(len(seg.pattern))}
@@ -157,8 +191,9 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                     c = {kk: t[r] for kk, t in caches[si][name].items()}
                 else:
                     c = cache_len
-                x, nc = layer_apply(block[name], x, spec, cfg, run, mode, c, pos,
-                                    true_len=true_len)
+                x, aux, nc = layer_apply(block[name], x, spec, cfg, run, mode, c, pos,
+                                         true_len=true_len)
+                add_aux(aux)
                 if mode == "decode" and spec.mixer == "mamba":
                     for kk, t in nc.items():      # the new state into the pool's slice
                         c[kk].copy_(t)
@@ -169,7 +204,7 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                 name: {kk: torch.stack([c[kk] for c in cs]) for kk in cs[0]}
                 for name, cs in per_layer.items()
             })
-    return x, (tuple(out_caches) if mode == "prefill" else caches)
+    return x, total(), (tuple(out_caches) if mode == "prefill" else caches)
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):

@@ -19,7 +19,12 @@ serve loop:
 Sampling is on the host with ``np.random.default_rng(req.seed)``, exactly
 as in the JAX engine, so seeded requests give the same tokens in both
 packages. Any arrival pattern gives the same tokens as serving each
-request alone.
+request alone, with one exception carried over from the JAX engine: an MoE
+layer's expert capacity is shared by the rows of a batch. A bucketed
+prefill passes ``true_len``, so its pads take no capacity; decode passes no
+mask, so the pool's free slots route and take capacity too (8 slots, top-2
+of 8 experts: capacity 2 an expert). Tokens over capacity are dropped, and
+for MoE the property holds only with capacity headroom.
 
 ``stats`` counts steps and tokens as the JAX engine does; ``timings``
 holds each prefill's seconds by bucket and each decode step's seconds,

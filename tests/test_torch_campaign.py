@@ -113,8 +113,9 @@ def test_full_width_plan_has_one_job_per_fused_site():
     t, _ = _full_plan()
     d = scheduler.dedupe_jobs(t, "h100-sxm")
     assert len(d) == 73
-    # every default kernel but the selective scan's two, which qwen2_0_5b has no site for
-    assert {j.kernel for j in d} == set(KERNELS) - {"ssm_scan", "ssm_update"}
+    # every default kernel but the selective scan's two and the expert gemm, which
+    # qwen2_0_5b has no site for
+    assert {j.kernel for j in d} == set(KERNELS) - {"ssm_scan", "ssm_update", "expert_gemm"}
     (rmm,) = [j for j in d if j.kernel == "rmsnorm_matmul"]
     assert rmm.arg_shapes == ((8, 896), (896,), (896, 151936))
 
@@ -291,6 +292,37 @@ def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
         cli.main(["plan", "--reduced", "--out", str(tmp_path / "c.json")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.run_campaign(_small_manifest(tmp_path), TuningDatabase(None))
+
+
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+@pytest.mark.parametrize("max_tokens", [4096, 8192])
+def test_mixtral_plans_equal_jax(reduced, max_tokens):
+    """Training (with the expert gemms' transposed gradients), shape-level
+    and serving plans of Mixtral-8x7B equal the JAX planner's."""
+    jcfg, tcfg = jconfigs.get_config("mixtral_8x7b"), get_config("mixtral_8x7b")
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
+    tshape, jshape = _shape(reduced)
+    chunk = 32 if reduced else 512
+    serving = (2, 32) if reduced else (8, 8192)
+    t = (planner.plan_training_jobs(tcfg, tshape, run=RunConfig(loss_chunk=chunk),
+                                    max_tokens=max_tokens)
+         + planner.plan_train_jobs(tcfg, tshape, max_tokens=max_tokens)
+         + planner.plan_serving_jobs(tcfg, *serving, max_tokens=max_tokens))
+    j = (jplanner.plan_training_jobs(jcfg, jshape, run=JRun(remat="none", loss_chunk=chunk,
+                                                            microbatches=1),
+                                     kernels=KERNELS, max_tokens=max_tokens)
+         + jplanner.plan_train_jobs(jcfg, jshape, kernels=KERNELS, max_tokens=max_tokens)
+         + jplanner.plan_serving_jobs(jcfg, *serving, kernels=KERNELS, max_tokens=max_tokens))
+    assert _rows(t) == _rows(j)
+    egemm = [x.arg_shapes for x in t if x.kernel == "expert_gemm"]
+    if not reduced:
+        # the step's 8192 tokens: capacity 2560, forward and both gradients
+        assert egemm[:3] == [((8, 2560, 4096), (8, 4096, 14336)),
+                             ((8, 2560, 14336), (8, 14336, 4096)),
+                             ((8, 4096, 2560), (8, 2560, 14336))]
+        assert ((8, 640, 4096), (8, 4096, 14336)) in egemm          # prefill bucket 2048
+        assert ((8, 2, 14336), (8, 14336, 4096)) in egemm           # the 8-slot pool
 
 
 def test_unported_mixers_raise():

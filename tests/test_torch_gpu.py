@@ -19,6 +19,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import fused as fu  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import xent as xe  # noqa: E402
@@ -447,5 +448,95 @@ def test_reduced_hybrid_on_card_matches_cpu(cuda):
     assert kernels.launch_counts()["ssm_scan"] == 14
     assert kernels.launch_counts()["ssm_update"] == 28
     # 16 layers of fp32 sums in another order: 1e-4 of max|logit|
+    err = (logits["gpu"] - logits["cpu"]).abs().max().item()
+    assert err <= 1e-4 * logits["cpu"].abs().max().item(), err
+
+
+EGEMM_CONFIGS = [None, {"bc": 32, "bn": 64, "bk": 16}, {"bc": 128, "bn": 128, "bk": 64}]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,k,n", [(8, 2, 4096, 1024), (3, 37, 100, 130), (4, 7, 5, 9),
+                                     (2, 12, 16, 8), (1, 33, 64, 130), (8, 40, 896, 512)])
+@pytest.mark.parametrize("config", EGEMM_CONFIGS)
+def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, k, n, config):
+    rs = np.random.RandomState(e + c + k + n)
+    x, w = _t(rs, (e, c, k), dtype, cuda), _t(rs, (e, k, n), dtype, cuda, k ** -0.5)
+    cfg = config or mg.expert_gemm.default_config(x, w)
+    out = mg.expert_gemm_cuda(x, w, **cfg)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (e, c, n)
+    _close(out, mg.expert_gemm_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["ct@wT", "xT@ct", "broadcast_x"])
+@pytest.mark.parametrize("e,c,k,n", [(8, 40, 896, 520), (3, 37, 100, 130), (2, 2, 64, 33)])
+@pytest.mark.parametrize("config", EGEMM_CONFIGS)
+def test_expert_gemm_kernel_reads_transposed_operands(cuda, dtype, form, e, c, k, n, config):
+    """The backward's swapaxes views, read in place: dx = ct[e,c,n] @
+    swapaxes(w)[e,n,k] and dw = swapaxes(x)[e,k,c] @ ct[e,c,n]; and the
+    dense dispatch's operand broadcast over the experts (stride 0)."""
+    rs = np.random.RandomState(e * c + n)
+    if form == "ct@wT":
+        a = _t(rs, (e, c, n), dtype, cuda)
+        b = _t(rs, (e, k, n), dtype, cuda, n ** -0.5).transpose(1, 2)
+    elif form == "xT@ct":
+        a = _t(rs, (e, c, k), dtype, cuda).transpose(1, 2)
+        b = _t(rs, (e, c, n), dtype, cuda, c ** -0.5)
+    else:
+        a = _t(rs, (c, k), dtype, cuda)[None].expand(e, c, k)
+        b = _t(rs, (e, k, n), dtype, cuda, k ** -0.5)
+    cfg = config or mg.expert_gemm.default_config(a, b)
+    kernels.reset_launch_counts()
+    out = mg.expert_gemm_cuda(a, b, **cfg)
+    torch.cuda.synchronize()
+    want = {"expert_gemm": 1}
+    if form != "broadcast_x":
+        want["expert_gemm_transposed"] = 1
+    assert kernels.launch_counts() == want
+    _close(out, mg.expert_gemm_plain(a, b), dtype)
+
+
+def test_expert_gemm_wrapper_counts_and_raises(cuda):
+    x, w = torch.randn(2, 5, 16, device=cuda), torch.randn(2, 16, 8, device=cuda)
+    kernels.reset_launch_counts()
+    mg.expert_gemm(x, w)
+    mg.expert_gemm_plain(x, w)
+    mg.expert_gemm(x.cpu(), w.cpu())
+    assert kernels.launch_counts() == {"expert_gemm": 1}
+    with pytest.raises(ValueError):
+        mg.expert_gemm(x, torch.randn(2, 16, 16, device=cuda)[:, :, ::2])
+
+
+def test_reduced_mixtral_on_card_matches_cpu(cuda):
+    """Reduced Mixtral-8x7B (2 layers, 4 experts top-2, f32): a bucketed
+    prefill and two decode steps on the card against the CPU, every expert
+    gemm through the kernel (3 a layer a call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+
+    cfg = get_config("mixtral_8x7b").reduced()
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    to = lambda t: t.to(cuda) if isinstance(t, torch.Tensor) else (
+        {k: to(v) for k, v in t.items()} if isinstance(t, dict) else type(t)(to(v) for v in t))
+    on_card = to(params)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 32)))
+    run = RunConfig(q_chunk=16, k_chunk=16)
+    kernels.reset_launch_counts()
+    logits = {}
+    with torch.inference_mode():
+        for name, p, dev in (("gpu", on_card, cuda), ("cpu", params, "cpu")):
+            lg, caches = lm.prefill(p, {"tokens": toks.to(dev)}, cfg, run, cache_len=48,
+                                    true_len=29)
+            out = [lg]
+            for step in range(2):
+                lg, caches = lm.decode_step(p, torch.tensor([[step + 3]], device=dev), caches,
+                                            torch.tensor([29 + step], device=dev), cfg, run)
+                out.append(lg)
+            logits[name] = torch.cat(out).cpu()
+    assert kernels.launch_counts()["expert_gemm"] == 3 * cfg.num_layers * 3
+    # 2 layers of fp32 sums in another order, routes equal: 1e-4 of max|logit|
     err = (logits["gpu"] - logits["cpu"]).abs().max().item()
     assert err <= 1e-4 * logits["cpu"].abs().max().item(), err

@@ -312,9 +312,36 @@ def test_serving_plan_equals_jax(reduced, serving, max_tokens):
 
 
 def test_errors_name_the_missing_slice():
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        lm.init_params(get_config("jamba_1_5_large").reduced(), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        planner.plan_training_jobs(_dense(get_config), SHAPES["train_2k"])
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        planner.plan_train_jobs(_dense(get_config), SHAPES["train_2k"])
+    """Jamba with its MoE layers initialises (every second layer an MoE
+    FFN); training a Mamba layer, with or without experts, still names the
+    hybrid-training slice."""
+    cfg = get_config("jamba_1_5_large").reduced()
+    params = lm.init_params(cfg, 0, "cpu")
+    block = params["segments"][0][0]
+    assert [("moe" in block[f"l{i}"], "ffn" in block[f"l{i}"]) for i in range(8)] == \
+        [(False, True), (True, False)] * 4
+    for c in (cfg, _dense(get_config)):
+        with pytest.raises(NotImplementedError, match="hybrid training"):
+            planner.plan_training_jobs(c, SHAPES["train_2k"])
+        with pytest.raises(NotImplementedError, match="hybrid training"):
+            planner.plan_train_jobs(c, SHAPES["train_2k"])
+
+
+@pytest.mark.parametrize("reduced,serving,max_tokens", [
+    (True, (2, 32), 4096), (True, (8, 128), 8192), (False, (8, 2048), 8192)],
+    ids=["reduced-2x32", "reduced-8x128", "full-8x2048"])
+def test_serving_plan_with_experts_equals_jax(reduced, serving, max_tokens):
+    jcfg, tcfg = j_get_config("jamba_1_5_large"), get_config("jamba_1_5_large")
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
+    t = planner.plan_serving_jobs(tcfg, *serving, max_tokens=max_tokens)
+    j = jplanner.plan_serving_jobs(jcfg, *serving, kernels=planner.DEFAULT_KERNELS,
+                                   max_tokens=max_tokens)
+    assert _rows(t) == _rows(j)
+    egemm = [x for x in t if x.kernel == "expert_gemm"]
+    assert egemm and all(x.arg_shapes[0][0] == tcfg.num_experts for x in egemm)
+    if not reduced:                       # 36 MoE layers; a decode pool of 8 has capacity 2
+        pool = [x for x in egemm if x.scenarios[0].endswith("b8s1024")]
+        assert [x.arg_shapes for x in pool] == [((16, 2, 8192), (16, 8192, 24576)),
+                                                ((16, 2, 24576), (16, 24576, 8192))]
+        assert [x.weight for x in pool] == [2 * 36 * 1024, 36 * 1024]
