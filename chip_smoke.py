@@ -8,7 +8,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              count and ``nvidia-smi --query-gpu=name,power.limit``;
 2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, in parallel) and prints nvcc's register /
-             shared-memory / spill report;
+             shared-memory / spill report and its wgmma serialization
+             warnings; disassembles the two flash libraries (``cuobjdump
+             --dump-sass``) and prints the HGMMA instructions (wgmma) of
+             each kernel: it fails if a bf16 flash kernel (``flash_*_tc``)
+             has none;
 3. kernels — runs each kernel at the serving and training paths' shapes in
              bf16 (matmul also on the backward's transposed operands; the
              fused matmul_bias_act at the training gate projection with
@@ -22,8 +26,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    The hybrid's kernels join them: ssm_scan at b=1, s=2048, d_inner
              16384 (xc bf16) and at a ragged s=1500, d_inner 16380;
              ssm_update at the 8-slot pool; flash attention at 64/8 heads
-             of 128; the hybrid's bf16 in_proj and fp32 dt_proj / out_proj
-             gemms;
+             of 128 (s = 2048 and the ragged s = 1500 of an exact-length
+             prefill) and one CTA of it alone, timed per k tile; the flash
+             backward at 64/8 heads of 128 and, windowed (1024), at 32/8
+             heads of 128 over 4096 positions, each split into its dq and
+             dk/dv passes by torch.profiler; the hybrid's bf16 in_proj and
+             fp32 dt_proj / out_proj gemms;
    And Mixtral-8x7B's: expert_gemm at the decode pool's capacity 2, at
              prefill capacities 640 and 2560 (gate/up and down), on the
              backward's transposed views at 640 and at a ragged 37 (torch.bmm
@@ -245,8 +253,37 @@ def phase_build():
         f"into {_build.BUILD_DIR}")
     for n in names:
         for line in _build.ptxas_report(n).splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry")):
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "Performance Loss")):
                 log(f"[build] {n}: {line.strip()}")
+    # The bf16 flash kernels (flash_*_tc) must run on the tensor cores: each
+    # one's SASS holds wgmma, which disassembles as HGMMA.
+    for n in ("flash_attention", "flash_attention_bwd"):
+        counts = hgmma_counts(_build.lib_path(n))
+        tc = {f: c for f, c in counts.items() if "_tc" in f}
+        for f, c in sorted(counts.items()):
+            log(f"[build] {n} SASS: {c} HGMMA in {f}")
+        if not tc or min(tc.values()) == 0:
+            raise AssertionError(f"{n}: a bf16 flash kernel has no HGMMA in its SASS: {tc}")
+        log(f"[build] {n}: {len(tc)} tensor-core kernels, {min(tc.values())}..."
+            f"{max(tc.values())} HGMMA each; {len(counts) - len(tc)} SIMT kernels")
+
+
+def hgmma_counts(lib) -> dict:
+    """HGMMA instructions in the SASS of each kernel of a built library."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch.bfloat16):
@@ -331,12 +368,7 @@ def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1, window=0, iter
     mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = mk(h), mk(kvh), mk(kvh)
     heur = fa.flash_attention.default_config(q, k, v)
-    if s < 64:
-        other = {"block_q": 16, "block_k": 32}
-    elif heur == {"block_q": 64, "block_k": 64}:
-        other = {"block_q": 32, "block_k": 128}      # the pick below a full grid
-    else:
-        other = {"block_q": 64, "block_k": 64}
+    other = other_config(heur)
     kw = dict(causal=True, window=window)
     p_out, p_lse = fa.flash_attention_plain(q, k, v, **kw)
     errs = []
@@ -377,6 +409,15 @@ def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1, window=0, iter
     log(f"[kernels] flash_attention {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
         f"{other}); plain {plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); "
         f"err {row['max_abs_err']:.3g} (row rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+
+
+def other_config(heur) -> dict:
+    """The flash kernels' other legal config: the other q tile (and the
+    other ring depth, where the space has one)."""
+    other = dict(heur, block_q=192 - heur["block_q"])
+    if "stages" in heur:
+        other["stages"] = 5 - heur["stages"]
+    return other
 
 
 def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
@@ -474,50 +515,107 @@ def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
             f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {tol})")
 
 
-def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64):
+def device_split(fn, iters: int = 3) -> dict:
+    """Device ms of each kernel one call of ``fn`` launches (torch.profiler,
+    device activity only, over ``iters`` calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_ms(p, iters)
+
+
+def device_ms(p, steps: int) -> dict:
+    """Device ms a step of each kernel (or copy) a torch.profiler window saw."""
+    by_name = {}
+    for ev in p.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / steps
+    return by_name
+
+
+def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64, window=0):
     from repro_torch.kernels import attention as fa
 
     mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v, do = mk(h), mk(kvh), mk(kvh), mk(h)
-    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_attention_plain(q, k, v, **kw)
     heur = fa.flash_attention_bwd.default_config(do, q, k, v, o, lse)
-    # the other legal config: the first heuristic's pick at this shape
-    other = {"block_q": 32, "block_k": 64}
-    plain = fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=True)
+    other = other_config(heur)
+    plain = fa.flash_attention_bwd_plain(do, q, k, v, o, lse, **kw)
     errs = []
     for cfg in (heur, other):
-        grads = fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, **cfg)
+        grads = fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, **kw, **cfg)
         torch.cuda.synchronize()
         errs.append(max((rel_err(g, p) for g, p in zip(grads, plain)), key=lambda e: e[1]))
         if errs[-1][1] > TOL_BF16:
             raise AssertionError(f"flash bwd b={b} s={s} {cfg}: rel err {errs[-1][1]:.3g}")
     del grads, plain
-    ms = time_ms(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, **heur),
-                 iters=5, warmup=1)
-    ms_other = time_ms(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True,
-                                                           **other), iters=5, warmup=1)
-    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=True),
-                       iters=5, warmup=1)
-    # yardstick: the backward of one SDPA call over the same inputs
+    tk = dict(iters=5, warmup=1)
+    ms = time_ms(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, **kw, **heur), **tk)
+    ms_other = time_ms(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, **kw, **other),
+                       **tk)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(do, q, k, v, o, lse, **kw), **tk)
+    split = device_split(lambda: fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, **kw, **heur))
+    passes = {p: sum(ms for n, ms in split.items() if f"flash_bwd_{p}_tc" in n)
+              for p in ("dq", "dkv")}
+    # yardstick: the backward of one SDPA call over the same inputs (the
+    # window as a boolean mask)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
-    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
-                     iters=5, warmup=1)
+    if window:
+        qi = torch.arange(s, device="cuda")
+        dist = qi[:, None] - qi[None, :]
+        out = sdpa(qg, kg, vg, attn_mask=(dist >= 0) & (dist < window), enable_gqa=True)
+        del dist
+    else:
+        out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), **tk)
     del out
-    pairs = s * (s + 1) // 2
+    w = min(window or s, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w        # (q, k) pairs this run computes
     # the least work: 5 matmul-equivalents (s, dp, dv, dq, dk) over the live pairs
     flops = 5 * 2.0 * d * pairs * h * b
     nbytes = b * ((4 * h * s * d + 4 * kvh * s * d) * 2 + h * s * 4)
     b_ms, b_by = bound(prof, nbytes, flops, prof.peak_flops_bf16)
-    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal bf16", path="train",
-               config=heur, ms=ms, other_config=other, other_ms=ms_other, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    wname = f" w{window}" if window else ""
+    row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal{wname} bf16",
+               path="train", config=heur, ms=ms, other_config=other, other_ms=ms_other,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               dq_pass_ms=passes["dq"], dkv_pass_ms=passes["dkv"],
                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
     log(f"[kernels] flash_attention_bwd {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
-        f"{other}); plain {plain_ms:.4f}, SDPA backward {lib_ms:.4f}, bound {b_ms:.4f} "
+        f"{other}); dq pass {passes['dq']:.4f}, dk/dv pass {passes['dkv']:.4f} (torch.profiler); "
+        f"plain {plain_ms:.4f}, SDPA backward {lib_ms:.4f}, bound {b_ms:.4f} "
         f"({b_by}); err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+
+
+def flash_tile_latency(prof, sfu, gen) -> None:
+    """What bounds the flash forward's CTA: one CTA alone (one q tile of 64
+    rows at d = 128 against 2048 keys, 32 tiles of 64 keys, all live) timed
+    per k tile, beside what one tile needs of one SM: its two products (S =
+    Q K^T and P V, 4 * 64 * 64 * 128 flops) at the SM's share of the bf16
+    peak, and its 64 * 64 exponentials at the SM's share of the SFU rate."""
+    from repro_torch.kernels import attention as fa
+
+    mk = lambda n: torch.randn((1, 1, n, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = mk(64), mk(2048), mk(2048)
+    cfg = {"block_q": 64, "block_k": 64, "stages": 2}
+    us = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True, **cfg), iters=50) * 1e3
+    mma_us = 4.0 * 64 * 64 * 128 / (prof.peak_flops_bf16 / prof.sm_count) * 1e6
+    exp_us = 64.0 * 64 / (sfu / prof.sm_count) * 1e6
+    log(f"[kernels] flash_attention one CTA alone, q[1,1,64,128] kv[1,1,2048,128] {cfg}: "
+        f"{us:.2f} us, {us / 32:.4f} us a 64-key tile; one SM needs {mma_us:.4f} us for the "
+        f"tile's two products at its share of the bf16 peak and {exp_us:.4f} us for its 4096 "
+        f"exponentials at its share of the SFU rate")
 
 
 def _mba_case(prof, rows, m, k, n, act, gen, path):
@@ -790,6 +888,14 @@ def phase_kernels(prof, seed: int):
     _ssm_scan_case(prof, results["ssm_scan"], 1, 1500, 16380, gen, sfu)
     _ssm_update_case(prof, results["ssm_update"], 8, 16384, gen, sfu)
     _flash_case(prof, results["flash_attention"], 2048, gen, "hybrid", h=64, kvh=8, d=128)
+    _flash_case(prof, results["flash_attention"], 1500, gen, "hybrid", h=64, kvh=8, d=128)
+    flash_tile_latency(prof, sfu, gen)
+    # The backward at head dim 128 in groups of 8 (Jamba's attention widths)
+    # and with a window (Mixtral's widths): neither model trains here, so
+    # the rows hold the kernel at those widths.
+    _flash_bwd_case(prof, results["flash_attention_bwd"], 1, 2048, gen, h=64, kvh=8, d=128)
+    _flash_bwd_case(prof, results["flash_attention_bwd"], 1, 4096, gen, h=32, kvh=8, d=128,
+                    window=1024)
     dm, di, dtr = 8192, 16384, 512
     for m in (8, 2048):
         _matmul_case(prof, results["matmul"], m, dm, 2 * di, gen, "hybrid")
@@ -838,14 +944,7 @@ def profile(label: str, step, steps: int, wall_ms=None) -> None:
         for _ in range(steps):
             step()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_name = {}
-    for ev in prof.key_averages():          # device-side events: kernels, copies
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / steps
+    by_name = device_ms(prof, steps)
     if not by_name:
         raise AssertionError(f"torch.profiler saw no device time in the {label} window")
     busy = sum(by_name.values())

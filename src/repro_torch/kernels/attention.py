@@ -8,17 +8,26 @@ softmax in fp32, the output plus the fp32 logsumexp ``[b,h,s_q]``. The
 CUDA source is ``csrc/flash_attention.cu``, whose header says what bounds
 it and what its design does about that.
 
-The knobs are launch parameters: ``block_q`` is the q tile of one CTA and
-``block_k`` the k tile of its inner loop. Both tiles live in shared memory
-as fp32, so the limit is the H100's 227 KB a block at the widest head the
-kernel takes (d = 128). Unlike the TPU kernel, s_q and s_k need not divide
-into blocks: the kernel masks its ragged edge.
+bf16 runs on the tensor cores (``wgmma``, fed by TMA through a ring of
+shared-memory stages on mbarriers; ``csrc/flash_common.cuh``), which only
+``sm_90a`` has. fp32 runs the SIMT kernels under their own entry points,
+chosen by dtype: ``wgmma`` has no fp32 operands, and TF32 would break the
+fp32 card tests and gradient checks.
+
+The knobs are the bf16 kernels' launch parameters. Forward: ``block_q``,
+the q rows of one CTA (64 per consumer warpgroup), ``block_k``, the keys
+of a streamed k/v tile, and ``stages``, the depth of the ring. Every
+config fits the H100's 227 KB of shared memory a block at the widest head
+the kernels take (d = 128). Unlike the TPU kernel, s_q and s_k need not
+divide into blocks: the tensor maps read zeros past the edge and the
+kernel masks it. The fp32 SIMT route runs 64 x 64 tiles whatever the
+config (:data:`SIMT_TILES`).
 
 Its backward plan dispatches ``flash_attention_bwd`` (``csrc/
 flash_attention_bwd.cu``, replacing ``repro/kernels/attention.py:
 _flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``): dq, dk and dv from the
-forward's saved output and lse, in two passes, the dk/dv pass summing each
-kv head's group of q heads inside the CTA.
+forward's saved output and lse, in two passes with no atomics, the dk/dv
+pass summing each kv head's group of q heads inside the CTA.
 """
 from __future__ import annotations
 
@@ -29,53 +38,59 @@ from typing import Optional
 import torch
 
 from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core.params import EnumParam
 from ..core.platform import H100_SXM
 from . import _build, ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30        # as the TPU kernel: no nan from (-inf) - (-inf)
-FLASH_WARPS = 4
+FLASH_WARPS = 4         # warps of a SIMT CTA
 MAX_HEAD_DIM = 128
+HEAD_DIMS = (16, 32, 64, 128)
+
+# The fp32 SIMT kernels' tiles, whatever the config: the tensor-core tiles
+# of the spaces (up to 128 x 128) exceed their fp32 shared memory at d =
+# 128, and 64 x 64 is legal for the forward and both backward passes at
+# every head dim (tests/test_torch_flash_space.py).
+SIMT_TILES = {"block_q": 64, "block_k": 64}
 
 
 def smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
-    """Shared memory of one CTA (mirrors repro_flash_smem_bytes)."""
+    """Shared memory of one bf16 forward CTA (mirrors ``Fwd::SMEM`` in
+    csrc/flash_attention.cu): the q tile, ``stages`` k and v tiles, 2 *
+    stages + 1 barriers and 1024 bytes to align the tiles for the 128-byte
+    swizzle."""
+    bq, bk, st = c["block_q"], c["block_k"], c["stages"]
+    return 1024 + bq * d * 2 + 2 * st * bk * d * 2 + 8 * (2 * st + 1)
+
+
+def simt_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
+    """Shared memory of one fp32 SIMT forward CTA (mirrors
+    repro_flash_simt_smem_bytes)."""
     bq, bk = c["block_q"], c["block_k"]
     return (2 * bq * d + 2 * bk * (d + 1) + FLASH_WARPS * bk + 2 * bq) * 4
 
 
 ATTENTION_SPACE = ParamSpace(
     [
-        PowerOfTwoParam("block_q", 16, 128),
-        PowerOfTwoParam("block_k", 32, 256),
+        PowerOfTwoParam("block_q", 64, 128),
+        PowerOfTwoParam("block_k", 64, 128),
+        EnumParam("stages", (2, 3)),
     ],
     [
         Constraint(lambda c: smem_bytes(c) <= H100_SXM.smem_per_block,
-                   "q, o, k and v tiles exceed 227 KB of shared memory at d=128"),
+                   "bf16 q tile, k/v ring and barriers exceed 227 KB of shared memory at d=128"),
     ],
 )
 
 
-# CTAs of 64-row q tiles from which those tiles fill the card: about eight
-# per SM on an H100 SXM.
-FULL_GRID = 1024
-
-
-def _q64_ctas(q) -> int:
-    b, h, s_q, _ = q.shape
-    return b * h * -(-s_q // 64)
-
-
 def _attn_heuristic(q, k, v):
-    """32-row q tiles (16 for the shortest prompts) and 128-key k tiles:
-    twice the CTAs of 64-row tiles, each warp with fewer rows in turn
-    (about half the time of 64x64 tiles at s=256 on an H100 SXM,
-    chip_smoke.py). Once 64-row tiles alone give FULL_GRID CTAs, 64x64 tiles
-    (the training step's b=4, s=2048: 5.98 vs 7.19 ms; at b=1, s=2048 the
-    two tie, 2.18 vs 2.19 ms; chip_smoke.py, H100 SXM)."""
-    if _q64_ctas(q) >= FULL_GRID:
-        return {"block_q": 64, "block_k": 64}
-    return {"block_q": 16 if q.shape[2] <= 16 else 32, "block_k": 128}
+    """64-row q tiles and 64-key tiles in a ring of two stages: one consumer
+    warpgroup a CTA, whose small shared memory (at most 83 KB at d = 128)
+    lets two or more CTAs share an SM, so one CTA's softmax overlaps
+    another's products. It beat 128 x 64 tiles with three stages at every
+    main-path shape (Jamba's s = 2048: 0.1861 against 0.2226 ms; Mixtral's
+    windowed s = 8192: 0.9145 against 1.0376; chip_smoke.py, H100 SXM)."""
+    return {"block_q": 64, "block_k": 64, "stages": 2}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -112,31 +127,54 @@ def _check(q, k, v):
         raise ValueError(f"mismatched q {tuple(q.shape)} and k {tuple(k.shape)}")
 
 
-def flash_attention_cuda(q, k, v, *, block_q: int, block_k: int, causal: bool = True,
-                         window: int = 0, scale: Optional[float] = None):
-    """Launch csrc/flash_attention.cu on CUDA tensors: (out, lse)."""
+def _check_cuda(ts, what: str) -> None:
+    dtype = ts[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != dtype for t in ts):
+        raise TypeError(f"{what} kernel takes matching f32 or bf16 tensors, got "
+                        f"{[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} kernel takes contiguous tensors only")
+    if not all(t.device == ts[0].device for t in ts):
+        raise ValueError(f"{what} tensors on different devices")
+    if dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what} kernel's tensor maps need 16-byte aligned tensors")
+
+
+def _check_head_dim(d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
+
+
+def flash_attention_cuda(q, k, v, *, block_q: int, block_k: int, stages: int = 2,
+                         causal: bool = True, window: int = 0, scale: Optional[float] = None):
+    """Launch csrc/flash_attention.cu on CUDA tensors: (out, lse). bf16 runs
+    the tensor-core kernel at the config's tiles; fp32 the SIMT kernel at
+    :data:`SIMT_TILES`, chosen by dtype (never on a failure)."""
     _check(q, k, v)
+    _check_cuda((q, k, v), "flash")
     b, h, s_q, d = q.shape
     kvh, s_k = k.shape[1], k.shape[2]
-    if d < 16 or d > MAX_HEAD_DIM or d & (d - 1):
-        raise ValueError(f"head_dim must be a power of two in [16, 128], got {d}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"flash kernel takes matching f32 or bf16 q/k/v, got {q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel takes contiguous q, k, v only")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v on different devices")
+    _check_head_dim(d)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fn = _build.entry("flash_attention", "repro_flash_attention",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             b, h, kvh, s_q, s_k, d, float(scale), int(bool(causal)), int(window),
-             _DTYPES[q.dtype], block_q, block_k, _build.stream_ptr(q.device))
-    _build.check("flash_attention", err, f"flash_attention q{tuple(q.shape)} k{tuple(k.shape)} "
-                           f"block_q={block_q} block_k={block_k}")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    dims = (b, h, kvh, s_q, s_k, d, float(scale), int(bool(causal)), int(window))
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+    if q.dtype == torch.bfloat16:
+        cfg = {"block_q": block_q, "block_k": block_k, "stages": stages}
+        if not ATTENTION_SPACE.is_valid(cfg):
+            raise ValueError(f"flash config {cfg} is not in the kernel's space")
+        fn = _build.entry("flash_attention", "repro_flash_attention",
+                          head + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = fn(*ptrs, *dims, block_q, block_k, stages, _build.stream_ptr(q.device))
+    else:
+        cfg = dict(SIMT_TILES)
+        fn = _build.entry("flash_attention", "repro_flash_attention_f32",
+                          head + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        err = fn(*ptrs, *dims, cfg["block_q"], cfg["block_k"], _build.stream_ptr(q.device))
+    _build.check("flash_attention", err, f"flash_attention {q.dtype} q{tuple(q.shape)} "
+                 f"k{tuple(k.shape)} {cfg}")
     _build.LAUNCHES["flash_attention"] += 1
     return out, lse
 
@@ -168,10 +206,10 @@ def _flash_bwd_plan(ct, q, k, v, o, lse, **kwargs):
         residuals=1,
     ),
 )
-def flash_attention(q, k, v, *, block_q: int, block_k: int, causal: bool = True,
-                    window: int = 0, scale: Optional[float] = None):
+def flash_attention(q, k, v, *, block_q: int, block_k: int, stages: int = 2,
+                    causal: bool = True, window: int = 0, scale: Optional[float] = None):
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k,
+        return flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k, stages=stages,
                                     causal=causal, window=window, scale=scale)
     if q.device.type == "cpu":
         _check(q, k, v)
@@ -184,38 +222,57 @@ def flash_attention(q, k, v, *, block_q: int, block_k: int, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
+BWD_TILE = 64        # rows of a streamed tile: k in the dq pass, q in the dk/dv pass
+BWD_STAGES = 2       # depth of the backward's ring
+
+
 def bwd_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
-    """Shared memory of the larger of the two backward CTAs (mirrors
-    repro_flash_bwd_dq_smem_bytes and repro_flash_bwd_dkv_smem_bytes)."""
+    """Shared memory of the larger of the two bf16 backward CTAs (mirrors
+    ``BwdDq::SMEM`` and ``BwdDkv::SMEM`` in csrc/flash_attention_bwd.cu):
+    the dq pass holds q and do tiles of ``block_q`` rows and a ring of
+    64-key k and v tiles; the dk/dv pass k and v tiles of ``block_k`` keys
+    and a ring of 64-row q and do tiles, each with 64 lse and delta values."""
+    fixed, tile = 1024 + 8 * (1 + 2 * BWD_STAGES), BWD_TILE * d * 2
+    dq = fixed + 2 * c["block_q"] * d * 2 + 2 * BWD_STAGES * tile
+    dkv = fixed + 2 * c["block_k"] * d * 2 + BWD_STAGES * (2 * tile + 512)
+    return max(dq, dkv)
+
+
+def simt_bwd_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
+    """Shared memory of the larger of the two fp32 SIMT backward CTAs
+    (mirrors repro_flash_bwd_dq_simt_smem_bytes and
+    repro_flash_bwd_dkv_simt_smem_bytes)."""
     bq, bk = c["block_q"], c["block_k"]
     dq = 3 * bq * (d + 1) + 2 * bk * (d + 1) + FLASH_WARPS * bk
     dkv = 4 * bk * (d + 1) + 2 * bq * (d + 1) + 2 * bq + 2 * FLASH_WARPS * bq
     return max(dq, dkv) * 4
 
 
-# The backward keeps four k-row tiles (k, v, dk, dv) in shared memory where
-# the forward keeps two, so its space is limited again at d = 128.
+# block_q is the dq pass's q tile (64 rows per consumer warpgroup), block_k
+# the dk/dv pass's k tile (64 keys per consumer warpgroup); each pass
+# streams the other operand in 64-row tiles, which bounds the registers of
+# its accumulators (dq, or dk and dv) at d = 128.
 ATTENTION_BWD_SPACE = ParamSpace(
     [
-        PowerOfTwoParam("block_q", 16, 128),
-        PowerOfTwoParam("block_k", 32, 256),
+        PowerOfTwoParam("block_q", 64, 128),
+        PowerOfTwoParam("block_k", 64, 128),
     ],
     [
         Constraint(lambda c: bwd_smem_bytes(c) <= H100_SXM.smem_per_block,
-                   "backward k/v/dk/dv and q/do tiles exceed 227 KB of shared memory at d=128"),
+                   "bf16 backward tiles, rings and barriers exceed 227 KB of shared memory "
+                   "at d=128"),
     ],
 )
 
 
 def _attn_bwd_heuristic(ct, q, k, v, o, lse):
-    """32-row q tiles (16 for the shortest prompts), as the forward, and
-    64-key k tiles: the dk/dv CTA holds four k-row tiles, and 64 keys keep
-    it legal at d = 128. Once 64-row q tiles give FULL_GRID CTAs, 64x32
-    tiles (the training step's b=4, s=2048: 24.26 vs 31.53 ms,
-    chip_smoke.py, H100 SXM)."""
-    if _q64_ctas(q) >= FULL_GRID:
-        return {"block_q": 64, "block_k": 32}
-    return {"block_q": 16 if q.shape[2] <= 16 else 32, "block_k": 64}
+    """64-row q tiles in the dq pass (Jamba's widths: 0.9220 against 0.9498
+    ms with 128; chip_smoke.py, H100 SXM); in the dk/dv pass 128-key tiles
+    up to d = 64 and 64-key tiles above, where the dk and dv accumulators of
+    two warpgroups exceed the registers of a 288-thread CTA (168 a thread):
+    ptxas spills them and serializes the wgmmas (chip_smoke.py's build
+    report)."""
+    return {"block_q": 64, "block_k": 128 if q.shape[-1] <= 64 else 64}
 
 
 def flash_attention_bwd_plain(ct, q, k, v, o, lse, *, causal: bool = True, window: int = 0,
@@ -254,41 +311,45 @@ def flash_attention_bwd_plain(ct, q, k, v, o, lse, *, causal: bool = True, windo
 def flash_attention_bwd_cuda(ct, q, k, v, o, lse, *, block_q: int, block_k: int,
                              causal: bool = True, window: int = 0,
                              scale: Optional[float] = None):
-    """Launch csrc/flash_attention_bwd.cu on CUDA tensors: (dq, dk, dv).
-    delta = rowsum(do * o) is one fp32 torch reduction here, as it is a jnp
-    reduction outside the Pallas kernels."""
+    """Launch csrc/flash_attention_bwd.cu on CUDA tensors: (dq, dk, dv). bf16
+    runs the tensor-core passes at the config's tiles; fp32 the SIMT passes
+    at :data:`SIMT_TILES`, chosen by dtype. delta = rowsum(do * o) is one
+    fp32 torch reduction here, as it is a jnp reduction outside the Pallas
+    kernels."""
     _check(q, k, v)
     b, h, s_q, d = q.shape
     kvh, s_k = k.shape[1], k.shape[2]
     if ct.shape != q.shape or o.shape != q.shape or lse.shape != (b, h, s_q):
         raise ValueError(f"flash_attention_bwd takes ct and o like q {tuple(q.shape)} and lse "
                          f"[b,h,s_q]; got {tuple(ct.shape)}, {tuple(o.shape)}, {tuple(lse.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == ct.dtype) or q.dtype not in _DTYPES \
-            or lse.dtype != torch.float32:
-        raise TypeError(f"flash bwd kernel takes matching f32 or bf16 q/k/v/ct and fp32 lse, "
-                        f"got {q.dtype}, {ct.dtype}, {lse.dtype}")
-    if not all(t.is_contiguous() for t in (ct, q, k, v, lse)):
-        raise ValueError("flash bwd kernel takes contiguous ct, q, k, v, lse only")
-    if not all(t.device == q.device for t in (ct, k, v, o, lse)):
+    _check_cuda((ct, q, k, v), "flash bwd")
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError(f"flash bwd kernel takes a contiguous fp32 lse, got {lse.dtype}")
+    if not all(t.device == q.device for t in (o, lse)):
         raise ValueError("flash bwd tensors on different devices")
-    cfg = {"block_q": block_q, "block_k": block_k}
-    if bwd_smem_bytes(cfg, d) > H100_SXM.smem_per_block:
-        raise ValueError(f"flash bwd tiles {cfg} exceed shared memory at d={d}")
+    _check_head_dim(d)
     scale = scale if scale is not None else d ** -0.5
     delta = (ct.float() * o.float()).sum(-1)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.entry("flash_attention_bwd", "repro_flash_attention_bwd",
+    if q.dtype == torch.bfloat16:
+        cfg = {"block_q": block_q, "block_k": block_k}
+        if not ATTENTION_BWD_SPACE.is_valid(cfg):
+            raise ValueError(f"flash bwd config {cfg} is not in the kernel's space")
+        symbol = "repro_flash_attention_bwd"
+    else:
+        cfg = dict(SIMT_TILES)
+        symbol = "repro_flash_attention_bwd_f32"
+    fn = _build.entry("flash_attention_bwd", symbol,
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ct.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              b, h, kvh, s_q, s_k, d, float(scale), int(bool(causal)), int(window),
-             _DTYPES[q.dtype], block_q, block_k, _build.stream_ptr(q.device))
+             cfg["block_q"], cfg["block_k"], _build.stream_ptr(q.device))
     _build.check("flash_attention_bwd", err,
-                 f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} "
-                 f"block_q={block_q} block_k={block_k}")
+                 f"flash_attention_bwd {q.dtype} q{tuple(q.shape)} k{tuple(k.shape)} {cfg}")
     _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 

@@ -11,33 +11,455 @@
 //   dq = scale * sum_k ds k,  dk = scale * sum_q ds q,  dv = sum_q p do
 // dq in q's dtype, dk and dv in k's.
 //
-// Two passes, as on the TPU, since blocks run in any order and nothing
-// carries over between them:
-// * dq: one CTA per (b*h, q tile of block_q rows) walks its live k tiles
-//   in a loop (the TPU's sequential k grid axis). Each warp takes q rows in
-//   turn: lanes split the keys for the scores and do.v, then the head dims
-//   for the dq update, which accumulates in shared memory.
-// * dk/dv: one CTA per (b*kv, k tile of block_k keys) of ONE kv head walks
-//   the live q tiles of every q head of that head's group, so dk and dv
-//   are summed over the group inside the CTA and written once in k's
-//   dtype (the TPU writes fp32 per q head and sums outside). Each warp
-//   takes keys in turn: lanes split the q rows for the scores, then the
-//   head dims for the dk/dv update.
-// Tiles entirely in the causal future or before the window are skipped.
-// Every tile lives in shared memory as fp32, rows padded by one float so
-// lanes reading different rows hit different banks.
+// Bound: operations. The least work is five matrix products over the
+// live (q, k) pairs (s, dp, dv, dq, dk); at b=4, s=2048, 14/2 heads of 64
+// about 75 GFLOP, 0.076 ms on the tensor cores.
 //
-// Bound: operations. At b=4, s=2048, 14/2 heads of 64 the backward does
-// about 7 matmul-equivalents over the causal half (about 105 GFLOP),
-// about 0.11 ms on the tensor cores. This first version computes on the
-// SIMT fp32 cores out of shared memory, like the forward, and is bound by
-// shared-memory bandwidth; tensor-core tiles are a later change.
-#include "common.cuh"
+// Two passes with no atomics, as on the TPU, since blocks run in any order
+// and nothing carries over between them; the sums run in a fixed order, so
+// the result is deterministic. bf16 runs on the tensor cores, each product
+// one wgmma with its B operand in shared memory and, where its A operand
+// is p or ds, that operand in registers (flash_common.cuh):
+// * dq (flash_bwd_dq_tc): one CTA per (b*h, q tile of BQ = 64 or 128 rows),
+//   one consumer warpgroup per 64 rows, one producer warp. Q and dO are
+//   loaded once; the live k and v tiles of 64 keys stream through a ring
+//   of two TMA stages on mbarriers. S = Q K^T and dP = dO V^T (both
+//   operands K-major), dS = P (dP - delta) in registers, dQ += dS K (K
+//   read MN-major). The longest q tiles launch first.
+// * dk/dv (flash_bwd_dkv_tc): one CTA per (b*kv, k tile of BK = 64 or 128
+//   keys) of ONE kv head, one consumer warpgroup per 64 keys. K and V are
+//   loaded once; the live q tiles of 64 rows of every q head of the kv
+//   head's group stream through the ring with their lse and delta (which
+//   the producer warp copies beside each tile), so dk and dv are summed
+//   over the group inside the CTA and written once in k's dtype (the TPU
+//   writes fp32 per q head and sums outside). Scores are computed
+//   transposed so that rows index keys: S^T = K Q^T, P^T = exp(S^T - lse),
+//   dV += P^T dO; dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+// Tiles wholly in the causal future or before the window are skipped (the
+// dk/dv pass by the mirror bound on q tiles); the mask is computed only on
+// tiles that hold a masked pair or a ragged edge.
+//
+// fp32 keeps the first version's SIMT kernels (flash_bwd_dq_simt,
+// flash_bwd_dkv_simt) under their own entry point, chosen by dtype: wgmma
+// has no fp32 operands, and TF32 would break the fp32 card tests and the
+// fp32 gradient check. Every tile lives in shared memory as fp32 there,
+// rows padded by one float; each warp takes rows in turn.
+#include "flash_common.cuh"
 
 #define NEG_INF_F (-1e30f)
 #define FLASH_WARPS 4
 
-__device__ __forceinline__ bool live(int qa, int ka, int causal, int window) {
+using namespace flash;
+typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_TILE = 64;     // rows of a streamed tile (k in the dq pass, q in dk/dv)
+constexpr int BWD_STAGES = 2;    // depth of the ring
+
+template <int D, int BQ>
+struct BwdDq {
+  static constexpr int NWG = BQ / 64, THREADS = NWG * 128 + 32;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BWD_TILE * D * 2;
+  // q and do tiles, the k and v ring, the q barrier and the ring's full and
+  // empty barriers, and 1024 bytes to align the tiles (kernels/attention.py:
+  // bwd_smem_bytes mirrors this and BwdDkv's).
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * BWD_STAGES * KV_BYTES +
+                              8 * (1 + 2 * BWD_STAGES);
+};
+
+template <int D, int BK>
+struct BwdDkv {
+  static constexpr int NWG = BK / 64, THREADS = NWG * 128 + 32;
+  static constexpr int K_BYTES = BK * D * 2, Q_BYTES = BWD_TILE * D * 2;
+  // k and v tiles, the q and do ring, each stage's lse * log2(e) and
+  // delta (2 x 64 fp32), the barriers, and 1024 bytes to align the tiles.
+  static constexpr int SMEM = 1024 + 2 * K_BYTES + BWD_STAGES * (2 * Q_BYTES + 512) +
+                              8 * (1 + 2 * BWD_STAGES);
+};
+
+// dS = P (dP - delta) of one tile of the dq pass, in place of the scores:
+// P = exp(q.k * scale - lse), 0 at masked pairs and keys >= s_k. Rows are
+// q (lse * log2(e) and delta of this thread's two rows), columns keys.
+// MASKED tiles (a masked pair or the ragged edge) test every pair.
+template <bool MASKED, int NS>
+__device__ __forceinline__ void ds_rows(float (&sc)[NS], const float (&dp)[NS],
+                                        const float (&lse2)[2], const float (&dl)[2], float sl2,
+                                        int k0, int qa0, int s_k, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int r = (j >> 1) & 1;
+    float p = ex2(sc[j] * sl2 - lse2[r]);
+    if (MASKED) {
+      const int ka = k0 + acc_col(j);
+      if (ka >= s_k || !live(qa0 + acc_row(j), ka, causal, window)) p = 0.f;
+    }
+    sc[j] = p * (dp[j] - dl[r]);
+  }
+}
+
+// P^T of one tile of the dk/dv pass, in place of the transposed scores:
+// rows are keys (from ka0), columns the q rows of the tile at q0, whose
+// lse * log2(e) the stage holds at L; 0 at masked pairs, keys >= s_k and
+// q rows >= s_q.
+template <bool MASKED, int NS>
+__device__ __forceinline__ void p_cols(float (&st)[NS], const float* L, float sl2, int q0,
+                                       int ka0, int s_q, int s_k, int q_off, int causal,
+                                       int window) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int qc = acc_col(j);
+    float p = ex2(st[j] * sl2 - L[qc]);
+    if (MASKED) {
+      const int ka = ka0 + acc_row(j);
+      if (q0 + qc >= s_q || ka >= s_k || !live(q0 + qc + q_off, ka, causal, window)) p = 0.f;
+    }
+    st[j] = p;
+  }
+}
+
+template <int D, int BQ>
+__global__ void __launch_bounds__(BwdDq<D, BQ>::THREADS, 1)
+flash_bwd_dq_tc(__grid_constant__ const CUtensorMap tm_q,
+                __grid_constant__ const CUtensorMap tm_do,
+                __grid_constant__ const CUtensorMap tm_k,
+                __grid_constant__ const CUtensorMap tm_v,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, int h, int kvh, int s_q, int s_k, float scale, int causal,
+                int window) {
+  using C = BwdDq<D, BQ>;
+  constexpr int BK = BWD_TILE, ST = BWD_STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sDO = sQ + C::Q_BYTES, sK = sDO + C::Q_BYTES, sV = sK + ST * C::KV_BYTES;
+  const uint32_t bar_q = sV + ST * C::KV_BYTES;
+  auto full = [&](int s) { return bar_q + 8 + 8 * s; };
+  auto empty = [&](int s) { return bar_q + 8 + 8 * ST + 8 * s; };
+
+  const int bh = blockIdx.y;
+  const int kvb = (bh / h) * kvh + (bh % h) / (h / kvh);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;     // longest q tiles first
+  const int q_off = s_k - s_q;
+  const int q_lo = q0 + q_off, q_hi = min(q0 + BQ, s_q) - 1 + q_off;
+  int kt0, kt1;
+  k_tiles(q_lo, q_hi, s_k, BK, causal, window, &kt0, &kt1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), C::NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4 * C::NWG) {                             // producer
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(bar_q, 2 * C::Q_BYTES);
+      tma_tile<D, BQ>(sQ, &tm_q, q0, bh, bar_q);
+      tma_tile<D, BQ>(sDO, &tm_do, q0, bh, bar_q);
+      for (int kt = kt0, it = 0; kt < kt1; ++kt, ++it) {
+        const int s = it % ST;
+        mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * C::KV_BYTES);
+        tma_tile<D, BK>(sK + s * C::KV_BYTES, &tm_k, kt * BK, kvb, full(s));
+        tma_tile<D, BK>(sV + s * C::KV_BYTES, &tm_v, kt * BK, kvb, full(s));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
+  const int wg = warp / 4;
+  const float sl2 = scale * LOG2E;
+  const int qa0 = q0 + 64 * wg + q_off;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 64 * wg + acc_row(2 * r);
+    const size_t at = (size_t)bh * s_q + qi;
+    lse2[r] = qi < s_q ? lse[at] * LOG2E : 0.f;
+    dl[r] = qi < s_q ? delta[at] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int kt = kt0, it = 0; kt < kt1; ++kt, ++it) {
+    const int s = it % ST;
+    const uint32_t tK = sK + s * C::KV_BYTES, tV = sV + s * C::KV_BYTES;
+    mbar_wait(full(s), (it / ST) & 1);
+
+    float sc[BK / 2], dp[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, desc_k<D, BQ>(sQ, 64 * wg, kk), desc_k<D, BK>(tK, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k<D, BQ>(sDO, 64 * wg, kk), desc_k<D, BK>(tV, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    const int k0 = kt * BK;
+    const bool masked = k0 + BK > s_k || !all_live(q_lo, q_hi, k0, k0 + BK - 1, causal, window);
+    if (masked)
+      ds_rows<true>(sc, dp, lse2, dl, sl2, k0, qa0, s_k, causal, window);
+    else
+      ds_rows<false>(sc, dp, lse2, dl, sl2, k0, qa0, s_k, causal, window);
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(da[kk], sc, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc, da[kk], desc_mn<D, BK>(tK, kk), 1);
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(acc);
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 64 * wg + acc_row(2 * r);
+    if (qi >= s_q) continue;
+    bf16* row = dq + ((size_t)bh * s_q + qi) * D;
+#pragma unroll
+    for (int j = 2 * r; j < D / 2; j += 4)
+      store_bf16x2(row + acc_col(j), acc[j] * scale, acc[j + 1] * scale);
+  }
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(BwdDkv<D, BK>::THREADS, 1)
+flash_bwd_dkv_tc(__grid_constant__ const CUtensorMap tm_q,
+                 __grid_constant__ const CUtensorMap tm_do,
+                 __grid_constant__ const CUtensorMap tm_k,
+                 __grid_constant__ const CUtensorMap tm_v,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int kvh, int s_q, int s_k,
+                 float scale, int causal, int window) {
+  using C = BwdDkv<D, BK>;
+  constexpr int BQ = BWD_TILE, ST = BWD_STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + C::K_BYTES, sQ = sV + C::K_BYTES, sDO = sQ + ST * C::Q_BYTES;
+  const uint32_t sL = sDO + ST * C::Q_BYTES;             // [ST][lse2 64, delta 64] fp32
+  float* lsd = reinterpret_cast<float*>(smem_raw + (sL - raw));
+  const uint32_t bar_k = sL + ST * 512;
+  auto full = [&](int s) { return bar_k + 8 + 8 * s; };
+  auto empty = [&](int s) { return bar_k + 8 + 8 * ST + 8 * s; };
+
+  const int bkv = blockIdx.y;                            // b * kvh + kv head
+  const int group = h / kvh, bb = bkv / kvh, kv_head = bkv % kvh;
+  const int k0 = blockIdx.x * BK;
+  const int k_hi = min(k0 + BK, s_k) - 1;
+  const int q_off = s_k - s_q;
+  int qt0, qt1;
+  q_tiles(k0, k_hi, s_q, q_off, BQ, causal, window, &qt0, &qt1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_k, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), C::NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4 * C::NWG) {                             // producer: the whole warp
+    if (lane == 0) {
+      mbar_expect_tx(bar_k, 2 * C::K_BYTES);
+      tma_tile<D, BK>(sK, &tm_k, k0, bkv, bar_k);
+      tma_tile<D, BK>(sV, &tm_v, k0, bkv, bar_k);
+    }
+    int it = 0;
+    for (int g = 0; g < group; ++g) {
+      const int bh = bb * h + kv_head * group + g;
+      for (int qt = qt0; qt < qt1; ++qt, ++it) {
+        const int s = it % ST, q0 = qt * BQ;
+        mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
+        for (int i = lane; i < BQ; i += 32) {
+          const int qi = q0 + i;
+          const size_t at = (size_t)bh * s_q + qi;
+          lsd[s * 128 + i] = qi < s_q ? lse[at] * LOG2E : 0.f;
+          lsd[s * 128 + 64 + i] = qi < s_q ? delta[at] : 0.f;
+        }
+        __syncwarp();                                   // the lanes' stores before the arrive
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * C::Q_BYTES);
+          tma_tile<D, BQ>(sQ + s * C::Q_BYTES, &tm_q, q0, bh, full(s));
+          tma_tile<D, BQ>(sDO + s * C::Q_BYTES, &tm_do, q0, bh, full(s));
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64)
+  const int wg = warp / 4;
+  const float sl2 = scale * LOG2E;
+  float gk[D / 2], gv[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) gk[j] = gv[j] = 0.f;
+
+  mbar_wait(bar_k, 0);
+  int it = 0;
+  for (int g = 0; g < group; ++g) {
+    for (int qt = qt0; qt < qt1; ++qt, ++it) {
+      const int s = it % ST, q0 = qt * BQ;
+      const uint32_t tQ = sQ + s * C::Q_BYTES, tDO = sDO + s * C::Q_BYTES;
+      const float* L = lsd + s * 128;                    // lse * log2(e), then delta
+      mbar_wait(full(s), (it / ST) & 1);
+
+      float st[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st, desc_k<D, BK>(sK, 64 * wg, kk), desc_k<D, BQ>(tQ, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(st);
+
+      const bool masked = q0 + BQ > s_q || k0 + BK > s_k ||
+                          !all_live(q0 + q_off, q0 + BQ - 1 + q_off, k0, k0 + BK - 1, causal,
+                                    window);
+      if (masked)
+        p_cols<true>(st, L, sl2, q0, k0 + 64 * wg, s_q, s_k, q_off, causal, window);
+      else
+        p_cols<false>(st, L, sl2, q0, k0 + 64 * wg, s_q, s_k, q_off, causal, window);
+      uint32_t pa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(pa[kk], st, kk);
+      float dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(gv, pa[kk], desc_mn<D, BQ>(tDO, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, desc_k<D, BK>(sV, 64 * wg, kk), desc_k<D, BQ>(tDO, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(gv);
+      reg_fence(dpt);
+
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) st[j] *= dpt[j] - L[64 + acc_col(j)];    // ds^T
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(pa[kk], st, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(gk, pa[kk], desc_mn<D, BQ>(tQ, kk), 1);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(gk);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ki = k0 + 64 * wg + acc_row(2 * r);
+    if (ki >= s_k) continue;
+    const size_t at = ((size_t)bkv * s_k + ki) * D;
+#pragma unroll
+    for (int j = 2 * r; j < D / 2; j += 4) {
+      store_bf16x2(dk + at + acc_col(j), gk[j] * scale, gk[j + 1] * scale);
+      store_bf16x2(dv + at + acc_col(j), gv[j], gv[j + 1]);
+    }
+  }
+}
+
+template <int D, int BQ, int BK>
+static cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                             int b, int h, int kvh, int s_q, int s_k, float scale, int causal,
+                             int window, cudaStream_t stream) {
+  using Q = BwdDq<D, BQ>;
+  using K = BwdDkv<D, BK>;
+  CUtensorMap mq, mdo, mk, mv;
+  cudaError_t err;
+  if ((err = make_map(&mq, q, D, s_q, b * h, BQ)) != cudaSuccess) return err;
+  if ((err = make_map(&mdo, dout, D, s_q, b * h, BQ)) != cudaSuccess) return err;
+  if ((err = make_map(&mk, k, D, s_k, b * kvh, BWD_TILE)) != cudaSuccess) return err;
+  if ((err = make_map(&mv, v, D, s_k, b * kvh, BWD_TILE)) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dq_tc<D, BQ>, Q::SMEM)) != cudaSuccess) return err;
+  const dim3 grid_q((s_q + BQ - 1) / BQ, b * h);
+  flash_bwd_dq_tc<D, BQ><<<grid_q, Q::THREADS, Q::SMEM, stream>>>(
+      mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dq), h, kvh, s_q, s_k, scale, causal,
+      window);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = make_map(&mq, q, D, s_q, b * h, BWD_TILE)) != cudaSuccess) return err;
+  if ((err = make_map(&mdo, dout, D, s_q, b * h, BWD_TILE)) != cudaSuccess) return err;
+  if ((err = make_map(&mk, k, D, s_k, b * kvh, BK)) != cudaSuccess) return err;
+  if ((err = make_map(&mv, v, D, s_k, b * kvh, BK)) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dkv_tc<D, BK>, K::SMEM)) != cudaSuccess) return err;
+  const dim3 grid_kv((s_k + BK - 1) / BK, b * kvh);
+  flash_bwd_dkv_tc<D, BK><<<grid_kv, K::THREADS, K::SMEM, stream>>>(
+      mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, kvh, s_q,
+      s_k, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+static cudaError_t launch_tc_d(int bq, int bk, const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse, const float* delta, void* dq,
+                               void* dk, void* dv, int b, int h, int kvh, int s_q, int s_k,
+                               float scale, int causal, int window, cudaStream_t s) {
+#define REPRO_BWD_CASE(BQ, BK)                                                                \
+  if (bq == BQ && bk == BK)                                                                   \
+    return launch_tc<D, BQ, BK>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s_q, s_k,   \
+                                scale, causal, window, s);
+  REPRO_BWD_CASE(64, 64)
+  REPRO_BWD_CASE(64, 128)
+  REPRO_BWD_CASE(128, 64)
+  REPRO_BWD_CASE(128, 128)
+#undef REPRO_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// bf16 q, k, v, dout (16-byte aligned, contiguous), dq, dk, dv; fp32 lse and
+// delta; block_q (the dq pass's q tile) and block_k (the dk/dv pass's k
+// tile) in {64, 128}.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* dout, const float* lse,
+                                         const float* delta, void* dq, void* dk, void* dv,
+                                         int b, int h, int kvh, int s_q, int s_k, int d,
+                                         float scale, int causal, int window, int block_q,
+                                         int block_k, void* stream) {
+  if (kvh <= 0 || h % kvh != 0 || b * h > 65535) return cudaErrorInvalidValue;
+  if (b <= 0 || s_q <= 0 || s_k <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_BWD_D(D)                                                                        \
+  case D:                                                                                     \
+    return launch_tc_d<D>(block_q, block_k, q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, \
+                          s_q, s_k, scale, causal, window, s);
+  switch (d) {
+    REPRO_BWD_D(16)
+    REPRO_BWD_D(32)
+    REPRO_BWD_D(64)
+    REPRO_BWD_D(128)
+#undef REPRO_BWD_D
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: SIMT
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool simt_live(int qa, int ka, int causal, int window) {
   return (!causal || qa >= ka) && (window <= 0 || qa - ka < window);
 }
 
@@ -54,7 +476,7 @@ __device__ __forceinline__ void stage(float* __restrict__ dst, int ld, const T* 
 
 template <typename T>
 __global__ void __launch_bounds__(32 * FLASH_WARPS)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, T* __restrict__ dq, int h, int kvh, int s_q,
              int s_k, int d, float scale, int causal, int window, int block_q, int block_k) {
@@ -101,7 +523,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const float z = lse[qrow0 + r], dl = delta[qrow0 + r];
       for (int j = lane; j < nk; j += 32) {
         float ds = 0.f;
-        if (live(qa, k0 + j, causal, window)) {
+        if (simt_live(qa, k0 + j, causal, window)) {
           const float* kr = Ks + j * ld;
           const float* vr = Vs + j * ld;
           float s = 0.f, dp = 0.f;
@@ -131,7 +553,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T>
 __global__ void __launch_bounds__(32 * FLASH_WARPS)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int h,
               int kvh, int s_q, int s_k, int d, float scale, int causal, int window,
@@ -194,7 +616,7 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         const float* vr = Vs + j * ld;
         for (int i = lane; i < nq; i += 32) {
           float p = 0.f, ds = 0.f;
-          if (live(q0 + i + q_off, ka, causal, window)) {
+          if (simt_live(q0 + i + q_off, ka, causal, window)) {
             const float* qr = Qs + i * ld;
             const float* dr = Ds + i * ld;
             float s = 0.f, dp = 0.f;
@@ -230,58 +652,55 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-// Shared-memory bytes of one CTA of each pass; kernels/attention.py
+// Shared-memory bytes of one fp32 CTA of each pass; kernels/attention.py
 // mirrors these formulas.
-extern "C" int repro_flash_bwd_dq_smem_bytes(int d, int block_q, int block_k) {
+extern "C" int repro_flash_bwd_dq_simt_smem_bytes(int d, int block_q, int block_k) {
   return (3 * block_q * (d + 1) + 2 * block_k * (d + 1) + FLASH_WARPS * block_k) * 4;
 }
 
-extern "C" int repro_flash_bwd_dkv_smem_bytes(int d, int block_q, int block_k) {
+extern "C" int repro_flash_bwd_dkv_simt_smem_bytes(int d, int block_q, int block_k) {
   return (4 * block_k * (d + 1) + 2 * block_q * (d + 1) + 2 * block_q +
           2 * FLASH_WARPS * block_q) * 4;
 }
 
 template <typename T>
-static cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+static cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dq, void* dk, void* dv,
                               int b, int h, int kvh, int s_q, int s_k, int d, float scale,
                               int causal, int window, int block_q, int block_k,
                               cudaStream_t s) {
-  const int smem_q = repro_flash_bwd_dq_smem_bytes(d, block_q, block_k);
-  const int smem_kv = repro_flash_bwd_dkv_smem_bytes(d, block_q, block_k);
+  const int smem_q = repro_flash_bwd_dq_simt_smem_bytes(d, block_q, block_k);
+  const int smem_kv = repro_flash_bwd_dkv_simt_smem_bytes(d, block_q, block_k);
   cudaError_t err;
-  if ((err = allow_smem(flash_bwd_dq<T>, smem_q)) != cudaSuccess) return err;
-  if ((err = allow_smem(flash_bwd_dkv<T>, smem_kv)) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dq_simt<T>, smem_q)) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dkv_simt<T>, smem_kv)) != cudaSuccess) return err;
   const T *Q = static_cast<const T*>(q), *K = static_cast<const T*>(k);
   const T *V = static_cast<const T*>(v), *DO = static_cast<const T*>(dout);
   const dim3 grid_q((s_q + block_q - 1) / block_q, b * h);
-  flash_bwd_dq<T><<<grid_q, 32 * FLASH_WARPS, smem_q, s>>>(
+  flash_bwd_dq_simt<T><<<grid_q, 32 * FLASH_WARPS, smem_q, s>>>(
       Q, K, V, DO, lse, delta, static_cast<T*>(dq), h, kvh, s_q, s_k, d, scale, causal, window,
       block_q, block_k);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid_kv((s_k + block_k - 1) / block_k, b * kvh);
-  flash_bwd_dkv<T><<<grid_kv, 32 * FLASH_WARPS, smem_kv, s>>>(
+  flash_bwd_dkv_simt<T><<<grid_kv, 32 * FLASH_WARPS, smem_kv, s>>>(
       Q, K, V, DO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), h, kvh, s_q, s_k, d,
       scale, causal, window, block_q, block_k);
   return cudaGetLastError();
 }
 
-extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                         const void* dout, const float* lse,
-                                         const float* delta, void* dq, void* dk, void* dv,
-                                         int b, int h, int kvh, int s_q, int s_k, int d,
-                                         float scale, int causal, int window, int dtype,
-                                         int block_q, int block_k, void* stream) {
+// fp32 q, k, v, dout, dq, dk, dv; any tiles whose shared memory fits
+// (attention.py maps every config to 64 x 64).
+extern "C" int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* lse,
+                                             const float* delta, void* dq, void* dk, void* dv,
+                                             int b, int h, int kvh, int s_q, int s_k, int d,
+                                             float scale, int causal, int window, int block_q,
+                                             int block_k, void* stream) {
   if (kvh <= 0 || h % kvh != 0 || d < 1 || d > 256 || block_q < 1 || block_k < 1 ||
       b * h > 65535)
     return cudaErrorInvalidValue;
   if (b <= 0 || s_q <= 0 || s_k <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_BF16)
-    return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s_q,
-                                     s_k, d, scale, causal, window, block_q, block_k, s);
-  if (dtype == REPRO_F32)
-    return launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s_q, s_k, d,
-                             scale, causal, window, block_q, block_k, s);
-  return cudaErrorInvalidValue;
+  return launch_simt<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s_q, s_k, d,
+                            scale, causal, window, block_q, block_k,
+                            static_cast<cudaStream_t>(stream));
 }

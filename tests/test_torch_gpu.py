@@ -74,16 +74,23 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d, block_rows):
     _close(r, p_r, torch.float32)
 
 
+# (s_q, s_k, window, d, h, kv): the first five at 4/2 heads; then head dim
+# 128 at ragged lengths (the hybrid's exact-length prefills) in groups of 8,
+# and a window with s_q < s_k. fp32 runs the SIMT kernels at SIMT_TILES
+# whatever the config; bf16 the tensor-core kernels at the config's tiles.
+FLASH_SHAPES = [(16, 16, 0, 64, 4, 2), (100, 100, 0, 64, 4, 2), (64, 128, 0, 16, 4, 2),
+                (128, 128, 24, 128, 4, 2), (1, 77, 0, 32, 4, 2), (300, 300, 0, 128, 16, 2),
+                (1500, 1500, 0, 128, 16, 2), (200, 333, 100, 64, 16, 2)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s_q,s_k,window,d", [(16, 16, 0, 64), (100, 100, 0, 64),
-                                              (64, 128, 0, 16), (128, 128, 24, 128),
-                                              (1, 77, 0, 32)])
-@pytest.mark.parametrize("config", [None, {"block_q": 16, "block_k": 32},
-                                    {"block_q": 128, "block_k": 64}])
-def test_flash_kernel_matches_plain(cuda, dtype, s_q, s_k, window, d, config):
+@pytest.mark.parametrize("s_q,s_k,window,d,h,kv", FLASH_SHAPES)
+@pytest.mark.parametrize("config", [None, {"block_q": 64, "block_k": 64, "stages": 3},
+                                    {"block_q": 128, "block_k": 64, "stages": 2}])
+def test_flash_kernel_matches_plain(cuda, dtype, s_q, s_k, window, d, h, kv, config):
     rs = np.random.RandomState(s_q + s_k + d)
-    q = _t(rs, (2, 4, s_q, d), dtype, cuda)
-    k, v = _t(rs, (2, 2, s_k, d), dtype, cuda), _t(rs, (2, 2, s_k, d), dtype, cuda)
+    q = _t(rs, (2, h, s_q, d), dtype, cuda)
+    k, v = _t(rs, (2, kv, s_k, d), dtype, cuda), _t(rs, (2, kv, s_k, d), dtype, cuda)
     cfg = config or fa.flash_attention.default_config(q, k, v)
     out, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=window, **cfg)
     torch.cuda.synchronize()
@@ -203,16 +210,15 @@ def test_xent_kernels_match_plain(cuda, dtype, rows, vocab, config):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s_q,s_k,window,d", [(16, 16, 0, 64), (100, 100, 0, 64),
-                                              (64, 128, 0, 16), (128, 128, 24, 128),
-                                              (1, 77, 0, 32), (300, 300, 0, 64)])
-@pytest.mark.parametrize("config", [None, {"block_q": 16, "block_k": 32},
-                                    {"block_q": 64, "block_k": 32}])
-def test_flash_bwd_kernel_matches_plain(cuda, dtype, s_q, s_k, window, d, config):
+@pytest.mark.parametrize("s_q,s_k,window,d,h,kv", FLASH_SHAPES[:5] + [(300, 300, 0, 64, 4, 2)]
+                         + FLASH_SHAPES[5:])
+@pytest.mark.parametrize("config", [None, {"block_q": 64, "block_k": 128},
+                                    {"block_q": 128, "block_k": 64}])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, s_q, s_k, window, d, h, kv, config):
     rs = np.random.RandomState(s_q + s_k + d)
-    q = _t(rs, (2, 4, s_q, d), dtype, cuda)
-    k, v = _t(rs, (2, 2, s_k, d), dtype, cuda), _t(rs, (2, 2, s_k, d), dtype, cuda)
-    do = _t(rs, (2, 4, s_q, d), dtype, cuda)
+    q = _t(rs, (2, h, s_q, d), dtype, cuda)
+    k, v = _t(rs, (2, kv, s_k, d), dtype, cuda), _t(rs, (2, kv, s_k, d), dtype, cuda)
+    do = _t(rs, (2, h, s_q, d), dtype, cuda)
     o, lse = fa.flash_attention_plain(q, k, v, causal=True, window=window)
     cfg = config or fa.flash_attention_bwd.default_config(do, q, k, v, o, lse)
     grads = fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, window=window, **cfg)

@@ -84,7 +84,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
         rn.rmsnorm(meta(8, 16), meta(16), block_rows=8)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         fa.flash_attention(meta(1, 4, 16, 16), meta(1, 2, 16, 16), meta(1, 2, 16, 16),
-                           block_q=16, block_k=32)
+                           block_q=64, block_k=64, stages=2)
 
 
 def test_platform_keys_are_namespaced_per_package():
@@ -135,7 +135,7 @@ def test_training_wrappers_never_fall_back_off_the_cpu():
     q = meta(1, 4, 16, 16)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         fa.flash_attention_bwd(q, q, meta(1, 2, 16, 16), meta(1, 2, 16, 16), q, meta(1, 4, 16),
-                               block_q=16, block_k=32)
+                               block_q=64, block_k=64)
 
 
 def test_scan_sees_the_campaign_and_search_modules():

@@ -152,7 +152,8 @@ def test_spaces_are_hopper_limits_not_vmem():
     # every enumerated config fits one H100 block; the largest tiles do not
     assert all(mm._threads(c) <= 512 for c in mm.MATMUL_SPACE.enumerate())
     assert not mm.MATMUL_SPACE.is_valid({"bm": 256, "bn": 256, "bk": 128})
-    assert not fa.ATTENTION_SPACE.is_valid({"block_q": 128, "block_k": 256})
+    assert not fa.ATTENTION_SPACE.is_valid({"block_q": 128, "block_k": 256, "stages": 2})
+    assert not fa.ATTENTION_SPACE.is_valid({"block_q": 32, "block_k": 128, "stages": 2})
     assert rn.RMSNORM_SPACE.is_valid({"block_rows": 32})
 
 
@@ -354,10 +355,10 @@ def test_training_heuristics_are_legal_at_full_width():
         assert fa_.ATTENTION_BWD_SPACE.is_valid(bcfg)
         assert fa_.bwd_smem_bytes(bcfg, 128) <= 232_448
         assert fa_.ATTENTION_SPACE.is_valid(fa_._attn_heuristic(q, kv, kv))
-    # the training step's shape takes the 64-row tiles; serving prefill not
-    assert bcfg == {"block_q": 64, "block_k": 32}
-    assert fa_._attn_heuristic(q, kv, kv) == {"block_q": 64, "block_k": 64}
-    assert fa_._attn_heuristic(meta(1, 14, 2048, 64), kv, kv)["block_q"] == 32
+    # the training step's shape: 64-row q tiles, and 128-key dk/dv tiles at d = 64
+    assert bcfg == {"block_q": 64, "block_k": 128}
+    assert fa_._attn_heuristic(q, kv, kv) == {"block_q": 64, "block_k": 64, "stages": 2}
+    assert fa_._attn_heuristic(meta(1, 14, 2048, 64), kv, kv)["block_q"] == 64
     assert rn.RMSNORM_SPACE.is_valid(rn._rmsnorm_bwd_heuristic(None, meta(8192, D), None, None))
     assert rn.rmsnorm_bwd_smem_bytes(32, D) <= 232_448
     for k, n in ((D, D), (D, FF), (FF, D), (V, D), (2048, V), (8192, FF)):
