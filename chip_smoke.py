@@ -7,12 +7,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device  — a CUDA card must be present; prints its name, the device
              count and ``nvidia-smi --query-gpu=name,power.limit``;
 2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, in parallel) and prints nvcc's register /
-             shared-memory / spill report and its wgmma serialization
-             warnings; disassembles the two flash libraries (``cuobjdump
-             --dump-sass``) and prints the HGMMA instructions (wgmma) of
-             each kernel: it fails if a bf16 flash kernel (``flash_*_tc``)
-             has none;
+             (one nvcc per source, in parallel) and prints, kernel by kernel,
+             nvcc's registers and spills, and its wgmma serialization
+             warnings (C7510-C7520); disassembles the two flash libraries and
+             the two gemm libraries (``cuobjdump --dump-sass``) and counts
+             the HGMMA instructions (wgmma) of each kernel: it fails if a
+             bf16 flash kernel (``flash_*_tc``) or a bf16 gemm kernel of the
+             tensor-core or decode route (``gemm_tc``, ``gemm_decode``) has
+             none;
 3. kernels — runs each kernel at the serving and training paths' shapes in
              bf16 (matmul also on the backward's transposed operands; the
              fused matmul_bias_act at the training gate projection with
@@ -23,6 +25,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              card, and times kernel, plain version and the one-call
              PyTorch yardstick (where one call computes the same function)
              with CUDA events, beside the card's bound for the same work;
+             each matmul and expert_gemm row names its route (a main-path
+             shape must take the tensor-core or decode one), holds a split-k
+             launch to a second one bit for bit, and times the same call on
+             the first port's tile loop (``wmma_ms``, or ``simt_loop_ms``
+             in fp32): the before and after in one call;
    The hybrid's kernels join them: ssm_scan at b=1, s=2048, d_inner
              16384 (xc bf16) and at a ragged s=1500, d_inner 16380;
              ssm_update at the 8-slot pool; flash attention at 64/8 heads
@@ -42,8 +49,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ServingEngine(max_batch=8, max_seq=2048), 16 staggered
              requests with prompts of 16..1500 tokens and 32 new tokens
              each; the serving kernels' launch counters must rise and no
-             dispatch may fall to the reference tier; one prefill's logits
-             are held against the plain (reference-mode) path, and
+             dispatch may fall to the reference tier; no bf16 gemm launch
+             of this or a later phase may take the WMMA route, and the
+             tensor-core and decode routes' counters must rise; one
+             prefill's logits are held against the plain (reference-mode)
+             path, and
              torch.profiler splits a decode step and the largest prefill by
              kernel;
 5. hybrid  — full-width Jamba-1.5-Large without experts (num_experts=0:
@@ -196,6 +206,21 @@ def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
+def check_routes(launches, label: str, want=("tc", "decode"), kernels=("matmul",)) -> None:
+    """No bf16 gemm launch of a main path took the WMMA route (every shape
+    there is one TMA addresses), and each route in ``want`` launched."""
+    for k in kernels:
+        if launches.get(f"{k}_wmma", 0):
+            raise AssertionError(f"{label}: {launches[f'{k}_wmma']} {k} launches took the WMMA "
+                                 f"route")
+        missing = [f"{k}_{r}" for r in want if launches.get(f"{k}_{r}", 0) <= 0]
+        if missing:
+            raise AssertionError(f"{label}: no launch on the routes {missing}: {launches}")
+    log(f"[{label.split()[0]}] gemm routes: " + ", ".join(
+        f"{k} {r} {v}" for k in kernels for r in ("tc", "decode", "simt", "wmma", "splitk")
+        if (v := launches.get(f"{k}_{r}", 0))))
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -243,6 +268,24 @@ def phase_device():
     return kind, count, smi
 
 
+def ptxas_kernels(report: str):
+    """Each kernel's registers and spill bytes from nvcc's -Xptxas -v report,
+    and the report's wgmma serialization warnings (C7510-C7520)."""
+    kernels, warnings, fn = {}, [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            kernels[fn] = {"registers": 0, "spill": "0/0"}
+        elif fn and "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+            kernels[fn]["spill"] = f"{nums[1]}/{nums[2]}"
+        elif fn and "Used" in line and "registers" in line:
+            kernels[fn]["registers"] = int(line.split("Used")[1].split()[0])
+        elif "Performance Loss" in line:
+            warnings.append(line.strip())
+    return kernels, warnings
+
+
 def phase_build():
     from repro_torch.kernels import LIBRARIES, _build
 
@@ -252,21 +295,29 @@ def phase_build():
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_DIR}")
     for n in names:
-        for line in _build.ptxas_report(n).splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry",
-                                       "Performance Loss")):
-                log(f"[build] {n}: {line.strip()}")
-    # The bf16 flash kernels (flash_*_tc) must run on the tensor cores: each
-    # one's SASS holds wgmma, which disassembles as HGMMA.
-    for n in ("flash_attention", "flash_attention_bwd"):
+        kernels, warnings = ptxas_kernels(_build.ptxas_report(n))
+        for fn, k in sorted(kernels.items()):
+            log(f"[build] {n}: {k['registers']} registers, spill stores/loads {k['spill']} "
+                f"bytes: {fn[:100]}")
+        for wline in warnings:
+            log(f"[build] {n}: {wline[:240]}")
+    # The bf16 flash kernels (flash_*_tc) and the bf16 gemm kernels of the
+    # tensor-core and decode routes (gemm_tc, gemm_decode) must run on the
+    # tensor cores: each one's SASS holds wgmma, which disassembles as HGMMA.
+    for n, tags in (("flash_attention", ("_tc",)), ("flash_attention_bwd", ("_tc",)),
+                    ("matmul", ("gemm_tc", "gemm_decode")),
+                    ("expert_gemm", ("gemm_tc", "gemm_decode"))):
         counts = hgmma_counts(_build.lib_path(n))
-        tc = {f: c for f, c in counts.items() if "_tc" in f}
-        for f, c in sorted(counts.items()):
-            log(f"[build] {n} SASS: {c} HGMMA in {f}")
+        tc = {f: c for f, c in counts.items() if any(t in f for t in tags)}
+        if n.startswith("flash"):
+            for f, c in sorted(counts.items()):
+                log(f"[build] {n} SASS: {c} HGMMA in {f}")
         if not tc or min(tc.values()) == 0:
-            raise AssertionError(f"{n}: a bf16 flash kernel has no HGMMA in its SASS: {tc}")
-        log(f"[build] {n}: {len(tc)} tensor-core kernels, {min(tc.values())}..."
-            f"{max(tc.values())} HGMMA each; {len(counts) - len(tc)} SIMT kernels")
+            raise AssertionError(f"{n}: a bf16 tensor-core kernel has no HGMMA in its SASS: "
+                                 f"{ {f: c for f, c in tc.items() if c == 0} or tc}")
+        by_tag = ", ".join(f"{sum(t in f for f in tc)} {t.strip('_')}" for t in tags)
+        log(f"[build] {n}: {len(tc)} tensor-core kernels ({by_tag}), {min(tc.values())}..."
+            f"{max(tc.values())} HGMMA each; {len(counts) - len(tc)} other kernels")
 
 
 def hgmma_counts(lib) -> dict:
@@ -286,6 +337,36 @@ def hgmma_counts(lib) -> dict:
     return counts
 
 
+def other_gemm_config(heur, rows_key="bm") -> dict:
+    """The gemm's other legal config: the other tile width (the decode
+    route's 128 columns in a ring of 3; the tc route's 128 or 256 columns)
+    and the other split-k choice (two splits where the heuristic takes
+    one, one where it splits)."""
+    other = dict(heur, splits=1 if heur["splits"] > 1 else 2)
+    if heur[rows_key] == 16:
+        return dict(other, bn=128, stages=3)
+    return dict(other, bn=128, stages=4) if heur["bn"] == 256 else dict(other, bn=256, stages=3)
+
+
+def gemm_runs(run, cfgs, plan, plain, tol, what):
+    """Launch ``run`` at each config, hold it against ``plain``, and hold a
+    split-k launch to a second one bit for bit (the splits are summed in a
+    fixed order); returns [(abs err, rel err)] and the heuristic's plan."""
+    errs = []
+    for cfg in cfgs:
+        out = run(cfg)
+        if plan(cfg)["splits"] > 1:
+            again = run(cfg)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"{what} {cfg}: two split-k launches differ")
+        torch.cuda.synchronize()
+        errs.append(rel_err(out, plain))
+        if errs[-1][1] > tol:
+            raise AssertionError(f"{what} {cfg}: rel err {errs[-1][1]:.3g} > {tol}")
+    return errs
+
+
 def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch.bfloat16):
     from repro_torch.kernels import matmul as mm
 
@@ -295,37 +376,42 @@ def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch
          * k ** -0.5).to(dtype)
     x, w = (x.T if ta else x), (w.T if tb else w)
     heur = mm.matmul.default_config(x, w)
-    # the other legal config: the first heuristic's pick, which the current
-    # one replaced after a card run
-    other = {"bm": 16, "bn": 32, "bk": 32} if m <= 16 else {"bm": 128, "bn": 32, "bk": 32}
+    other = other_gemm_config(heur)
     plain = mm.matmul_plain(x, w)
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32_GEMM
-    errs = []
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = f"[{m},{k}]{'ᵀ' if ta else ''}@[{k},{n}]{'ᵀ' if tb else ''} {dname}"
     for cfg in (heur, other):
         if not mm.MATMUL_SPACE.is_valid(cfg):
             raise AssertionError(f"illegal matmul config {cfg}")
-        out = mm.matmul_cuda(x, w, **cfg)
-        torch.cuda.synchronize()
-        errs.append(rel_err(out, plain))
-        if errs[-1][1] > tol:
-            raise AssertionError(f"matmul {m}x{k}x{n} {cfg}: rel err {errs[-1][1]:.3g} > {tol}")
+    p = mm.plan(x, w, heur)
+    if dtype == torch.bfloat16 and p["route"] not in ("tc", "decode"):
+        raise AssertionError(f"matmul {shape}: a main-path shape takes the {p['route']} route")
+    errs = gemm_runs(lambda cfg: mm.matmul_cuda(x, w, **cfg), (heur, other),
+                     lambda cfg: mm.plan(x, w, cfg), plain, tol, f"matmul {shape}")
     ms = time_ms(lambda: mm.matmul_cuda(x, w, **heur))
     ms_other = time_ms(lambda: mm.matmul_cuda(x, w, **other))
+    # the same call on the first port's tile loop: the in-call before
+    loop = mm.matmul_cuda(x, w, **heur, force_loop=True)
+    torch.cuda.synchronize()
+    if rel_err(loop, plain)[1] > tol:
+        raise AssertionError(f"matmul {shape}: the tile loop disagrees with the plain version")
+    loop_ms = time_ms(lambda: mm.matmul_cuda(x, w, **heur, force_loop=True))
     plain_ms = time_ms(lambda: mm.matmul_plain(x, w))
     lib_ms = time_ms(lambda: torch.matmul(x, w))
     esize = x.element_size()
     peak = prof.peak_flops_bf16 if dtype == torch.bfloat16 else prof.peak_flops_fp32
     b_ms, b_by = bound(prof, (m * k + k * n + m * n) * esize, 2.0 * m * n * k, peak)
-    dname = "bf16" if dtype == torch.bfloat16 else "f32"
-    shape = f"[{m},{k}]{'ᵀ' if ta else ''}@[{k},{n}]{'ᵀ' if tb else ''} {dname}"
-    row = dict(shape=shape, path=path, config=heur, ms=ms, other_config=other,
-               other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+    loop_key = "wmma_ms" if dtype == torch.bfloat16 else "simt_loop_ms"
+    row = dict(shape=shape, path=path, route=p["route"], splits=p["splits"], config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, **{loop_key: loop_ms},
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
-    log(f"[kernels] matmul {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, torch.matmul {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); "
-        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {tol})")
+    log(f"[kernels] matmul {row['shape']}: {ms:.4f} ms {p['route']} {heur} ({ms_other:.4f} ms "
+        f"{other}); first port's loop {loop_ms:.4f} ({loop_key}); plain {plain_ms:.4f}, "
+        f"torch.matmul {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} "
+        f"(rel {row['max_rel_err']:.2e} <= {tol})")
 
 
 def _rmsnorm_case(prof, rows_out, rows, d, gen, path):
@@ -625,7 +711,7 @@ def _mba_case(prof, rows, m, k, n, act, gen, path):
     w = (torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
     b = (0.1 * torch.randn((n,), generator=gen, device="cuda")).to(torch.bfloat16)
     heur = fu.matmul_bias_act.default_config(x, w, b)
-    # the other legal config: matmul's other pick
+    # the other legal config of its (the first port's WMMA loop's) space
     other = {"bm": 16, "bn": 32, "bk": 32} if m <= 16 else {"bm": 128, "bn": 32, "bk": 32}
     plain = fu.matmul_bias_act_plain(x, w, b, act)
     errs = []
@@ -695,7 +781,9 @@ def _egemm_case(prof, rows, e, c, k, n, gen, path, form="x@w", iters=20):
     """expert_gemm at [e,c,k] @ [e,k,n]; ``form`` "ct@wT" and "xT@ct" pass
     the backward's swapaxes views as they come: dx = ct[e,c,k] @
     swapaxes(w)[e,k,n] of a w stored [e,n,k], and dw = swapaxes(x)[e,c,k] @
-    ct[e,k,n] of an x stored [e,k,c]."""
+    ct[e,k,n] of an x stored [e,k,c]. A ragged capacity's transposed x is an
+    operand TMA cannot address: it takes the WMMA route."""
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import moe_gemm as mg
 
     rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -704,35 +792,66 @@ def _egemm_case(prof, rows, e, c, k, n, gen, path, form="x@w", iters=20):
     if x.is_contiguous() == (form == "xT@ct") or w.is_contiguous() == (form == "ct@wT"):
         raise AssertionError(f"expert_gemm {form}: operands not in the form's layout")
     heur = mg.expert_gemm.default_config(x, w)
-    other = {"bc": 16, "bn": 128, "bk": 64} if c <= 16 else {"bc": 128, "bn": 64, "bk": 32}
+    other = other_gemm_config(heur, "bc")
     plain = mg.expert_gemm_plain(x, w)
-    errs = []
+    tx, tw = ("ᵀ" if form == "xT@ct" else ""), ("ᵀ" if form == "ct@wT" else "")
+    shape = f"[{e},{c},{k}]{tx}@[{e},{k},{n}]{tw} bf16"
     for cfg in (heur, other):
         if not mg.EXPERT_GEMM_SPACE.is_valid(cfg):
             raise AssertionError(f"illegal expert_gemm config {cfg}")
-        out = mg.expert_gemm_cuda(x, w, **cfg)
-        torch.cuda.synchronize()
-        errs.append(rel_err(out, plain))
-        if errs[-1][1] > TOL_BF16:
-            raise AssertionError(f"expert_gemm {form} [{e},{c},{k}]@[{e},{k},{n}] {cfg}: rel "
-                                 f"err {errs[-1][1]:.3g} > {TOL_BF16}")
-    del out, plain
+    plan = lambda cfg: mm.plan(x, w, dict(cfg, bm=cfg["bc"]))
+    p = plan(heur)
+    if p["route"] not in ("tc", "decode") and not (form == "xT@ct" and c % 8):
+        raise AssertionError(f"expert_gemm {shape}: a main-path shape takes the {p['route']} "
+                             f"route")
+    errs = gemm_runs(lambda cfg: mg.expert_gemm_cuda(x, w, **cfg), (heur, other), plan, plain,
+                     TOL_BF16, f"expert_gemm {form} {shape}")
+    del plain
     tk = dict(iters=iters, warmup=min(3, iters))
     ms = time_ms(lambda: mg.expert_gemm_cuda(x, w, **heur), **tk)
     ms_other = time_ms(lambda: mg.expert_gemm_cuda(x, w, **other), **tk)
+    wmma_ms = time_ms(lambda: mg.expert_gemm_cuda(x, w, **heur, force_loop=True), **tk)
     plain_ms = time_ms(lambda: mg.expert_gemm_plain(x, w), **tk)
     lib_ms = time_ms(lambda: torch.bmm(x, w), **tk)
     b_ms, b_by = bound(prof, (e * c * k + e * k * n + e * c * n) * 2, 2.0 * e * c * k * n,
                        prof.peak_flops_bf16)
-    tx, tw = ("ᵀ" if form == "xT@ct" else ""), ("ᵀ" if form == "ct@wT" else "")
-    row = dict(shape=f"[{e},{c},{k}]{tx}@[{e},{k},{n}]{tw} bf16", path=path, config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(er[0] for er in errs),
-               max_rel_err=max(er[1] for er in errs))
+    row = dict(shape=shape, path=path, route=p["route"], splits=p["splits"], config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, wmma_ms=wmma_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(er[0] for er in errs), max_rel_err=max(er[1] for er in errs))
     rows.append(row)
-    log(f"[kernels] expert_gemm {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, torch.bmm {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); err "
-        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+    log(f"[kernels] expert_gemm {row['shape']}: {ms:.4f} ms {p['route']} {heur} ({ms_other:.4f} "
+        f"ms {other}); WMMA loop {wmma_ms:.4f}; plain {plain_ms:.4f}, torch.bmm {lib_ms:.4f}, "
+        f"bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} (rel "
+        f"{row['max_rel_err']:.2e} <= {TOL_BF16})")
+
+
+def gemm_host_cost(gen) -> None:
+    """Host time of one gemm call, enqueued back to back with no
+    synchronise (the device's share of the call is shorter, so the host
+    sets the pace): the decode route at Mixtral's [8,4096]@[4096,4096], in
+    one and in two splits, the first port's loop, and one torch.matmul."""
+    from repro_torch.kernels import matmul as mm
+
+    x = torch.randn((8, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((4096, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    heur = mm.matmul.default_config(x, w)
+    calls = (("decode route", lambda: mm.matmul_cuda(x, w, **dict(heur, splits=1))),
+             ("decode route, 2 splits", lambda: mm.matmul_cuda(x, w, **dict(heur, splits=2))),
+             ("first port's loop", lambda: mm.matmul_cuda(x, w, **heur, force_loop=True)),
+             ("torch.matmul", lambda: torch.matmul(x, w)))
+    out = []
+    for name, fn in calls:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        out.append(f"{name} {us:.1f}")
+    log(f"[kernels] host time a gemm call, [8,4096]@[4096,4096] bf16 (us): {', '.join(out)}")
 
 
 def sfu_rate(prof) -> float:
@@ -923,6 +1042,7 @@ def phase_kernels(prof, seed: int):
             _matmul_case(prof, results["matmul"], m, k, n, gen, "moe")
         _rmsnorm_case(prof, results["rmsnorm"], m, dm, gen, "moe")
     _matmul_case(prof, results["matmul"], 8, dm, 32000, gen, "moe")
+    gemm_host_cost(gen)
     return results
 
 
@@ -1033,6 +1153,7 @@ def phase_serve(seed: int):
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
     if snap["tiers"].get("reference", 0):
         raise AssertionError(f"{snap['tiers']['reference']} dispatches fell to the reference tier")
+    check_routes(launches, "serve")
     for r in done:
         out = r.output
         if out is None or len(out) != 32 or out.min() < 0 or out.max() >= cfg.vocab_size:
@@ -1148,6 +1269,7 @@ def phase_hybrid(seed: int):
         raise AssertionError(f"kernels never launched on the hybrid path: {missing}")
     if snap["tiers"].get("reference", 0):
         raise AssertionError(f"{snap['tiers']['reference']} dispatches fell to the reference tier")
+    check_routes(launches, "hybrid", want=("tc", "decode", "simt"))
     want = {"ssm_scan": n_mamba * st["prefill_calls"], "ssm_update": n_mamba * st["decode_steps"]}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
@@ -1334,6 +1456,7 @@ def phase_moe(seed: int):
         raise AssertionError(f"kernels never launched on the MoE path: {missing}")
     if snap["tiers"].get("reference", 0):
         raise AssertionError(f"{snap['tiers']['reference']} dispatches fell to the reference tier")
+    check_routes(launches, "moe", kernels=("matmul", "expert_gemm"))
     calls = st["prefill_calls"] + st["decode_steps"]
     if launches.get("expert_gemm", 0) != per_call * calls:
         raise AssertionError(f"expected {per_call} expert_gemm launches a prefill and a decode "
@@ -1547,6 +1670,7 @@ def phase_train(seed: int):
         if snap["phases"].get(phase, {}).get("reference", 0):
             raise AssertionError(f"{phase} dispatches fell to the reference tier: "
                                  f"{snap['phases'][phase]}")
+    check_routes(launches, "train", want=("tc",))
     losses = [m["loss"] for m in metrics]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -1685,6 +1809,9 @@ def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float):
         f"{wall:.2f} s; decode step {1e3 * float(np.median(engine.timings['decode_s'])):.2f} ms "
         f"median; launches {serve_launches}; tiers {snap['tiers']}")
     only_exact(snap, "tuned serving")
+    check_routes(serve_launches, "tuned serving", want=())
+    if serve_launches.get("matmul_tc", 0) + serve_launches.get("matmul_decode", 0) <= 0:
+        raise AssertionError(f"tuned serving: no tensor-core gemm launched: {serve_launches}")
     if serve_launches.get("rmsnorm_matmul", 0) <= 0:
         raise AssertionError("rmsnorm_matmul never launched on the tuned decode path")
     for r in done:
@@ -1723,6 +1850,9 @@ def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float):
     log(f"[tuned] launches over 2 steps: {train_launches}")
     log(f"[tuned] telemetry by phase: {snap['phases']}")
     only_exact(snap, "tuned training")
+    check_routes(train_launches, "tuned training", want=())
+    if train_launches.get("matmul_tc", 0) + train_launches.get("matmul_decode", 0) <= 0:
+        raise AssertionError(f"tuned training: no tensor-core gemm launched: {train_launches}")
     missing = [k for k in TRAIN_KERNELS + ("matmul_bias_act",)
                if train_launches.get(k, 0) <= 0]
     if missing:
@@ -1820,6 +1950,9 @@ def main() -> int:
                  **at(name, path, launches), "shapes": rows}
         if name == "matmul":
             entry["launches_transposed"] = train_launches.get("matmul_transposed", 0)
+        if name in ("matmul", "expert_gemm"):
+            entry["launches_by_route"] = {r: launches.get(f"{name}_{r}", 0)
+                                          for r in ("tc", "decode", "simt", "wmma", "splitk")}
         if name in SERVE_KERNELS:
             entry["serve"] = at(name, "serve", serve_launches)
             entry["hybrid"] = at(name, "hybrid", hybrid_launches)

@@ -166,6 +166,13 @@ def check(name: str, err: int, what: str) -> None:
         raise CudaError(err, f"{what}: CUDA error {err} ({fn(err).decode()})")
 
 
+# PyTorch's accessor of the current stream's raw handle (a CUDA build has
+# it; it skips building a Stream object on every launch).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``: kernels launch there."""
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -1,154 +1,40 @@
 // What the bf16 flash kernels (flash_attention.cu, flash_attention_bwd.cu)
-// share: tiles in shared memory in the layout that TMA writes and wgmma
-// reads, the TMA tensor maps and loads, the mbarrier ring, the wgmma
-// descriptors, fences and products, and the mask predicates and tile-skip
-// bounds of causal / sliding-window attention.
-//
-// Tiles. A [ROWS][D] bf16 tile of q, k, v or do is kept as D/PW column
-// panels of [ROWS][PW], PW = min(D, 64), so that one panel row is PW * 2
-// bytes: 32, 64 or 128, the swizzle span of the tensor map that loads it
-// (CU_TENSOR_MAP_SWIZZLE_32B / 64B / 128B) and of the wgmma descriptor that
-// reads it (layout type 3 / 2 / 1). TMA applies the swizzle as it writes
-// and wgmma undoes it as it reads, from the same address bits, so every
-// panel starts on a 1024-byte boundary.
+// share beyond the tensor-core helpers of hopper.cuh (tiles, TMA, the
+// mbarrier ring, wgmma descriptors and products): the tensor maps and tile
+// loads of q, k, v and do, the register-A product that carries P and dS
+// from one wgmma to the next, and the mask predicates and tile-skip bounds
+// of causal / sliding-window attention.
 //
 // Tensor maps are 3-D, [heads][rows][D] (b*h heads for q and do, b*kv for
 // k and v), so a tile that runs past the last row of a head reads zeros
 // and never the next head's rows: the kernels still mask the scores of
-// keys >= s_k and never store rows >= s_q. They are encoded on the host
-// with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
-// that the libraries need no -lcuda, and passed as __grid_constant__.
+// keys >= s_k and never store rows >= s_q.
 //
-// Operands. A tile read along D (q, k, v, do as the K-major operand of a
-// product over the head dim) advances 32 bytes within a panel row per k16
-// step; a tile read along its rows (v, k, do, q as the MN-major B operand
-// of a product over keys or queries, through the descriptor's transpose
-// bit) advances 16 rows per k16 step, and its D columns span the panels at
-// a stride of one panel. The fp32 accumulator of an m64nN wgmma has, 16
-// columns at a time, the layout of the register A operand of the next
-// m64k16 product: P and dS go from one product to the next in registers.
+// Operands. q, k, v and do are read along D as the K-major operand of a
+// product over the head dim, and v, k, do and q along their rows as the
+// MN-major B operand of a product over keys or queries. The fp32
+// accumulator of an m64nN wgmma has, 16 columns at a time, the layout of
+// the register A operand of the next m64k16 product: P and dS go from one
+// product to the next in registers.
 #pragma once
 
 #include <cuda.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace flash {
 
+using namespace sm90;
+
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF = -1e30f;     // as the TPU kernel: no nan from (-inf) - (-inf)
-
-// ---------------------------------------------------------------------------
-// Tiles
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct Panel {
-  static constexpr int PW = D < 64 ? D : 64;   // elements of one panel row
-  static constexpr int R = PW * 2;             // its bytes: the swizzle span
-  static constexpr int NP = D / PW;            // panels of a tile
-  static constexpr uint64_t LAYOUT = R == 128 ? 1 : (R == 64 ? 2 : 3);
-};
-
-// ---------------------------------------------------------------------------
-// Tensor maps (host)
-// ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // The map of a contiguous bf16 [heads][rows][d] tensor whose box is one
 // panel of `box_rows` rows; rows past the end read as zero.
 static cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
                             int box_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const int pw = d < 64 ? d : 64;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)pw, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = pw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : pw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers and TMA (device)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Arrive once and expect `bytes` of asynchronous copies on this phase.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. No wait of these
-// kernels lasts longer than one tile's loads or products, so a wait that
-// spins 2^26 times is a fault of the protocol: it traps, and the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, tries = 0;
-  do {
-    if (++tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
+  return make_bf16_map(map, base, 3, d, rows, d, heads, (long long)rows * d, d < 64 ? d : 64,
+                       box_rows);
 }
 
 // Rows [row, row + ROWS) of head `head` into the [ROWS][D] tile at dst,
@@ -162,70 +48,9 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, i
     tma_load_3d(dst + p * ROWS * P::R, map, p * P::PW, row, head, bar);
 }
 
-// ---------------------------------------------------------------------------
-// wgmma (device)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint64_t desc_encode(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                                uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-// K-major operand: rows from r0 of the [ROWS][D] tile at `tile`, head-dim
-// columns [16 kk, 16 kk + 16). 8-row groups lie 8 panel rows apart. The
-// k16 step moves only the start address, by a constant: the descriptor of
-// step 0 is computed once and the step's offset (in 16-byte units) added.
-template <int D, int ROWS>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
-  using P = Panel<D>;
-  const uint32_t step = (kk * 16 / P::PW) * ROWS * P::R + (kk * 16 % P::PW) * 2;
-  return desc_encode(tile + r0 * P::R, 16, 8 * P::R, P::LAYOUT) + (step >> 4);
-}
-
-// MN-major operand: rows [16 kk, 16 kk + 16) of the [ROWS][D] tile are the
-// product's K, its D columns the N; the next 8 rows lie 8 panel rows on,
-// the next panel of columns one panel on.
-template <int D, int ROWS>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  using P = Panel<D>;
-  return desc_encode(tile, ROWS * P::R, 8 * P::R, P::LAYOUT) + ((kk * 16 * P::R) >> 4);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until every committed group has completed.
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads of an accumulator above the wait
-// that completes it, or writes below the product that reads it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D += A @ B on the tensor cores, m64 x N x k16, bf16 in, fp32 out.
-// wgmma_ss: A and B K-major in shared memory. wgmma_rs: A in registers (the
+// D += A @ B on the tensor cores, m64 x N x k16: A in registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B MN-major in shared memory.
-// scale_d == 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
+// scale_d == 0 overwrites D. (Both operands in shared memory: sm90::wgmma_ss.)
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -235,18 +60,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
       "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
@@ -259,21 +72,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -289,27 +87,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
@@ -341,14 +118,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&acc)[NA
     __nv_bfloat162 v = __floats2bfloat162_rn(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
     a[i] = *reinterpret_cast<uint32_t*>(&v);
   }
-}
-
-// Row (0..63) and column of element j of this thread's m64 accumulator.
-__device__ __forceinline__ int acc_row(int j) {
-  return ((threadIdx.x / 32) % 4) * 16 + (threadIdx.x % 32) / 4 + ((j >> 1) & 1) * 8;
-}
-__device__ __forceinline__ int acc_col(int j) {
-  return (j >> 2) * 8 + (threadIdx.x % 4) * 2 + (j & 1);
 }
 
 // Sum / max over the four lanes that hold one accumulator row.

@@ -7,10 +7,11 @@ Replace the TPU kernels ``repro/kernels/fused.py:_mba_kernel``
 * ``matmul_bias_act`` -- ``act(x @ w + b)``: a gemm whose epilogue adds the
   bias and applies the activation (none, gelu in its tanh form, silu) to
   the fp32 accumulator, so the [m, n] pre-activation never round-trips
-  through device memory. CUDA source ``csrc/matmul_bias_act.cu``: the tile
-  loop of ``csrc/matmul.cu`` on row-major operands, over matmul's knob
-  space (the epilogue reads the bias straight from device memory and
-  needs no shared memory of its own).
+  through device memory. CUDA source ``csrc/matmul_bias_act.cu``: the
+  first port's WMMA tile loop on row-major operands, over that loop's knob
+  space (:data:`FUSED_MATMUL_SPACE`, its own; ``matmul`` has moved to the
+  ``wgmma`` kernels of ``csrc/gemm.cuh``), the epilogue reading the bias
+  straight from device memory.
 * ``rmsnorm_matmul`` -- ``rmsnorm(x, scale) @ w``: each CTA normalises its
   rows into shared memory and streams the weight through in k slices.
   CUDA source ``csrc/rmsnorm_matmul.cu``, whose header says why the TPU's
@@ -35,7 +36,6 @@ import torch
 from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
 from ..core.platform import H100_SXM
 from . import _build, ref
-from .matmul import MATMUL_SPACE, _matmul_heuristic
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {"none": 0, "gelu": 1, "silu": 2}
@@ -62,16 +62,47 @@ def _check_common(name: str, *ts):
 # matmul_bias_act: the gemm with a bias + activation epilogue
 # ---------------------------------------------------------------------------
 
-# The kernel's tile loop, threads and shared memory are matmul's
-# (repro_matmul_bias_act_smem_bytes is matmul's formula), so its legal
-# tiles on the H100 are matmul's.
-FUSED_MATMUL_SPACE = MATMUL_SPACE
+def _threads(c) -> int:
+    """Threads of one CTA: a warp per 16x32 (bm = 16) or 32x32 output
+    sub-tile of the WMMA tile loop."""
+    fm = 1 if c["bm"] == 16 else 2
+    return 32 * (c["bm"] // (16 * fm)) * (c["bn"] // 32)
+
+
+def smem_bytes(c, dtype_bytes: int) -> int:
+    """Shared memory of one CTA (mirrors repro_matmul_bias_act_smem_bytes):
+    the staged A and B slices, padded, or the fp32 output tile."""
+    bm, bn, bk = c["bm"], c["bn"], c["bk"]
+    if dtype_bytes == 2:
+        return max(((bm + 8) * (bk + 8) + (bk + 8) * (bn + 8)) * 2, bm * (bn + 4) * 4)
+    return ((bm + 4) * (bk + 4) + (bk + 4) * (bn + 4)) * 4
+
+
+# The kernel's WMMA tile loop (the first port's matmul loop): its tiles'
+# threads and shared memory bound the space on the H100.
+FUSED_MATMUL_SPACE = ParamSpace(
+    [
+        PowerOfTwoParam("bm", 16, 256),
+        PowerOfTwoParam("bn", 32, 256),
+        PowerOfTwoParam("bk", 16, 128),
+    ],
+    [
+        Constraint(lambda c: _threads(c) <= MAX_THREADS,
+                   "CTA exceeds 512 threads (one warp per 32x32 output sub-tile)"),
+        Constraint(lambda c: max(smem_bytes(c, 2), smem_bytes(c, 4))
+                   <= H100_SXM.smem_per_block,
+                   "CTA tile exceeds the 227 KB of shared memory a block may use"),
+    ],
+)
 
 
 def _mba_heuristic(x, w, b):
-    """The matmul heuristic (JAX's ``_mba_heuristic``), whose picks lie in
-    this space."""
-    return _matmul_heuristic(x, w)
+    """JAX's ``_mba_heuristic`` on this space: decode rows (m <= 16) run one
+    16-row tile with a deep k slice; larger m takes 64x64x64 tiles (32 rows
+    below 64)."""
+    if x.shape[0] <= 16:
+        return {"bm": 16, "bn": 64, "bk": 128}
+    return {"bm": 64 if x.shape[0] >= 64 else 32, "bn": 64, "bk": 64}
 
 
 def _mba_canon(x, w, b):

@@ -1,28 +1,31 @@
-"""Grouped expert gemm: the ``expert_gemm`` tunable and its CUDA kernel,
+"""Grouped expert gemm: the ``expert_gemm`` tunable and its CUDA kernels,
 the MoE dispatch site keyed on (experts x capacity x hidden).
 
 Replaces the TPU kernel ``repro/kernels/moe_gemm.py:_expert_gemm_kernel``
 (``expert_gemm_pallas``): ``[e, c, k] @ [e, k, n]`` with fp32 accumulation
 and the output in ``x.dtype``, one product per expert. The CUDA source is
 ``csrc/expert_gemm.cu``, whose header says what bounds it on an H100 and
-what its design does about that; its tile loop is ``csrc/gemm.cuh``,
-shared with ``matmul``.
+what its design does about that; its kernels are ``csrc/gemm.cuh``'s,
+shared with ``matmul``, the expert a product of the batch.
 
-The knobs are the kernel's launch parameters: ``(bc, bn)`` is the CTA's
-tile of one expert's output and ``bk`` the k slice staged in shared memory
-per step. Their limits come from the H100, not from the TPU's VMEM: at
-most 512 threads a CTA (one warp per 16x32 or 32x32 sub-tile, under
-``__launch_bounds__``) and at most 227 KB of shared memory a block, the
-tile loop's own, as for ``matmul``.
+Routes and knobs are ``matmul``'s (:func:`~repro_torch.kernels.matmul.route`
+on 3-D operands; :data:`~repro_torch.kernels.matmul.MATMUL_SPACE`'s limits)
+under the JAX package's name ``bc`` for the row knob: ``bc`` 16 is the
+swap-AB decode route (the heuristic's pick at decode capacities, c <= 16;
+c = 2 for 8 slots, top-2 of 8 experts), 64 or 128 the ``wgmma`` route with
+one or two consumer warpgroups; ``bn``, ``bk``, ``stages`` and ``splits``
+as for ``matmul``. bf16 operands that TMA cannot address (the transposed
+``x`` of a ragged capacity such as c = 37, whose expert stride is not a
+multiple of 16 bytes) take the WMMA route; fp32 the SIMT route.
 
 Training differentiates it by the backward plan :func:`_expert_gemm_bwd`:
 ``dx = ct @ swapaxes(w)`` and ``dw = swapaxes(x) @ ct``, both
-``expert_gemm`` dispatch sites with their own database keys. The kernel
-reads each operand with its expert stride and its layout (row-major or
+``expert_gemm`` dispatch sites with their own database keys. The kernels
+read each operand with its expert stride and its layout (row-major or
 transposed), so the swapaxes views are never copied.
 
 On a CPU tensor the wrapper runs :func:`expert_gemm_plain`, the kernel's
-function in plain PyTorch; on a CUDA tensor it launches the kernel or
+function in plain PyTorch; on a CUDA tensor it launches a kernel or
 raises.
 """
 from __future__ import annotations
@@ -32,8 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
-from ..core.platform import H100_SXM
+from ..core import Constraint, DispatchSpec, Param, ParamSpace, tunable
 from . import _build, ref
 from . import matmul as mm
 
@@ -41,36 +43,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _tile(c):
-    """An expert_gemm config as the shared tile loop's (matmul's) knobs."""
-    return {"bm": c["bc"], "bn": c["bn"], "bk": c["bk"]}
+    """An expert_gemm config as matmul's knobs."""
+    return {"bm": c["bc"], **{k: c[k] for k in ("bn", "bk", "stages", "splits")}}
 
 
 # matmul's space under the JAX package's knob names.
 EXPERT_GEMM_SPACE = ParamSpace(
-    [
-        PowerOfTwoParam("bc", 16, 256),
-        PowerOfTwoParam("bn", 32, 256),
-        PowerOfTwoParam("bk", 16, 128),
-    ],
-    [
-        Constraint(lambda c: mm._threads(_tile(c)) <= mm.MAX_THREADS,
-                   "CTA exceeds 512 threads (one warp per 32x32 output sub-tile)"),
-        Constraint(lambda c: max(mm.smem_bytes(_tile(c), 2), mm.smem_bytes(_tile(c), 4))
-                   <= H100_SXM.smem_per_block,
-                   "CTA tile exceeds the 227 KB of shared memory a block may use"),
-    ],
+    [Param("bc", mm.MATMUL_SPACE["bm"].choices)]
+    + [mm.MATMUL_SPACE[k] for k in ("bn", "bk", "stages", "splits")],
+    [Constraint(lambda c, con=con: con(_tile(c)), con.reason)
+     for con in mm.MATMUL_SPACE.constraints],
 )
 
 
 def _expert_gemm_heuristic(x, w):
-    """Decode capacities (c <= 16; c = 2 for 8 slots, top-2 of 8 experts)
-    run one 16-row tile with a deep k slice: the gemm is a weight read,
-    and fewer, larger k steps stream it better. Larger c takes matmul's
-    prefill tiles, 64x64x64 (32 rows below 64)."""
-    c = x.shape[1]
-    if c <= 16:
-        return {"bc": 16, "bn": 64, "bk": 128}
-    return {"bc": 64 if c >= 64 else 32, "bn": 64, "bk": 64}
+    """matmul's heuristic over the e experts' products (so its split-k
+    counts the experts' tiles): decode capacities take the decode route,
+    prefill ones 128 x 128 tiles."""
+    e, c, k = x.shape
+    cfg = mm.gemm_heuristic(c, w.shape[2], k, e)
+    return {"bc": cfg.pop("bm"), **cfg}
 
 
 def _expert_gemm_example():
@@ -93,11 +85,10 @@ def _expert_gemm_bwd(ct, x, w, **kwargs):
 
 def expert_layout(t: torch.Tensor):
     """(transposed, leading dim, expert stride) of a 3-D operand as the
-    kernel reads it: each expert's matrix row-major or transposed (see
+    kernels read it: each expert's matrix row-major or transposed (see
     :func:`~repro_torch.kernels.matmul.layout`), the experts ``stride(0)``
     elements apart (0 for a broadcast operand). Raises for other strides."""
-    tr, ld = mm.layout(t[0])
-    return tr, ld, (t.stride(0) if t.shape[0] > 1 else 0)
+    return mm.operand(t)
 
 
 def expert_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -105,10 +96,11 @@ def expert_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
-def expert_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, bc: int, bn: int,
-                     bk: int) -> torch.Tensor:
+def expert_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, bc: int, bn: int, bk: int,
+                     stages: int, splits: int, force_loop: bool = False) -> torch.Tensor:
     """Launch csrc/expert_gemm.cu on CUDA tensors; either operand may be a
-    transposed (swapaxes) view or broadcast over the experts."""
+    transposed (swapaxes) view or broadcast over the experts.
+    ``force_loop`` runs the first port's tile loop whatever the rule says."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"expert_gemm takes [e,c,k] @ [e,k,n], got {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -123,16 +115,17 @@ def expert_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, bc: int, bn: int,
     if out.numel() == 0:
         return out
     (tx, ldx, sx), (tw, ldw, sw) = expert_layout(x), expert_layout(w)
+    p = mm.plan(x, w, dict(bm=bc, bn=bn, bk=bk, stages=stages, splits=splits), force_loop)
+    ws = mm.workspace(p, e, c, n, x.device)
     fn = _build.entry("expert_gemm", "repro_expert_gemm",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, n, k, int(tx), int(tw), ldx, ldw,
-             sx, sw, _DTYPES[x.dtype], bc, bn, bk, _build.stream_ptr(x.device))
-    _build.check("expert_gemm", err, f"expert_gemm {e}x{c}x{k}x{n} tx={tx} tw={tw} bc={bc} "
-                 f"bn={bn} bk={bk}")
-    _build.LAUNCHES["expert_gemm"] += 1
-    if tx or tw:
-        _build.LAUNCHES["expert_gemm_transposed"] += 1
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+             e, c, n, k, int(tx), int(tw), ldx, ldw, sx, sw, _DTYPES[x.dtype],
+             p["code"], p["bm"], p["bn"], p["bk"], p["stages"], p["splits"],
+             p["kps"], _build.stream_ptr(x.device))
+    _build.check("expert_gemm", err, f"expert_gemm {e}x{c}x{k}x{n} tx={tx} tw={tw} {p}")
+    mm.count_launch("expert_gemm", p, tx or tw)
     return out
 
 
@@ -144,9 +137,9 @@ def expert_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, bc: int, bn: int,
     dispatch=DispatchSpec(example=_expert_gemm_example, data_parallel_args=(),
                           vjp="dispatch", bwd=_expert_gemm_bwd),
 )
-def expert_gemm(x, w, *, bc: int, bn: int, bk: int):
+def expert_gemm(x, w, *, bc: int, bn: int, bk: int, stages: int, splits: int):
     if x.is_cuda:
-        return expert_gemm_cuda(x, w, bc=bc, bn=bn, bk=bk)
+        return expert_gemm_cuda(x, w, bc=bc, bn=bn, bk=bk, stages=stages, splits=splits)
     if x.device.type == "cpu":
         return expert_gemm_plain(x, w)
     raise RuntimeError(f"expert_gemm has no kernel for device {x.device}")

@@ -1,0 +1,193 @@
+"""The gemm's knob spaces and routes on the CPU (meta tensors only): every
+config of ``MATMUL_SPACE`` and ``EXPERT_GEMM_SPACE`` fits one H100 block;
+each heuristic is legal at every shape of the main paths; the routing rule
+sends every bf16 main-path shape to the tensor-core or decode route, fp32
+to SIMT and an operand TMA cannot address to WMMA; the split-k partition
+covers k in whole slices with no empty split; a record of the first port's
+spaces falls to the heuristic; ``matmul_bias_act`` keeps its own space.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+from repro_torch.core import database as tdb  # noqa: E402
+from repro_torch.core.platform import H100_SXM  # noqa: E402
+from repro_torch.core.runtime import runtime  # noqa: E402
+from repro_torch.kernels import fused as fu  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg  # noqa: E402
+
+SMEM = H100_SXM.smem_per_block       # 227 KB
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _meta(*s, dtype=BF16):
+    return torch.empty(*s, device="meta", dtype=dtype)
+
+
+def _fits(cfg):
+    return (mm.smem_bytes(cfg) <= SMEM and mm._threads(cfg) <= mm.MAX_THREADS
+            and mm._acc_regs(cfg) <= mm.MAX_ACC)
+
+
+def test_every_matmul_config_fits_one_block():
+    cfgs = list(mm.MATMUL_SPACE.enumerate())
+    assert cfgs and all(_fits(c) for c in cfgs)
+    assert {c["bm"] for c in cfgs} == {16, 64, 128}
+    assert {c["stages"] for c in cfgs} == {2, 3, 4, 5, 6}
+    assert {c["splits"] for c in cfgs} == {1, 2, 4, 8, 16}
+    # the widest tile takes two stages of 128-deep slices, not three
+    assert mm.MATMUL_SPACE.is_valid({"bm": 128, "bn": 256, "bk": 128, "stages": 2, "splits": 1})
+    big = {"bm": 128, "bn": 256, "bk": 128, "stages": 3, "splits": 1}
+    assert mm.smem_bytes(big) > SMEM and not mm.MATMUL_SPACE.is_valid(big)
+
+
+def test_every_expert_gemm_config_fits_one_block():
+    cfgs = list(mg.EXPERT_GEMM_SPACE.enumerate())
+    assert len(cfgs) == len(list(mm.MATMUL_SPACE.enumerate()))
+    assert all(_fits(mg._tile(c)) for c in cfgs)
+    assert mg.EXPERT_GEMM_SPACE.names == ("bc", "bn", "bk", "stages", "splits")
+
+
+def test_simt_and_wmma_tiles_follow_their_rule_whatever_the_config():
+    x, w = _meta(8, 16384, dtype=F32), _meta(16384, 8192, dtype=F32)
+    plans = {tuple(mm.plan(x, w, c).items()) for c in list(mm.MATMUL_SPACE.enumerate())[::37]}
+    assert len(plans) == 1
+    p = dict(plans.pop())
+    assert p["route"] == "simt" and p["code"] == mm.ROWS_CODE and p["bn"] == mm.ROWS_COLS
+    assert p["splits"] > 1                          # 16 column blocks over k = 16,384
+    assert mm.simt_tiles(2048, 8192, 16384) == {"bm": 64, "bn": 64, "bk": 64, "splits": 1}
+    for rows in (8, 37, 2048):
+        t = mm.wmma_tiles(rows)
+        assert mm.loop_threads(t) <= 512 and mm.loop_smem_bytes(t, 2) <= SMEM
+        assert mm.loop_smem_bytes(mm.simt_tiles(rows, 64, 64), 4) <= SMEM
+
+
+# qwen2_0_5b, Jamba-1.5-Large (d_model 8192, d_inner 16384, dt_rank 512,
+# d_state 16: x_proj's 544) and Mixtral-8x7B (d_model 4096, d_ff 14336)
+D, FF, KV, V = 896, 4864, 128, 151936
+QWEN = ((D, D), (D, KV), (D, FF), (FF, D), (D, V))
+
+
+def _assert_legal(x, w, route_want):
+    cfg = mm.matmul.default_config(x, w)
+    assert mm.MATMUL_SPACE.is_valid(cfg) and _fits(cfg), cfg
+    assert mm.route(x, w) == mm.route(x, w, cfg["bm"]) == route_want, (x.shape, w.shape, cfg)
+    return cfg
+
+
+@pytest.mark.parametrize("m", (1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048))
+def test_qwen_serving_heuristic_is_legal_and_on_the_tensor_cores(m):
+    for k, n in QWEN:
+        _assert_legal(_meta(m, k), _meta(k, n), "decode" if m <= 16 else "tc")
+
+
+@pytest.mark.parametrize("t,k,n", [(8192, D, D), (8192, D, KV), (8192, D, FF), (8192, FF, D),
+                                   (2048, D, V)])
+def test_qwen_training_heuristic_is_legal_in_all_three_forms(t, k, n):
+    # forward x @ w, dx = ct @ w^T, dw = x^T @ ct (views, never copies)
+    _assert_legal(_meta(t, k), _meta(k, n), "tc")
+    _assert_legal(_meta(t, n), _meta(k, n).T, "tc")
+    cfg = _assert_legal(_meta(t, k).T, _meta(t, n), "tc")
+    if t == 8192 and n == KV:
+        assert cfg["splits"] > 1                # 7 output tiles over k = 8192
+
+
+@pytest.mark.parametrize("m", (8, 1500, 2048))
+def test_hybrid_heuristic_is_legal_in_bf16_and_fp32(m):
+    dm, di, dtr = 8192, 16384, 512
+    bf = "decode" if m <= 16 else "tc"
+    _assert_legal(_meta(m, dm), _meta(dm, 2 * di), bf)               # in_proj
+    _assert_legal(_meta(m, di), _meta(di, dtr + 32), bf)             # x_proj, n = 544
+    _assert_legal(_meta(m, dtr, dtype=F32), _meta(dtr, di, dtype=F32), "simt")   # dt_proj
+    _assert_legal(_meta(m, di, dtype=F32), _meta(di, dm, dtype=F32), "simt")     # out_proj
+
+
+@pytest.mark.parametrize("m", (8, 8192))
+def test_mixtral_heuristic_is_legal(m):
+    dm = 4096
+    for k, n in ((dm, dm), (dm, 1024), (dm, 32000)):
+        _assert_legal(_meta(m, k), _meta(k, n), "decode" if m <= 16 else "tc")
+
+
+@pytest.mark.parametrize("c", (2, 37, 640, 2560))
+def test_expert_gemm_heuristic_is_legal_in_all_three_forms(c):
+    e, dm, ff = 8, 4096, 14336
+    route = "decode" if c <= 16 else "tc"
+    for k, n in ((dm, ff), (ff, dm)):
+        x, w = _meta(e, c, k), _meta(e, k, n)
+        for a, b in ((x, w), (_meta(e, c, n), _meta(e, n, k).transpose(1, 2)),   # ct @ w^T
+                     (_meta(e, k, c).transpose(1, 2), _meta(e, c, n))):          # x^T @ ct
+            cfg = mg.expert_gemm.default_config(a, b)
+            assert mg.EXPERT_GEMM_SPACE.is_valid(cfg) and _fits(mg._tile(cfg))
+            want = route
+            if a.stride(1) == 1 and c % 8:   # x^T @ ct: a leading dim of c elements
+                want = "wmma"
+            assert mm.route(a, b) == want, (c, a.shape, a.stride(), b.shape)
+
+
+def test_route_sends_what_tma_cannot_address_to_wmma():
+    w = _meta(128, 64)
+    assert mm.route(_meta(8, 128), w) == "decode"
+    assert mm.route(_meta(8, 100), _meta(100, 64)) == "wmma"     # leading dim of 200 bytes
+    assert mm.route(_meta(128, 13).T, w) == "wmma"                # leading dim 13 elements
+    assert mm.route(_meta(128, 16).T, w) == "decode"              # 32 bytes: aligned
+    assert mm.route(_meta(8, 128), _meta(128, 60)) == "wmma"      # odd leading dim of B
+    assert mm.route(_meta(8, 100, dtype=F32), _meta(100, 64, dtype=F32)) == "simt"
+    # a base that is not 16-byte aligned, on the CPU where data_ptr is real
+    x = torch.empty(8 * 128 + 1, dtype=BF16)[1:].view(8, 128)
+    assert x.data_ptr() % 16 and mm.route(x, torch.empty(128, 64, dtype=BF16)) == "wmma"
+    # an expert stride of 37 * 4096 elements is aligned; a leading dim of 37 is not
+    assert mm.route(_meta(8, 37, 4096), _meta(8, 4096, 64)) == "tc"
+    assert mm.route(_meta(8, 40, 37).transpose(1, 2), _meta(8, 40, 64)) == "wmma"
+    # the config's bm picks between the tensor-core kernels
+    assert mm.route(_meta(8, 128), w, 64) == "tc"
+    assert mm.route(_meta(300, 128), w, 16) == "decode"
+
+
+@pytest.mark.parametrize("k", (1, 63, 64, 65, 896, 4864, 8192, 151936))
+@pytest.mark.parametrize("bk", (32, 64, 128))
+def test_split_k_covers_k_in_whole_slices_with_no_empty_split(k, bk):
+    slices = -(-k // bk)
+    for splits in (1, 2, 3, 4, 8, 16, 32):
+        kps, n = mm.split_k(k, bk, splits)
+        ranges = [(s * kps * bk, min((s + 1) * kps, slices) * bk) for s in range(n)]
+        assert 1 <= n <= min(splits, slices)
+        assert ranges[0][0] == 0 and ranges[-1][1] >= k > ranges[-1][0]
+        assert all(a < b for a, b in ranges)                       # none empty
+        assert all(r[1] == s[0] for r, s in zip(ranges, ranges[1:]))   # contiguous
+        assert all(a % bk == 0 for a, _ in ranges)                 # whole slices
+
+
+@pytest.mark.parametrize("name,old", [
+    ("matmul", {"bm": 16, "bn": 32, "bk": 16}),
+    ("expert_gemm", {"bc": 64, "bn": 64, "bk": 64}),
+])
+def test_a_record_of_the_first_spaces_falls_to_the_heuristic(tmp_path, name, old):
+    if name == "matmul":
+        tun, args = mm.matmul, (torch.randn(8, 64), torch.randn(64, 32))
+    else:
+        tun, args = mg.expert_gemm, (torch.randn(2, 12, 16), torch.randn(2, 16, 8))
+    path = str(tmp_path / "db.json")
+    db = tdb.TuningDatabase(path)
+    key = runtime(db=db).key_for(tun, args)
+    db.put(tdb.Record(key=key, config=old, objective=1e-5, evaluator="wallclock",
+                      evaluations=1, timestamp=tdb.now()))
+    with runtime(db=tdb.TuningDatabase(path)) as rt:
+        res = rt.resolve(name, args)
+    assert res.key == key and res.tier == "heuristic"
+    assert res.config == tun.default_config(*args) != old
+    assert rt.telemetry.snapshot()["by_key"][key] == {"heuristic": 1}
+
+
+def test_matmul_bias_act_keeps_the_first_ports_space_and_heuristic():
+    # the WMMA tile loop's space: power-of-two tiles, a warp per 32x32 sub-tile
+    cfgs = list(fu.FUSED_MATMUL_SPACE.enumerate())
+    assert len(cfgs) == 68 and fu.FUSED_MATMUL_SPACE.names == ("bm", "bn", "bk")
+    assert {c["bm"] for c in cfgs} == {16, 32, 64, 128, 256}
+    assert all(fu._threads(c) <= 512 for c in cfgs)
+    assert all(max(fu.smem_bytes(c, 2), fu.smem_bytes(c, 4)) <= SMEM for c in cfgs)
+    b = _meta(4864)
+    assert fu._mba_heuristic(_meta(8, D), _meta(D, FF), b) == {"bm": 16, "bn": 64, "bk": 128}
+    assert fu._mba_heuristic(_meta(37, D), _meta(D, FF), b) == {"bm": 32, "bn": 64, "bk": 64}
+    assert fu._mba_heuristic(_meta(8192, D), _meta(D, FF), b) == {"bm": 64, "bn": 64, "bk": 64}
+    assert fu.FUSED_MATMUL_SPACE is not mm.MATMUL_SPACE

@@ -45,17 +45,37 @@ def _close(out, ref, dtype):
     assert err <= TOL[dtype] * max(ref.float().abs().max().item(), 1e-6), err
 
 
+# Legal configs of the gemm space: the decode route split over k, one
+# consumer warpgroup, two with the widest tile.
+MATMUL_CONFIGS = [None, {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 2},
+                  {"bm": 64, "bn": 128, "bk": 64, "stages": 3, "splits": 1},
+                  {"bm": 128, "bn": 256, "bk": 64, "stages": 3, "splits": 1}]
+
+
+def _route_counts(name, x, w, cfg, force_loop=False):
+    """The launch counts one call of ``name`` on (x, w) at ``cfg`` must add."""
+    p = mm.plan(x, w, cfg if "bm" in cfg else dict(cfg, bm=cfg["bc"]), force_loop)
+    want = {name: 1, f"{name}_{p['route']}": 1}
+    lay = [mm.operand(t)[0] for t in (x, w)]
+    if any(lay):
+        want[f"{name}_transposed"] = 1
+    if p["splits"] > 1:
+        want[f"{name}_splitk"] = 1
+    return want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(8, 896, 896), (5, 100, 37), (33, 64, 130),
                                    (256, 896, 4864), (1, 896, 151936)])
-@pytest.mark.parametrize("config", [None, {"bm": 32, "bn": 64, "bk": 16},
-                                    {"bm": 128, "bn": 128, "bk": 64}])
+@pytest.mark.parametrize("config", MATMUL_CONFIGS)
 def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n, config):
     rs = np.random.RandomState(m + k + n)
     x, w = _t(rs, (m, k), dtype, cuda), _t(rs, (k, n), dtype, cuda, k ** -0.5)
     cfg = config or mm.matmul.default_config(x, w)
+    kernels.reset_launch_counts()
     out = mm.matmul_cuda(x, w, **cfg)
     torch.cuda.synchronize()
+    assert kernels.launch_counts() == _route_counts("matmul", x, w, cfg)
     assert out.dtype == dtype and out.shape == (m, n)
     _close(out, mm.matmul_plain(x, w), dtype)
 
@@ -106,7 +126,9 @@ def test_wrappers_count_only_kernel_launches(cuda):
     mm.matmul(x, w)
     mm.matmul_plain(x, w)                 # the plain version is not a launch
     mm.matmul(x.cpu(), w.cpu())           # nor is the CPU path
-    assert kernels.launch_counts() == {"matmul": 1}
+    assert kernels.launch_counts() == _route_counts("matmul", x, w,
+                                                    mm.matmul.default_config(x, w))
+    assert kernels.launch_counts()["matmul_simt"] == 1
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
@@ -132,7 +154,10 @@ def test_reduced_model_on_card_matches_cpu(cuda):
     with torch.inference_mode():
         l_gpu, _ = lm.prefill(on_card, {"tokens": toks.to(cuda)}, cfg, run, true_len=29)
         l_cpu, _ = lm.prefill(params, {"tokens": toks}, cfg, run, true_len=29)
-    assert set(kernels.launch_counts()) == {"matmul", "rmsnorm", "flash_attention"}
+    counts = kernels.launch_counts()
+    assert {k for k in counts if not k.startswith("matmul_")} == {"matmul", "rmsnorm",
+                                                                  "flash_attention"}
+    assert counts["matmul_simt"] == counts["matmul"]          # f32: the SIMT route
     # two layers of fp32 sums in another order: 1e-4 of max|logit|
     err = (l_gpu.cpu() - l_cpu).abs().max().item()
     assert err <= 1e-4 * l_cpu.abs().max().item(), err
@@ -146,8 +171,7 @@ def test_reduced_model_on_card_matches_cpu(cuda):
     (2048, 8192, 136, False, True),       # long k
     (130, 3000, 256, True, False),        # long k, ragged m
 ])
-@pytest.mark.parametrize("config", [None, {"bm": 32, "bn": 64, "bk": 16},
-                                    {"bm": 128, "bn": 128, "bk": 64}])
+@pytest.mark.parametrize("config", MATMUL_CONFIGS)
 def test_matmul_kernel_reads_transposed_operands(cuda, dtype, m, k, n, ta, tb, config):
     rs = np.random.RandomState(m + k + n)
     x = _t(rs, (k, m) if ta else (m, k), dtype, cuda)
@@ -157,15 +181,99 @@ def test_matmul_kernel_reads_transposed_operands(cuda, dtype, m, k, n, ta, tb, c
     kernels.reset_launch_counts()
     out = mm.matmul_cuda(x, w, **cfg)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"matmul": 1, "matmul_transposed": 1}
+    want = _route_counts("matmul", x, w, cfg)
+    assert kernels.launch_counts() == want and want["matmul_transposed"] == 1
     _close(out, mm.matmul_plain(x, w), dtype)
+
+
+# Every route of the gemm: the decode rows (1, 2, 8, 13, 16) and the first
+# prefill ones (17, 64), at k = 328 and n = 200, which no k slice or column
+# tile divides; configs on the decode route split over k, and on the tc
+# route with one and two consumer warpgroups (split over k too).
+ROUTE_ROWS = (1, 2, 8, 13, 16, 17, 64)
+ROUTE_CONFIGS = [None, {"bm": 16, "bn": 128, "bk": 64, "stages": 5, "splits": 2},
+                 {"bm": 64, "bn": 64, "bk": 128, "stages": 2, "splits": 1},
+                 {"bm": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 4}]
+LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("m", ROUTE_ROWS)
+@pytest.mark.parametrize("config", ROUTE_CONFIGS)
+def test_gemm_routes_match_plain(cuda, dtype, ta, tb, m, config):
+    k, n = 328, 200
+    rs = np.random.RandomState(m + 7 * ta + 3 * tb)
+    x = _t(rs, (k, m) if ta else (m, k), dtype, cuda)
+    w = _t(rs, (n, k) if tb else (k, n), dtype, cuda, k ** -0.5)
+    x, w = (x.T if ta else x), (w.T if tb else w)
+    cfg = config or mm.matmul.default_config(x, w)
+    # fp32: SIMT; a transposed x of 2 to 15 rows but 8: a leading dim TMA
+    # cannot take (m * 2 bytes), so WMMA; else the config's bm
+    if dtype == torch.float32:
+        want = "simt"
+    elif ta and m > 1 and m % 8:
+        want = "wmma"
+    else:
+        want = "decode" if cfg["bm"] == 16 else "tc"
+    assert mm.route(x, w, cfg["bm"]) == want
+    if config is None and dtype == torch.bfloat16 and want != "wmma":
+        assert mm.route(x, w) == want == ("decode" if m <= 16 else "tc")
+    kernels.reset_launch_counts()
+    out = mm.matmul_cuda(x, w, **cfg)
+    again = mm.matmul_cuda(x, w, **cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["matmul"] == 2 and counts[f"matmul_{want}"] == 2
+    _close(out, mm.matmul_plain(x, w), dtype)
+    assert torch.equal(out, again)        # split-k sums in a fixed order: bitwise equal
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("m,k,n", [(8, 16384, 2048), (2048, 8192, 136), (2048, 256, 4096)])
+def test_gemm_split_k_is_deterministic(cuda, ta, tb, m, k, n):
+    """Long-k shapes the heuristic splits (and one it does not), each split a
+    range of whole k slices: two runs agree bit for bit."""
+    rs = np.random.RandomState(k + n)
+    x = _t(rs, (k, m) if ta else (m, k), torch.bfloat16, cuda)
+    w = _t(rs, (n, k) if tb else (k, n), torch.bfloat16, cuda, k ** -0.5)
+    x, w = (x.T if ta else x), (w.T if tb else w)
+    cfg = mm.matmul.default_config(x, w)
+    assert (cfg["splits"] > 1) == (k >= mm.LONG_K)
+    kernels.reset_launch_counts()
+    outs = [mm.matmul_cuda(x, w, **cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts().get("matmul_splitk", 0) == (2 if cfg["splits"] > 1 else 0)
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], mm.matmul_plain(x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("m", (8, 64, 320))
+def test_forced_wmma_route_matches_plain(cuda, ta, tb, m):
+    rs = np.random.RandomState(m)
+    k, n = 256, 192
+    x = _t(rs, (k, m) if ta else (m, k), torch.bfloat16, cuda)
+    w = _t(rs, (n, k) if tb else (k, n), torch.bfloat16, cuda, k ** -0.5)
+    x, w = (x.T if ta else x), (w.T if tb else w)
+    cfg = mm.matmul.default_config(x, w)
+    assert mm.route(x, w) != "wmma"
+    kernels.reset_launch_counts()
+    out = mm.matmul_cuda(x, w, **cfg, force_loop=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == _route_counts("matmul", x, w, cfg, force_loop=True)
+    assert kernels.launch_counts()["matmul_wmma"] == 1
+    _close(out, mm.matmul_plain(x, w), torch.bfloat16)
 
 
 def test_matmul_kernel_reads_a_row_stride(cuda):
     h = torch.randn(3, 17, 64, device=cuda, dtype=torch.bfloat16)
     x = h[:, -1]                                        # rows 17*64 apart
     w = torch.randn(64, 96, device=cuda, dtype=torch.bfloat16)
-    _close(mm.matmul_cuda(x, w, bm=16, bn=32, bk=16), mm.matmul_plain(x, w), torch.bfloat16)
+    kernels.reset_launch_counts()
+    _close(mm.matmul_cuda(x, w, bm=16, bn=64, bk=64, stages=2, splits=1), mm.matmul_plain(x, w),
+           torch.bfloat16)
+    assert kernels.launch_counts()["matmul_decode"] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -458,7 +566,8 @@ def test_reduced_hybrid_on_card_matches_cpu(cuda):
     assert err <= 1e-4 * logits["cpu"].abs().max().item(), err
 
 
-EGEMM_CONFIGS = [None, {"bc": 32, "bn": 64, "bk": 16}, {"bc": 128, "bn": 128, "bk": 64}]
+EGEMM_CONFIGS = [None, {"bc": 16, "bn": 128, "bk": 128, "stages": 3, "splits": 4},
+                 {"bc": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 2}]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -469,8 +578,10 @@ def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, k, n, config):
     rs = np.random.RandomState(e + c + k + n)
     x, w = _t(rs, (e, c, k), dtype, cuda), _t(rs, (e, k, n), dtype, cuda, k ** -0.5)
     cfg = config or mg.expert_gemm.default_config(x, w)
+    kernels.reset_launch_counts()
     out = mg.expert_gemm_cuda(x, w, **cfg)
     torch.cuda.synchronize()
+    assert kernels.launch_counts() == _route_counts("expert_gemm", x, w, cfg)
     assert out.dtype == dtype and out.shape == (e, c, n)
     _close(out, mg.expert_gemm_plain(x, w), dtype)
 
@@ -497,11 +608,51 @@ def test_expert_gemm_kernel_reads_transposed_operands(cuda, dtype, form, e, c, k
     kernels.reset_launch_counts()
     out = mg.expert_gemm_cuda(a, b, **cfg)
     torch.cuda.synchronize()
-    want = {"expert_gemm": 1}
-    if form != "broadcast_x":
-        want["expert_gemm_transposed"] = 1
+    want = _route_counts("expert_gemm", a, b, cfg)
+    assert want.get("expert_gemm_transposed", 0) == int(form != "broadcast_x")
     assert kernels.launch_counts() == want
     _close(out, mg.expert_gemm_plain(a, b), dtype)
+
+
+EGEMM_ROUTE_CONFIGS = [None, {"bc": 16, "bn": 64, "bk": 128, "stages": 3, "splits": 2},
+                       {"bc": 64, "bn": 256, "bk": 64, "stages": 3, "splits": 1}]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["x@w", "ct@wT", "xT@ct", "broadcast_x"])
+@pytest.mark.parametrize("c", ROUTE_ROWS)
+@pytest.mark.parametrize("config", EGEMM_ROUTE_CONFIGS)
+def test_expert_gemm_routes_match_plain(cuda, dtype, form, c, config):
+    """Every route at every decode and first prefill capacity, on the
+    backward's swapaxes views and a broadcast x (expert stride 0, a 2-D
+    tensor map), over 3 experts with k = 136 and n = 200 ragged."""
+    e, k, n = 3, 136, 200
+    rs = np.random.RandomState(c + len(form))
+    if form == "xT@ct":
+        a = _t(rs, (e, k, c), dtype, cuda).transpose(1, 2)
+    elif form == "broadcast_x":
+        a = _t(rs, (c, k), dtype, cuda)[None].expand(e, c, k)
+    else:
+        a = _t(rs, (e, c, k), dtype, cuda)
+    b = (_t(rs, (e, n, k), dtype, cuda, k ** -0.5).transpose(1, 2) if form == "ct@wT"
+         else _t(rs, (e, k, n), dtype, cuda, k ** -0.5))
+    cfg = config or mg.expert_gemm.default_config(a, b)
+    # the transposed x of a capacity 2 to 15 but 8 has a leading dim and an
+    # expert stride TMA cannot take: WMMA
+    if dtype == torch.float32:
+        want = "simt"
+    elif form == "xT@ct" and c > 1 and c % 8:
+        want = "wmma"
+    else:
+        want = "decode" if cfg["bc"] == 16 else "tc"
+    kernels.reset_launch_counts()
+    out = mg.expert_gemm_cuda(a, b, **cfg)
+    again = mg.expert_gemm_cuda(a, b, **cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["expert_gemm"] == 2 and counts[f"expert_gemm_{want}"] == 2
+    _close(out, mg.expert_gemm_plain(a, b), dtype)
+    assert torch.equal(out, again)
 
 
 def test_expert_gemm_wrapper_counts_and_raises(cuda):
@@ -510,7 +661,8 @@ def test_expert_gemm_wrapper_counts_and_raises(cuda):
     mg.expert_gemm(x, w)
     mg.expert_gemm_plain(x, w)
     mg.expert_gemm(x.cpu(), w.cpu())
-    assert kernels.launch_counts() == {"expert_gemm": 1}
+    assert kernels.launch_counts() == _route_counts("expert_gemm", x, w,
+                                                    mg.expert_gemm.default_config(x, w))
     with pytest.raises(ValueError):
         mg.expert_gemm(x, torch.randn(2, 16, 16, device=cuda)[:, :, ::2])
 

@@ -79,7 +79,7 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
 def test_wrappers_never_fall_back_off_the_cpu():
     meta = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        mm.matmul(meta(8, 16), meta(16, 32), bm=16, bn=32, bk=16)
+        mm.matmul(meta(8, 16), meta(16, 32), bm=16, bn=64, bk=64, stages=2, splits=1)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         rn.rmsnorm(meta(8, 16), meta(16), block_rows=8)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):

@@ -114,13 +114,22 @@ def test_expert_gemm_gradients_match_jax_through_the_dispatch_plane():
 
 def test_expert_gemm_space_is_the_tile_loops():
     assert mg.expert_gemm.default_config(torch.empty(8, 2, 4096), torch.empty(8, 4096, 14336)) \
-        == {"bc": 16, "bn": 64, "bk": 128}
-    assert mg.expert_gemm.default_config(torch.empty(8, 640, 4096), None) == \
-        {"bc": 64, "bn": 64, "bk": 64}
-    assert mg.expert_gemm.default_config(torch.empty(8, 37, 4096), None)["bc"] == 32
-    assert not mg.EXPERT_GEMM_SPACE.is_valid({"bc": 256, "bn": 256, "bk": 16})   # 1024 threads
-    assert not mg.EXPERT_GEMM_SPACE.is_valid({"bc": 256, "bn": 256, "bk": 128})  # smem
-    assert mg.EXPERT_GEMM_SPACE.is_valid({"bc": 128, "bn": 128, "bk": 64})
+        == {"bc": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1}
+    assert mg.expert_gemm.default_config(torch.empty(8, 640, 4096),
+                                         torch.empty(8, 4096, 14336)) == \
+        {"bc": 128, "bn": 256, "bk": 64, "stages": 3, "splits": 1}
+    assert mg.expert_gemm.default_config(torch.empty(8, 37, 4096),
+                                         torch.empty(8, 4096, 14336))["bc"] == 64
+    # the down projection at decode: 64 column tiles an expert, 512 for the
+    # 8 experts, fill the card without a split
+    assert mg.expert_gemm.default_config(torch.empty(8, 2, 14336),
+                                         torch.empty(8, 14336, 4096))["splits"] == 1
+    assert not mg.EXPERT_GEMM_SPACE.is_valid({"bc": 256, "bn": 128, "bk": 64, "stages": 2,
+                                              "splits": 1})                   # no 256-row tile
+    assert not mg.EXPERT_GEMM_SPACE.is_valid({"bc": 128, "bn": 256, "bk": 128, "stages": 3,
+                                              "splits": 1})                   # smem
+    assert mg.EXPERT_GEMM_SPACE.is_valid({"bc": 128, "bn": 256, "bk": 128, "stages": 2,
+                                          "splits": 16})
 
 
 def test_expert_layout_reads_swapaxes_views_in_place():

@@ -64,7 +64,8 @@ def test_exact_or_reference_policy():
         torch.testing.assert_close(dispatch("matmul", x, w), x @ w)
         assert rt.telemetry.snapshot()["tiers"] == {"reference": 1}
         db.put(Record(make_key("matmul", "torch-cpu", [(64, 128), (128, 64)], "float32"),
-                      {"bm": 16, "bn": 32, "bk": 16}, 1e-6, "w", 1, 0.0))
+                      {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1}, 1e-6, "w", 1,
+                      0.0))
         rt.clear_cache()
         dispatch("matmul", x, w)
         assert rt.telemetry.snapshot()["tiers"]["exact"] == 1
@@ -97,7 +98,8 @@ def test_platform_override_namespaces_the_keys():
     x, w = _mm_args()
     db = TuningDatabase(None)
     key = make_key("matmul", "h100-sxm", [(64, 128), (128, 64)], "float32")
-    db.put(Record(key, {"bm": 32, "bn": 64, "bk": 16}, 1e-6, "w", 1, 0.0))
+    db.put(Record(key, {"bm": 128, "bn": 128, "bk": 64, "stages": 3, "splits": 1}, 1e-6, "w",
+                  1, 0.0))
     with repro_torch.runtime(db=db) as rt:
         assert rt.resolve(matmul_tunable, (x, w)).tier == "heuristic"     # torch-cpu key
     with repro_torch.runtime(db=db, platform="h100-sxm") as rt:

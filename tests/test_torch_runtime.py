@@ -65,7 +65,7 @@ def test_record_resolves_exact_and_miss_resolves_heuristic(tmp_path):
     db = tdb.TuningDatabase(path)
     key = runtime(db=db).key_for(mm.matmul, (x, w))
     assert key == "matmul|torch-cpu|8x64/64x32|float32"
-    cfg = {"bm": 16, "bn": 64, "bk": 32}
+    cfg = {"bm": 16, "bn": 128, "bk": 128, "stages": 3, "splits": 2}
     db.put(tdb.Record(key=key, config=cfg, objective=1e-5, evaluator="wallclock",
                       evaluations=1, timestamp=tdb.now()))
     # a fresh process view of the file: the port's record, read back
@@ -86,14 +86,14 @@ def test_record_resolves_exact_and_miss_resolves_heuristic(tmp_path):
 def test_reference_mode_and_policies():
     x, w = torch.randn(5, 16), torch.randn(16, 8)
     with runtime(mode="reference") as rt:
-        out = rt.dispatch("matmul", x, w, config={"bm": 16, "bn": 32, "bk": 16})
+        out = rt.dispatch("matmul", x, w, config={"bm": 16, "bn": 64, "bk": 64, "stages": 2, "splits": 1})
     assert rt.telemetry.tiers == {"reference": 1}
     torch.testing.assert_close(out, x @ w)
     with runtime(policy=(ExactHit(), Reference())) as rt:   # "tuned or reference"
         rt.dispatch("rmsnorm", torch.randn(4, 16), torch.ones(16))
     assert rt.telemetry.tiers == {"reference": 1}
     with runtime() as rt:
-        rt.dispatch("matmul", x, w, config={"bm": 16, "bn": 32, "bk": 16})
+        rt.dispatch("matmul", x, w, config={"bm": 16, "bn": 64, "bk": 64, "stages": 2, "splits": 1})
     assert rt.telemetry.tiers == {"override": 1}
 
 
@@ -130,7 +130,7 @@ def test_matmul_heuristic_is_legal_on_the_serving_path(m):
         cfg = mm._matmul_heuristic(torch.empty(m, k, device="meta"),
                                    torch.empty(k, n, device="meta"))
         assert mm.MATMUL_SPACE.is_valid(cfg), (m, k, n, cfg)
-        assert mm._threads(cfg) <= 512 and mm.smem_bytes(cfg, 2) <= 232_448
+        assert mm._threads(cfg) <= mm.MAX_THREADS and mm.smem_bytes(cfg) <= 232_448
 
 
 @pytest.mark.parametrize("rows", (8,) + BUCKETS)
@@ -150,8 +150,9 @@ def test_flash_heuristic_is_legal_on_the_serving_path(s):
 
 def test_spaces_are_hopper_limits_not_vmem():
     # every enumerated config fits one H100 block; the largest tiles do not
-    assert all(mm._threads(c) <= 512 for c in mm.MATMUL_SPACE.enumerate())
-    assert not mm.MATMUL_SPACE.is_valid({"bm": 256, "bn": 256, "bk": 128})
+    assert all(mm._threads(c) <= mm.MAX_THREADS for c in mm.MATMUL_SPACE.enumerate())
+    assert not mm.MATMUL_SPACE.is_valid({"bm": 128, "bn": 256, "bk": 128, "stages": 3,
+                                         "splits": 1})
     assert not fa.ATTENTION_SPACE.is_valid({"block_q": 128, "block_k": 256, "stages": 2})
     assert not fa.ATTENTION_SPACE.is_valid({"block_q": 32, "block_k": 128, "stages": 2})
     assert rn.RMSNORM_SPACE.is_valid({"block_rows": 32})
