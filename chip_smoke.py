@@ -13,20 +13,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the two gemm libraries (``cuobjdump --dump-sass``) and counts
              the HGMMA instructions (wgmma) of each kernel: it fails if a
              bf16 flash kernel (``flash_*_tc``) or a bf16 gemm kernel of the
-             tensor-core or decode route (``gemm_tc``, ``gemm_decode``) has
-             none;
+             tensor-core or decode route (``gemm_tc``, ``gemm_decode``) of
+             the matmul, expert_gemm or matmul_bias_act library has none;
 3. kernels — runs each kernel at the serving and training paths' shapes in
              bf16 (matmul also on the backward's transposed operands; the
              fused matmul_bias_act at the training gate projection with
-             silu, once each with no activation and gelu, and at a ragged
-             shape; rmsnorm_matmul at the decode unembed and a ragged row
-             count), at its heuristic config and at one other legal
+             silu, once each with no activation and gelu, at a ragged
+             shape (the WMMA route: a weight row TMA cannot address) and at
+             qwen's biased q projection at decode rows, beside matmul's
+             time for the same product; rmsnorm_matmul at the decode
+             unembed and a ragged row count; rmsnorm also with the host
+             time of one call beside F.rms_norm's and the time of its bare
+             launch), at its heuristic config and at one other legal
              config, holds it against its plain PyTorch version on the
              card, and times kernel, plain version and the one-call
              PyTorch yardstick (where one call computes the same function)
              with CUDA events, beside the card's bound for the same work;
-             each matmul and expert_gemm row names its route (a main-path
-             shape must take the tensor-core or decode one), holds a split-k
+             each matmul, expert_gemm and matmul_bias_act row names its
+             route (a main-path shape must take the tensor-core or decode
+             one), holds a split-k
              launch to a second one bit for bit, and times the same call on
              the first port's tile loop (``wmma_ms``, or ``simt_loop_ms``
              in fp32): the before and after in one call;
@@ -110,10 +115,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode) and matmul_bias_act
-             (training) must launch, step 1 must pass the train phase's
-             gate and one prefill's logits TOL_LOGITS, both against the
-             plain path; the tuned step time is printed beside the train
-             phase's heuristic step time (reported, not claimed);
+             (training, on the tensor-core route only) must launch, step 1
+             must pass the train phase's gate and one prefill's logits
+             TOL_LOGITS, both against the plain path; the tuned steps'
+             times are printed beside the train phase's heuristic step
+             times (reported, not claimed), and torch.profiler splits one
+             more tuned step by kernel;
 10. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -302,11 +309,13 @@ def phase_build():
         for wline in warnings:
             log(f"[build] {n}: {wline[:240]}")
     # The bf16 flash kernels (flash_*_tc) and the bf16 gemm kernels of the
-    # tensor-core and decode routes (gemm_tc, gemm_decode) must run on the
-    # tensor cores: each one's SASS holds wgmma, which disassembles as HGMMA.
+    # tensor-core and decode routes (gemm_tc, gemm_decode: matmul's,
+    # expert_gemm's and matmul_bias_act's) must run on the tensor cores:
+    # each one's SASS holds wgmma, which disassembles as HGMMA.
     for n, tags in (("flash_attention", ("_tc",)), ("flash_attention_bwd", ("_tc",)),
                     ("matmul", ("gemm_tc", "gemm_decode")),
-                    ("expert_gemm", ("gemm_tc", "gemm_decode"))):
+                    ("expert_gemm", ("gemm_tc", "gemm_decode")),
+                    ("matmul_bias_act", ("gemm_tc", "gemm_decode"))):
         counts = hgmma_counts(_build.lib_path(n))
         tc = {f: c for f, c in counts.items() if any(t in f for t in tags)}
         if n.startswith("flash"):
@@ -414,7 +423,22 @@ def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch
         f"(rel {row['max_rel_err']:.2e} <= {tol})")
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call, enqueued back to back with no synchronise
+    (where the device's share is shorter, the host sets the pace)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _rmsnorm_case(prof, rows_out, rows, d, gen, path):
+    from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as rn
 
     x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -431,21 +455,36 @@ def _rmsnorm_case(prof, rows_out, rows, d, gen, path):
         if errs[-1][1] > TOL_BF16 or r_rel > 1e-5:
             raise AssertionError(f"rmsnorm [{rows},{d}] {cfg}: out rel {errs[-1][1]:.3g}, "
                                  f"invrms rel {r_rel:.3g}")
-    ms = time_ms(lambda: rn.rmsnorm_cuda(x, w, **heur))
-    ms_other = time_ms(lambda: rn.rmsnorm_cuda(x, w, **other))
-    plain_ms = time_ms(lambda: rn.rmsnorm_plain(x, w))
-    lib_ms = (time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6))
-              if hasattr(torch.nn.functional, "rms_norm") else None)
+    # rows whose device time is below a call's host time: more iterations
+    tk = dict(iters=200, warmup=20) if rows * d <= 8192 * 896 else {}
+    ms = time_ms(lambda: rn.rmsnorm_cuda(x, w, **heur), **tk)
+    ms_other = time_ms(lambda: rn.rmsnorm_cuda(x, w, **other), **tk)
+    plain_ms = time_ms(lambda: rn.rmsnorm_plain(x, w), **tk)
+    has_lib = hasattr(torch.nn.functional, "rms_norm")
+    lib = lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6)
+    lib_ms = time_ms(lib, **tk) if has_lib else None
+    # the bare launch (the C entry on buffers allocated once): the kernel's
+    # device time wherever it exceeds the entry's few microseconds of host
+    fn = _build.entry("rmsnorm", "repro_rmsnorm", rn._RMSNORM_ARGTYPES)
+    out, r = torch.empty_like(x), torch.empty(rows, dtype=torch.float32, device="cuda")
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), r.data_ptr(), rows, d, 1e-6, 1,
+            heur["block_rows"], _build.stream_ptr(x.device))
+    launch_ms = time_ms(lambda: fn(*args), **tk)
+    host = host_us(lambda: rn.rmsnorm_cuda(x, w, **heur))
+    lib_host = host_us(lib) if has_lib else None
     nbytes = rows * d * 2 * 2 + d * 2 + rows * 4
     b_ms, b_by = bound(prof, nbytes, 4.0 * rows * d, prof.peak_flops_fp32)
     row = dict(shape=f"[{rows},{d}] bf16", path=path, config=heur, ms=ms, other_config=other,
-               other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+               other_ms=ms_other, launch_ms=launch_ms, host_us=host, library_host_us=lib_host,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows_out.append(row)
+    lib_s = f"{lib_ms:.4f}" if lib_ms is not None else None
     log(f"[kernels] rmsnorm {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, F.rms_norm {lib_ms}, bound {b_ms:.4f} ({b_by}); "
-        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+        f"bare launch {launch_ms:.4f}; plain {plain_ms:.4f}, F.rms_norm {lib_s}, bound "
+        f"{b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= "
+        f"{TOL_BF16}); host time a call (us): rmsnorm_cuda {host:.1f}, F.rms_norm "
+        f"{lib_host if lib_host is None else round(lib_host, 1)}")
 
 
 def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1, window=0, iters=20):
@@ -706,41 +745,54 @@ def flash_tile_latency(prof, sfu, gen) -> None:
 
 def _mba_case(prof, rows, m, k, n, act, gen, path):
     from repro_torch.kernels import fused as fu
+    from repro_torch.kernels import matmul as mm
 
     x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
     b = (0.1 * torch.randn((n,), generator=gen, device="cuda")).to(torch.bfloat16)
+    shape = f"[{m},{k}]@[{k},{n}] bf16 a{act}"
     heur = fu.matmul_bias_act.default_config(x, w, b)
-    # the other legal config of its (the first port's WMMA loop's) space
-    other = {"bm": 16, "bn": 32, "bk": 32} if m <= 16 else {"bm": 128, "bn": 32, "bk": 32}
-    plain = fu.matmul_bias_act_plain(x, w, b, act)
-    errs = []
+    other = other_gemm_config(heur)
     for cfg in (heur, other):
-        if not fu.FUSED_MATMUL_SPACE.is_valid(cfg):
+        if not mm.MATMUL_SPACE.is_valid(cfg):
             raise AssertionError(f"illegal matmul_bias_act config {cfg}")
-        out = fu.matmul_bias_act_cuda(x, w, b, act=act, **cfg)
-        torch.cuda.synchronize()
-        errs.append(rel_err(out, plain))
-        if errs[-1][1] > TOL_BF16:
-            raise AssertionError(f"matmul_bias_act {m}x{k}x{n} a{act} {cfg}: rel err "
-                                 f"{errs[-1][1]:.3g} > {TOL_BF16}")
-    ms = time_ms(lambda: fu.matmul_bias_act_cuda(x, w, b, act=act, **heur))
-    ms_other = time_ms(lambda: fu.matmul_bias_act_cuda(x, w, b, act=act, **other))
+    p = mm.plan(x, w, heur)
+    # a weight whose rows are not 16-byte multiples (n = 4860) is one TMA
+    # cannot address: the WMMA route, by the rule
+    if p["route"] not in ("tc", "decode") and n % 8 == 0:
+        raise AssertionError(f"matmul_bias_act {shape}: a main-path shape takes the "
+                             f"{p['route']} route")
+    plain = fu.matmul_bias_act_plain(x, w, b, act)
+    run = lambda cfg, **kw: fu.matmul_bias_act_cuda(x, w, b, act=act, **cfg, **kw)
+    errs = gemm_runs(run, (heur, other), lambda cfg: mm.plan(x, w, cfg), plain, TOL_BF16,
+                     f"matmul_bias_act {shape}")
+    ms = time_ms(lambda: run(heur))
+    ms_other = time_ms(lambda: run(other))
+    # the same call on the first port's WMMA loop: the in-call before
+    loop = run(heur, force_loop=True)
+    torch.cuda.synchronize()
+    if rel_err(loop, plain)[1] > TOL_BF16:
+        raise AssertionError(f"matmul_bias_act {shape}: the WMMA loop disagrees with the plain "
+                             f"version")
+    wmma_ms = time_ms(lambda: run(heur, force_loop=True))
+    # the product alone on matmul, same route and config: what the epilogue adds
+    matmul_ms = time_ms(lambda: mm.matmul_cuda(x, w, **heur))
     plain_ms = time_ms(lambda: fu.matmul_bias_act_plain(x, w, b, act))
     # One PyTorch call computes the same function only without an
     # activation (addmm); silu and gelu would take a chain of calls.
     lib_ms = time_ms(lambda: torch.addmm(b, x, w)) if act == "none" else None
     b_ms, b_by = bound(prof, (m * k + k * n + n + m * n) * 2, 2.0 * m * n * k,
                        prof.peak_flops_bf16)
-    row = dict(shape=f"[{m},{k}]@[{k},{n}] bf16 a{act}", path=path, config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+    row = dict(shape=shape, path=path, route=p["route"], splits=p["splits"], config=heur, ms=ms,
+               other_config=other, other_ms=ms_other, wmma_ms=wmma_ms, matmul_ms=matmul_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
     lib_s = f"torch.addmm {lib_ms:.4f}" if lib_ms is not None else "no one-call yardstick"
-    log(f"[kernels] matmul_bias_act {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
-        f"{other}); plain {plain_ms:.4f}, {lib_s}, bound {b_ms:.4f} ({b_by}); err "
-        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+    log(f"[kernels] matmul_bias_act {shape}: {ms:.4f} ms {p['route']} {heur} ({ms_other:.4f} "
+        f"ms {other}); WMMA loop {wmma_ms:.4f} (wmma_ms); matmul alone {matmul_ms:.4f}; plain "
+        f"{plain_ms:.4f}, {lib_s}, bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} "
+        f"(rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
 def _rmm_case(prof, rows, m, d, n, gen, path):
@@ -827,10 +879,9 @@ def _egemm_case(prof, rows, e, c, k, n, gen, path, form="x@w", iters=20):
 
 
 def gemm_host_cost(gen) -> None:
-    """Host time of one gemm call, enqueued back to back with no
-    synchronise (the device's share of the call is shorter, so the host
-    sets the pace): the decode route at Mixtral's [8,4096]@[4096,4096], in
-    one and in two splits, the first port's loop, and one torch.matmul."""
+    """Host time of one gemm call (:func:`host_us`): the decode route at
+    Mixtral's [8,4096]@[4096,4096], in one and in two splits, the first
+    port's loop, and one torch.matmul."""
     from repro_torch.kernels import matmul as mm
 
     x = torch.randn((8, 4096), generator=gen, device="cuda").to(torch.bfloat16)
@@ -840,17 +891,7 @@ def gemm_host_cost(gen) -> None:
              ("decode route, 2 splits", lambda: mm.matmul_cuda(x, w, **dict(heur, splits=2))),
              ("first port's loop", lambda: mm.matmul_cuda(x, w, **heur, force_loop=True)),
              ("torch.matmul", lambda: torch.matmul(x, w)))
-    out = []
-    for name, fn in calls:
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-        out.append(f"{name} {us:.1f}")
+    out = [f"{name} {host_us(fn):.1f}" for name, fn in calls]
     log(f"[kernels] host time a gemm call, [8,4096]@[4096,4096] bf16 (us): {', '.join(out)}")
 
 
@@ -987,11 +1028,13 @@ def phase_kernels(prof, seed: int):
     _flash_case(prof, results["flash_attention"], 2048, gen, "train", b=4)
     _flash_bwd_case(prof, results["flash_attention_bwd"], 4, 2048, gen)
     # The fused sites: training's SwiGLU gate (silu, zero-bias site timed
-    # with a bias), the other epilogues, a ragged shape; decode's final
-    # norm -> unembed, and a row count that is not a multiple of 8.
+    # with a bias), the other epilogues, a ragged shape; qwen's biased q
+    # projection at decode rows; decode's final norm -> unembed, and a row
+    # count that is not a multiple of 8.
     for m, n, act in ((tok, ff, "silu"), (tok, ff, "none"), (tok, ff, "gelu"),
                       (1000, 4860, "silu")):
         _mba_case(prof, results["matmul_bias_act"], m, d, n, act, gen, "train")
+    _mba_case(prof, results["matmul_bias_act"], 8, d, d, "none", gen, "serve")
     for m in (8, 13):
         _rmm_case(prof, results["rmsnorm_matmul"], m, d, vocab, gen, "serve")
     # The hybrid (Jamba-1.5-Large: d_model 8192, d_inner 16384, dt_rank 512,
@@ -1686,7 +1729,7 @@ def phase_train(seed: int):
     log(f"[train] step time {step_ms:.2f} ms median of steps 2-{steps}; "
         f"{tokens / (step_ms / 1e3):.0f} tokens/s; peak memory allocated {peak / 2**30:.2f} GiB")
     profile(f"train step ({tokens} tokens)", trainer.run_one_step, 1, wall_ms=step_ms)
-    return launches, step_ms
+    return launches, step_ms, [1e3 * t for t in times]
 
 
 ALL_KERNELS = TRAIN_KERNELS + ("matmul_bias_act", "rmsnorm_matmul")
@@ -1760,7 +1803,7 @@ def phase_campaign(seed: int, budget: int, workdir: str):
     return out_path, launches
 
 
-def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float):
+def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float, heuristic_steps):
     """Serve and train full-width qwen2_0_5b from the campaign's database:
     every dispatch at the exact tier, both fused kernels launched."""
     from repro_torch import kernels
@@ -1857,13 +1900,24 @@ def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float):
                if train_launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the tuned training path: {missing}")
+    # the training gate [8192,896]@[896,4864] is a tensor-core shape
+    off_tc = {r: v for r in ("decode", "wmma", "simt")
+              if (v := train_launches.get(f"matmul_bias_act_{r}", 0))}
+    if off_tc or train_launches.get("matmul_bias_act_tc", 0) != train_launches["matmul_bias_act"]:
+        raise AssertionError(f"tuned training: matmul_bias_act launched off the tc route: "
+                             f"{off_tc}, {train_launches}")
     losses = [m["loss"] for m in metrics]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     step_ms = 1e3 * metrics[-1]["step_time_s"]
-    log(f"[tuned] losses {', '.join(f'{x:.4f}' for x in losses)}; step 2 {step_ms:.2f} ms on "
-        f"the tuned database vs {heuristic_step_ms:.2f} ms median on the heuristic configs "
-        f"(train phase, same call; reported, not claimed)")
+    log(f"[tuned] losses {', '.join(f'{x:.4f}' for x in losses)}")
+    tuned_steps = ", ".join(f"{1e3 * m['step_time_s']:.2f}" for m in metrics)
+    heur_steps = ", ".join(f"{t:.2f}" for t in heuristic_steps)
+    log(f"[tuned] train step (ms), tuned database vs heuristic configs, same call: step 2 "
+        f"{step_ms:.2f} vs median of steps 2-6 {heuristic_step_ms:.2f}; every step: tuned "
+        f"{tuned_steps}; heuristic {heur_steps} (reported, not claimed)")
+    profile(f"tuned train step ({data.batch_size * data.seq_len} tokens)", trainer.run_one_step,
+            1, wall_ms=step_ms)
     return serve_launches, train_launches
 
 
@@ -1890,10 +1944,11 @@ def main() -> int:
     hybrid_launches = phase_hybrid(args.seed)
     moe_launches = phase_moe(args.seed)
     torch.cuda.empty_cache()
-    train_launches, heuristic_step_ms = phase_train(args.seed)
+    train_launches, heuristic_step_ms, heuristic_steps = phase_train(args.seed)
     with tempfile.TemporaryDirectory() as workdir:
         db_path, _ = phase_campaign(args.seed, args.campaign_budget, workdir)
-        tuned_serve, tuned_train = phase_tuned(args.seed, db_path, heuristic_step_ms)
+        tuned_serve, tuned_train = phase_tuned(args.seed, db_path, heuristic_step_ms,
+                                               heuristic_steps)
 
     # Each entry pairs the training run's launches with a training shape;
     # the three kernels that serving also launches carry a "serve" object
@@ -1950,7 +2005,7 @@ def main() -> int:
                  **at(name, path, launches), "shapes": rows}
         if name == "matmul":
             entry["launches_transposed"] = train_launches.get("matmul_transposed", 0)
-        if name in ("matmul", "expert_gemm"):
+        if name in ("matmul", "expert_gemm", "matmul_bias_act"):
             entry["launches_by_route"] = {r: launches.get(f"{name}_{r}", 0)
                                           for r in ("tc", "decode", "simt", "wmma", "splitk")}
         if name in SERVE_KERNELS:

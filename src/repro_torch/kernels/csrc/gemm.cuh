@@ -1,7 +1,18 @@
-// The gemm shared by matmul.cu and expert_gemm.cu: C[z] = A[z] @ B[z] for
-// z < batch, each product [m,k] @ [k,n] with fp32 accumulation and the
-// output in the input dtype. matmul launches one product; expert_gemm one
-// per expert.
+// The gemm shared by matmul.cu, expert_gemm.cu and matmul_bias_act.cu:
+// C[z] = epilogue(A[z] @ B[z]) for z < batch, each product [m,k] @ [k,n]
+// with fp32 accumulation and the output in the input dtype. matmul launches
+// one product; expert_gemm one per expert; matmul_bias_act one, with an
+// epilogue.
+//
+// The epilogue (matmul_bias_act's) runs on the fp32 accumulator before the
+// one cast, on every route: + bias[col] (a [n] vector in the input dtype,
+// read as fp32), then the activation (none, gelu in its tanh form, silu as
+// h / (1 + exp(-h))). It is two runtime arguments, a bias pointer and an
+// activation code, not template parameters, so the tc and decode kernels
+// are instantiated once; the branch is uniform across the CTA and sits in
+// the epilogue only. matmul and expert_gemm pass no bias and ACT_NONE, and
+// the accumulator then passes through untouched: their results are the
+// same bits as before the epilogue existed.
 //
 // Each operand is read in the layout in which it is stored, so the
 // backward's transposed operands (ct @ w^T, x^T @ ct) and the MoE swapaxes
@@ -48,9 +59,10 @@
 //
 // Split-k (tc, decode, simt): the k slices are cut into `splits` ranges of
 // kps whole slices each (kernels/matmul.py:split_k), one range a CTA on
-// blockIdx.z / batch. Each writes its fp32 partial sums to a workspace
+// blockIdx.z / batch. Each writes its raw fp32 partial sums to a workspace
 // [splits, batch, m, n] the wrapper allocates, and gemm_splitk_sum adds the
-// splits in a fixed order and casts: deterministic, no atomics.
+// splits in a fixed order, applies the epilogue and casts: deterministic,
+// no atomics.
 #pragma once
 
 #include <mma.h>
@@ -65,6 +77,8 @@ typedef __nv_bfloat16 bf16;
 
 // Kernel codes passed from kernels/matmul.py (ROUTES, ROWS_CODE).
 enum { GEMM_TC = 0, GEMM_DECODE = 1, GEMM_WMMA = 2, GEMM_SIMT = 3, GEMM_ROWS = 4 };
+// Epilogue activations (kernels/fused.py:ACTS).
+enum { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2 };
 
 namespace gemm {
 
@@ -82,6 +96,65 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // before: ordered after those reads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The activation of the epilogue, in fp32: gelu in its tanh form, silu as
+// h / (1 + exp(-h)) (tanhf and expf, no fast-math intrinsics).
+__device__ __forceinline__ float apply_act(float h, int act) {
+  if (act == ACT_GELU) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * h * (1.f + tanhf(c * (h + 0.044715f * h * h * h)));
+  }
+  if (act == ACT_SILU) return h / (1.f + expf(-h));
+  return h;
+}
+
+// The epilogue on the fp32 accumulator h of C's column `col` (< n): the
+// bias, then the activation. No bias and ACT_NONE return h as it is.
+template <typename T>
+__device__ __forceinline__ float epilogue(float h, const T* __restrict__ bias, int act, int col) {
+  if (bias != nullptr) h += to_f32(bias[col]);
+  return apply_act(h, act);
+}
+
+// The epilogue on a tc consumer thread's m64 x BN accumulator (tile column
+// col0; columns past n, which are never stored, read a bias of the last
+// columns), in passes with the branches outside them: one element's
+// exponential and division then overlap the next ones' instead of waiting
+// behind a branch each (silu's IEEE division keeps a slow-path branch, so
+// its exponentials go first, eight at a time). acc[j..j+3] (j % 4 == 0)
+// hold columns c, c + 1 of rows r and r + 8: one bias pair serves four.
+template <int N>
+__device__ __forceinline__ void epilogue_acc(float (&acc)[N], const bf16* __restrict__ bias,
+                                             int act, int col0, int n) {
+  if (bias != nullptr) {
+    // c is even: an even n and a 4-byte aligned bias make (c, c + 1) one load
+    const bool pairs = n % 2 == 0 && (reinterpret_cast<uintptr_t>(bias) & 3) == 0;
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const int c = col0 + acc_col(j);
+      const float2 b =
+          pairs ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + min(c, n - 2)))
+                : make_float2(to_f32(bias[min(c, n - 1)]), to_f32(bias[min(c + 1, n - 1)]));
+      acc[j] += b.x;
+      acc[j + 1] += b.y;
+      acc[j + 2] += b.x;
+      acc[j + 3] += b.y;
+    }
+  }
+  if (act == ACT_GELU) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[j] = apply_act(acc[j], ACT_GELU);
+  } else if (act == ACT_SILU) {
+#pragma unroll
+    for (int j0 = 0; j0 < N; j0 += 8) {
+      float e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) e[i] = expf(-acc[j0 + i]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j0 + i] = acc[j0 + i] / (1.f + e[i]);
+    }
+  }
 }
 
 // One box of a 2-D map (z < 0: a broadcast operand) or a 3-D one.
@@ -137,8 +210,9 @@ __device__ __forceinline__ void store_partial(float* __restrict__ w, const float
 template <bool TA, bool TB, int BM, int BN, int BK>
 __global__ void __launch_bounds__(Tc<BM, BN, BK>::THREADS, 1)
 gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-        bf16* __restrict__ c, float* __restrict__ ws, int m, int n, int k, int batch,
-        int bcast_a, int bcast_b, int stages, int kps, int m_fast) {
+        bf16* __restrict__ c, float* __restrict__ ws, const bf16* __restrict__ bias, int act,
+        int m, int n, int k, int batch, int bcast_a, int bcast_b, int stages, int kps,
+        int m_fast) {
   using C = Tc<BM, BN, BK>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -229,7 +303,9 @@ gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtens
     store_partial<BN>(ws + ((size_t)split * batch + z) * m * n, acc, m, n, r0, col0);
     return;
   }
-  // Stage the band as bf16 in the (now idle) ring, then store whole rows.
+  // The epilogue, then stage the band as bf16 in the (now idle) ring and
+  // store whole rows.
+  epilogue_acc(acc, bias, act, col0, n);
   named_sync(1, C::NWG * 128);
   fence_proxy_async();
   bf16* so = reinterpret_cast<bf16*>(smem_raw + (base - smem_addr(smem_raw))) +
@@ -271,8 +347,9 @@ struct Dec {
 template <bool TA, bool TB, int BN, int BK>
 __global__ void __launch_bounds__(Dec<BN, BK>::THREADS, 1)
 gemm_decode(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-            bf16* __restrict__ c, float* __restrict__ ws, int m, int n, int k, int batch,
-            int bcast_a, int bcast_b, int stages, int kps) {
+            bf16* __restrict__ c, float* __restrict__ ws, const bf16* __restrict__ bias,
+            int act, int m, int n, int k, int batch, int bcast_a, int bcast_b, int stages,
+            int kps) {
   using C = Dec<BN, BK>;
   constexpr int NT = BN / 64;                               // m64 tiles of B^T
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -361,7 +438,8 @@ gemm_decode(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
   for (int t = 0; t < NT; ++t) reg_fence(acc[t]);
 
   // Stage C's [16][BN] tile in fp32 (acc rows are columns of C), then store
-  // whole rows of C: bf16, or the split's fp32 partial sums.
+  // whole rows of C: bf16 after the epilogue (its bias runs along C's
+  // columns, which are wgmma's M here), or the split's raw fp32 partials.
   named_sync(1, 128);
   fence_proxy_async();
   float* so = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw)));
@@ -390,10 +468,13 @@ gemm_decode(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
         uint4 v;
         __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
+        for (int e = 0; e < 4; ++e)
+          h[e] = __floats2bfloat162_rn(epilogue(src[2 * e], bias, act, gc + 2 * e),
+                                       epilogue(src[2 * e + 1], bias, act, gc + 2 * e + 1));
         *reinterpret_cast<uint4*>(dst) = v;
       } else {
-        for (int e = 0; e < 8 && gc + e < n; ++e) dst[e] = __float2bfloat16(src[e]);
+        for (int e = 0; e < 8 && gc + e < n; ++e)
+          dst[e] = __float2bfloat16(epilogue(src[e], bias, act, gc + e));
       }
     }
   }
@@ -424,8 +505,8 @@ __device__ __forceinline__ void load_operand(T* __restrict__ dst, int ld,
 template <int FM, bool TA, bool TB>
 __global__ void __launch_bounds__(512)
 gemm_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
-          int m, int n, int k, int lda_g, int ldb_g, long long sa, long long sb, int bm,
-          int bn, int bk, bool vec) {
+          const bf16* __restrict__ bias, int act, int m, int n, int k, int lda_g, int ldb_g,
+          long long sa, long long sb, int bm, int bn, int bk, bool vec) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   A += blockIdx.z * sa;
@@ -485,23 +566,26 @@ gemm_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restri
   for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
     const int r = idx / bn, c = idx % bn;
     const int gr = row0 + r, gc = col0 + c;
-    if (gr < m && gc < n) C[(size_t)gr * n + gc] = __float2bfloat16(Cs[r * ldc + c]);
+    if (gr < m && gc < n)
+      C[(size_t)gr * n + gc] = __float2bfloat16(epilogue(Cs[r * ldc + c], bias, act, gc));
   }
 }
 
 // The fp32 loop, with split-k: blockIdx.z = split * batch + z, and a split
-// writes its partial sums to ws (C when there is one split).
+// writes its raw partial sums to ws (C, after the epilogue, when there is
+// one split).
 template <int FM, bool TA, bool TB>
 __global__ void __launch_bounds__(512)
 gemm_simt(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-          float* __restrict__ ws, int m, int n, int k, int batch, int lda_g, int ldb_g,
-          long long sa, long long sb, int bm, int bn, int bk, int kps, bool vec) {
+          float* __restrict__ ws, const float* __restrict__ bias, int act, int m, int n, int k,
+          int batch, int lda_g, int ldb_g, long long sa, long long sb, int bm, int bn, int bk,
+          int kps, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int z = blockIdx.z % batch, split = blockIdx.z / batch;
   A += z * sa;
   B += z * sb;
-  float* out = gridDim.z > batch ? ws + ((size_t)split * batch + z) * m * n
-                                 : C + (size_t)z * m * n;
+  const bool partial = gridDim.z > batch;
+  float* out = partial ? ws + ((size_t)split * batch + z) * m * n : C + (size_t)z * m * n;
   const int kb = split * kps * bk, ke = min(k, kb + kps * bk);
   // Shared tiles in the stored layout, as in the bf16 kernel.
   const int lda = (TA ? bm : bk) + 4, ldb = (TB ? bk : bn) + 4;
@@ -536,7 +620,7 @@ gemm_simt(const float* __restrict__ A, const float* __restrict__ B, float* __res
 #pragma unroll
   for (int i = 0; i < 16 * FM; ++i) {
     const int gr = row0 + wr + i;
-    if (gr < m) out[(size_t)gr * n + gc] = acc[i];
+    if (gr < m) out[(size_t)gr * n + gc] = partial ? acc[i] : epilogue(acc[i], bias, act, gc);
   }
 }
 
@@ -550,14 +634,15 @@ constexpr int ROWS_THREADS = 128, ROWS_COLS = 4 * ROWS_THREADS, ROWS_KC = 64;
 template <int MR, bool TA, bool TB>
 __global__ void __launch_bounds__(ROWS_THREADS)
 gemm_simt_rows(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-               float* __restrict__ ws, int m, int n, int k, int batch, int lda, int ldb,
-               long long sa, long long sb, int kps, bool vec) {
+               float* __restrict__ ws, const float* __restrict__ bias, int act, int m, int n,
+               int k, int batch, int lda, int ldb, long long sa, long long sb, int kps,
+               bool vec) {
   __shared__ __align__(16) float xs[ROWS_KC][MR];
   const int z = blockIdx.z % batch, split = blockIdx.z / batch;
   A += z * sa;
   B += z * sb;
-  float* out = gridDim.z > batch ? ws + ((size_t)split * batch + z) * m * n
-                                 : C + (size_t)z * m * n;
+  const bool partial = gridDim.z > batch;
+  float* out = partial ? ws + ((size_t)split * batch + z) * m * n : C + (size_t)z * m * n;
   const int kb = split * kps * ROWS_KC, ke = min(k, kb + kps * ROWS_KC);
   const int c0 = blockIdx.x * ROWS_COLS + 4 * threadIdx.x;
   float acc[MR][4];
@@ -603,6 +688,12 @@ gemm_simt_rows(const float* __restrict__ A, const float* __restrict__ B, float* 
     }
   }
   if (c0 >= n) return;
+  if (!partial) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = epilogue(acc[r][j], bias, act, min(c0 + j, n - 1));
+  }
 #pragma unroll
   for (int r = 0; r < MR; ++r) {
     if (r >= m) break;
@@ -615,14 +706,18 @@ gemm_simt_rows(const float* __restrict__ A, const float* __restrict__ B, float* 
   }
 }
 
-// out[i] = the sum of the splits' partials ws[s][i], s in order, cast.
+// out[i] = the sum of the splits' partials ws[s][i], s in order, then the
+// epilogue (of column i % n), cast.
 template <typename T>
 __global__ void gemm_splitk_sum(const float* __restrict__ ws, T* __restrict__ out,
-                                long long count, int splits) {
+                                const T* __restrict__ bias, int act, long long count, int n,
+                                int splits) {
+  const bool epi = bias != nullptr || act != ACT_NONE;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
        i += (long long)gridDim.x * blockDim.x) {
     float s = ws[i];
     for (int p = 1; p < splits; ++p) s += ws[p * count + i];
+    if (epi) s = epilogue(s, bias, act, (int)(i % n));
     out[i] = from_f32<T>(s);
   }
 }
@@ -663,6 +758,8 @@ struct Problem {
   long long lda, ldb, sa, sb;
   int dtype, route, bm, bn, bk, stages, splits, kps;
   cudaStream_t stream;
+  const void* bias = nullptr;      // the epilogue's [n] bias (input dtype), or none
+  int act = ACT_NONE;              // the epilogue's activation
 };
 
 // Encoded tensor maps of recent launches, by everything an encoding reads:
@@ -753,8 +850,8 @@ static cudaError_t launch_tc(const Problem& p) {
   const dim3 grid(m_fast ? mt : nt, m_fast ? nt : mt, p.batch * p.splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   gemm_tc<TA, TB, BM, BN, BK><<<grid, C::THREADS, smem, p.stream>>>(
-      ma, mb, static_cast<bf16*>(p.c), p.ws, p.m, p.n, p.k, p.batch, p.sa == 0, p.sb == 0,
-      p.stages, p.kps, m_fast);
+      ma, mb, static_cast<bf16*>(p.c), p.ws, static_cast<const bf16*>(p.bias), p.act, p.m, p.n,
+      p.k, p.batch, p.sa == 0, p.sb == 0, p.stages, p.kps, m_fast);
   return cudaGetLastError();
 }
 
@@ -775,8 +872,8 @@ static cudaError_t launch_decode(const Problem& p) {
   const dim3 grid((p.n + BN - 1) / BN, (p.m + DEC_ROWS - 1) / DEC_ROWS, p.batch * p.splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   gemm_decode<TA, TB, BN, BK><<<grid, C::THREADS, smem, p.stream>>>(
-      ma, mb, static_cast<bf16*>(p.c), p.ws, p.m, p.n, p.k, p.batch, p.sa == 0, p.sb == 0,
-      p.stages, p.kps);
+      ma, mb, static_cast<bf16*>(p.c), p.ws, static_cast<const bf16*>(p.bias), p.act, p.m, p.n,
+      p.k, p.batch, p.sa == 0, p.sb == 0, p.stages, p.kps);
   return cudaGetLastError();
 }
 
@@ -811,8 +908,8 @@ static cudaError_t launch_rows(const Problem& p) {
   if (p.ta == TA && p.tb == TB) {                                                           \
     gemm_simt_rows<MR, TA, TB><<<grid, ROWS_THREADS, 0, p.stream>>>(                        \
         static_cast<const float*>(p.a), static_cast<const float*>(p.b),                     \
-        static_cast<float*>(p.c), p.ws, p.m, p.n, p.k, p.batch, (int)p.lda, (int)p.ldb,     \
-        p.sa, p.sb, p.kps, vec);                                                            \
+        static_cast<float*>(p.c), p.ws, static_cast<const float*>(p.bias), p.act, p.m, p.n, \
+        p.k, p.batch, (int)p.lda, (int)p.ldb, p.sa, p.sb, p.kps, vec);                      \
     return cudaGetLastError();                                                              \
   }
   REPRO_ROWS(0, 0)
@@ -841,14 +938,14 @@ static cudaError_t launch_loop(const Problem& p) {
       if ((err = allow_smem(gemm_wmma<FM, TA, TB>, smem))) return err;                       \
       gemm_wmma<FM, TA, TB><<<grid, threads, smem, p.stream>>>(                              \
           static_cast<const bf16*>(p.a), static_cast<const bf16*>(p.b),                      \
-          static_cast<bf16*>(p.c), p.m, p.n, p.k, (int)p.lda, (int)p.ldb, p.sa, p.sb, p.bm,  \
-          p.bn, p.bk, vec);                                                                  \
+          static_cast<bf16*>(p.c), static_cast<const bf16*>(p.bias), p.act, p.m, p.n, p.k,    \
+          (int)p.lda, (int)p.ldb, p.sa, p.sb, p.bm, p.bn, p.bk, vec);                        \
     } else {                                                                                 \
       if ((err = allow_smem(gemm_simt<FM, TA, TB>, smem))) return err;                       \
       gemm_simt<FM, TA, TB><<<grid, threads, smem, p.stream>>>(                              \
           static_cast<const float*>(p.a), static_cast<const float*>(p.b),                    \
-          static_cast<float*>(p.c), p.ws, p.m, p.n, p.k, p.batch, (int)p.lda, (int)p.ldb,    \
-          p.sa, p.sb, p.bm, p.bn, p.bk, p.kps, vec);                                         \
+          static_cast<float*>(p.c), p.ws, static_cast<const float*>(p.bias), p.act, p.m, p.n, \
+          p.k, p.batch, (int)p.lda, (int)p.ldb, p.sa, p.sb, p.bm, p.bn, p.bk, p.kps, vec);     \
     }                                                                                        \
     return cudaGetLastError();                                                               \
   }
@@ -870,7 +967,8 @@ static bool tma_aligned(const void* p, long long ld, long long stride) {
 static int launch(const Problem& p) {
   if (p.batch <= 0 || p.m <= 0 || p.n <= 0) return cudaSuccess;
   if (p.k < 0 || p.lda < (p.ta ? p.m : p.k) || p.ldb < (p.tb ? p.k : p.n) || p.sa < 0 ||
-      p.sb < 0 || p.splits < 1 || p.kps < 1 || p.batch * p.splits > 65535)
+      p.sb < 0 || p.splits < 1 || p.kps < 1 || p.batch * p.splits > 65535 ||
+      p.act < ACT_NONE || p.act > ACT_SILU)
     return cudaErrorInvalidValue;
   const int slices = (p.k + p.bk - 1) / p.bk;
   // every split a non-empty range of whole slices (kernels/matmul.py:split_k)
@@ -917,11 +1015,13 @@ static int launch(const Problem& p) {
   const long long count = (long long)p.batch * p.m * p.n;
   const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
   if (bf)
-    gemm_splitk_sum<bf16><<<blocks, 256, 0, p.stream>>>(p.ws, static_cast<bf16*>(p.c), count,
-                                                        p.splits);
+    gemm_splitk_sum<bf16><<<blocks, 256, 0, p.stream>>>(
+        p.ws, static_cast<bf16*>(p.c), static_cast<const bf16*>(p.bias), p.act, count, p.n,
+        p.splits);
   else
-    gemm_splitk_sum<float><<<blocks, 256, 0, p.stream>>>(p.ws, static_cast<float*>(p.c),
-                                                         count, p.splits);
+    gemm_splitk_sum<float><<<blocks, 256, 0, p.stream>>>(
+        p.ws, static_cast<float*>(p.c), static_cast<const float*>(p.bias), p.act, count, p.n,
+        p.splits);
   return cudaGetLastError();
 }
 

@@ -4,10 +4,11 @@
 // matmul_pallas). Same function: fp32 accumulation, output in the input
 // dtype (C row-major, contiguous).
 //
-// The kernels are gemm.cuh's, shared with expert_gemm.cu: each operand is
-// read in the layout in which it is stored (row-major or transposed, with
-// its own leading dimension), so the backward's transposed operands
-// (ct @ w^T, x^T @ ct) need no copy.
+// The kernels are gemm.cuh's, shared with expert_gemm.cu and
+// matmul_bias_act.cu (which adds an epilogue; matmul passes none): each
+// operand is read in the layout in which it is stored (row-major or
+// transposed, with its own leading dimension), so the backward's
+// transposed operands (ct @ w^T, x^T @ ct) need no copy.
 //
 // Bound: prefill rows (m > 16) do 2 * m flops per weight element, far above
 // the 295 flop a byte at which the H100's tensor cores become the limit:

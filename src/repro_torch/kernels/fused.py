@@ -7,11 +7,10 @@ Replace the TPU kernels ``repro/kernels/fused.py:_mba_kernel``
 * ``matmul_bias_act`` -- ``act(x @ w + b)``: a gemm whose epilogue adds the
   bias and applies the activation (none, gelu in its tanh form, silu) to
   the fp32 accumulator, so the [m, n] pre-activation never round-trips
-  through device memory. CUDA source ``csrc/matmul_bias_act.cu``: the
-  first port's WMMA tile loop on row-major operands, over that loop's knob
-  space (:data:`FUSED_MATMUL_SPACE`, its own; ``matmul`` has moved to the
-  ``wgmma`` kernels of ``csrc/gemm.cuh``), the epilogue reading the bias
-  straight from device memory.
+  through device memory. CUDA source ``csrc/matmul_bias_act.cu``, a thin
+  entry over ``csrc/gemm.cuh``: ``matmul``'s kernels, routes, knob space
+  (:data:`~.matmul.MATMUL_SPACE`), heuristic and split-k partition, with
+  the epilogue on every route.
 * ``rmsnorm_matmul`` -- ``rmsnorm(x, scale) @ w``: each CTA normalises its
   rows into shared memory and streams the weight through in k slices.
   CUDA source ``csrc/rmsnorm_matmul.cu``, whose header says why the TPU's
@@ -36,6 +35,7 @@ import torch
 from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
 from ..core.platform import H100_SXM
 from . import _build, ref
+from . import matmul as mm
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {"none": 0, "gelu": 1, "silu": 2}
@@ -62,47 +62,10 @@ def _check_common(name: str, *ts):
 # matmul_bias_act: the gemm with a bias + activation epilogue
 # ---------------------------------------------------------------------------
 
-def _threads(c) -> int:
-    """Threads of one CTA: a warp per 16x32 (bm = 16) or 32x32 output
-    sub-tile of the WMMA tile loop."""
-    fm = 1 if c["bm"] == 16 else 2
-    return 32 * (c["bm"] // (16 * fm)) * (c["bn"] // 32)
-
-
-def smem_bytes(c, dtype_bytes: int) -> int:
-    """Shared memory of one CTA (mirrors repro_matmul_bias_act_smem_bytes):
-    the staged A and B slices, padded, or the fp32 output tile."""
-    bm, bn, bk = c["bm"], c["bn"], c["bk"]
-    if dtype_bytes == 2:
-        return max(((bm + 8) * (bk + 8) + (bk + 8) * (bn + 8)) * 2, bm * (bn + 4) * 4)
-    return ((bm + 4) * (bk + 4) + (bk + 4) * (bn + 4)) * 4
-
-
-# The kernel's WMMA tile loop (the first port's matmul loop): its tiles'
-# threads and shared memory bound the space on the H100.
-FUSED_MATMUL_SPACE = ParamSpace(
-    [
-        PowerOfTwoParam("bm", 16, 256),
-        PowerOfTwoParam("bn", 32, 256),
-        PowerOfTwoParam("bk", 16, 128),
-    ],
-    [
-        Constraint(lambda c: _threads(c) <= MAX_THREADS,
-                   "CTA exceeds 512 threads (one warp per 32x32 output sub-tile)"),
-        Constraint(lambda c: max(smem_bytes(c, 2), smem_bytes(c, 4))
-                   <= H100_SXM.smem_per_block,
-                   "CTA tile exceeds the 227 KB of shared memory a block may use"),
-    ],
-)
-
-
 def _mba_heuristic(x, w, b):
-    """JAX's ``_mba_heuristic`` on this space: decode rows (m <= 16) run one
-    16-row tile with a deep k slice; larger m takes 64x64x64 tiles (32 rows
-    below 64)."""
-    if x.shape[0] <= 16:
-        return {"bm": 16, "bn": 64, "bk": 128}
-    return {"bm": 64 if x.shape[0] >= 64 else 32, "bn": 64, "bk": 64}
+    """matmul's rule (:func:`~.matmul.gemm_heuristic`) at the call's shape:
+    the decode route for at most 16 rows, the tc route's tiles above."""
+    return mm.gemm_heuristic(x.shape[0], w.shape[1], x.shape[1])
 
 
 def _mba_canon(x, w, b):
@@ -139,31 +102,49 @@ def matmul_bias_act_plain(x, w, b, act: str = "none"):
     return ref.matmul_bias_act(x, w, b, act)
 
 
-def matmul_bias_act_cuda(x, w, b, *, bm: int, bn: int, bk: int, act: str = "none"):
-    """Launch csrc/matmul_bias_act.cu on CUDA tensors."""
+_MBA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+def matmul_bias_act_cuda(x, w, b, *, bm: int, bn: int, bk: int, stages: int, splits: int,
+                         act: str = "none", force_loop: bool = False):
+    """Launch csrc/matmul_bias_act.cu on CUDA tensors, on the route
+    :func:`~.matmul.plan` gives the call; either operand may be a
+    transposed view. ``force_loop`` runs the first port's tile loop whatever
+    the rule says (a before-and-after of the same call)."""
     _check_2d("matmul_bias_act", x, w)
     if x.shape[1] != w.shape[0] or b.shape != (w.shape[1],):
         raise ValueError(f"matmul_bias_act takes [m,k] @ [k,n] + [n], got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
     if act not in ACTS:
         raise ValueError(f"unknown fused activation {act!r}")
-    _check_common("matmul_bias_act", x, w, b)
+    if not (x.dtype == w.dtype == b.dtype) or x.dtype not in _DTYPES:
+        raise TypeError(f"matmul_bias_act kernel takes matching f32 or bf16 tensors, got "
+                        f"{[x.dtype, w.dtype, b.dtype]}")
+    if not (x.device == w.device == b.device):
+        raise ValueError("matmul_bias_act tensors on different devices")
+    if not b.is_contiguous():
+        raise ValueError("matmul_bias_act takes a contiguous bias")
+    (ta, lda), (tb, ldb) = mm.layout(x), mm.layout(w)
     m, k = x.shape
     n = w.shape[1]
+    p = mm.plan(x, w, dict(bm=bm, bn=bn, bk=bk, stages=stages, splits=splits), force_loop)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = _build.entry("matmul_bias_act", "repro_matmul_bias_act",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-             _DTYPES[x.dtype], ACTS[act], bm, bn, bk, _build.stream_ptr(x.device))
+    ws = mm.workspace(p, 1, m, n, x.device)
+    fn = _build.entry("matmul_bias_act", "repro_matmul_bias_act", _MBA_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(), m, n, k, int(ta), int(tb), lda, ldb,
+             _DTYPES[x.dtype], ACTS[act], p["code"], p["bm"], p["bn"], p["bk"], p["stages"],
+             p["splits"], p["kps"], _build.stream_ptr(x.device))
     _build.check("matmul_bias_act", err,
-                 f"matmul_bias_act {m}x{k}x{n} act={act} bm={bm} bn={bn} bk={bk}")
-    _build.LAUNCHES["matmul_bias_act"] += 1
+                 f"matmul_bias_act {m}x{k}x{n} act={act} ta={ta} tb={tb} {p}")
+    mm.count_launch("matmul_bias_act", p, ta or tb)
     return out
 
 
 @tunable(
     "matmul_bias_act",
-    space=FUSED_MATMUL_SPACE,
+    space=mm.MATMUL_SPACE,
     reference=ref.matmul_bias_act,
     heuristic=_mba_heuristic,
     dispatch=DispatchSpec(
@@ -174,9 +155,11 @@ def matmul_bias_act_cuda(x, w, b, *, bm: int, bn: int, bk: int, act: str = "none
         bwd=_mba_bwd,
     ),
 )
-def matmul_bias_act(x, w, b, *, bm: int, bn: int, bk: int, act: str = "none"):
+def matmul_bias_act(x, w, b, *, bm: int, bn: int, bk: int, stages: int, splits: int,
+                    act: str = "none"):
     if x.is_cuda:
-        return matmul_bias_act_cuda(x, w, b, bm=bm, bn=bn, bk=bk, act=act)
+        return matmul_bias_act_cuda(x, w, b, bm=bm, bn=bn, bk=bk, stages=stages,
+                                    splits=splits, act=act)
     if x.device.type == "cpu":
         return matmul_bias_act_plain(x, w, b, act)
     raise RuntimeError(f"matmul_bias_act has no kernel for device {x.device}")

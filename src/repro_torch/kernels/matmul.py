@@ -3,8 +3,9 @@
 Replaces the TPU kernel ``repro/kernels/matmul.py:_matmul_kernel``
 (``matmul_pallas``): ``[m, k] @ [k, n]`` with fp32 accumulation and the
 output in ``x.dtype``. The CUDA source is ``csrc/matmul.cu`` over
-``csrc/gemm.cuh`` (shared with ``expert_gemm``), whose headers say what
-bounds each regime on an H100 and what the design does about it.
+``csrc/gemm.cuh`` (shared with ``expert_gemm`` and ``matmul_bias_act``),
+whose headers say what bounds each regime on an H100 and what the design
+does about it.
 
 Routes (:func:`route`, a pure rule on dtype, strides, alignment and the
 config's ``bm``; never chosen by catching a failure):
@@ -294,7 +295,7 @@ def route(x: torch.Tensor, w: torch.Tensor, bm=None) -> str:
     operands TMA cannot address (or k = 0); else ``decode`` when the config's
     ``bm`` is 16 and ``tc`` for 64 or 128. Without a config, the heuristic's
     pick: ``decode`` for at most :data:`DECODE_ROWS` rows. Shared by
-    ``expert_gemm`` (3-D operands)."""
+    ``expert_gemm`` (3-D operands) and ``matmul_bias_act``."""
     return _route(x.dtype == torch.bfloat16, _desc(x), _desc(w), bm)
 
 

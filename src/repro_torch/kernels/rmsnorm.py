@@ -7,10 +7,11 @@ cast, as the TPU kernel does; ``ref.rmsnorm`` casts first, so in bf16 the
 two differ by one rounding, and :func:`rmsnorm_plain` follows the kernel.
 
 The work is one row reduction plus an elementwise pass, bound by bytes;
-the CUDA source is ``csrc/rmsnorm.cu``. The knob ``block_rows`` is the
-number of rows (one warp each) a CTA takes, so at most 32 under the
-1024-thread limit; no row is staged in shared memory, so the row width
-sets no limit.
+the CUDA source is ``csrc/rmsnorm.cu``: 16-byte accesses, the row held in
+registers between its sum of squares and its output (a team of warps a
+wide row), the weight read once a CTA. The knob ``block_rows`` is the
+number of rows a CTA takes (at most 32); the CTA's teams walk them in turn,
+so neither the row width nor the knob is bound by the thread limit.
 
 Its backward plan dispatches ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``,
 replacing ``repro/kernels/rmsnorm.py:_rmsnorm_bwd_kernel``): dx and dw from
@@ -59,12 +60,20 @@ def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     return ((xf * r) * weight.float()).to(x.dtype), r[:, 0]
 
 
+_RMSNORM_ARGTYPES = ([ctypes.c_void_p] * 4
+                     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
+
+
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *, block_rows: int,
                  eps: float = 1e-6):
-    """Launch csrc/rmsnorm.cu on CUDA tensors: (out, invrms)."""
-    if x.dim() != 2 or weight.shape != (x.shape[1],):
+    """Launch csrc/rmsnorm.cu on CUDA tensors: (out, invrms). Called once a
+    norm at decode, where its host time sets the pace: the checks read
+    attributes only and the argument types are built once."""
+    if x.dim() != 2 or weight.dim() != 1 or weight.shape[0] != x.shape[1]:
         raise ValueError(f"rmsnorm takes [rows,d] and [d], got {tuple(x.shape)}, {tuple(weight.shape)}")
-    if x.dtype != weight.dtype or x.dtype not in _DTYPES:
+    code = _DTYPES.get(x.dtype)
+    if code is None or weight.dtype != x.dtype:
         raise TypeError(f"rmsnorm kernel takes matching f32 or bf16 tensors, got {x.dtype}, {weight.dtype}")
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("rmsnorm kernel takes contiguous tensors only")
@@ -72,13 +81,12 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *, block_rows: int,
         raise ValueError(f"tensors on {x.device} and {weight.device}")
     rows, d = x.shape
     out = torch.empty_like(x)
-    invrms = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    fn = _build.entry("rmsnorm", "repro_rmsnorm",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), invrms.data_ptr(), rows, d,
-             float(eps), _DTYPES[x.dtype], block_rows, _build.stream_ptr(x.device))
-    _build.check("rmsnorm", err, f"rmsnorm {rows}x{d} block_rows={block_rows}")
+    invrms = torch.empty(rows, dtype=torch.float32, device=x.device)
+    fn = _build.entry("rmsnorm", "repro_rmsnorm", _RMSNORM_ARGTYPES)
+    err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), invrms.data_ptr(), rows, d, eps,
+             code, block_rows, _build.stream_ptr(x.device))
+    if err:
+        _build.check("rmsnorm", err, f"rmsnorm {rows}x{d} block_rows={block_rows}")
     _build.LAUNCHES["rmsnorm"] += 1
     return out, invrms
 

@@ -35,6 +35,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.core.database import Record, TuningDatabase, make_key  # noqa: E402
 from repro_torch.core.runtime import dispatch, runtime  # noqa: E402
 from repro_torch.kernels import fused as fu  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 
@@ -150,7 +151,7 @@ def _dbs(records):
     for kernel, shapes, dt, extra, cfg in records:
         jdb.put(JRecord(j_make_key(kernel, jplat, shapes, dt, extra), cfg, 1e-6, "w", 1, 0.0))
     for kernel, shapes, dt, extra, cfg in records:
-        tcfg = {"matmul_bias_act": {"bm": 16, "bn": 32, "bk": 16},
+        tcfg = {"matmul_bias_act": {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 1},
                 "rmsnorm_matmul": {"bm": 16, "bn": 32}}[kernel]
         tdb.put(Record(make_key(kernel, "torch-cpu", shapes, dt, extra), tcfg, 1e-6, "w", 1,
                        0.0))
@@ -238,6 +239,10 @@ def test_fused_spaces_are_hopper_limits():
     cfg = fu._rmm_heuristic(rows, None, w)
     assert fu.RMSNORM_MATMUL_SPACE.is_valid(cfg)
     assert fu.rmm_smem_bytes(cfg, 896, 2) <= H100_SXM.smem_per_block
+    # matmul_bias_act runs on matmul's space: the training gate's heuristic
+    # is legal and takes the tensor-core route
     x = torch.empty(8192, 896, dtype=torch.bfloat16, device="meta")
-    assert fu.FUSED_MATMUL_SPACE.is_valid(
-        fu.matmul_bias_act.default_config(x, torch.empty(896, 4864, device="meta"), None))
+    gate = torch.empty(896, 4864, dtype=torch.bfloat16, device="meta")
+    cfg = fu.matmul_bias_act.default_config(x, gate, None)
+    assert fu.matmul_bias_act.space is mm.MATMUL_SPACE and mm.MATMUL_SPACE.is_valid(cfg)
+    assert mm.route(x, gate, cfg["bm"]) == "tc"

@@ -4,7 +4,8 @@ each heuristic is legal at every shape of the main paths; the routing rule
 sends every bf16 main-path shape to the tensor-core or decode route, fp32
 to SIMT and an operand TMA cannot address to WMMA; the split-k partition
 covers k in whole slices with no empty split; a record of the first port's
-spaces falls to the heuristic; ``matmul_bias_act`` keeps its own space.
+spaces falls to the heuristic. ``matmul_bias_act`` runs on the same kernels:
+matmul's space, heuristic and route rule at its main-path shapes.
 """
 import pytest
 
@@ -161,33 +162,67 @@ def test_split_k_covers_k_in_whole_slices_with_no_empty_split(k, bk):
 @pytest.mark.parametrize("name,old", [
     ("matmul", {"bm": 16, "bn": 32, "bk": 16}),
     ("expert_gemm", {"bc": 64, "bn": 64, "bk": 64}),
+    ("matmul_bias_act", {"bm": 64, "bn": 64, "bk": 64}),     # the WMMA loop's own space
 ])
 def test_a_record_of_the_first_spaces_falls_to_the_heuristic(tmp_path, name, old):
+    extra = ""
     if name == "matmul":
         tun, args = mm.matmul, (torch.randn(8, 64), torch.randn(64, 32))
-    else:
+    elif name == "expert_gemm":
         tun, args = mg.expert_gemm, (torch.randn(2, 12, 16), torch.randn(2, 16, 8))
+    else:
+        tun, args = fu.matmul_bias_act, (torch.randn(8, 64), torch.randn(64, 32), torch.randn(32))
+        extra = "asilu"
     path = str(tmp_path / "db.json")
     db = tdb.TuningDatabase(path)
-    key = runtime(db=db).key_for(tun, args)
+    key = runtime(db=db).key_for(tun, args, extra)
     db.put(tdb.Record(key=key, config=old, objective=1e-5, evaluator="wallclock",
                       evaluations=1, timestamp=tdb.now()))
     with runtime(db=tdb.TuningDatabase(path)) as rt:
-        res = rt.resolve(name, args)
+        res = rt.resolve(name, args, extra)
     assert res.key == key and res.tier == "heuristic"
     assert res.config == tun.default_config(*args) != old
     assert rt.telemetry.snapshot()["by_key"][key] == {"heuristic": 1}
 
 
-def test_matmul_bias_act_keeps_the_first_ports_space_and_heuristic():
-    # the WMMA tile loop's space: power-of-two tiles, a warp per 32x32 sub-tile
-    cfgs = list(fu.FUSED_MATMUL_SPACE.enumerate())
-    assert len(cfgs) == 68 and fu.FUSED_MATMUL_SPACE.names == ("bm", "bn", "bk")
-    assert {c["bm"] for c in cfgs} == {16, 32, 64, 128, 256}
-    assert all(fu._threads(c) <= 512 for c in cfgs)
-    assert all(max(fu.smem_bytes(c, 2), fu.smem_bytes(c, 4)) <= SMEM for c in cfgs)
-    b = _meta(4864)
-    assert fu._mba_heuristic(_meta(8, D), _meta(D, FF), b) == {"bm": 16, "bn": 64, "bk": 128}
-    assert fu._mba_heuristic(_meta(37, D), _meta(D, FF), b) == {"bm": 32, "bn": 64, "bk": 64}
-    assert fu._mba_heuristic(_meta(8192, D), _meta(D, FF), b) == {"bm": 64, "bn": 64, "bk": 64}
-    assert fu.FUSED_MATMUL_SPACE is not mm.MATMUL_SPACE
+# matmul_bias_act: the gemm with a bias + activation epilogue on matmul's
+# kernels. Its main-path shapes: the training gate [8192,896]@[896,4864],
+# the serving buckets at the gate's n, and the biased q/k/v projections
+# [T,896]@[896,896|128] at decode, prefill and training rows.
+MBA_SHAPES = ([(8192, D, FF)] + [(m, D, FF) for m in (16, 32, 64, 128, 256, 512, 1024, 2048)]
+              + [(t, D, n) for t in (8, 2048, 8192) for n in (D, KV)])
+
+
+def test_matmul_bias_act_takes_matmuls_space():
+    assert fu.matmul_bias_act.space is mm.MATMUL_SPACE
+    assert not hasattr(fu, "FUSED_MATMUL_SPACE")
+    # the first port's WMMA loop space is gone: its tiles alone are no config
+    assert not mm.MATMUL_SPACE.is_valid({"bm": 64, "bn": 64, "bk": 64})
+
+
+@pytest.mark.parametrize("m,k,n", MBA_SHAPES)
+def test_matmul_bias_act_heuristic_is_legal_and_on_the_tensor_cores(m, k, n):
+    x, w, b = _meta(m, k), _meta(k, n), _meta(n)
+    cfg = fu.matmul_bias_act.default_config(x, w, b)
+    assert cfg == mm.gemm_heuristic(m, n, k) == mm.matmul.default_config(x, w)
+    assert mm.MATMUL_SPACE.is_valid(cfg) and _fits(cfg)
+    p = mm.plan(x, w, cfg)
+    assert p["route"] == ("decode" if m <= 16 else "tc") == mm.route(x, w), (m, n, cfg)
+    assert p["splits"] == 1                     # k = 896: no split
+
+
+@pytest.mark.parametrize("x,w,want", [
+    (_meta(1000, D), _meta(D, 4860), "wmma"),          # row stride of 9,720 bytes
+    (_meta(8, D), _meta(D, 4860), "wmma"),
+    (_meta(8192, D, dtype=F32), _meta(D, FF, dtype=F32), "simt"),
+    (_meta(8, D, dtype=F32), _meta(D, D, dtype=F32), "simt"),
+    (_meta(8192, D), _meta(FF, D).T, "tc"),             # a transposed weight: aligned
+])
+def test_matmul_bias_act_route_rule_is_matmuls(x, w, want):
+    cfg = fu.matmul_bias_act.default_config(x, w, None)
+    p = mm.plan(x, w, cfg)
+    assert p["route"] == want == mm.route(x, w, cfg["bm"])
+    if want == "simt" and x.shape[0] <= mm.DECODE_ROWS:
+        assert p["code"] == mm.ROWS_CODE
+    # force_loop: the first port's tile loop, the before of a same-call timing
+    assert mm.plan(x, w, cfg, force_loop=True)["route"] == ("simt" if want == "simt" else "wmma")

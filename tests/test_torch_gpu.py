@@ -94,6 +94,46 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d, block_rows):
     _close(r, p_r, torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", (64, 100, 896, 4096, 8192))
+@pytest.mark.parametrize("rows", (1, 8, 13, 2048))
+@pytest.mark.parametrize("block_rows", [None, 1, 32])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_rmsnorm_kernel_on_its_memory_paths(cuda, dtype, d, rows, block_rows, offset):
+    """The 16-byte path (d a multiple of the vector, aligned rows), the
+    element-load tail (d = 100; every row and the weight one element past a
+    16-byte boundary when offset), one warp a row (d <= 1024 in bf16) and a
+    team of warps summing through shared memory (d = 4096, 8192), at
+    block_rows' limits: out within the bf16 or f32 tolerance, invrms within
+    1e-5 of max|plain|, as chip_smoke.py holds them."""
+    rs = np.random.RandomState(rows + d + offset)
+    x = _t(rs, (rows * d + offset,), dtype, cuda)[offset:].view(rows, d)
+    w = (1 + 0.1 * _t(rs, (d + offset,), torch.float32, cuda)).to(dtype)[offset:]
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    cfg = {"block_rows": block_rows} if block_rows else rn.rmsnorm.default_config(x, w)
+    out, r = rn.rmsnorm_cuda(x, w, eps=1e-6, **cfg)
+    torch.cuda.synchronize()
+    p_out, p_r = rn.rmsnorm_plain(x, w, 1e-6)
+    _close(out, p_out, dtype)
+    _close(r, p_r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", (16400, 20001))
+def test_rmsnorm_kernel_rows_too_wide_for_registers(cuda, dtype, d):
+    """Rows wider than a CTA's sixteen warps hold in registers (bf16 d above
+    16,384, f32 above 8,192) are read twice, once for the sum and once for
+    the output."""
+    rs = np.random.RandomState(d)
+    x, w = _t(rs, (5, d), dtype, cuda), _t(rs, (d,), dtype, cuda)
+    for block_rows in (1, 4):
+        out, r = rn.rmsnorm_cuda(x, w, eps=1e-6, block_rows=block_rows)
+        torch.cuda.synchronize()
+        p_out, p_r = rn.rmsnorm_plain(x, w, 1e-6)
+        _close(out, p_out, dtype)
+        _close(r, p_r, torch.float32)
+
+
 # (s_q, s_k, window, d, h, kv): the first five at 4/2 heads; then head dim
 # 128 at ragged lengths (the hybrid's exact-length prefills) in groups of 8,
 # and a window with s_q < s_k. fp32 runs the SIMT kernels at SIMT_TILES
@@ -374,8 +414,8 @@ def test_dispatch_plane_gradcheck_on_the_card(cuda):
 @pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (5, 100, 37), (33, 64, 130),
                                    (300, 896, 4864), (1, 40, 1000)])
 @pytest.mark.parametrize("act", ["none", "gelu", "silu"])
-@pytest.mark.parametrize("config", [None, {"bm": 32, "bn": 64, "bk": 16},
-                                    {"bm": 128, "bn": 128, "bk": 64}])
+@pytest.mark.parametrize("config", [None, {"bm": 16, "bn": 128, "bk": 64, "stages": 4, "splits": 2},
+                                    {"bm": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 1}])
 def test_matmul_bias_act_kernel_matches_plain(cuda, dtype, m, k, n, act, config):
     rs = np.random.RandomState(m + k + n)
     x, w = _t(rs, (m, k), dtype, cuda), _t(rs, (k, n), dtype, cuda, k ** -0.5)
@@ -406,10 +446,147 @@ def test_rmsnorm_matmul_kernel_matches_plain(cuda, dtype, m, d, n, config):
 def test_fused_wrappers_count_their_launches(cuda):
     kernels.reset_launch_counts()
     x, w = torch.randn(4, 64, device=cuda), torch.randn(64, 32, device=cuda)
-    fu.matmul_bias_act(x, w, torch.zeros(32, device=cuda), act="silu", bm=16, bn=32, bk=16)
+    cfg = {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 1}
+    fu.matmul_bias_act(x, w, torch.zeros(32, device=cuda), act="silu", **cfg)
     fu.rmsnorm_matmul(x, torch.ones(64, device=cuda), w, bm=16, bn=32)
     fu.matmul_bias_act_plain(x, w, torch.zeros(32, device=cuda), "silu")
-    assert kernels.launch_counts() == {"matmul_bias_act": 1, "rmsnorm_matmul": 1}
+    assert kernels.launch_counts() == {**_route_counts("matmul_bias_act", x, w, cfg),
+                                       "rmsnorm_matmul": 1}
+    assert kernels.launch_counts()["matmul_bias_act_simt"] == 1
+
+
+# matmul_bias_act on every route of gemm.cuh: tc with one and two consumer
+# warpgroups, decode, split-k on both, WMMA through an x whose base is not
+# 16-byte aligned; fp32 takes SIMT (the row kernel up to 16 rows). k = 328
+# is no multiple of a k slice; n = 37 and 130 read a weight stored
+# transposed (its rows of k are aligned), n = 4864 a row-major one.
+MBA_ROUTE_CONFIGS = {
+    "tc64": {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1},
+    "tc128": {"bm": 128, "bn": 256, "bk": 64, "stages": 3, "splits": 1},
+    "decode": {"bm": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1},
+    "splitk": {"bm": 16, "bn": 128, "bk": 64, "stages": 3, "splits": 2},
+    "tc_splitk": {"bm": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 4},
+    "wmma": {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "gelu", "silu"])
+@pytest.mark.parametrize("m", (1, 8, 13, 16, 17, 64, 300))
+@pytest.mark.parametrize("n", (37, 130, 4864))
+@pytest.mark.parametrize("name", list(MBA_ROUTE_CONFIGS))
+def test_matmul_bias_act_routes_match_plain(cuda, dtype, act, m, n, name):
+    k = 328
+    cfg = MBA_ROUTE_CONFIGS[name]
+    rs = np.random.RandomState(m + n + len(name))
+    if name == "wmma":          # an offset view: a base TMA cannot address
+        x = _t(rs, (m * k + 1,), dtype, cuda)[1:].view(m, k)
+    else:
+        x = _t(rs, (m, k), dtype, cuda)
+    w = (_t(rs, (k, n), dtype, cuda, k ** -0.5) if n == 4864
+         else _t(rs, (n, k), dtype, cuda, k ** -0.5).T)
+    # tc128 reads a bias one element past an aligned base (the tc epilogue's
+    # element loads); the other routes an aligned one (bf16 pairs at even n)
+    b = _t(rs, (n + 1,), dtype, cuda, 0.5)
+    b = b[1:] if name == "tc128" else b[:n]
+    if dtype == torch.float32:
+        want = "simt"
+    elif name == "wmma":
+        want = "wmma"
+    else:
+        want = "decode" if cfg["bm"] == 16 else "tc"
+    assert mm.plan(x, w, cfg)["route"] == want
+    kernels.reset_launch_counts()
+    out = fu.matmul_bias_act_cuda(x, w, b, act=act, **cfg)
+    again = fu.matmul_bias_act_cuda(x, w, b, act=act, **cfg)
+    torch.cuda.synchronize()
+    want_counts = _route_counts("matmul_bias_act", x, w, cfg)
+    assert kernels.launch_counts() == {key: 2 * v for key, v in want_counts.items()}
+    assert out.dtype == dtype and out.shape == (m, n)
+    _close(out, fu.matmul_bias_act_plain(x, w, b, act), dtype)
+    assert torch.equal(out, again)        # split-k sums in a fixed order: bitwise equal
+
+
+# Outputs of matmul and expert_gemm at a few shapes on each route, recorded
+# (sha256 of the output's bytes, first 16 hex digits) from the gemm before it
+# gained the epilogue (commit 93dbbb1, NVIDIA H100 80GB HBM3): a null epilogue
+# must leave every bit as it was. The inputs come from numpy's seeded
+# generator, so every run rebuilds them exactly.
+def _null_epilogue_cases():
+    """(name, kernel, dtype, shapes and layout, config) of each recorded case."""
+    bf, f32 = torch.bfloat16, torch.float32
+    tc = {"bm": 128, "bn": 256, "bk": 64, "stages": 3, "splits": 1}
+    return [
+        ("matmul_tc_bm128", "matmul", bf, (300, 328, 4864, False, False), tc),
+        ("matmul_tc_bm64_transposed", "matmul", bf, (200, 896, 130, True, True),
+         {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1}),
+        ("matmul_tc_splitk", "matmul", bf, (2048, 8192, 136, False, True),
+         {"bm": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 4}),
+        ("matmul_decode", "matmul", bf, (8, 896, 4864, False, False),
+         {"bm": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1}),
+        ("matmul_decode_splitk", "matmul", bf, (13, 4096, 1000, False, True),
+         {"bm": 16, "bn": 128, "bk": 64, "stages": 3, "splits": 8}),
+        ("matmul_wmma", "matmul", bf, (37, 100, 45, False, False), tc),
+        ("matmul_simt", "matmul", f32, (300, 328, 200, False, False), tc),
+        ("matmul_simt_rows_splitk", "matmul", f32, (8, 16384, 1024, False, False), tc),
+        ("expert_gemm_decode", "expert_gemm", bf, (8, 2, 4096, 1024, False, False),
+         {"bc": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1}),
+        ("expert_gemm_tc_transposed", "expert_gemm", bf, (3, 40, 896, 520, True, False),
+         {"bc": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 2}),
+    ]
+
+
+def _null_epilogue_output(kernel, dtype, shape, cfg, device):
+    if kernel == "matmul":
+        m, k, n, ta, tb = shape
+        rs = np.random.RandomState(m * 7 + k * 3 + n)
+        x = _t(rs, (k, m) if ta else (m, k), dtype, device)
+        w = _t(rs, (n, k) if tb else (k, n), dtype, device, k ** -0.5)
+        return mm.matmul_cuda(x.T if ta else x, w.T if tb else w, **cfg)
+    e, c, k, n, tx, tw = shape
+    rs = np.random.RandomState(e + c * 7 + k * 3 + n)
+    x = _t(rs, (e, k, c) if tx else (e, c, k), dtype, device)
+    w = _t(rs, (e, n, k) if tw else (e, k, n), dtype, device, k ** -0.5)
+    return mg.expert_gemm_cuda(x.transpose(1, 2) if tx else x, w.transpose(1, 2) if tw else w,
+                               **cfg)
+
+
+def _digest(y):
+    import hashlib
+
+    bits = y.contiguous().view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32)
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def gemm_digests(device="cuda"):
+    """{case: digest} of every recorded case on this checkout's kernels (how
+    NULL_EPILOGUE_DIGESTS was made, on the kernels of that commit)."""
+    return {name: _digest(_null_epilogue_output(kernel, dtype, shape, cfg, device))
+            for name, kernel, dtype, shape, cfg in _null_epilogue_cases()}
+
+
+NULL_EPILOGUE_DIGESTS = {
+    "matmul_tc_bm128": "1e55b70076570558",
+    "matmul_tc_bm64_transposed": "2a6dc5e26677caf2",
+    "matmul_tc_splitk": "1af60bd2a6a4b7cb",
+    "matmul_decode": "738866cfb55814b8",
+    "matmul_decode_splitk": "50762bcc6fe62760",
+    "matmul_wmma": "1b5b702e146d2691",
+    "matmul_simt": "01cb9780a472865f",
+    "matmul_simt_rows_splitk": "f2fa141be429a268",
+    "expert_gemm_decode": "7e1c976ac0470272",
+    "expert_gemm_tc_transposed": "1cc992f28a0b3e97",
+}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _null_epilogue_cases()])
+def test_null_epilogue_leaves_matmul_and_expert_gemm_bit_equal(cuda, case):
+    name, kernel, dtype, shape, cfg = next(c for c in _null_epilogue_cases() if c[0] == case)
+    y = _null_epilogue_output(kernel, dtype, shape, cfg, cuda)
+    again = _null_epilogue_output(kernel, dtype, shape, cfg, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert _digest(y) == NULL_EPILOGUE_DIGESTS[case]
 
 
 def test_wallclock_evaluator_on_the_card(cuda):

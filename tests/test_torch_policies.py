@@ -122,7 +122,8 @@ def test_fusion_wins_is_a_pure_exact_lookup():
         assert not rt.fusion_wins("matmul_bias_act", x, w, b, act="silu")
         db.put(Record(key, {"bm": 7, "bn": 32, "bk": 16}, 1e-6, "w", 1, 0.0))
         assert not rt.fusion_wins("matmul_bias_act", x, w, b, act="silu")   # invalid config
-        db.put(Record(key, {"bm": 16, "bn": 32, "bk": 16}, 1e-7, "w", 1, 0.0))
+        db.put(Record(key, {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 1}, 1e-7, "w",
+                      1, 0.0))
         assert rt.fusion_wins("matmul_bias_act", x, w, b, act="silu")
         assert not rt.fusion_wins("matmul_bias_act", x, w, b, act="gelu")   # another key
         assert not rt.fusion_wins("no_such_tunable", x)
