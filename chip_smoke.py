@@ -22,9 +22,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              shape (the WMMA route: a weight row TMA cannot address) and at
              qwen's biased q projection at decode rows, beside matmul's
              time for the same product; rmsnorm_matmul at the decode
-             unembed and a ragged row count; rmsnorm also with the host
-             time of one call beside F.rms_norm's and the time of its bare
-             launch), at its heuristic config and at one other legal
+             unembed and a ragged row count; rmsnorm and rmsnorm_bwd also
+             with the host time of one call beside F.rms_norm's (forward or
+             backward) and the time of their bare launch; rmsnorm_bwd also
+             at Mixtral's and Jamba's widths, [8192,4096] and [2048,8192]),
+             at its heuristic config and at one other legal
              config, holds it against its plain PyTorch version on the
              card, and times kernel, plain version and the one-call
              PyTorch yardstick (where one call computes the same function)
@@ -36,7 +38,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the first port's tile loop (``wmma_ms``, or ``simt_loop_ms``
              in fp32): the before and after in one call;
    The hybrid's kernels join them: ssm_scan at b=1, s=2048, d_inner
-             16384 (xc bf16) and at a ragged s=1500, d_inner 16380;
+             16384 (xc bf16, the TMA loader) and at a ragged s=1500,
+             d_inner 16380 (the cp.async loader), each at its heuristic
+             config and at another lane count and ring depth, with the
+             warps an SM each holds;
              ssm_update at the 8-slot pool; flash attention at 64/8 heads
              of 128 (s = 2048 and the ragged s = 1500 of an exact-length
              prefill) and one CTA of it alone, timed per k tile; the flash
@@ -73,7 +78,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dispatch may fall to the reference tier; the 1500-token
              prompt's prefill logits are held against the plain path, and
              torch.profiler splits a decode step and that prefill by
-             kernel;
+             kernel, with ssm_scan's device time and share of the prefill;
 6. moe     — full-width Mixtral-8x7B cut to 8 of its 32 layers (11.9 B
              bf16 parameters from a seeded random init; the earlier phases'
              are freed first), ServingEngine(max_batch=8, max_seq=8192), 8
@@ -98,9 +103,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              every gradient leaf are held against the plain path
              (reference mode on the card, same parameters and batch); every
              loss must be finite, every kernel's launch counter (transposed
-             matmul included) must rise, and no fwd or bwd dispatch may fall
-             to the reference tier; torch.profiler splits one more step by
-             kernel;
+             matmul included) must rise, rmsnorm_bwd must launch 49 times
+             a step (one a norm: 2 a layer and the final one), and no fwd
+             or bwd dispatch may fall to the reference tier; torch.profiler
+             splits one more step by kernel, with rmsnorm_bwd's device time;
 8. campaign — plans full-width qwen2_0_5b (the train phase's step, every
              dispatch site forward and backward, and serving at
              max_batch=8, max_seq=2048), tunes every job on the card with
@@ -546,6 +552,7 @@ def other_config(heur) -> dict:
 
 
 def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
+    from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as rn
 
     x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -562,27 +569,49 @@ def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
         errs.append(max(rel_err(dx, p_dx), rel_err(dw, p_dw), key=lambda e: e[1]))
         if errs[-1][1] > TOL_BF16:
             raise AssertionError(f"rmsnorm_bwd [{rows},{d}] {cfg}: rel err {errs[-1][1]:.3g}")
+    del dx, dw, p_dx, p_dw
     ms = time_ms(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **heur))
     ms_other = time_ms(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **other))
     plain_ms = time_ms(lambda: rn.rmsnorm_bwd_plain(ct, x, w, r))
+    # the bare launch (the C entry on buffers allocated once), both configs
+    fn = _build.entry("rmsnorm_bwd", "repro_rmsnorm_bwd", rn._RMSNORM_BWD_ARGTYPES)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+
+    def bare(cfg):
+        ctas = rn.rmsnorm_bwd_ctas(rows, d, 2, cfg["block_rows"])
+        part = torch.empty((max(ctas, 1), d), dtype=torch.float32, device="cuda")
+        args = (ct.data_ptr(), x.data_ptr(), w.data_ptr(), r.data_ptr(), dx.data_ptr(),
+                dw.data_ptr(), part.data_ptr(), rows, d, 1, cfg["block_rows"], ctas,
+                _build.stream_ptr(x.device))
+        return time_ms(lambda: fn(*args)), ctas
+
+    (launch_ms, ctas), (other_launch_ms, other_ctas) = bare(heur), bare(other)
+    host = host_us(lambda: rn.rmsnorm_bwd_cuda(ct, x, w, r, **heur))
     # yardstick: the backward of one F.rms_norm call over the same inputs
     # (its forward graph built once, outside the timer)
-    lib_ms = None
+    lib_ms = lib_host = None
     if hasattr(torch.nn.functional, "rms_norm"):
         xg, wg = (t.detach().clone().requires_grad_() for t in (x, w))
         y = torch.nn.functional.rms_norm(xg, (d,), wg, 1e-6)
-        lib_ms = time_ms(lambda: torch.autograd.grad(y, (xg, wg), ct, retain_graph=True))
+        lib = lambda: torch.autograd.grad(y, (xg, wg), ct, retain_graph=True)
+        lib_ms = time_ms(lib)
+        lib_host = host_us(lib)
         del y
     nbytes = rows * d * 2 * 3 + d * 2 * 2 + rows * 4          # ct, x, dx; w, dw; invrms
     b_ms, b_by = bound(prof, nbytes, 8.0 * rows * d, prof.peak_flops_fp32)
     row = dict(shape=f"[{rows},{d}] bf16", path="train", config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+               other_config=other, other_ms=ms_other, launch_ms=launch_ms, ctas=ctas,
+               other_launch_ms=other_launch_ms, other_ctas=other_ctas, host_us=host,
+               library_host_us=lib_host, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
     rows_out.append(row)
+    lib_s = None if lib_ms is None else f"{lib_ms:.4f}"
     log(f"[kernels] rmsnorm_bwd {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, F.rms_norm backward {lib_ms}, bound {b_ms:.4f} ({b_by}); "
-        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+        f"bare launch {launch_ms:.4f} ({ctas} CTAs; {other_launch_ms:.4f}, {other_ctas} CTAs); "
+        f"plain {plain_ms:.4f}, F.rms_norm backward "
+        f"{lib_s}, bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} (rel "
+        f"{row['max_rel_err']:.2e} <= {TOL_BF16}); host time a call (us): rmsnorm_bwd_cuda "
+        f"{host:.1f}, F.rms_norm backward {lib_host if lib_host is None else round(lib_host, 1)}")
 
 
 def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
@@ -925,24 +954,35 @@ def _ssm_inputs(gen, lead, di, ds, state_scale):
             A, state_scale * rn(lead[0], di, ds))
 
 
-def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, ds=16):
+def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, want_loader, ds=16):
+    from repro_torch import kernels
     from repro_torch.kernels import ssm_scan as ss
 
     args = _ssm_inputs(gen, (b, s), di, ds, 0.0)        # prefill starts from h = 0
     heur = ss.ssm_scan.default_config(*args)
-    other = {"chunk": 32, "block_d": 128}
-    other = other if heur != other else {"chunk": 64, "block_d": 32}
+    # the other legal config: another lane count and ring depth
+    other = dict(heur, lanes=2 if heur["lanes"] != 2 else 4,
+                 stages=2 if heur["stages"] != 2 else 3)
+    ld = ss.loader(*args[:4])
+    if ld != want_loader:
+        raise AssertionError(f"ssm_scan di={di}: the rule names loader {ld}, not {want_loader}")
     p_y, p_h = ss.ssm_scan_plain(*args)
-    errs = []
+    errs, warps = [], []
     for cfg in (heur, other):
         if not ss.SSM_SCAN_SPACE.is_valid(cfg):
             raise AssertionError(f"illegal ssm_scan config {cfg}")
+        kernels.reset_launch_counts()
         y, hn = ss.ssm_scan_cuda(*args, **cfg)
         torch.cuda.synchronize()
+        counted = kernels.launch_counts()
+        if counted != {"ssm_scan": 1, f"ssm_scan_{ld}": 1}:
+            raise AssertionError(f"ssm_scan {cfg}: launch counts {counted}")
         errs.append(max(rel_err(y, p_y), rel_err(hn, p_h), key=lambda e: e[1]))
         if errs[-1][1] > TOL_SSM:
             raise AssertionError(f"ssm_scan b={b} s={s} di={di} {cfg}: rel err "
                                  f"{errs[-1][1]:.3g} > {TOL_SSM}")
+        ctas = ss.ssm_scan_ctas_per_sm(args[0].dtype, ds, cfg, ld)
+        warps.append(ctas * (cfg["block_d"] * cfg["lanes"] + 32) // 32)
     del y, hn, p_y, p_h
     ms = time_ms(lambda: ss.ssm_scan_cuda(*args, **heur))
     ms_other = time_ms(lambda: ss.ssm_scan_cuda(*args, **other))
@@ -950,14 +990,18 @@ def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, ds=16):
     # xc bf16; dt, y fp32 [b,s,di]; B, C [b,s,ds]; A; h0 and hN [b,di,ds]
     nbytes = b * s * di * (2 + 4 + 4) + b * s * ds * 8 + di * ds * 4 + 2 * b * di * ds * 4
     b_ms, b_by = _ssm_bound(prof, sfu, nbytes, b * s * di, ds)
+    grid = b * -(-di // heur["block_d"])
     row = dict(shape=f"b={b} s={s} di={di} ds={ds} xc bf16", path="hybrid", config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=None,
+               other_config=other, other_ms=ms_other, loader=ld, warps_per_sm=warps[0],
+               other_warps_per_sm=warps[1], plain_ms=plain_ms, library_ms=None,
                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs))
     rows.append(row)
     log(f"[kernels] ssm_scan {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, no one-call yardstick, bound {b_ms:.4f} ({b_by}); err "
-        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_SSM})")
+        f"loader {ld}; warps an SM (occupancy x warps a CTA) {warps[0]} ({warps[1]}), "
+        f"{grid} CTAs on {prof.sm_count} SMs; plain {plain_ms:.4f}, no one-call yardstick, "
+        f"bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} (rel "
+        f"{row['max_rel_err']:.2e} <= {TOL_SSM})")
 
 
 def _ssm_update_case(prof, rows, b, di, gen, sfu, ds=16):
@@ -1021,7 +1065,10 @@ def phase_kernels(prof, seed: int):
             _matmul_case(prof, results["matmul"], m, kk, nn, gen, "train", ta=ta, tb=tb)
     for r, path in ((8, "serve"), (2048, "serve"), (tok, "train")):
         _rmsnorm_case(prof, results["rmsnorm"], r, d, gen, path)
-    _rmsnorm_bwd_case(prof, results["rmsnorm_bwd"], tok, d, gen)
+    # the backward at the widths of the coming training slices too:
+    # Mixtral's 4096 and Jamba's 8192 (which the first port refused)
+    for r, dd in ((tok, d), (tok, 4096), (2048, 8192)):
+        _rmsnorm_bwd_case(prof, results["rmsnorm_bwd"], r, dd, gen)
     _xent_cases(prof, results["softmax_xent"], results["softmax_xent_bwd"], rows, vocab, gen)
     for s in (16, 256, 2048):
         _flash_case(prof, results["flash_attention"], s, gen, "serve")
@@ -1046,8 +1093,8 @@ def phase_kernels(prof, seed: int):
     sfu = sfu_rate(prof)
     log(f"[kernels] SFU exp2 rate {sfu / 1e12:.3f} T/s (16 a clock an SM at the maximum SM "
         f"clock)")
-    _ssm_scan_case(prof, results["ssm_scan"], 1, 2048, 16384, gen, sfu)
-    _ssm_scan_case(prof, results["ssm_scan"], 1, 1500, 16380, gen, sfu)
+    _ssm_scan_case(prof, results["ssm_scan"], 1, 2048, 16384, gen, sfu, "tma")
+    _ssm_scan_case(prof, results["ssm_scan"], 1, 1500, 16380, gen, sfu, "cpasync")
     _ssm_update_case(prof, results["ssm_update"], 8, 16384, gen, sfu)
     _flash_case(prof, results["flash_attention"], 2048, gen, "hybrid", h=64, kvh=8, d=128)
     _flash_case(prof, results["flash_attention"], 1500, gen, "hybrid", h=64, kvh=8, d=128)
@@ -1089,12 +1136,13 @@ def phase_kernels(prof, seed: int):
     return results
 
 
-def profile(label: str, step, steps: int, wall_ms=None) -> None:
+def profile(label: str, step, steps: int, wall_ms=None):
     """Where a step's time goes: torch.profiler (device activity only) over
     a steady window gives the device time by kernel; the device's idle share
     is taken against the host-clock step timed without the profiler (timed
     here, or ``wall_ms`` when the caller timed it), whose own host cost
-    would otherwise count as idle time."""
+    would otherwise count as idle time. Returns (device ms a step by kernel,
+    busy ms a step)."""
     if wall_ms is None:
         step()
         step()
@@ -1116,6 +1164,17 @@ def profile(label: str, step, steps: int, wall_ms=None) -> None:
         f"(torch.profiler, {steps} steps)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile]   {ms:8.3f} ms/step {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
+    return by_name, busy
+
+
+def kernel_share(label: str, by_name: dict, busy: float, kernel: str, marks) -> None:
+    """One kernel's device time a step in a profile (every CUDA kernel whose
+    name holds one of ``marks``), and its share of the device's busy time."""
+    ms = sum(v for k, v in by_name.items() if any(m in k for m in marks))
+    if ms <= 0:
+        raise AssertionError(f"{label}: torch.profiler saw no {kernel} kernel")
+    log(f"[profile] {label}: {kernel} {ms:.4f} ms/step device time, "
+        f"{100 * ms / max(busy, 1e-9):.2f}% of {busy:.2f} ms busy")
 
 
 def profile_serving(params, cfg, run, ecfg) -> None:
@@ -1357,7 +1416,8 @@ def phase_hybrid(seed: int):
                        true_len=1500)[0].float().cpu()
 
     profile("hybrid decode step (8 slots)", decode, 5)
-    profile("hybrid prefill 1500 tokens", prefill, 2)
+    by_name, busy = profile("hybrid prefill 1500 tokens", prefill, 2)
+    kernel_share("hybrid prefill 1500 tokens", by_name, busy, "ssm_scan", ("ssm_scan_ws",))
     del caches
 
     logits = {}
@@ -1714,6 +1774,12 @@ def phase_train(seed: int):
             raise AssertionError(f"{phase} dispatches fell to the reference tier: "
                                  f"{snap['phases'][phase]}")
     check_routes(launches, "train", want=("tc",))
+    # one rmsnorm_bwd a norm a step: 2 a layer and the final one
+    want_bwd = (2 * cfg.num_layers + 1) * steps
+    if launches.get("rmsnorm_bwd", 0) != want_bwd:
+        raise AssertionError(f"expected {want_bwd // steps} rmsnorm_bwd launches a step over "
+                             f"{steps} steps, counted {launches.get('rmsnorm_bwd', 0)}")
+    log(f"[train] rmsnorm_bwd {want_bwd // steps} launches a step (checked)")
     losses = [m["loss"] for m in metrics]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -1728,7 +1794,10 @@ def phase_train(seed: int):
         f"the warm-up")
     log(f"[train] step time {step_ms:.2f} ms median of steps 2-{steps}; "
         f"{tokens / (step_ms / 1e3):.0f} tokens/s; peak memory allocated {peak / 2**30:.2f} GiB")
-    profile(f"train step ({tokens} tokens)", trainer.run_one_step, 1, wall_ms=step_ms)
+    by_name, busy = profile(f"train step ({tokens} tokens)", trainer.run_one_step, 1,
+                            wall_ms=step_ms)
+    kernel_share(f"train step ({tokens} tokens)", by_name, busy, "rmsnorm_bwd",
+                 ("rmsnorm_bwd_rows", "rmsnorm_bwd_dw"))
     return launches, step_ms, [1e3 * t for t in times]
 
 

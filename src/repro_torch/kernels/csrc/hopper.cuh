@@ -92,6 +92,28 @@ static cudaError_t make_bf16_map(CUtensorMap* map, const void* base, int rank, l
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The rank-3 tensor map ({inner, rows, mats}, rows `ld` and matrices
+// `mstride` elements apart) of fp32 or bf16 elements with no swizzle: a box
+// of `box_inner` x `box_rows` lands in shared memory as a dense row-major
+// array. Elements past an edge read as zero.
+static cudaError_t make_dense_map(CUtensorMap* map, const void* base, bool bf16,
+                                  long long inner, long long rows, long long mats, long long ld,
+                                  long long mstride, int box_inner, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const int es = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * es, (cuuint64_t)mstride * es};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            3, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // mbarriers and TMA (device)
 // ---------------------------------------------------------------------------

@@ -15,11 +15,20 @@ so neither the row width nor the knob is bound by the thread limit.
 
 Its backward plan dispatches ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``,
 replacing ``repro/kernels/rmsnorm.py:_rmsnorm_bwd_kernel``): dx and dw from
-the forward's saved inverse rms, over the same knob space.
+the forward's saved inverse rms, over the same knob space, also bound by
+bytes and built the same way: ct and x read once into registers, the
+weight once a CTA, and each thread's fp32 dw partial of its columns kept in
+registers across the rows its team walks, summed over the CTA's teams once
+and over the CTAs by a second small kernel, both in a fixed order. Here
+``block_rows`` is the teams a CTA holds, and :func:`rmsnorm_bwd_ctas` the
+CTAs (the first port held a ``[block_rows, d]`` fp32 accumulator in
+shared memory, which refused d = 8192 at 8 rows; no shared memory scales
+with ``block_rows x d`` now, so every config runs at every width).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -135,48 +144,92 @@ def rmsnorm_bwd_plain(ct, x, weight, invrms, eps: float = 1e-6):
     return dx.to(x.dtype), dw.to(weight.dtype)
 
 
-def rmsnorm_bwd_smem_bytes(block_rows: int, d: int) -> int:
-    """Shared memory of one pass-1 CTA: a [block_rows, d] fp32 accumulator."""
-    return block_rows * d * 4
+MAX_WARPS = 16          # warps a CTA (csrc/rmsnorm_bwd.cu)
+
+
+def rmsnorm_bwd_team(d: int, itemsize: int):
+    """(warps a row's team, whether the row stays in registers, 16-byte
+    vectors a thread holds): 2 vectors a thread for rows of up to 8 such
+    warps, 4 above; at most :data:`MAX_WARPS` warps (mirrors ``Team`` in
+    csrc/rmsnorm_bwd.cu)."""
+    vecs = -(-d // (16 // itemsize))
+    nv = 2 if -(-vecs // 64) <= 8 else 4
+    w = -(-vecs // (32 * nv))
+    resident = w <= MAX_WARPS
+    return (max(w, 1) if resident else MAX_WARPS), resident, nv
+
+
+def rmsnorm_bwd_teams(block_rows: int, d: int, itemsize: int) -> int:
+    """Teams of one CTA: ``block_rows``, as many as 16 warps hold."""
+    return min(block_rows, MAX_WARPS // rmsnorm_bwd_team(d, itemsize)[0])
+
+
+def rmsnorm_bwd_smem_bytes(block_rows: int, d: int, itemsize: int = 2) -> int:
+    """Dynamic shared memory of one pass-1 CTA: its teams' fp32 dw partials,
+    summed once at the end (mirrors repro_rmsnorm_bwd_smem_bytes). At most
+    64 KB: teams x d never passes 16 warps' registers' worth of columns."""
+    resident = rmsnorm_bwd_team(d, itemsize)[1]
+    teams = rmsnorm_bwd_teams(block_rows, d, itemsize)
+    return teams * d * 4 if resident and teams > 1 else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def rmsnorm_bwd_ctas(rows: int, d: int, itemsize: int, block_rows: int,
+                     sm_count: int = H100_SXM.sm_count) -> int:
+    """CTAs of pass 1, and rows of the fp32 dw partials: 512 threads an SM,
+    fewer where the rows give each team less than one row. Cached: a train
+    step asks for the same few shapes 49 times."""
+    if rows <= 0:
+        return 0
+    warps = rmsnorm_bwd_team(d, itemsize)[0]
+    teams = rmsnorm_bwd_teams(block_rows, d, itemsize)
+    return min(-(-rows // teams), sm_count * (MAX_WARPS // (warps * teams)))
+
+
+_RMSNORM_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def rmsnorm_bwd_cuda(ct, x, weight, invrms, *, block_rows: int, eps: float = 1e-6):
-    """Launch csrc/rmsnorm_bwd.cu on CUDA tensors: (dx, dw)."""
+    """Launch csrc/rmsnorm_bwd.cu on CUDA tensors: (dx, dw). One C call a
+    launch, the CTA count computed here."""
     del eps
     if x.dim() != 2 or ct.shape != x.shape or weight.shape != (x.shape[1],) \
             or invrms.shape != (x.shape[0],):
         raise ValueError(f"rmsnorm_bwd takes ct, x [rows,d], w [d], invrms [rows]; got "
                          f"{tuple(ct.shape)}, {tuple(x.shape)}, {tuple(weight.shape)}, "
                          f"{tuple(invrms.shape)}")
-    if not (ct.dtype == x.dtype == weight.dtype) or x.dtype not in _DTYPES \
+    code = _DTYPES.get(x.dtype)
+    if code is None or not (ct.dtype == x.dtype == weight.dtype) \
             or invrms.dtype != torch.float32:
         raise TypeError(f"rmsnorm_bwd kernel takes matching f32 or bf16 ct/x/w and fp32 "
                         f"invrms, got {ct.dtype}, {x.dtype}, {weight.dtype}, {invrms.dtype}")
-    if not all(t.is_contiguous() for t in (ct, x, weight, invrms)):
+    if not (ct.is_contiguous() and x.is_contiguous() and weight.is_contiguous()
+            and invrms.is_contiguous()):
         raise ValueError("rmsnorm_bwd kernel takes contiguous tensors only")
     if not (ct.device == x.device == weight.device == invrms.device):
         raise ValueError("rmsnorm_bwd tensors on different devices")
     rows, d = x.shape
-    if rmsnorm_bwd_smem_bytes(block_rows, d) > H100_SXM.smem_per_block:
-        raise ValueError(f"rmsnorm_bwd: block_rows={block_rows} x d={d} fp32 accumulator "
-                         f"exceeds {H100_SXM.smem_per_block} B of shared memory")
-    ctas_fn = _build.entry("rmsnorm_bwd", "repro_rmsnorm_bwd_ctas", [ctypes.c_int] * 2)
-    ctas = ctas_fn(rows, block_rows) if rows > 0 else 0
+    if d < 1 or not 1 <= block_rows <= 32:
+        raise ValueError(f"rmsnorm_bwd: d={d}, block_rows={block_rows}")
+    ctas = rmsnorm_bwd_ctas(rows, d, x.element_size(), block_rows)
     dx = torch.empty_like(x)
     dw = torch.empty_like(weight)
     partial = torch.empty((max(ctas, 1), d), dtype=torch.float32, device=x.device)
-    fn = _build.entry("rmsnorm_bwd", "repro_rmsnorm_bwd",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn = _build.entry("rmsnorm_bwd", "repro_rmsnorm_bwd", _RMSNORM_BWD_ARGTYPES)
     err = fn(ct.data_ptr(), x.data_ptr(), weight.data_ptr(), invrms.data_ptr(), dx.data_ptr(),
-             dw.data_ptr(), partial.data_ptr(), rows, d, _DTYPES[x.dtype], block_rows,
+             dw.data_ptr(), partial.data_ptr(), rows, d, code, block_rows, ctas,
              _build.stream_ptr(x.device))
-    _build.check("rmsnorm_bwd", err, f"rmsnorm_bwd {rows}x{d} block_rows={block_rows}")
+    if err:
+        _build.check("rmsnorm_bwd", err, f"rmsnorm_bwd {rows}x{d} block_rows={block_rows}")
     _build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dw
 
 
 def _rmsnorm_bwd_heuristic(ct, x, weight, invrms):
-    return _rmsnorm_heuristic(x, weight)
+    """The forward's, at most four teams a CTA: at [8192, 896] that is 264
+    CTAs of four 2-warp teams rather than 132 of eight (chip_smoke.py times
+    the two side by side)."""
+    return {"block_rows": min(4, _rmsnorm_heuristic(x, weight)["block_rows"])}
 
 
 @tunable(

@@ -15,19 +15,35 @@ The recurrence is ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * xc_t) * B_t``,
 * ``ssm_update`` -- one decode step over ``[b, di]``. Replaces
   ``repro/kernels/ssm_scan.py:_ssm_update_kernel`` (``ssm_update_pallas``).
 
-Both kernels are in ``csrc/ssm_scan.cu``, whose header says what bounds
-them on an H100 and what the design does about that. The kernels take
-``exp`` as ``exp2`` of ``dt * (A * log2 e)``; the plain versions
-:func:`ssm_scan_plain` and :func:`ssm_update_plain` do the same. A thread
-keeps one channel's states in registers, so ``d_state`` is at most
-:data:`MAX_STATE`.
+Both kernels are in ``csrc/ssm_scan.cu``. The kernels take ``exp`` as
+``exp2`` of ``dt * (A * log2 e)``; the plain versions
+:func:`ssm_scan_plain` and :func:`ssm_update_plain` do the same. A channel's
+states live in registers, so ``d_state`` is at most :data:`MAX_STATE`.
 
-Knobs, worked out for the H100 (not the TPU's VMEM): the scan's
-``block_d`` is the CTA's channel count (threads, at most 512 under the
-kernel's launch bounds) and ``chunk`` the time steps a slice stages in
-shared memory, ``chunk * (2 * block_d + 2 * d_state) * 4`` bytes within the
-227 KB a block may use. The update's CTA is ``block_d`` channels by
-``block_b`` rows, at most 1,024 threads.
+On an H100 the scan is bound by its exponentials (one a state element a
+step, on the SFUs at 16 a clock an SM), not by its bytes, and the
+schedulers' slots for the instructions around them come close behind. The first port
+kept one thread a channel and staged each slice with the threads
+that compute it: 4 warps an SM at b = 1, every slice's loads exposed. The
+kernel now specialises warps: a producer warp fills a ring of slices in
+shared memory behind mbarriers while the consumer warps only compute;
+``lanes`` threads share a channel's states (16, 8 or 4 each), for up to 16
+consumer warps an SM; a turn of ``lanes`` steps runs without a branch and
+sums its y by one reduce-scatter of shuffles. The producer's loader is
+picked by :func:`loader` from alignment: ``tma`` (four boxes a slice from
+one thread) or ``cpasync`` (xc by the producer warp's cp.async in the
+widest granule its rows allow, dt, B and C by TMA where theirs allow it).
+Each has its launch counter, ``ssm_scan_tma`` and ``ssm_scan_cpasync``,
+beside ``ssm_scan``.
+
+Knobs, worked out for the H100 (not the TPU's VMEM): the scan's ``chunk``
+is the time steps of a slice, ``stages`` the slices of the ring,
+``block_d`` the channels of a CTA and ``lanes`` the threads of a channel;
+``block_d * lanes`` consumer threads (one warp to 512) plus the producer
+warp, and ``stages`` slices of ``chunk * (block_d * 8 + 2 * d_state * 4)``
+bytes at most (:func:`scan_smem_bytes`) within the 227 KB a block may use.
+The update's CTA is ``block_d`` channels by ``block_b`` rows, at most 1,024
+threads.
 
 No backward: serving is the path these kernels are on. A kernel-mode
 dispatch on tensors that need a gradient raises (``vjp="none"``); hybrid
@@ -42,28 +58,44 @@ import numpy as np
 import torch
 
 from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core.params import EnumParam
 from ..core.platform import H100_SXM
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 16
-SCAN_MAX_THREADS = 512
+SCAN_MAX_CONSUMERS = 512
 LOG2E = 1.0 / math.log(2.0)
+LOADERS = {"cpasync": 0, "tma": 1}
 
 
-def scan_smem_bytes(c, ds: int = MAX_STATE) -> int:
-    """Shared memory of one scan CTA (mirrors repro_ssm_scan_smem_bytes)."""
-    return c["chunk"] * (2 * c["block_d"] + 2 * ds) * 4
+def _align128(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def scan_smem_bytes(c, ds: int = MAX_STATE, itemsize: int = 4) -> int:
+    """Shared memory of one scan CTA: ``stages`` slices of xc (``itemsize``
+    bytes an element), dt, B and C, each region 128-byte aligned, the
+    ring's two mbarriers a slice and 128 bytes of alignment slack (mirrors
+    repro_ssm_scan_smem_bytes). The defaults are the widest case."""
+    chunk, bd = c["chunk"], c["block_d"]
+    stage = (_align128(chunk * bd * itemsize) + _align128(chunk * bd * 4)
+             + 2 * _align128(chunk * ds * 4))
+    return 128 + c["stages"] * (stage + 16)
 
 
 SSM_SCAN_SPACE = ParamSpace(
     [
         PowerOfTwoParam("chunk", 8, 256),
-        PowerOfTwoParam("block_d", 32, SCAN_MAX_THREADS),
+        PowerOfTwoParam("block_d", 16, 256),
+        EnumParam("stages", (2, 3, 4)),
+        EnumParam("lanes", (1, 2, 4)),
     ],
     [
+        Constraint(lambda c: 32 <= c["block_d"] * c["lanes"] <= SCAN_MAX_CONSUMERS,
+                   "block_d x lanes consumer threads outside one warp .. 512"),
         Constraint(lambda c: scan_smem_bytes(c) <= H100_SXM.smem_per_block,
-                   "chunk x block_d slice exceeds 227 KB of shared memory"),
+                   "stages x chunk-step slices exceed 227 KB of shared memory"),
     ],
 )
 
@@ -84,14 +116,17 @@ def _pow2_at_least(n: int) -> int:
 
 
 def _ssm_scan_heuristic(xc, dt, B, C, A, h0):
-    """The widest CTA (up to 256 channels) that still gives every SM a CTA:
-    at b = 1, d_inner = 16384 that is 64 channels (256 CTAs). 64-step
-    slices, fewer for a shorter prompt."""
+    """Four lanes a channel, the most warps an SM, and the widest CTA (up to
+    128 channels) that still gives every SM a CTA: at b = 1, d_inner =
+    16384 that is 64 channels, 256 CTAs of 8 consumer warps and the
+    producer. A ring of two 64-step slices (shorter for a shorter prompt),
+    64 KB in bf16."""
     b, s, di = xc.shape
-    bd = 256
-    while bd > 32 and b * -(-di // bd) < H100_SXM.sm_count:
+    bd = 128
+    while bd > 16 and b * -(-di // bd) < H100_SXM.sm_count:
         bd //= 2
-    return {"chunk": min(64, max(8, _pow2_at_least(s))), "block_d": bd}
+    return {"chunk": min(64, max(8, _pow2_at_least(s))), "block_d": bd, "stages": 2,
+            "lanes": 4}
 
 
 def _ssm_update_heuristic(xc, dt, B, C, A, h):
@@ -191,7 +226,22 @@ def _check_ssm(name, xc, dt, B, C, A, h, lead):
         raise ValueError(f"{name} tensors on different devices")
 
 
-def ssm_scan_cuda(xc, dt, B, C, A, h0, *, chunk: int, block_d: int):
+def loader(xc, dt, B, C) -> str:
+    """The scan's loader: ``tma`` when every base is 16-byte aligned and the
+    rows of xc and dt and of B and C (d_state * 4 bytes) are 16-byte
+    multiples, as a TMA box needs; else ``cpasync`` (xc by cp.async; dt, B
+    and C by TMA where their own rows allow it). The kernel's entry holds
+    the TMA loader to the same rule."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (xc, dt, B, C))
+    if aligned and xc.shape[-1] * xc.element_size() % 16 == 0 and B.shape[-1] % 4 == 0:
+        return "tma"
+    return "cpasync"
+
+
+_SCAN_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def ssm_scan_cuda(xc, dt, B, C, A, h0, *, chunk: int, block_d: int, stages: int, lanes: int):
     """Launch the scan of csrc/ssm_scan.cu on CUDA tensors: (y, hN)."""
     if xc.dim() != 3 or A.dim() != 2:
         raise ValueError(f"ssm_scan takes xc [b,s,di] and A [di,ds], got {tuple(xc.shape)}, "
@@ -199,20 +249,33 @@ def ssm_scan_cuda(xc, dt, B, C, A, h0, *, chunk: int, block_d: int):
     b, s, di = xc.shape
     ds = A.shape[1]
     _check_ssm("ssm_scan", xc, dt, B, C, A, h0, (b, s))
-    if scan_smem_bytes({"chunk": chunk, "block_d": block_d}, ds) > H100_SXM.smem_per_block:
-        raise ValueError(f"ssm_scan: chunk={chunk} x block_d={block_d} exceeds "
-                         f"{H100_SXM.smem_per_block} B of shared memory")
+    cfg = {"chunk": chunk, "block_d": block_d, "stages": stages, "lanes": lanes}
+    if scan_smem_bytes(cfg, ds, xc.element_size()) > H100_SXM.smem_per_block:
+        raise ValueError(f"ssm_scan: {cfg} exceeds {H100_SXM.smem_per_block} B of shared memory")
+    ld = loader(xc, dt, B, C)
     y = torch.empty((b, s, di), dtype=torch.float32, device=xc.device)
     hn = torch.empty((b, di, ds), dtype=torch.float32, device=xc.device)
-    fn = _build.entry("ssm_scan", "repro_ssm_scan",
-                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn = _build.entry("ssm_scan", "repro_ssm_scan", _SCAN_ARGTYPES)
     err = fn(xc.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
              h0.data_ptr(), y.data_ptr(), hn.data_ptr(), b, s, di, ds, _DTYPES[xc.dtype],
-             chunk, block_d, _build.stream_ptr(xc.device))
-    _build.check("ssm_scan", err, f"ssm_scan b={b} s={s} di={di} ds={ds} chunk={chunk} "
-                                  f"block_d={block_d}")
+             chunk, block_d, stages, lanes, LOADERS[ld], _build.stream_ptr(xc.device))
+    _build.check("ssm_scan", err, f"ssm_scan b={b} s={s} di={di} ds={ds} {cfg} loader={ld}")
     _build.LAUNCHES["ssm_scan"] += 1
+    _build.LAUNCHES[f"ssm_scan_{ld}"] += 1
     return y, hn
+
+
+def ssm_scan_ctas_per_sm(dtype, ds: int, cfg: dict, ld: str) -> int:
+    """CTAs of ``cfg`` one SM holds on the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); each has
+    ``block_d * lanes / 32`` consumer warps and the producer."""
+    fn = _build.entry("ssm_scan", "repro_ssm_scan_ctas_per_sm",
+                      [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    err = fn(_DTYPES[dtype], ds, cfg["chunk"], cfg["block_d"], cfg["stages"], cfg["lanes"],
+             LOADERS[ld], ctypes.byref(out))
+    _build.check("ssm_scan", err, f"ssm_scan occupancy {cfg} loader={ld}")
+    return out.value
 
 
 @tunable(
@@ -224,9 +287,10 @@ def ssm_scan_cuda(xc, dt, B, C, A, h0, *, chunk: int, block_d: int):
     dispatch=DispatchSpec(canonicalize=_contiguous, example=_ssm_scan_example,
                           data_parallel_args=(0, 1, 2, 3, 5), vjp="none"),
 )
-def ssm_scan(xc, dt, B, C, A, h0, *, chunk: int, block_d: int):
+def ssm_scan(xc, dt, B, C, A, h0, *, chunk: int, block_d: int, stages: int, lanes: int):
     if xc.is_cuda:
-        return ssm_scan_cuda(xc, dt, B, C, A, h0, chunk=chunk, block_d=block_d)
+        return ssm_scan_cuda(xc, dt, B, C, A, h0, chunk=chunk, block_d=block_d, stages=stages,
+                             lanes=lanes)
     if xc.device.type == "cpu":
         return ssm_scan_plain(xc, dt, B, C, A, h0)
     raise RuntimeError(f"ssm_scan has no kernel for device {xc.device}")

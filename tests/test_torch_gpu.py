@@ -317,9 +317,14 @@ def test_matmul_kernel_reads_a_row_stride(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(8, 896), (13, 100), (8192, 896), (1000, 33)])
-@pytest.mark.parametrize("block_rows", [None, 1, 32])
+@pytest.mark.parametrize("rows,d", [(8, 896), (13, 100), (8192, 896), (1000, 33),
+                                    (8192, 4096), (2048, 8192), (5, 20000)])
+@pytest.mark.parametrize("block_rows", [None] + [c["block_rows"]
+                                                 for c in rn.RMSNORM_SPACE.enumerate()])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, block_rows):
+    """Every config at the training widths (Mixtral's 4096, Jamba's 8192),
+    an odd d (element loads) and a row too wide for registers (read twice,
+    the partial accumulated in place)."""
     rs = np.random.RandomState(rows + d)
     x, w = _t(rs, (rows, d), dtype, cuda), _t(rs, (d,), dtype, cuda)
     ct = _t(rs, (rows, d), dtype, cuda)
@@ -333,6 +338,24 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, block_rows):
     _close(dw, p_dw, dtype)
     dx2, dw2 = rn.rmsnorm_bwd_cuda(ct, x, w, r, **cfg)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)     # no atomics: run to run equal
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 896), (16, 8192)])
+def test_rmsnorm_bwd_kernel_reads_rows_one_element_off(cuda, dtype, rows, d):
+    """ct, x and dx as contiguous views one element past an aligned base:
+    every row takes element loads and stores."""
+    rs = np.random.RandomState(d)
+    off = lambda t: torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:].view(t.shape).copy_(t)
+    x, ct = off(_t(rs, (rows, d), dtype, cuda)), off(_t(rs, (rows, d), dtype, cuda))
+    w = _t(rs, (d,), dtype, cuda)
+    assert x.data_ptr() % 16 and ct.data_ptr() % 16
+    _, r = rn.rmsnorm_plain(x, w, 1e-6)
+    dx, dw = rn.rmsnorm_bwd_cuda(ct, x, w, r, block_rows=8)
+    torch.cuda.synchronize()
+    p_dx, p_dw = rn.rmsnorm_bwd_plain(ct, x, w, r)
+    _close(dx, p_dx, dtype)
+    _close(dw, p_dw, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -655,20 +678,56 @@ def _ssm_inputs(rs, lead, di, ds, dtype, device):
             f(-np.abs(rs.randn(di, ds)) - 0.1), f(rs.randn(lead[0], di, ds) * 0.3))
 
 
+def _scan_matches_plain(args, config):
+    """One launch of ``config`` on ``args``: its counters (the kernel and the
+    loader the rule names), y and the final state against the plain version
+    (fp32 on both sides: f32 tolerance, xc in either dtype, the plain version
+    widening the same bf16 values), and a second launch bit for bit equal."""
+    kernels.reset_launch_counts()
+    y, hn = ss.ssm_scan_cuda(*args, **config)
+    torch.cuda.synchronize()
+    ld = ss.loader(*args[:4])
+    assert kernels.launch_counts() == {"ssm_scan": 1, f"ssm_scan_{ld}": 1}
+    p_y, p_h = ss.ssm_scan_plain(*args)
+    assert y.dtype == hn.dtype == torch.float32
+    _close(y, p_y, torch.float32)
+    _close(hn, p_h, torch.float32)
+    y2, hn2 = ss.ssm_scan_cuda(*args, **config)
+    assert torch.equal(y, y2) and torch.equal(hn, hn2)
+    return ld
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,di,ds", [(1, 37, 100, 16), (2, 129, 300, 16), (3, 1, 33, 4),
                                        (1, 64, 64, 7)])
 @pytest.mark.parametrize("config", SCAN_CONFIGS, ids=ss.SSM_SCAN_SPACE.config_key)
 def test_ssm_scan_kernel_matches_plain(cuda, dtype, b, s, di, ds, config):
-    """y and the final state are fp32 on both sides: f32 tolerance, xc in
-    either dtype (the plain version widens the same bf16 values)."""
-    args = _ssm_inputs(np.random.RandomState(s + di), (b, s), di, ds, dtype, cuda)
-    y, hn = ss.ssm_scan_cuda(*args, **config)
-    torch.cuda.synchronize()
-    p_y, p_h = ss.ssm_scan_plain(*args)
-    assert y.dtype == hn.dtype == torch.float32
-    _close(y, p_y, torch.float32)
-    _close(hn, p_h, torch.float32)
+    """Ragged shapes: d_inner no block_d divides, s shorter than a slice or
+    not a multiple of it, 4 and 7 states, rows of every cp.async granule
+    (bf16 d_inner 33: element copies) and TMA's (fp32 d_inner 100, 300)."""
+    _scan_matches_plain(_ssm_inputs(np.random.RandomState(s + di), (b, s), di, ds, dtype, cuda),
+                        config)
+
+
+@pytest.mark.parametrize("di,want", [(16384, "tma"), (16380, "cpasync")])
+@pytest.mark.parametrize("config", SCAN_CONFIGS, ids=ss.SSM_SCAN_SPACE.config_key)
+def test_ssm_scan_kernel_at_the_hybrids_width(cuda, di, want, config):
+    """Jamba's d_inner in bf16 (TMA) and a ragged prefill's 16380 (32,760-byte
+    rows: cp.async), over a few slices of every config."""
+    args = _ssm_inputs(np.random.RandomState(di), (1, 40), di, 16, torch.bfloat16, cuda)
+    assert _scan_matches_plain(args, config) == want
+
+
+def test_ssm_scan_kernel_reads_views_one_element_off(cuda):
+    """xc and dt one element past an aligned base: the cp.async loader in
+    its narrowest granules (2-byte element copies for bf16 xc)."""
+    xc, dt, B, C, A, h0 = _ssm_inputs(np.random.RandomState(3), (2, 50), 256, 16,
+                                      torch.bfloat16, cuda)
+    off = lambda t: torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(
+        t.shape).copy_(t)
+    args = (off(xc), off(dt), B, C, A, h0)
+    cfg = ss.ssm_scan.default_config(*args)
+    assert _scan_matches_plain(args, cfg) == "cpasync"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -705,7 +764,7 @@ def test_ssm_wrappers_count_only_kernel_launches(cuda):
     ss.ssm_scan_plain(*args)
     ss.ssm_update(*(a[:, 0] if a.dim() == 3 and i < 4 else a for i, a in enumerate(args)))
     ss.ssm_scan(*(a.cpu() for a in args))
-    assert kernels.launch_counts() == {"ssm_scan": 1, "ssm_update": 1}
+    assert kernels.launch_counts() == {"ssm_scan": 1, "ssm_scan_tma": 1, "ssm_update": 1}
 
 
 def test_reduced_hybrid_on_card_matches_cpu(cuda):

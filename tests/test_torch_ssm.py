@@ -127,16 +127,22 @@ def test_every_tunable_example_matches_its_reference():
 
 
 def test_heuristics_are_legal_at_the_served_shapes():
-    for b, s, di in ((1, 2048, 16384), (1, 1500, 16384), (1, 8, 16384), (1, 37, 128)):
+    for b, s, di in ((1, 2048, 16384), (1, 1500, 16380), (1, 1500, 16384), (1, 8, 16384),
+                     (8, 2048, 16384), (1, 37, 128), (2, 12, 12)):
         xc = torch.empty((b, s, di))
         cfg = ss.ssm_scan.default_config(xc, xc, *(torch.empty(0),) * 4)
         assert ss.SSM_SCAN_SPACE.is_valid(cfg)
+        assert ss.scan_smem_bytes(cfg, 16, 2) <= ss.scan_smem_bytes(cfg) <= 232_448
+    # four lanes a channel and 64 channels a CTA: 256 CTAs of 8 consumer warps
+    # and the producer at b = 1, d_inner = 16384, so every SM has work
     assert ss.ssm_scan.default_config(torch.empty((1, 2048, 16384)), None, None, None, None,
-                                      None) == {"chunk": 64, "block_d": 64}
+                                      None) == {"chunk": 64, "block_d": 64, "stages": 2,
+                                                "lanes": 4}
     xd = torch.empty((8, 16384))
     cfg = ss.ssm_update.default_config(xd, xd, None, None, None, None)
     assert ss.SSM_UPDATE_SPACE.is_valid(cfg) and cfg == {"block_b": 2, "block_d": 128}
-    assert not ss.SSM_SCAN_SPACE.is_valid({"chunk": 256, "block_d": 512})
+    assert not ss.SSM_SCAN_SPACE.is_valid({"chunk": 256, "block_d": 256, "stages": 4,
+                                           "lanes": 2})
     assert not ss.SSM_UPDATE_SPACE.is_valid({"block_b": 64, "block_d": 1024})
 
 
@@ -144,12 +150,15 @@ def test_wrappers_check_before_they_launch():
     """The CUDA wrappers refuse what the kernels do not take before building
     anything, and a tensor on neither the CPU nor a card raises."""
     _, (xc, dt, B, C, A, h0) = _both(_inputs(0, (1, 5), 8, 4, "float32"), "float32")
+    knobs = dict(chunk=8, block_d=32, stages=2, lanes=1)
     with pytest.raises(ValueError, match="at most 16 states"):
         big = torch.zeros(8, 32)
         ss.ssm_scan_cuda(xc, dt, torch.zeros(1, 5, 32), torch.zeros(1, 5, 32), big,
-                         torch.zeros(1, 8, 32), chunk=8, block_d=32)
+                         torch.zeros(1, 8, 32), **knobs)
     with pytest.raises(TypeError, match="fp32"):
-        ss.ssm_scan_cuda(xc, dt.double(), B, C, A, h0, chunk=8, block_d=32)
+        ss.ssm_scan_cuda(xc, dt.double(), B, C, A, h0, **knobs)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.ssm_scan_cuda(xc, dt, B, C, A, h0, chunk=256, block_d=256, stages=4, lanes=2)
     with pytest.raises(ValueError, match="shape"):
         ss.ssm_update_cuda(xc[:, 0], dt[:, 0], B[:, 0], C[:, 0], A, h0[:, :4], block_b=1,
                            block_d=32)
@@ -167,6 +176,56 @@ def test_kernel_dispatch_refuses_a_gradient():
     t[0].requires_grad_()
     with repro_torch.runtime(), pytest.raises(RuntimeError, match="declares no backward"):
         repro_torch.dispatch("ssm_scan", *t)
+
+
+def test_scan_space_limits():
+    """The space's limits are the H100's: one warp to 512 consumer threads
+    (the producer warp beside them), the ring within 227 KB in the widest
+    case (fp32 xc, 16 states), and the TMA box's 256 rows and channels."""
+    cfgs = list(ss.SSM_SCAN_SPACE.enumerate())
+    assert len(cfgs) == 170
+    for c in cfgs:
+        assert 32 <= c["block_d"] * c["lanes"] <= 512 and c["lanes"] in (1, 2, 4)
+        assert c["chunk"] <= 256 and c["block_d"] <= 256 and c["stages"] >= 2
+        assert ss.scan_smem_bytes(c) <= 232_448
+    assert {c["lanes"] for c in cfgs} == {1, 2, 4} and {c["stages"] for c in cfgs} == {2, 3, 4}
+    for bad in ({"chunk": 8, "block_d": 16, "stages": 2, "lanes": 1},       # half a warp
+                {"chunk": 8, "block_d": 256, "stages": 2, "lanes": 4},      # 1024 threads
+                {"chunk": 256, "block_d": 128, "stages": 2, "lanes": 4},    # 264 KB
+                {"chunk": 64, "block_d": 64}):          # a record of the first port's space
+        assert not ss.SSM_SCAN_SPACE.is_valid(bad), bad
+
+
+def test_scan_smem_bytes_by_hand():
+    """xc, dt, B and C of a slice, each region rounded up to 128 bytes, two
+    8-byte mbarriers a slice and 128 bytes of alignment slack."""
+    heur = {"chunk": 32, "block_d": 64, "stages": 3, "lanes": 4}
+    # bf16 xc 32*64*2 = 4096, dt 8192, B and C 32*16*4 = 2048 each
+    assert ss.scan_smem_bytes(heur, 16, 2) == 128 + 3 * (4096 + 8192 + 2 * 2048 + 16) == 49328
+    assert ss.scan_smem_bytes(heur) == 128 + 3 * (8192 + 8192 + 2 * 2048 + 16) == 61616
+    # d_state 7: 8*7*4 = 224 bytes of B, rounded up to 256
+    assert ss.scan_smem_bytes({"chunk": 8, "block_d": 16, "stages": 2, "lanes": 2}, 7, 4) \
+        == 128 + 2 * (512 + 512 + 2 * 256 + 16) == 3232
+
+
+def test_loader_rule_follows_alignment():
+    """TMA where every base is 16-byte aligned and the rows of xc, dt, B and
+    C are 16-byte multiples; cp.async elsewhere: the bf16 d_inner = 16380
+    rows of a ragged prefill (32,760 bytes), an odd d_inner, 7 states, a
+    view one element past an aligned base."""
+    def args(di, ds=16, dtype=torch.bfloat16, s=4):
+        return (torch.zeros(1, s, di, dtype=dtype), torch.zeros(1, s, di),
+                torch.zeros(1, s, ds), torch.zeros(1, s, ds))
+
+    assert ss.loader(*args(16384)) == "tma"
+    assert ss.loader(*args(16384, dtype=torch.float32)) == "tma"
+    assert ss.loader(*args(16380)) == "cpasync"
+    assert ss.loader(*args(16380, dtype=torch.float32)) == "tma"    # 65,520-byte rows
+    assert ss.loader(*args(33)) == "cpasync"
+    assert ss.loader(*args(64, ds=7)) == "cpasync"
+    xc, dt, B, C = args(64)
+    shifted = torch.zeros(xc.numel() + 1, dtype=xc.dtype)[1:].view(xc.shape)
+    assert ss.loader(shifted, dt, B, C) == "cpasync"
 
 
 # ---------------------------------------------------------------------------
