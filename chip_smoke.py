@@ -42,13 +42,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              d_inner 16380 (the cp.async loader), each at its heuristic
              config and at another lane count and ring depth, with the
              warps an SM each holds;
-             ssm_update at the 8-slot pool; flash attention at 64/8 heads
+             ssm_update at the 8-slot pool, with its bare launch's time
+             warm and cold in L2 and the host time of one call (two
+             configs); flash attention at 64/8 heads
              of 128 (s = 2048 and the ragged s = 1500 of an exact-length
              prefill) and one CTA of it alone, timed per k tile; the flash
              backward at 64/8 heads of 128 and, windowed (1024), at 32/8
              heads of 128 over 4096 positions, each split into its dq and
              dk/dv passes by torch.profiler; the hybrid's bf16 in_proj and
-             fp32 dt_proj / out_proj gemms;
+             fp32 dt_proj / out_proj gemms, out_proj also at a short
+             prefill's 256 rows (split over k) and in its two gradient
+             forms (ct @ w^T, x^T @ ct); each fp32 row of more than 16 rows
+             names its tiles, splits and copy granules and, at one split,
+             must be bit-equal to the first port's loop (torch.equal);
    And Mixtral-8x7B's: expert_gemm at the decode pool's capacity 2, at
              prefill capacities 640 and 2560 (gate/up and down), on the
              backward's transposed views at 640 and at a ragged 37 (torch.bmm
@@ -76,9 +82,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              must launch 7 times a prefill and ssm_update 7 times a decode
              step, matmul, rmsnorm and flash attention must launch, and no
              dispatch may fall to the reference tier; the 1500-token
-             prompt's prefill logits are held against the plain path, and
-             torch.profiler splits a decode step and that prefill by
-             kernel, with ssm_scan's device time and share of the prefill;
+             prompt's prefill logits are held against the plain path; every
+             fp32 gemm of a prefill of more than 16 tokens must have run the
+             register-tiled kernel (its counter, matmul_simt_tile) and none
+             the first port's loop; torch.profiler splits a decode step and
+             that prefill by kernel, with ssm_update's share of the decode
+             step and ssm_scan's and the fp32 route's of the prefill;
 6. moe     — full-width Mixtral-8x7B cut to 8 of its 32 layers (11.9 B
              bf16 parameters from a seeded random init; the earlier phases'
              are freed first), ServingEngine(max_batch=8, max_seq=8192), 8
@@ -411,6 +420,15 @@ def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch
     torch.cuda.synchronize()
     if rel_err(loop, plain)[1] > tol:
         raise AssertionError(f"matmul {shape}: the tile loop disagrees with the plain version")
+    # fp32 at one split: each output is one fmaf chain over k from 0, in the
+    # same order in the register-tiled kernel as in the first port's loop
+    bits = None
+    if p["kernel"] == "tile" and p["splits"] == 1:
+        bits = torch.equal(mm.matmul_cuda(x, w, **heur), loop)
+        if not bits:
+            raise AssertionError(f"matmul {shape}: the simt kernel is not bit-equal to the "
+                                 f"first port's loop at one split")
+    del loop
     loop_ms = time_ms(lambda: mm.matmul_cuda(x, w, **heur, force_loop=True))
     plain_ms = time_ms(lambda: mm.matmul_plain(x, w))
     lib_ms = time_ms(lambda: torch.matmul(x, w))
@@ -418,13 +436,19 @@ def _matmul_case(prof, rows, m, k, n, gen, path, ta=False, tb=False, dtype=torch
     peak = prof.peak_flops_bf16 if dtype == torch.bfloat16 else prof.peak_flops_fp32
     b_ms, b_by = bound(prof, (m * k + k * n + m * n) * esize, 2.0 * m * n * k, peak)
     loop_key = "wmma_ms" if dtype == torch.bfloat16 else "simt_loop_ms"
-    row = dict(shape=shape, path=path, route=p["route"], splits=p["splits"], config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, **{loop_key: loop_ms},
+    row = dict(shape=shape, path=path, route=p["route"], kernel=p["kernel"], splits=p["splits"],
+               config=heur, ms=ms, other_config=other, other_ms=ms_other, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **{loop_key: loop_ms},
                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
+    simt = ""
+    if p["kernel"] == "tile":
+        row.update(tiles={k: p[k] for k in ("bm", "bn", "bk", "stages")},
+                   granules=mm.simt_granules(x, w), bit_equal_loop=bits)
+        simt = (f" tile {p['bm']}x{p['bn']}x{p['bk']}, {p['stages']} stages, {p['splits']} "
+                f"splits, granules {row['granules']}, bit-equal to the loop: {bits};")
     rows.append(row)
-    log(f"[kernels] matmul {row['shape']}: {ms:.4f} ms {p['route']} {heur} ({ms_other:.4f} ms "
-        f"{other}); first port's loop {loop_ms:.4f} ({loop_key}); plain {plain_ms:.4f}, "
+    log(f"[kernels] matmul {row['shape']}: {ms:.4f} ms {p['route']}{simt} {heur} ({ms_other:.4f} "
+        f"ms {other}); first port's loop {loop_ms:.4f} ({loop_key}); plain {plain_ms:.4f}, "
         f"torch.matmul {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} "
         f"(rel {row['max_rel_err']:.2e} <= {tol})")
 
@@ -1004,13 +1028,40 @@ def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, want_loader, ds=16):
         f"{row['max_rel_err']:.2e} <= {TOL_SSM})")
 
 
+def cold_ms(launch, reps: int = 20) -> float:
+    """Median device time of one launch with L2 cold: a write of a 96 MB
+    buffer (the L2 holds 50 MB) before each launch, CUDA events around the
+    launch alone."""
+    flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    times = []
+    for _ in range(reps + 2):
+        flush.fill_(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[2:]))
+
+
+def update_times(bare, call) -> dict:
+    """ssm_update's launch times: the bare launch (its C entry on buffers
+    allocated once) back to back, the state warm in L2 (``bare_ms``), and
+    with L2 cold (``cold_ms``); the host time of one wrapper call
+    (``host_us``)."""
+    return {"bare_ms": time_ms(bare, iters=50), "cold_ms": cold_ms(bare),
+            "host_us": host_us(call)}
+
+
 def _ssm_update_case(prof, rows, b, di, gen, sfu, ds=16):
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssm_scan as ss
 
     args = _ssm_inputs(gen, (b,), di, ds, 0.3)
     heur = ss.ssm_update.default_config(*args)
-    other = {"block_b": 8, "block_d": 128}
-    other = other if heur != other else {"block_b": 1, "block_d": 256}
+    # the other legal config: two lanes a channel, one row a CTA
+    other = dict(heur, lanes=2, block_b=1, block_d=128)
     p_y, p_h = ss.ssm_update_plain(*args)
     errs = []
     for cfg in (heur, other):
@@ -1025,18 +1076,31 @@ def _ssm_update_case(prof, rows, b, di, gen, sfu, ds=16):
     ms = time_ms(lambda: ss.ssm_update_cuda(*args, **heur))
     ms_other = time_ms(lambda: ss.ssm_update_cuda(*args, **other))
     plain_ms = time_ms(lambda: ss.ssm_update_plain(*args))
+    fn = _build.entry("ssm_scan", "repro_ssm_update", ss._UPDATE_ARGTYPES)
+    y, hn = torch.empty_like(p_y), torch.empty_like(p_h)
+
+    def bare(cfg):
+        ptrs = [t.data_ptr() for t in (*args, y, hn)]
+        launch_args = (*ptrs, b, di, ds, ss._DTYPES[args[0].dtype], cfg["block_b"],
+                       cfg["block_d"], cfg["lanes"],
+                       _build.stream_ptr(y.device))
+        return update_times(lambda: fn(*launch_args), lambda: ss.ssm_update_cuda(*args, **cfg))
+
+    t, t_other = bare(heur), bare(other)
     # xc bf16, dt, y [b,di]; B, C [b,ds]; A [di,ds]; h and h_new [b,di,ds]
     nbytes = b * di * (2 + 4 + 4) + b * ds * 8 + di * ds * 4 + 2 * b * di * ds * 4
     b_ms, b_by = _ssm_bound(prof, sfu, nbytes, b * di, ds)
     row = dict(shape=f"b={b} di={di} ds={ds} xc bf16", path="hybrid", config=heur, ms=ms,
                other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+               bound_ms=b_ms, bound_by=b_by, **t, other_times=t_other,
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
-    log(f"[kernels] ssm_update {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms {other}); "
-        f"plain {plain_ms:.4f}, no one-call yardstick, bound {b_ms:.4f} ({b_by}); err "
-        f"{row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_SSM}); the 8 MB "
-        f"state stays in L2 between the timed launches")
+    log(f"[kernels] ssm_update {row['shape']}: {ms:.4f} ms a call {heur} ({ms_other:.4f} ms "
+        f"{other}); bare launch {t['bare_ms']:.4f} ms warm in L2, {t['cold_ms']:.4f} ms cold "
+        f"(other {t_other['bare_ms']:.4f}, {t_other['cold_ms']:.4f}); host time a call "
+        f"{t['host_us']:.1f} us ({t_other['host_us']:.1f}); plain {plain_ms:.4f}, no one-call "
+        f"yardstick, bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} (rel "
+        f"{row['max_rel_err']:.2e} <= {TOL_SSM})")
 
 
 def phase_kernels(prof, seed: int):
@@ -1111,6 +1175,12 @@ def phase_kernels(prof, seed: int):
         _matmul_case(prof, results["matmul"], m, dtr, di, gen, "hybrid", dtype=torch.float32)
         _matmul_case(prof, results["matmul"], m, di, dm, gen, "hybrid", dtype=torch.float32)
         _rmsnorm_case(prof, results["rmsnorm"], m, dm, gen, "hybrid")
+    # fp32 out_proj at a short prefill (256 rows: split over k), and its two
+    # gradients for the coming hybrid training: dx = ct @ w^T, dw = x^T @ ct
+    f32 = torch.float32
+    _matmul_case(prof, results["matmul"], 256, di, dm, gen, "hybrid", dtype=f32)
+    _matmul_case(prof, results["matmul"], 2048, dm, di, gen, "hybrid", tb=True, dtype=f32)
+    _matmul_case(prof, results["matmul"], di, 2048, dm, gen, "hybrid", ta=True, dtype=f32)
     # Mixtral-8x7B (d_model 4096, 8 experts of width 14336 top-2, 32/8 heads
     # of 128, window 4096, vocab 32000): the expert gemms at the capacities
     # of the 8-slot pool (2), the 2048 and 8192 prefill buckets (640, 2560)
@@ -1372,6 +1442,21 @@ def phase_hybrid(seed: int):
     if snap["tiers"].get("reference", 0):
         raise AssertionError(f"{snap['tiers']['reference']} dispatches fell to the reference tier")
     check_routes(launches, "hybrid", want=("tc", "decode", "simt"))
+    # every fp32 prefill gemm of more than 16 rows (each Mamba layer's
+    # dt_proj and out_proj) ran the register-tiled kernel, by its own
+    # counter; decode steps and the short prompts took the row kernel
+    from repro_torch.kernels.matmul import DECODE_ROWS
+
+    long_prefills = sum(n > DECODE_ROWS for n in HYBRID_LENGTHS)
+    f32 = {k: launches.get(f"matmul_simt_{k}", 0) for k in ("tile", "rows", "loop")}
+    if (f32["tile"] != 2 * n_mamba * long_prefills or f32["loop"]
+            or f32["tile"] + f32["rows"] != launches.get("matmul_simt", 0)):
+        raise AssertionError(f"fp32 gemms by kernel {f32}: expected {2 * n_mamba} "
+                             f"simt_tile launches for each of {long_prefills} prefills of "
+                             f"more than {DECODE_ROWS} tokens, none on the loop: {launches}")
+    log(f"[hybrid] fp32 gemms by kernel: simt_tile {f32['tile']} = 2 x {n_mamba} x "
+        f"{long_prefills} prefills of more than {DECODE_ROWS} tokens, simt_rows {f32['rows']}, "
+        f"simt_loop 0")
     want = {"ssm_scan": n_mamba * st["prefill_calls"], "ssm_update": n_mamba * st["decode_steps"]}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
@@ -1415,9 +1500,14 @@ def phase_hybrid(seed: int):
             lm.prefill(params, {"tokens": toks}, cfg, run, cache_len=ecfg.max_seq,
                        true_len=1500)[0].float().cpu()
 
-    profile("hybrid decode step (8 slots)", decode, 5)
+    by_name, busy = profile("hybrid decode step (8 slots)", decode, 5)
+    kernel_share("hybrid decode step", by_name, busy, "ssm_update", ("ssm_update_kernel",))
     by_name, busy = profile("hybrid prefill 1500 tokens", prefill, 2)
     kernel_share("hybrid prefill 1500 tokens", by_name, busy, "ssm_scan", ("ssm_scan_ws",))
+    kernel_share("hybrid prefill 1500 tokens", by_name, busy, "the fp32 route (every simt kernel)",
+                 ("gemm_simt",))
+    kernel_share("hybrid prefill 1500 tokens", by_name, busy, "gemm_simt (register tiles)",
+                 ("gemm_simt<",))
     del caches
 
     logits = {}

@@ -54,8 +54,11 @@
 //   zero-filled.
 // * simt (fp32; no TF32, the fp32 sites follow the reference): on the SIMT
 //   cores. Decode rows (m <= 16) run gemm_simt_rows, a read of B with each
-//   thread's loads along k in flight; more rows the WMMA loop's tiling with
-//   one column per lane.
+//   thread's loads along k in flight. More rows run gemm_simt: a 128 x 256
+//   CTA tile, an 8 x 16 register tile a thread, fed by a ring of cp.async
+//   k slices. Each output is one fmaf chain over k in
+//   increasing order from 0.f, so at one split its bits are the first
+//   port's loop's (gemm_simt_loop, kept behind GEMM_LOOP as the yardstick).
 //
 // Split-k (tc, decode, simt): the k slices are cut into `splits` ranges of
 // kps whole slices each (kernels/matmul.py:split_k), one range a CTA on
@@ -75,8 +78,8 @@
 
 typedef __nv_bfloat16 bf16;
 
-// Kernel codes passed from kernels/matmul.py (ROUTES, ROWS_CODE).
-enum { GEMM_TC = 0, GEMM_DECODE = 1, GEMM_WMMA = 2, GEMM_SIMT = 3, GEMM_ROWS = 4 };
+// Kernel codes passed from kernels/matmul.py (ROUTES, ROWS_CODE, LOOP_CODE).
+enum { GEMM_TC = 0, GEMM_DECODE = 1, GEMM_WMMA = 2, GEMM_SIMT = 3, GEMM_ROWS = 4, GEMM_LOOP = 5 };
 // Epilogue activations (kernels/fused.py:ACTS).
 enum { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2 };
 
@@ -481,7 +484,8 @@ gemm_decode(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
 }
 
 // ---------------------------------------------------------------------------
-// wmma (bf16 operands TMA cannot address) and simt (fp32)
+// The first port's tile loops: wmma (bf16 operands TMA cannot address) and
+// the fp32 loop (force_loop only)
 // ---------------------------------------------------------------------------
 
 // The (rows x cols) tile at (r0, c0) of a logical [R, C] operand stored
@@ -571,12 +575,14 @@ gemm_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restri
   }
 }
 
-// The fp32 loop, with split-k: blockIdx.z = split * batch + z, and a split
-// writes its raw partial sums to ws (C, after the epilogue, when there is
-// one split).
+// The first port's fp32 loop (GEMM_LOOP, reached only by force_loop), with
+// split-k: blockIdx.z = split * batch + z, and a split writes its raw
+// partial sums to ws (C, after the epilogue, when there is one split). One
+// shared-memory load of A an FFMA: it tops out near a quarter of the SIMT
+// cores' rate.
 template <int FM, bool TA, bool TB>
 __global__ void __launch_bounds__(512)
-gemm_simt(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+gemm_simt_loop(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
           float* __restrict__ ws, const float* __restrict__ bias, int act, int m, int n, int k,
           int batch, int lda_g, int ldb_g, long long sa, long long sb, int bm, int bn, int bk,
           int kps, bool vec) {
@@ -621,6 +627,217 @@ gemm_simt(const float* __restrict__ A, const float* __restrict__ B, float* __res
   for (int i = 0; i < 16 * FM; ++i) {
     const int gr = row0 + wr + i;
     if (gr < m) out[(size_t)gr * n + gc] = partial ? acc[i] : epilogue(acc[i], bias, act, gc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// simt: fp32 register tiles from a cp.async ring
+// ---------------------------------------------------------------------------
+//
+// What bounds it: a prefill gemm does 2 * m flops a weight element, far
+// above the bytes, so the SIMT cores' FFMA issue is the wall (one warp-FFMA
+// a clock a scheduler, 67 TFLOP/s on an H100 SXM), with the shared-memory
+// pipe that feeds the operands beside it. The first port's loop read A from
+// shared memory for every FFMA, near a quarter of that rate. Here a CTA
+// computes a 128 x 256 tile with 8 warps of 32 x 128 and a thread an
+// 8 x 16 register tile: a k step reads its 8 A values and 16 B values as
+// six 16-byte shared loads, the next step's issued before this step's 128
+// FFMAs. Both operands sit in shared memory k-major, [SIMT_BK][128 + pad]
+// and [SIMT_BK][256 + pad], so the fragments are contiguous whatever the
+// stored layout: an operand stored along M (a transposed A) or N (a
+// row-major B) is copied as it is, in the widest cp.async granule its base,
+// leading dimension and batch stride allow (16, 8 or 4 bytes:
+// kernels/matmul.py:simt_granules), and one stored along k (a row-major A,
+// a transposed B) is transposed on its way in by 4-byte element copies, a
+// warp on the 32 k of one row. A ring of SIMT_STAGES slices of 32 k keeps
+// the next slices' copies in flight behind the FFMAs, one barrier a slice.
+// A warp's lanes
+// are 4 rows by 8 columns of register tiles, each made of 4-row and
+// 4-column groups 16 rows and 32 columns apart, so a quarter warp's 16-byte
+// fragment reads are one broadcast (A) or 128 contiguous bytes (B).
+
+constexpr int SIMT_BM = 128, SIMT_BN = 256, SIMT_BK = 32, SIMT_STAGES = 3, SIMT_THREADS = 256;
+constexpr int SIMT_LDA = SIMT_BM + 4, SIMT_LDB = SIMT_BN + 4;
+constexpr int SIMT_STAGE = SIMT_BK * (SIMT_LDA + SIMT_LDB);     // floats
+
+// Shared-memory bytes of one simt CTA (kernels/matmul.py:SIMT_SMEM).
+constexpr int SIMT_SMEM = SIMT_STAGES * SIMT_STAGE * 4;
+
+// cp.async of g bytes (16, 8 or 4), the first `bytes` of them read from src
+// and the rest zero-filled.
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, int g, int bytes) {
+  if (g == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+  else if (g == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One k slice of an operand into its k-major shared tile: dst[kk][j] =
+// element (mn0 + j, k0 + kk) of a logical [MN, K] operand, zero past either
+// edge. E > 0: stored along MN, copied in granules of E elements; E == 0:
+// stored along k (at p[j * ld + k]), copied element by element, a warp on
+// the 32 k of one row (128 contiguous bytes), so each thread keeps one k
+// and steps its row by the 8 warps.
+template <int T, int E>
+__device__ __forceinline__ void simt_slice(uint32_t dst, const float* __restrict__ p,
+                                           long long ld, int MN, int K, int mn0, int k0) {
+  if constexpr (E > 0) {
+    constexpr int PER = T / E;                            // granules a row
+#pragma unroll
+    for (int q = 0; q < SIMT_BK * PER / SIMT_THREADS; ++q) {
+      const int i = threadIdx.x + q * SIMT_THREADS, kk = i / PER, j = (i % PER) * E;
+      const int gk = k0 + kk, gj = mn0 + j;
+      const int bytes = gk < K ? 4 * max(0, min(E, MN - gj)) : 0;
+      cp_async_zfill(dst + (kk * (T + 4) + j) * 4, bytes ? p + (size_t)gk * ld + gj : p, 4 * E,
+                     bytes);
+    }
+  } else {
+    constexpr int STEP = SIMT_THREADS / SIMT_BK;
+    const int kk = threadIdx.x % SIMT_BK, j0 = threadIdx.x / SIMT_BK, gk = k0 + kk;
+    const float* src = p + (size_t)(mn0 + j0) * ld + gk;
+    auto copy = [&](int q) {
+      const int j = j0 + q * STEP;
+      const bool on = gk < K && mn0 + j < MN;
+      cp_async_zfill(dst + (kk * (T + 4) + j) * 4, on ? src + (size_t)q * STEP * ld : p, 4,
+                     on ? 4 : 0);
+    };
+    // A's 16 copies unrolled whole; B's 32 (a transposed B) 8 at a time,
+    // whose addresses would otherwise crowd the accumulators out of
+    // registers
+    if constexpr (T == SIMT_BM) {
+#pragma unroll
+      for (int q = 0; q < T / STEP; ++q) copy(q);
+    } else {
+#pragma unroll 8
+      for (int q = 0; q < T / STEP; ++q) copy(q);
+    }
+  }
+}
+
+// One CTA computes a (SIMT_BM x SIMT_BN) tile of one product over its
+// split's k slices; blockIdx.z = split * batch + z, and a split writes its
+// raw partial sums to ws (C when there is one split). EA, EB: the granule in
+// elements of A and B, or 0 for one transposed on its way in (A stored
+// row-major, B transposed). EPI: the bias and activation epilogue (one
+// split only). Each is a template parameter: the k loop holds 128
+// accumulators in 255 registers a thread, and an argument or a branch kept
+// live through it costs spills.
+template <int EA, int EB, bool EPI>
+__global__ void __launch_bounds__(SIMT_THREADS, 1)
+gemm_simt(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+          float* __restrict__ ws, const float* __restrict__ bias, int act, int m, int n, int k,
+          int batch, long long lda, long long ldb, long long sa, long long sb, int kps) {
+  extern __shared__ __align__(16) float simt_smem[];
+  A += blockIdx.z % batch * sa;
+  B += blockIdx.z % batch * sb;
+  const int split = blockIdx.z / batch;
+  const int row0 = blockIdx.y * SIMT_BM, col0 = blockIdx.x * SIMT_BN;
+  const int slices = (k + SIMT_BK - 1) / SIMT_BK;
+  const int s0 = split * kps, nsl = min(s0 + kps, slices) - s0;
+  const uint32_t base = smem_addr(simt_smem);
+
+  // slice s0 + it into stage it % SIMT_STAGES: A's [BK][BM], then B's [BK][BN]
+  auto load = [&](int it) {
+    const uint32_t st = base + (it % SIMT_STAGES) * SIMT_STAGE * 4;
+    const int k0 = (s0 + it) * SIMT_BK;
+    simt_slice<SIMT_BM, EA>(st, A, lda, m, k, row0, k0);
+    simt_slice<SIMT_BN, EB>(st + SIMT_BK * SIMT_LDA * 4, B, ldb, n, k, col0, k0);
+  };
+#pragma unroll
+  for (int s = 0; s < SIMT_STAGES - 1; ++s) {
+    if (s < nsl) load(s);
+    cp_async_commit();
+  }
+
+  // lane (ly, lx) of warp (wm, wn): rows 32 wm + 16 g + 4 ly + i (g < 2),
+  // columns 128 wn + 32 h + 4 lx + j (h < 4)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_off = 32 * (warp / 2) + 4 * (lane / 8), c_off = 128 * (warp % 2) + 4 * (lane % 8);
+  float acc[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+
+  for (int it = 0; it < nsl; ++it) {
+    cp_async_wait<SIMT_STAGES - 2>();       // slice it has landed, for every thread
+    __syncthreads();                        // and every thread is done with slice it - 1
+    if (it + SIMT_STAGES - 1 < nsl) load(it + SIMT_STAGES - 1);   // into slice it - 1's stage
+    cp_async_commit();
+    const float* as = simt_smem + (it % SIMT_STAGES) * SIMT_STAGE + r_off;
+    const float* bs = simt_smem + (it % SIMT_STAGES) * SIMT_STAGE + SIMT_BK * SIMT_LDA + c_off;
+    float4 fa[2][2], fb[2][4];              // step kk's fragments in [kk % 2]
+    auto fetch = [&](int kk, int buf) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        fa[buf][g] = *reinterpret_cast<const float4*>(as + kk * SIMT_LDA + 16 * g);
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        fb[buf][h] = *reinterpret_cast<const float4*>(bs + kk * SIMT_LDB + 32 * h);
+    };
+    fetch(0, 0);
+#pragma unroll
+    for (int kk = 0; kk < SIMT_BK; ++kk) {
+      if (kk + 1 < SIMT_BK) fetch(kk + 1, (kk + 1) % 2);
+      const int cur = kk % 2;
+      const float a[8] = {fa[cur][0].x, fa[cur][0].y, fa[cur][0].z, fa[cur][0].w,
+                          fa[cur][1].x, fa[cur][1].y, fa[cur][1].z, fa[cur][1].w};
+      float b[16];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        b[4 * h] = fb[cur][h].x;
+        b[4 * h + 1] = fb[cur][h].y;
+        b[4 * h + 2] = fb[cur][h].z;
+        b[4 * h + 3] = fb[cur][h].w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // 16-byte stores where C's rows are (n a multiple of 4; C and ws are
+  // allocated aligned)
+  const int z = blockIdx.z % batch;
+  float* out = gridDim.z > batch ? ws + ((size_t)split * batch + z) * m * n
+                                 : C + (size_t)z * m * n;
+  const bool vec = n % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = row0 + r_off + 16 * (i / 4) + i % 4;
+    if (gr >= m) continue;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int gc = col0 + c_off + 32 * h;
+      if (gc >= n) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = EPI ? epilogue(acc[i][4 * h + e], bias, act, min(gc + e, n - 1))
+                   : acc[i][4 * h + e];
+      float* o = out + (size_t)gr * n + gc;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int e = 0; e < 4 && gc + e < n; ++e) o[e] = v[e];
+      }
+    }
   }
 }
 
@@ -728,8 +945,8 @@ __global__ void gemm_splitk_sum(const float* __restrict__ ws, T* __restrict__ ou
 
 static bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-// Shared-memory bytes of the WMMA / SIMT kernels; each staged tile is
-// padded on both sides so either layout fits.
+// Shared-memory bytes of the first port's WMMA and fp32 loops; each staged
+// tile is padded on both sides so either layout fits.
 static int loop_smem_bytes(int dtype, int bm, int bn, int bk) {
   if (dtype == REPRO_BF16) {
     const int stage = ((bm + 8) * (bk + 8) + (bk + 8) * (bn + 8)) * 2;
@@ -745,6 +962,7 @@ static int smem_bytes(int route, int dtype, int bm, int bn, int bk, int stages) 
     return ring_smem((bm + bn) * bk * 2, bm * (bn + 8) * 2, stages);
   if (route == GEMM_DECODE)
     return ring_smem((bn + DEC_ROWS) * bk * 2, DEC_ROWS * (bn + 4) * 4, stages);
+  if (route == GEMM_SIMT) return SIMT_SMEM;
   return loop_smem_bytes(dtype, bm, bn, bk);
 }
 
@@ -920,6 +1138,62 @@ static cudaError_t launch_rows(const Problem& p) {
   return cudaErrorInvalidValue;
 }
 
+// The elements (4, 2 or 1) of the widest cp.async granule (16, 8 or 4
+// bytes) that an fp32 operand's base, leading dimension and batch stride
+// all divide; -1 for a base that is not 4-byte aligned
+// (kernels/matmul.py:simt_granules holds the same rule).
+static int simt_granule(const void* p, long long ld, long long stride) {
+  const uintptr_t v = reinterpret_cast<uintptr_t>(p);
+  for (int g = 16; g >= 4; g /= 2)
+    if (v % g == 0 && (ld * 4) % g == 0 && (stride * 4) % g == 0) return g / 4;
+  return -1;
+}
+
+template <int EA, int EB>
+static cudaError_t launch_simt_kernel(const Problem& p, dim3 grid) {
+  const bool epi = p.splits == 1 && (p.bias != nullptr || p.act != ACT_NONE);
+  auto kernel = epi ? gemm_simt<EA, EB, true> : gemm_simt<EA, EB, false>;
+  static std::atomic<int> granted[2][MAX_DEVICES];
+  cudaError_t err = opt_in(kernel, SIMT_SMEM, granted[epi]);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, SIMT_THREADS, SIMT_SMEM, p.stream>>>(
+      static_cast<const float*>(p.a), static_cast<const float*>(p.b), static_cast<float*>(p.c),
+      p.ws, static_cast<const float*>(p.bias), p.act, p.m, p.n, p.k, p.batch, p.lda, p.ldb, p.sa,
+      p.sb, p.kps);
+  return cudaGetLastError();
+}
+
+// B's granule (0: transposed on its way in) as a template argument.
+template <int EA>
+static cudaError_t launch_simt_b(const Problem& p, dim3 grid, int eb) {
+  switch (eb) {
+    case 0: return launch_simt_kernel<EA, 0>(p, grid);
+    case 1: return launch_simt_kernel<EA, 1>(p, grid);
+    case 2: return launch_simt_kernel<EA, 2>(p, grid);
+    case 4: return launch_simt_kernel<EA, 4>(p, grid);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+static cudaError_t launch_simt(const Problem& p) {
+  const dim3 grid((p.n + SIMT_BN - 1) / SIMT_BN, (p.m + SIMT_BM - 1) / SIMT_BM,
+                  p.batch * p.splits);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  // an operand copied as it is stored (A transposed, B row-major) takes the
+  // granule its layout allows; one stored along k is transposed on its way
+  // in (granule 0)
+  const int ea = p.ta ? simt_granule(p.a, p.lda, p.sa) : 0;
+  const int eb = p.tb ? 0 : simt_granule(p.b, p.ldb, p.sb);
+  if (ea < 0 || eb < 0) return cudaErrorInvalidValue;
+  switch (ea) {
+    case 0: return launch_simt_b<0>(p, grid, eb);
+    case 1: return launch_simt_b<1>(p, grid, eb);
+    case 2: return launch_simt_b<2>(p, grid, eb);
+    case 4: return launch_simt_b<4>(p, grid, eb);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int FM>
 static cudaError_t launch_loop(const Problem& p) {
   const int threads = 32 * (p.bm / (16 * FM)) * (p.bn / 32);
@@ -941,8 +1215,8 @@ static cudaError_t launch_loop(const Problem& p) {
           static_cast<bf16*>(p.c), static_cast<const bf16*>(p.bias), p.act, p.m, p.n, p.k,    \
           (int)p.lda, (int)p.ldb, p.sa, p.sb, p.bm, p.bn, p.bk, vec);                        \
     } else {                                                                                 \
-      if ((err = allow_smem(gemm_simt<FM, TA, TB>, smem))) return err;                       \
-      gemm_simt<FM, TA, TB><<<grid, threads, smem, p.stream>>>(                              \
+      if ((err = allow_smem(gemm_simt_loop<FM, TA, TB>, smem))) return err;                  \
+      gemm_simt_loop<FM, TA, TB><<<grid, threads, smem, p.stream>>>(                         \
           static_cast<const float*>(p.a), static_cast<const float*>(p.b),                    \
           static_cast<float*>(p.c), p.ws, static_cast<const float*>(p.bias), p.act, p.m, p.n, \
           p.k, p.batch, (int)p.lda, (int)p.ldb, p.sa, p.sb, p.bm, p.bn, p.bk, p.kps, vec);     \
@@ -997,8 +1271,13 @@ static int launch(const Problem& p) {
         return cudaErrorInvalidValue;
       err = p.m <= 8 ? launch_rows<8>(p) : launch_rows<DEC_ROWS>(p);
       break;
+    case GEMM_SIMT:                 // fp32, more than 16 rows: register tiles
+      if (bf || p.bm != SIMT_BM || p.bn != SIMT_BN || p.bk != SIMT_BK || p.stages != SIMT_STAGES)
+        return cudaErrorInvalidValue;
+      err = launch_simt(p);
+      break;
     case GEMM_WMMA:
-    case GEMM_SIMT: {
+    case GEMM_LOOP: {               // the first port's tile loops: bf16 WMMA, fp32 SIMT
       if ((p.route == GEMM_WMMA) != bf || (bf && p.splits > 1) || !pow2(p.bm) || p.bm < 16 ||
           !pow2(p.bn) || p.bn < 32 || !pow2(p.bk) || p.bk < 16 ||
           32 * (p.bm / (16 * (p.bm == 16 ? 1 : 2))) * (p.bn / 32) > 512 ||

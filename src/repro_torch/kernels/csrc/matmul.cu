@@ -21,8 +21,10 @@
 // computes C^T = B^T A^T so that 64 weight columns are wgmma's M and the
 // rows its N = 16, with a deep ring of weight slices in flight per SM and
 // split-k for the narrow-n projections. fp32 (the hybrid's dt_proj and
-// out_proj) stays on the SIMT cores in full fp32, split over k at decode,
-// where its 128 column tiles over k = 16,384 would leave the card idle.
+// out_proj) stays on the SIMT cores in full fp32, bound there by FFMA
+// issue at prefill: 8 x 16 register tiles a thread fed by a cp.async ring
+// (gemm.cuh's simt kernel); split over k at decode and for short prefills,
+// where the output tiles over k = 16,384 would leave the card idle.
 #include "gemm.cuh"
 
 // Shared-memory bytes of one CTA of a route; kernels/matmul.py mirrors this.

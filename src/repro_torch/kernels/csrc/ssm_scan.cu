@@ -62,10 +62,21 @@
 //   up to 16 is guarded).
 //
 // ssm_update replaces repro/kernels/ssm_scan.py:_ssm_update_kernel (driven
-// by ssm_update_pallas): one decode step, one thread per (row, channel)
-// over a (block_d x block_b) CTA, the state read once and written once.
-// Bound at b = 8, d_inner = 16384: about 17 MB, 0.005 ms of bytes; a
-// launch costs about as much.
+// by ssm_update_pallas): one decode step, the state read once and written
+// once. Bound by its bytes: at b = 8, d_inner = 16384 about 17 MB, 0.005 ms
+// at 3.35 TB/s, and in the engine the state is cold in L2 (a whole decode
+// step runs between two updates of a layer). The first port gave a thread
+// a (row, channel) and walked the channel's 64-byte state row in four
+// float4s, so at one j a warp's accesses were 64 bytes apart and each
+// request touched 32 segments. Here `lanes` threads share a channel, lane
+// `sub` holding the float4s sub, sub + lanes, ... of its row: at lanes = 4
+// one float4 each, so a warp's state loads and stores are contiguous
+// 16-byte accesses. A CTA covers block_d channels and block_b rows; each
+// thread keeps its A float4s (pre-scaled by log2 e) in registers across
+// the rows and issues the state loads of 2 x `lanes` rows before it computes
+// any. B_t and C_t are broadcast loads; y is summed over the channel's
+// lanes by shuffles in a fixed order. h_new is computed element by element
+// as before, so its bits do not change.
 #include <string.h>
 
 #include "hopper.cuh"
@@ -354,51 +365,98 @@ ssm_scan_ws(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
   }
 }
 
-template <typename T>
-__global__ void ssm_update_kernel(const T* __restrict__ xc, const float* __restrict__ dt,
-                                  const float* __restrict__ Bm, const float* __restrict__ Cm,
-                                  const float* __restrict__ A, const float* __restrict__ h,
-                                  float* __restrict__ y, float* __restrict__ hn, int b,
-                                  int di, int ds, bool vec) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (d >= di || r >= b) return;
-  const size_t i = (size_t)r * di + d;
-  const float dtv = dt[i];
-  const float dbx = dtv * to_f32(xc[i]);
-  const float* hr = h + i * ds;
-  float* hw = hn + i * ds;
-  const float* ar = A + (size_t)d * ds;
-  const float* br = Bm + (size_t)r * ds;
-  const float* cr = Cm + (size_t)r * ds;
-  float acc = 0.f;
+// The states j .. j + 3 of a row at p: one 16-byte load when `vec` (ds a
+// multiple of 4, every base 16-byte aligned), else element loads; zero past
+// ds.
+__device__ __forceinline__ float4 states4(const float* __restrict__ p, int j, int ds, bool vec) {
+  if (j >= ds) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec) return *reinterpret_cast<const float4*>(p + j);
+  return make_float4(p[j], j + 1 < ds ? p[j + 1] : 0.f, j + 2 < ds ? p[j + 2] : 0.f,
+                     j + 3 < ds ? p[j + 3] : 0.f);
+}
+
+__device__ __forceinline__ void store_states4(float* __restrict__ p, int j, int ds, bool vec,
+                                              float4 v) {
+  if (j >= ds) return;
   if (vec) {
-    // 16-byte loads and stores of each row: ds is a multiple of 4 and every
-    // base 16-byte aligned (checked at launch)
-    for (int j = 0; j < ds; j += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(hr + j);
-      const float4 av = __ldg(reinterpret_cast<const float4*>(ar + j));
-      const float4 bv = __ldg(reinterpret_cast<const float4*>(br + j));
-      const float4 cv = __ldg(reinterpret_cast<const float4*>(cr + j));
-      float4 o;
-      o.x = fmaf(ex2_approx(dtv * (av.x * LOG2E_F)), hv.x, dbx * bv.x);
-      o.y = fmaf(ex2_approx(dtv * (av.y * LOG2E_F)), hv.y, dbx * bv.y);
-      o.z = fmaf(ex2_approx(dtv * (av.z * LOG2E_F)), hv.z, dbx * bv.z);
-      o.w = fmaf(ex2_approx(dtv * (av.w * LOG2E_F)), hv.w, dbx * bv.w);
-      *reinterpret_cast<float4*>(hw + j) = o;
-      acc = fmaf(o.x, cv.x, acc);
-      acc = fmaf(o.y, cv.y, acc);
-      acc = fmaf(o.z, cv.z, acc);
-      acc = fmaf(o.w, cv.w, acc);
+    *reinterpret_cast<float4*>(p + j) = v;
+    return;
+  }
+  p[j] = v.x;
+  if (j + 1 < ds) p[j + 1] = v.y;
+  if (j + 2 < ds) p[j + 2] = v.z;
+  if (j + 3 < ds) p[j + 3] = v.w;
+}
+
+// L lanes a channel; lane `sub` holds the float4s q = sub + L t (t < Q) of
+// its channel's states. The rows go U = 2 L at a time (eight float4s of
+// state a thread): their loads first, then each row's update, its y summed
+// over the lanes (xor 1, then 2) and stored by lane 0. Every thread of the CTA runs the row loop, live or not, so the
+// shuffles see whole warps.
+template <typename T, int L>
+__global__ void __launch_bounds__(1024)
+ssm_update_kernel(const T* __restrict__ xc, const float* __restrict__ dt,
+                  const float* __restrict__ Bm, const float* __restrict__ Cm,
+                  const float* __restrict__ A, const float* __restrict__ h,
+                  float* __restrict__ y, float* __restrict__ hn, int b, int di, int ds,
+                  int block_b, bool vec) {
+  constexpr int Q = SSM_MAX_STATE / 4 / L, U = 2 * L;
+  const int ch = threadIdx.x / L, sub = threadIdx.x % L;
+  const int d = blockIdx.x * (blockDim.x / L) + ch;
+  const bool live = d < di;
+  const int r_begin = blockIdx.y * block_b, r_end = min(b, r_begin + block_b);
+  float4 a2[Q];
+#pragma unroll
+  for (int t = 0; t < Q; ++t) {
+    const float4 av = live ? states4(A + (size_t)d * ds, 4 * (sub + L * t), ds, vec)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    a2[t] = make_float4(av.x * LOG2E_F, av.y * LOG2E_F, av.z * LOG2E_F, av.w * LOG2E_F);
+  }
+  for (int r0 = r_begin; r0 < r_end; r0 += U) {
+    float4 hv[U][Q];
+    float dtv[U], xv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool on = live && r0 + u < r_end;
+      const size_t i = (size_t)(r0 + u) * di + d;
+      dtv[u] = on ? dt[i] : 0.f;
+      xv[u] = on ? to_f32(xc[i]) : 0.f;
+#pragma unroll
+      for (int t = 0; t < Q; ++t)
+        hv[u][t] = on ? states4(h + i * ds, 4 * (sub + L * t), ds, vec)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-  } else {
-    for (int j = 0; j < ds; ++j) {
-      const float v = fmaf(ex2_approx(dtv * (ar[j] * LOG2E_F)), hr[j], dbx * br[j]);
-      hw[j] = v;
-      acc = fmaf(v, cr[j], acc);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u;
+      const bool row = r < r_end, on = live && row;
+      const size_t i = (size_t)r * di + d;
+      const float dbx = dtv[u] * xv[u];
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t < Q; ++t) {
+        const int j = 4 * (sub + L * t);
+        const float4 bv = row ? states4(Bm + (size_t)r * ds, j, ds, vec)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 cv = row ? states4(Cm + (size_t)r * ds, j, ds, vec)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 hh = hv[u][t];
+        float4 o;
+        o.x = fmaf(ex2_approx(dtv[u] * a2[t].x), hh.x, dbx * bv.x);
+        o.y = fmaf(ex2_approx(dtv[u] * a2[t].y), hh.y, dbx * bv.y);
+        o.z = fmaf(ex2_approx(dtv[u] * a2[t].z), hh.z, dbx * bv.z);
+        o.w = fmaf(ex2_approx(dtv[u] * a2[t].w), hh.w, dbx * bv.w);
+        if (on) store_states4(hn + i * ds, j, ds, vec, o);
+        acc = fmaf(o.x, cv.x, acc);
+        acc = fmaf(o.y, cv.y, acc);
+        acc = fmaf(o.z, cv.z, acc);
+        acc = fmaf(o.w, cv.w, acc);
+      }
+#pragma unroll
+      for (int off = 1; off < L; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (on && sub == 0) y[i] = acc;
     }
   }
-  y[i] = acc;
 }
 
 struct ScanArgs {
@@ -538,27 +596,47 @@ extern "C" int repro_ssm_scan(const void* xc, const float* dt, const float* B, c
   return bf16 ? by_state<__nv_bfloat16>(a, lanes) : by_state<float>(a, lanes);
 }
 
+template <typename T>
+static cudaError_t update_by_lanes(dim3 grid, int threads, cudaStream_t st, int lanes,
+                                  const T* xc, const float* dt, const float* B, const float* C,
+                                  const float* A, const float* h, float* y, float* hn, int b,
+                                  int di, int ds, int block_b, bool vec) {
+#define REPRO_UPDATE(L)                                                                     \
+  if (lanes == L) {                                                                         \
+    ssm_update_kernel<T, L><<<grid, threads, 0, st>>>(xc, dt, B, C, A, h, y, hn, b, di, ds, \
+                                                      block_b, vec);                        \
+    return cudaGetLastError();                                                              \
+  }
+  REPRO_UPDATE(1)
+  REPRO_UPDATE(2)
+  REPRO_UPDATE(4)
+#undef REPRO_UPDATE
+  return cudaErrorInvalidValue;
+}
+
+// One decode step over a (block_d channels x block_b rows) CTA of
+// block_d * lanes threads (kernels/ssm_scan.py:SSM_UPDATE_SPACE).
 extern "C" int repro_ssm_update(const void* xc, const float* dt, const float* B,
                                 const float* C, const float* A, const float* h, float* y,
                                 float* hn, int b, int di, int ds, int dtype, int block_b,
-                                int block_d, void* stream) {
-  if (block_b < 1 || block_d < 1 || ds < 1) return cudaErrorInvalidValue;
+                                int block_d, int lanes, void* stream) {
+  const int threads = block_d * lanes;
+  if ((lanes != 1 && lanes != 2 && lanes != 4) || block_b < 1 || block_d < 1 || threads < 32 ||
+      threads > 1024 || threads % 32 || ds < 1 || ds > SSM_MAX_STATE)
+    return cudaErrorInvalidValue;
   if (b <= 0 || di <= 0) return cudaSuccess;
-  const dim3 block(block_d, block_b);
   const uintptr_t bases = reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(C) |
                           reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(h) |
                           reinterpret_cast<uintptr_t>(hn);
   const bool vec = ds % 4 == 0 && bases % 16 == 0;
   const dim3 grid((di + block_d - 1) / block_d, (b + block_b - 1) / block_b);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_BF16) {
-    ssm_update_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(xc), dt, B, C, A, h, y, hn, b, di, ds, vec);
-  } else if (dtype == REPRO_F32) {
-    ssm_update_kernel<float><<<grid, block, 0, st>>>(static_cast<const float*>(xc), dt, B, C,
-                                                     A, h, y, hn, b, di, ds, vec);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == REPRO_BF16)
+    return update_by_lanes(grid, threads, st, lanes, static_cast<const __nv_bfloat16*>(xc), dt,
+                           B, C, A, h, y, hn, b, di, ds, block_b, vec);
+  if (dtype == REPRO_F32)
+    return update_by_lanes(grid, threads, st, lanes, static_cast<const float*>(xc), dt, B, C,
+                           A, h, y, hn, b, di, ds, block_b, vec);
+  return cudaErrorInvalidValue;
 }

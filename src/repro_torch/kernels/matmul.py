@@ -20,8 +20,13 @@ config's ``bm``; never chosen by catching a failure):
   or batch stride that is not a multiple of 16 bytes): the first port's
   WMMA tile loop, at :func:`wmma_tiles` whatever the config;
 * ``simt`` -- fp32 (the hybrid's ``dt_proj`` and ``out_proj``; full fp32, no
-  TF32, as the reference): the SIMT tile loop at :func:`simt_tiles`
-  whatever the config.
+  TF32, as the reference), on the SIMT cores at :func:`simt_tiles` whatever
+  the config: a row kernel for decode rows, else 8 x 16 register tiles a
+  thread in 128 x 256 CTA tiles fed by a cp.async ring, each
+  operand copied in the granule :func:`simt_granules` names. Each launch
+  also counts its kernel: ``<name>_simt_rows``, ``<name>_simt_tile``, or
+  ``<name>_simt_loop`` for the first port's loop that ``force_loop``
+  reaches.
 
 Knobs (the tensor-core routes' launch parameters, under the JAX package's
 names plus two): ``bm`` (16: the decode route; 64 or 128: one or two
@@ -59,6 +64,7 @@ from . import _build, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"tc": 0, "decode": 1, "wmma": 2, "simt": 3}     # gemm.cuh's kernel codes
 ROWS_CODE = 4               # the simt route's fp32 decode-row kernel
+LOOP_CODE = 5               # the first port's fp32 tile loop (force_loop)
 DECODE_ROWS = 16            # the decode route's N: rows of x a CTA
 MAX_THREADS = 288           # two consumer warpgroups and the producer warp
 MAX_ACC = 128               # fp32 accumulator registers a consumer thread
@@ -184,6 +190,10 @@ def gemm_heuristic(rows: int, n: int, k: int, batch: int = 1) -> dict:
 
 
 ROWS_COLS, ROWS_KC = 512, 64     # gemm.cuh's fp32 decode-row kernel: columns a CTA, k slice
+# gemm.cuh's simt kernel: its one tile and its shared memory (the ring
+# of k-major A and B slices, rows padded by 4 floats)
+SIMT_TILE = {"bm": 128, "bn": 256, "bk": 32, "stages": 3}
+SIMT_SMEM = SIMT_TILE["stages"] * SIMT_TILE["bk"] * (SIMT_TILE["bm"] + SIMT_TILE["bn"] + 8) * 4
 
 
 def simt_tiles(rows: int, n: int, k: int, batch: int = 1) -> dict:
@@ -191,12 +201,40 @@ def simt_tiles(rows: int, n: int, k: int, batch: int = 1) -> dict:
     gemm.cuh's row kernel: 512 columns a CTA (4 a thread), k in slices of
     64, split over k until the grid holds four CTAs an SM (the product is a
     read of the weight, and each thread keeps its loads along k in flight).
-    More rows run the SIMT tile loop at 64 x 64 tiles in k slices of 64."""
+    More rows run the register-tiled kernel: 128 x 256 output tiles of 256
+    threads (an 8 x 16 tile each), k in slices of 32 through a ring of 3,
+    one CTA an SM (255 registers a thread, 147 KB of shared memory). When
+    its tiles do not fill that wave of 132 and k is long (:data:`LONG_K`),
+    it splits over k, each split at least 16 slices: a short prefill's
+    ``out_proj`` (256 rows over k = 16,384: 64 tiles) in 4."""
     if rows <= DECODE_ROWS:
-        return {"bm": DECODE_ROWS, "bn": ROWS_COLS, "bk": ROWS_KC,
+        return {"bm": DECODE_ROWS, "bn": ROWS_COLS, "bk": ROWS_KC, "stages": 1,
                 "splits": _splits_for(_cdiv(n, ROWS_COLS) * batch, _cdiv(k, ROWS_KC),
                                       4 * H100_SXM.sm_count, min_slices=1, max_splits=32)}
-    return {"bm": 64, "bn": 64, "bk": 64, "splits": 1}
+    tiles = _cdiv(rows, SIMT_TILE["bm"]) * _cdiv(n, SIMT_TILE["bn"]) * batch
+    splits = (_splits_for(tiles, _cdiv(k, SIMT_TILE["bk"]), H100_SXM.sm_count, min_slices=16)
+              if k >= LONG_K else 1)
+    return dict(SIMT_TILE, splits=splits)
+
+
+def _granule(addr_mod16: int, ld: int, stride: int) -> int:
+    for g in (16, 8, 4):
+        if addr_mod16 % g == 0 and ld * 4 % g == 0 and stride * 4 % g == 0:
+            return g
+    return 0
+
+
+def simt_granules(x: torch.Tensor, w: torch.Tensor):
+    """The cp.async granule in bytes (16, 8 or 4) in which the simt kernel
+    copies each fp32 operand into its k-major shared tile: an operand stored
+    along M or N (a transposed x, a row-major w) as it is stored, in the
+    widest granule its base, leading dimension and batch stride all divide;
+    one stored along k (a row-major x, a transposed w) element by element (4),
+    transposed on its way in. gemm.cuh's launch_simt holds the same rule."""
+    (ta, lda, sa), (tb, ldb, sb) = operand(x), operand(w)
+    ga = _granule(x.data_ptr() % 16, lda, sa) if ta else 4
+    gb = 4 if tb else _granule(w.data_ptr() % 16, ldb, sb)
+    return ga, gb
 
 
 def wmma_tiles(rows: int) -> dict:
@@ -307,25 +345,26 @@ def _plan(bf16: bool, xd, wd, cfg, force_loop: bool) -> dict:
     batch = xs[0] if len(xs) == 3 else 1
     if force_loop:
         r = "wmma" if bf16 else "simt"
-        t, code = dict(wmma_tiles(rows), stages=1), ROUTES[r]
+        t, code = dict(wmma_tiles(rows), stages=1), ROUTES["wmma"] if bf16 else LOOP_CODE
+        kernel = "loop"
     else:
         r = _route(bf16, xd, wd, cfg["bm"])
-        code = ROUTES[r]
+        code, kernel = ROUTES[r], r
         if r == "simt":
-            t = dict(simt_tiles(rows, n, k, batch), stages=1)
-            if t["bm"] == DECODE_ROWS:
-                code = ROWS_CODE
+            t = simt_tiles(rows, n, k, batch)
+            code, kernel = (ROWS_CODE, "rows") if t["bm"] == DECODE_ROWS else (code, "tile")
         elif r == "wmma":
             t = dict(wmma_tiles(rows), stages=1)
         else:
             t = {key: cfg[key] for key in ("bm", "bn", "bk", "stages", "splits")}
     kps, splits = split_k(k, t["bk"], t["splits"])
-    return dict(t, route=r, code=code, kps=kps, splits=splits)
+    return dict(t, route=r, code=code, kernel=kernel, kps=kps, splits=splits)
 
 
 def plan(x, w, cfg, force_loop: bool = False) -> dict:
-    """The launch of one call (read only): its route, the kernel's code,
-    tiles, ring depth and split-k partition (``kps`` slices a split,
+    """The launch of one call (read only): its route, the kernel's code and
+    name (``kernel``: the route, or on the fp32 route ``rows``, ``tile`` or
+    ``loop``), tiles, ring depth and split-k partition (``kps`` slices a split,
     ``splits`` of them). ``force_loop`` takes the first port's tile loop
     (WMMA in bf16, SIMT in fp32) at its heuristic's tiles, whatever the rule
     says. Cached on what the rule reads, so a decode step's repeated shapes
@@ -336,9 +375,12 @@ def plan(x, w, cfg, force_loop: bool = False) -> dict:
 
 def count_launch(name: str, p: dict, transposed: bool) -> None:
     """A launch of ``name`` on route p["route"] (one count each: the kernel,
-    its route, and transposed operands or split-k where they apply)."""
+    its route, the fp32 route's kernel, and transposed operands or split-k
+    where they apply)."""
     _build.LAUNCHES[name] += 1
     _build.LAUNCHES[f"{name}_{p['route']}"] += 1
+    if p["route"] == "simt":
+        _build.LAUNCHES[f"{name}_simt_{p['kernel']}"] += 1
     if transposed:
         _build.LAUNCHES[f"{name}_transposed"] += 1
     if p["splits"] > 1:

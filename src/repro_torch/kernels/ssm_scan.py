@@ -42,8 +42,12 @@ is the time steps of a slice, ``stages`` the slices of the ring,
 ``block_d * lanes`` consumer threads (one warp to 512) plus the producer
 warp, and ``stages`` slices of ``chunk * (block_d * 8 + 2 * d_state * 4)``
 bytes at most (:func:`scan_smem_bytes`) within the 227 KB a block may use.
-The update's CTA is ``block_d`` channels by ``block_b`` rows, at most 1,024
-threads.
+The update is bound by its bytes (the state read and written once);
+``lanes`` threads share a channel's 16 states, a float4 each at four lanes,
+so a warp's state accesses are contiguous 16-byte runs. Its CTA is
+``block_d`` channels by ``block_b`` rows, ``block_d * lanes`` threads (one
+warp to 1,024); each thread keeps its float4s of A in registers across the
+CTA's rows.
 
 No backward: serving is the path these kernels are on. A kernel-mode
 dispatch on tensors that need a gradient raises (``vjp="none"``); hybrid
@@ -101,12 +105,13 @@ SSM_SCAN_SPACE = ParamSpace(
 
 SSM_UPDATE_SPACE = ParamSpace(
     [
-        PowerOfTwoParam("block_b", 1, 64),
-        PowerOfTwoParam("block_d", 32, 1024),
+        PowerOfTwoParam("block_b", 1, 8),
+        PowerOfTwoParam("block_d", 8, 1024),
+        EnumParam("lanes", (1, 2, 4)),
     ],
     [
-        Constraint(lambda c: c["block_b"] * c["block_d"] <= H100_SXM.max_threads_per_block,
-                   "block_b x block_d exceeds 1024 threads a CTA"),
+        Constraint(lambda c: 32 <= c["block_d"] * c["lanes"] <= H100_SXM.max_threads_per_block,
+                   "block_d x lanes threads outside one warp .. 1024 a CTA"),
     ],
 )
 
@@ -130,9 +135,10 @@ def _ssm_scan_heuristic(xc, dt, B, C, A, h0):
 
 
 def _ssm_update_heuristic(xc, dt, B, C, A, h):
-    """128 channels by two rows a CTA (one row at b = 1): 512 CTAs at the
-    8-slot pool, d_inner = 16384."""
-    return {"block_b": 1 if xc.shape[0] == 1 else 2, "block_d": 128}
+    """Four lanes a channel (a float4 of the 16 states each), 64 channels a
+    CTA of 256 threads, and up to 8 rows a CTA (every row of the 8-slot
+    pool: A read once a channel): 256 CTAs at d_inner = 16384, two an SM."""
+    return {"block_b": min(8, _pow2_at_least(xc.shape[0])), "block_d": 64, "lanes": 4}
 
 
 def _contiguous(*args):
@@ -308,7 +314,10 @@ def ssm_update_plain(xc, dt, B, C, A, h):
     return (hn * C[:, None, :]).sum(-1), hn
 
 
-def ssm_update_cuda(xc, dt, B, C, A, h, *, block_b: int, block_d: int):
+_UPDATE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def ssm_update_cuda(xc, dt, B, C, A, h, *, block_b: int, block_d: int, lanes: int):
     """Launch the decode update of csrc/ssm_scan.cu on CUDA tensors."""
     if xc.dim() != 2 or A.dim() != 2:
         raise ValueError(f"ssm_update takes xc [b,di] and A [di,ds], got {tuple(xc.shape)}, "
@@ -318,13 +327,12 @@ def ssm_update_cuda(xc, dt, B, C, A, h, *, block_b: int, block_d: int):
     _check_ssm("ssm_update", xc, dt, B, C, A, h, (b,))
     y = torch.empty((b, di), dtype=torch.float32, device=xc.device)
     hn = torch.empty((b, di, ds), dtype=torch.float32, device=xc.device)
-    fn = _build.entry("ssm_scan", "repro_ssm_update",
-                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn = _build.entry("ssm_scan", "repro_ssm_update", _UPDATE_ARGTYPES)
     err = fn(xc.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
              h.data_ptr(), y.data_ptr(), hn.data_ptr(), b, di, ds, _DTYPES[xc.dtype], block_b,
-             block_d, _build.stream_ptr(xc.device))
+             block_d, lanes, _build.stream_ptr(xc.device))
     _build.check("ssm_scan", err, f"ssm_update b={b} di={di} ds={ds} block_b={block_b} "
-                                  f"block_d={block_d}")
+                                  f"block_d={block_d} lanes={lanes}")
     _build.LAUNCHES["ssm_update"] += 1
     return y, hn
 
@@ -337,9 +345,10 @@ def ssm_update_cuda(xc, dt, B, C, A, h, *, block_b: int, block_d: int):
     dispatch=DispatchSpec(canonicalize=_contiguous, example=_ssm_update_example,
                           data_parallel_args=(0, 1, 2, 3, 5), vjp="none"),
 )
-def ssm_update(xc, dt, B, C, A, h, *, block_b: int, block_d: int):
+def ssm_update(xc, dt, B, C, A, h, *, block_b: int, block_d: int, lanes: int):
     if xc.is_cuda:
-        return ssm_update_cuda(xc, dt, B, C, A, h, block_b=block_b, block_d=block_d)
+        return ssm_update_cuda(xc, dt, B, C, A, h, block_b=block_b, block_d=block_d,
+                               lanes=lanes)
     if xc.device.type == "cpu":
         return ssm_update_plain(xc, dt, B, C, A, h)
     raise RuntimeError(f"ssm_update has no kernel for device {xc.device}")

@@ -55,12 +55,25 @@ def test_simt_and_wmma_tiles_follow_their_rule_whatever_the_config():
     assert len(plans) == 1
     p = dict(plans.pop())
     assert p["route"] == "simt" and p["code"] == mm.ROWS_CODE and p["bn"] == mm.ROWS_COLS
-    assert p["splits"] > 1                          # 16 column blocks over k = 16,384
-    assert mm.simt_tiles(2048, 8192, 16384) == {"bm": 64, "bn": 64, "bk": 64, "splits": 1}
+    assert p["kernel"] == "rows" and p["splits"] > 1   # 16 column blocks over k = 16,384
+    # more rows: the register-tiled kernel, 128 x 256 tiles in 32-deep k
+    # slices through a ring of 3, whatever the config
+    assert mm.simt_tiles(2048, 8192, 16384) == {"bm": 128, "bn": 256, "bk": 32, "stages": 3,
+                                                "splits": 1}
+    x = _meta(2048, 16384, dtype=F32)
+    plans = {tuple(mm.plan(x, w, c).items()) for c in list(mm.MATMUL_SPACE.enumerate())[::37]}
+    assert len(plans) == 1
+    p = dict(plans.pop())
+    assert p["code"] == mm.ROUTES["simt"] and p["kernel"] == "tile" and p["bm"] == 128
     for rows in (8, 37, 2048):
         t = mm.wmma_tiles(rows)
         assert mm.loop_threads(t) <= 512 and mm.loop_smem_bytes(t, 2) <= SMEM
-        assert mm.loop_smem_bytes(mm.simt_tiles(rows, 64, 64), 4) <= SMEM
+        assert mm.loop_threads(t) <= 512 and mm.loop_smem_bytes(t, 4) <= SMEM   # fp32 loop
+    for rows in (17, 37, 64, 65, 2048):
+        assert mm.simt_tiles(rows, 64, 64) == dict(mm.SIMT_TILE, splits=1)
+    # a ring of three 32-deep slices of A and B, rows padded by 4 floats:
+    # 147 KB, one CTA an SM
+    assert mm.SIMT_SMEM == 3 * 32 * (132 + 260) * 4 <= SMEM < 2 * mm.SIMT_SMEM
 
 
 # qwen2_0_5b, Jamba-1.5-Large (d_model 8192, d_inner 16384, dt_rank 512,
@@ -226,3 +239,85 @@ def test_matmul_bias_act_route_rule_is_matmuls(x, w, want):
         assert p["code"] == mm.ROWS_CODE
     # force_loop: the first port's tile loop, the before of a same-call timing
     assert mm.plan(x, w, cfg, force_loop=True)["route"] == ("simt" if want == "simt" else "wmma")
+
+
+# The fp32 route's register-tiled kernel (more than 16 rows) at every shape
+# of the hybrid's fp32 gemms: dt_proj [rows, 512] @ [512, d_inner] and
+# out_proj [rows, d_inner] @ [d_inner, 8192], forward and, for the coming
+# hybrid training, out_proj's dx = ct @ w^T and dw = x^T @ ct; d_inner 16384
+# and a ragged 16380.
+HYBRID_F32 = [(rows, k, n) for rows in (17, 37, 64, 200, 256, 1000, 1500, 2048)
+              for di in (16384, 16380) for k, n in ((512, di), (di, 8192))]
+
+
+@pytest.mark.parametrize("rows,k,n", HYBRID_F32)
+def test_simt_tiles_fit_the_h100_at_every_hybrid_shape(rows, k, n):
+    t = mm.simt_tiles(rows, n, k)
+    assert {key: t[key] for key in mm.SIMT_TILE} == mm.SIMT_TILE
+    # the ring within a block's shared memory, and each split a range of
+    # whole slices covering k
+    assert mm.SIMT_SMEM <= SMEM and mm.SIMT_SMEM + 1024 <= H100_SXM.smem_per_sm
+    kps, splits = mm.split_k(k, t["bk"], t["splits"])
+    assert splits == t["splits"] and kps * splits * t["bk"] >= k
+    for x, w in ((_meta(rows, k, dtype=F32), _meta(k, n, dtype=F32)),          # forward
+                 (_meta(rows, n, dtype=F32), _meta(k, n, dtype=F32).T),        # dx
+                 (_meta(rows, k, dtype=F32).T, _meta(rows, n, dtype=F32))):    # dw
+        p = mm.plan(x, w, mm.matmul.default_config(x, w))
+        assert p["route"] == "simt" and p["kernel"] == "tile"
+        assert p["code"] == mm.ROUTES["simt"] and p["bn"] == 256
+
+
+@pytest.mark.parametrize("rows,want", [(17, 8), (37, 8), (128, 8), (129, 4), (200, 4),
+                                       (256, 4), (300, 2), (600, 1), (1500, 1), (2048, 1)])
+def test_simt_splits_few_rows_over_a_long_k(rows, want):
+    """out_proj over k = 16,384: split until the tiles fill a wave of the
+    132 SMs (one CTA an SM), each split at least 16 slices of 32; none once
+    the tiles fill it (2048 rows: 512 tiles), and none over dt_proj's
+    k = 512."""
+    t = mm.simt_tiles(rows, 8192, 16384)
+    assert t["splits"] == want
+    wave = H100_SXM.sm_count
+    tiles = -(-rows // t["bm"]) * 32
+    assert tiles * t["splits"] >= wave
+    assert t["splits"] == 1 or tiles * t["splits"] // 2 < wave
+    assert mm.simt_tiles(rows, 16384, 512)["splits"] == 1
+    assert mm.simt_tiles(rows, 8192, mm.LONG_K - 16)["splits"] == 1
+
+
+def test_simt_granules_follow_the_operands_layout_and_alignment():
+    """A row-major x and a transposed w are stored along k: transposed on
+    their way into shared memory, element by element (4 bytes). A transposed
+    x and a row-major w are copied as stored, in the widest granule that
+    their base, leading dimension and batch stride divide."""
+    f = lambda *s: torch.zeros(*s, dtype=F32)
+    x, w = f(64, 512), f(512, 256)
+    assert mm.simt_granules(x, w) == (4, 16)                  # row-major x, aligned w
+    assert mm.simt_granules(f(512, 64).T, f(256, 512).T) == (16, 4)
+    assert mm.simt_granules(x, f(512, 16380)) == (4, 16)      # 65,520-byte rows
+    assert mm.simt_granules(x, f(512, 258)[:, :256]) == (4, 8)     # rows of 1,032 bytes
+    assert mm.simt_granules(x, f(512, 257)[:, :256]) == (4, 4)     # rows of 1,028 bytes
+    flat = f(512 * 256 + 2)
+    assert mm.simt_granules(x, flat[2:].view(512, 256)) == (4, 8)  # base 8 bytes off
+    assert mm.simt_granules(x, flat[1:-1].view(512, 256)) == (4, 4)
+    xt = f(512 * 64 + 1)[1:].view(512, 64).T                   # a transposed x, 4 bytes off
+    assert mm.simt_granules(xt, w) == (4, 16)
+    # 3-D operands (expert_gemm): the batch stride joins the rule
+    assert mm.simt_granules(f(3, 40, 64), f(3, 64, 130)) == (4, 8)
+    assert mm.simt_granules(f(3, 64, 40).transpose(1, 2), f(3, 64, 128)) == (16, 16)
+    assert mm.simt_granules(f(3, 64, 37).transpose(1, 2), f(3, 64, 128)) == (4, 16)
+
+
+def test_forced_fp32_loop_keeps_the_first_ports_loop():
+    """force_loop reaches the first port's fp32 loop (its own kernel code)
+    at the WMMA rule's tiles; the rule itself takes the register tiles."""
+    x, w = _meta(2048, 16384, dtype=F32), _meta(16384, 8192, dtype=F32)
+    cfg = mm.matmul.default_config(x, w)
+    loop, tile = mm.plan(x, w, cfg, force_loop=True), mm.plan(x, w, cfg)
+    assert loop["route"] == tile["route"] == "simt"
+    assert (loop["kernel"], loop["code"]) == ("loop", mm.LOOP_CODE)
+    assert (tile["kernel"], tile["code"]) == ("tile", mm.ROUTES["simt"])
+    assert {k: loop[k] for k in ("bm", "bn", "bk", "splits")} == \
+        dict(mm.wmma_tiles(2048), splits=1)
+    bf = mm.plan(_meta(2048, 512), _meta(512, 256), mm.gemm_heuristic(2048, 256, 512),
+                 force_loop=True)
+    assert (bf["route"], bf["kernel"], bf["code"]) == ("wmma", "loop", mm.ROUTES["wmma"])

@@ -56,6 +56,8 @@ def _route_counts(name, x, w, cfg, force_loop=False):
     """The launch counts one call of ``name`` on (x, w) at ``cfg`` must add."""
     p = mm.plan(x, w, cfg if "bm" in cfg else dict(cfg, bm=cfg["bc"]), force_loop)
     want = {name: 1, f"{name}_{p['route']}": 1}
+    if p["route"] == "simt":                  # fp32: its kernel too (rows, tile, loop)
+        want[f"{name}_simt_{p['kernel']}"] = 1
     lay = [mm.operand(t)[0] for t in (x, w)]
     if any(lay):
         want[f"{name}_transposed"] = 1
@@ -304,6 +306,141 @@ def test_forced_wmma_route_matches_plain(cuda, ta, tb, m):
     assert kernels.launch_counts() == _route_counts("matmul", x, w, cfg, force_loop=True)
     assert kernels.launch_counts()["matmul_wmma"] == 1
     _close(out, mm.matmul_plain(x, w), torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 route's register-tiled kernel (more than 16 rows)
+# ---------------------------------------------------------------------------
+
+# Ragged m, n and k: rows and columns that no 128 x 256 tile divides, k
+# that no 32-deep slice divides, a k shorter than one slice.
+SIMT_SHAPES = [(17, 328, 200), (64, 16, 130), (65, 1000, 37), (300, 333, 129), (129, 7, 257)]
+
+
+def _simt_operands(rs, m, k, n, ta, tb, device):
+    x = _t(rs, (k, m) if ta else (m, k), torch.float32, device)
+    w = _t(rs, (n, k) if tb else (k, n), torch.float32, device, k ** -0.5)
+    return (x.T if ta else x), (w.T if tb else w)
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("m,k,n", SIMT_SHAPES)
+def test_simt_kernel_matches_plain_and_the_first_loop_bit_for_bit(cuda, ta, tb, m, k, n):
+    """All four layouts on ragged shapes: the register-tiled kernel agrees
+    with the plain version and, at one split, with the first port's loop
+    bit for bit (one fmaf chain over k from 0 an output, in both)."""
+    x, w = _simt_operands(np.random.RandomState(m + k + n), m, k, n, ta, tb, cuda)
+    cfg = mm.matmul.default_config(x, w)
+    p = mm.plan(x, w, cfg)
+    assert p["kernel"] == "tile" and p["splits"] == 1 and (p["bm"], p["bn"]) == (128, 256)
+    kernels.reset_launch_counts()
+    out = mm.matmul_cuda(x, w, **cfg)
+    loop = mm.matmul_cuda(x, w, **cfg, force_loop=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["matmul_simt_tile"] == counts["matmul_simt_loop"] == 1
+    assert counts["matmul_simt"] == counts["matmul"] == 2
+    _close(out, mm.matmul_plain(x, w), torch.float32)
+    assert torch.equal(out, loop)
+
+
+def _strided(rs, rows, cols, ld, offset, device):
+    """A [rows, cols] fp32 view with leading dimension ld whose base is
+    ``offset`` elements past a 16-byte aligned one."""
+    buf = torch.zeros(rows * ld + offset + 4, dtype=torch.float32, device=device)
+    v = buf[offset:offset + rows * ld].view(rows, ld)[:, :cols]
+    v.copy_(_t(rs, (rows, cols), torch.float32, device))
+    return v
+
+
+# (granule, leading-dimension padding, base offset in elements): 16 bytes
+# (aligned), 8 (a leading dimension of 2 mod 4, or a base 8 bytes off), 4
+# (an odd leading dimension, or a base 4 bytes off).
+GRANULES = [(16, 0, 0), (8, 2, 0), (8, 0, 2), (4, 1, 0), (4, 0, 1)]
+
+
+@pytest.mark.parametrize("g,pad,offset", GRANULES)
+@pytest.mark.parametrize("side", ["x", "w"])
+def test_simt_kernel_copies_in_every_granule(cuda, g, pad, offset, side):
+    """The operand copied as it is stored (a transposed x, a row-major w) in
+    the granule the rule names from its base and leading dimension; the
+    other one element by element."""
+    rs = np.random.RandomState(g + pad + offset)
+    m, k, n = 100, 300, 132
+    if side == "x":          # x^T stored [k, m]
+        x = _strided(rs, k, m, m + pad, offset, cuda).T
+        w = _t(rs, (n, k), torch.float32, cuda, k ** -0.5).T
+        want = (g, 4)
+    else:
+        x = _t(rs, (m, k), torch.float32, cuda)
+        w = _strided(rs, k, n, n + pad, offset, cuda)
+        want = (4, g)
+    assert mm.simt_granules(x, w) == want
+    cfg = mm.matmul.default_config(x, w)
+    out = mm.matmul_cuda(x, w, **cfg)
+    loop = mm.matmul_cuda(x, w, **cfg, force_loop=True)
+    torch.cuda.synchronize()
+    _close(out, mm.matmul_plain(x, w), torch.float32)
+    assert torch.equal(out, loop)
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("m,n", [(17, 300), (200, 130), (256, 1024)])
+def test_simt_kernel_splits_a_long_k_deterministically(cuda, ta, tb, m, n):
+    """Few rows over k = 16,384 (a short prefill's out_proj, narrower): the
+    rule splits over k; two launches agree bit for bit."""
+    k = 16384
+    x, w = _simt_operands(np.random.RandomState(m + n), m, k, n, ta, tb, cuda)
+    cfg = mm.matmul.default_config(x, w)
+    p = mm.plan(x, w, cfg)
+    assert p["kernel"] == "tile" and p["splits"] > 1
+    kernels.reset_launch_counts()
+    outs = [mm.matmul_cuda(x, w, **cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["matmul_splitk"] == 2
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], mm.matmul_plain(x, w), torch.float32)
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "silu"])
+@pytest.mark.parametrize("m,k,n", [(300, 333, 129), (40, 16384, 260)])
+def test_simt_kernel_runs_the_fp32_epilogue(cuda, act, m, k, n):
+    """matmul_bias_act's bias and activation on the register tiles' fp32
+    accumulator (and, split over k, in the second pass)."""
+    rs = np.random.RandomState(m + k)
+    x = _t(rs, (m, k), torch.float32, cuda)
+    w = _t(rs, (k, n), torch.float32, cuda, k ** -0.5)
+    b = _t(rs, (n,), torch.float32, cuda, 0.5)
+    cfg = fu.matmul_bias_act.default_config(x, w, b)
+    p = mm.plan(x, w, cfg)
+    assert p["kernel"] == "tile" and (p["splits"] > 1) == (k >= mm.LONG_K)
+    kernels.reset_launch_counts()
+    out = fu.matmul_bias_act_cuda(x, w, b, act=act, **cfg)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["matmul_bias_act_simt_tile"] == 1
+    _close(out, fu.matmul_bias_act_plain(x, w, b, act), torch.float32)
+
+
+@pytest.mark.parametrize("form", ["x@w", "ct@wT", "xT@ct"])
+@pytest.mark.parametrize("e,c,k,n", [(3, 37, 100, 130), (8, 640, 512, 264)])
+def test_expert_gemm_fp32_takes_the_simt_kernel(cuda, form, e, c, k, n):
+    """expert_gemm in fp32 on the register tiles: 3-D operands, their
+    transposed (swapaxes) views, the batch stride in the copy granules."""
+    rs = np.random.RandomState(e + c + k)
+    if form == "x@w":
+        x, w = _t(rs, (e, c, k), torch.float32, cuda), _t(rs, (e, k, n), torch.float32, cuda)
+    elif form == "ct@wT":
+        x = _t(rs, (e, c, n), torch.float32, cuda)
+        w = _t(rs, (e, k, n), torch.float32, cuda).transpose(1, 2)
+    else:
+        x = _t(rs, (e, c, k), torch.float32, cuda).transpose(1, 2)
+        w = _t(rs, (e, c, n), torch.float32, cuda)
+    cfg = mg.expert_gemm.default_config(x, w)
+    kernels.reset_launch_counts()
+    out = mg.expert_gemm_cuda(x, w, **cfg)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["expert_gemm_simt_tile"] == 1
+    _close(out, mg.expert_gemm_plain(x, w), torch.float32)
 
 
 def test_matmul_kernel_reads_a_row_stride(cuda):
@@ -750,11 +887,39 @@ def test_ssm_update_unaligned_rows_match_plain(cuda):
     shifted = lambda t: torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
     args = (xc, dt, shifted(B), shifted(C), A, shifted(h))
     assert all(a.is_contiguous() for a in args) and args[2].data_ptr() % 16 == 4
-    y, hn = ss.ssm_update_cuda(*args, block_b=2, block_d=32)
+    y, hn = ss.ssm_update_cuda(*args, block_b=2, block_d=32, lanes=4)
     torch.cuda.synchronize()
     p_y, p_h = ss.ssm_update_plain(*args)
     _close(y, p_y, torch.float32)
     _close(hn, p_h, torch.float32)
+
+
+def _shifted(t, device):
+    """A contiguous copy of t one element past a 16-byte aligned base."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("di", [16380, 100])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("config", UPDATE_CONFIGS, ids=ss.SSM_UPDATE_SPACE.config_key)
+def test_ssm_update_every_config_on_ragged_rows(cuda, b, di, aligned, config):
+    """Every config of the space at the pool's row counts (one, a ragged
+    three, eight) over a d_inner no block_d divides, the 16-byte path and
+    (B, C, the state and xc one element off) the element path: y and
+    h_new within the f32 tolerance (y sums over the lanes in another order),
+    two launches bit-equal."""
+    args = _ssm_inputs(np.random.RandomState(b + di), (b,), di, 16, torch.bfloat16, cuda)
+    if not aligned:
+        args = tuple(_shifted(a, cuda) if i in (0, 2, 3, 5) else a for i, a in enumerate(args))
+        assert args[5].data_ptr() % 16 and args[2].data_ptr() % 16
+    y, hn = ss.ssm_update_cuda(*args, **config)
+    y2, hn2 = ss.ssm_update_cuda(*args, **config)
+    torch.cuda.synchronize()
+    p_y, p_h = ss.ssm_update_plain(*args)
+    _close(y, p_y, torch.float32)
+    _close(hn, p_h, torch.float32)
+    assert torch.equal(y, y2) and torch.equal(hn, hn2)
 
 
 def test_ssm_wrappers_count_only_kernel_launches(cuda):

@@ -97,7 +97,7 @@ def test_ssm_update_matches_jax(xdtype):
     j, t = _both(_inputs(7, (3,), 12, 4, xdtype), xdtype)
     jy_k, jh_k = jss.ssm_update_pallas(*j, block_b=8, block_d=8, interpret=True)
     jy_r, jh_r = jref.ssm_update(*j)
-    ty_p, th_p = ss.ssm_update(*t, block_b=2, block_d=32)
+    ty_p, th_p = ss.ssm_update(*t, block_b=2, block_d=32, lanes=4)
     ty_r, th_r = ref.ssm_update(*t)
     for ty, th in ((ty_p, th_p), (ty_r, th_r)):
         for jy, jh in ((jy_k, jh_k), (jy_r, jh_r)):
@@ -140,7 +140,8 @@ def test_heuristics_are_legal_at_the_served_shapes():
                                                 "lanes": 4}
     xd = torch.empty((8, 16384))
     cfg = ss.ssm_update.default_config(xd, xd, None, None, None, None)
-    assert ss.SSM_UPDATE_SPACE.is_valid(cfg) and cfg == {"block_b": 2, "block_d": 128}
+    assert ss.SSM_UPDATE_SPACE.is_valid(cfg)
+    assert cfg == {"block_b": 8, "block_d": 64, "lanes": 4}
     assert not ss.SSM_SCAN_SPACE.is_valid({"chunk": 256, "block_d": 256, "stages": 4,
                                            "lanes": 2})
     assert not ss.SSM_UPDATE_SPACE.is_valid({"block_b": 64, "block_d": 1024})
@@ -161,10 +162,10 @@ def test_wrappers_check_before_they_launch():
         ss.ssm_scan_cuda(xc, dt, B, C, A, h0, chunk=256, block_d=256, stages=4, lanes=2)
     with pytest.raises(ValueError, match="shape"):
         ss.ssm_update_cuda(xc[:, 0], dt[:, 0], B[:, 0], C[:, 0], A, h0[:, :4], block_b=1,
-                           block_d=32)
+                           block_d=32, lanes=4)
     with pytest.raises(ValueError, match="contiguous"):
         ss.ssm_update_cuda(xc[:, 0], dt[:, 0], B[:, 0], C[:, 0], A.T.contiguous().T, h0,
-                           block_b=1, block_d=32)
+                           block_b=1, block_d=32, lanes=4)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         ss.ssm_scan(*(t.to("meta") for t in (xc, dt, B, C, A, h0)), chunk=8, block_d=32)
 
@@ -226,6 +227,52 @@ def test_loader_rule_follows_alignment():
     xc, dt, B, C = args(64)
     shifted = torch.zeros(xc.numel() + 1, dtype=xc.dtype)[1:].view(xc.shape)
     assert ss.loader(shifted, dt, B, C) == "cpasync"
+
+
+def test_update_space_limits():
+    """The update's space is the H100's: block_d x lanes threads from one
+    warp to 1,024, lanes 1, 2 or 4 (four: a float4 of the 16 states each),
+    up to 8 rows a CTA (the 8-slot pool); a record of the first port's
+    space (one thread a row and channel, no lanes) is no config of it."""
+    cfgs = list(ss.SSM_UPDATE_SPACE.enumerate())
+    assert len(cfgs) == 72
+    for c in cfgs:
+        assert 32 <= c["block_d"] * c["lanes"] <= 1024 and c["lanes"] in (1, 2, 4)
+        assert 1 <= c["block_b"] <= 8
+    assert {c["lanes"] for c in cfgs} == {1, 2, 4}
+    assert {c["block_b"] for c in cfgs} == {1, 2, 4, 8}
+    for bad in ({"block_b": 2, "block_d": 128},                # the first port's heuristic
+                {"block_b": 1, "block_d": 8, "lanes": 2},      # half a warp
+                {"block_b": 1, "block_d": 512, "lanes": 4},    # 2048 threads
+                {"block_b": 16, "block_d": 64, "lanes": 4}):   # more rows than the pool
+        assert not ss.SSM_UPDATE_SPACE.is_valid(bad), bad
+
+
+@pytest.mark.parametrize("b,want_b", [(1, 1), (3, 4), (8, 8), (16, 8)])
+def test_update_heuristic_takes_four_lanes_and_the_pools_rows(b, want_b):
+    """Four lanes a channel, 64 channels a CTA, every row of the pool a CTA
+    (so each thread reads its float4 of A once), at most 8."""
+    for di in (16384, 16380, 100):
+        x = torch.empty((b, di))
+        cfg = ss.ssm_update.default_config(x, x, None, None, None, None)
+        assert cfg == {"block_b": want_b, "block_d": 64, "lanes": 4}
+        assert ss.SSM_UPDATE_SPACE.is_valid(cfg)
+
+
+def test_a_record_of_the_first_update_space_falls_to_the_heuristic(tmp_path):
+    from repro_torch.core import database as tdb
+
+    _, t = _both(_inputs(7, (3,), 12, 4, "float32"), "float32")
+    path = str(tmp_path / "db.json")
+    db = tdb.TuningDatabase(path)
+    key = repro_torch.runtime(db=db).key_for(ss.ssm_update, tuple(t), "")
+    old = {"block_b": 2, "block_d": 128}
+    db.put(tdb.Record(key=key, config=old, objective=1e-5, evaluator="wallclock",
+                      evaluations=1, timestamp=tdb.now()))
+    with repro_torch.runtime(db=tdb.TuningDatabase(path)) as rt:
+        res = rt.resolve("ssm_update", tuple(t), "")
+    assert res.key == key and res.tier == "heuristic"
+    assert res.config == ss.ssm_update.default_config(*t) != old
 
 
 # ---------------------------------------------------------------------------
