@@ -14,7 +14,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the HGMMA instructions (wgmma) of each kernel: it fails if a
              bf16 flash kernel (``flash_*_tc``) or a bf16 gemm kernel of the
              tensor-core or decode route (``gemm_tc``, ``gemm_decode``) of
-             the matmul, expert_gemm or matmul_bias_act library has none;
+             the matmul, expert_gemm, matmul_bias_act or rmsnorm_matmul
+             library has none;
 3. kernels — runs each kernel at the serving and training paths' shapes in
              bf16 (matmul also on the backward's transposed operands; the
              fused matmul_bias_act at the training gate projection with
@@ -22,7 +23,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
              shape (the WMMA route: a weight row TMA cannot address) and at
              qwen's biased q projection at decode rows, beside matmul's
              time for the same product; rmsnorm_matmul at the decode
-             unembed and a ragged row count; rmsnorm and rmsnorm_bwd also
+             unembed of each served model (qwen2_0_5b also at a ragged 13
+             rows, Mixtral, Jamba at d = 8192), the 64-row pool (the tc
+             route), a width TMA cannot address (the WMMA loop) and fp32 at
+             d = 8192, each on its route, beside its k-sliced loop
+             (``loop_ms``), the product alone on matmul, the unfused pair
+             rmsnorm + matmul and F.rms_norm + torch.matmul; rmsnorm and
+             rmsnorm_bwd also
              with the host time of one call beside F.rms_norm's (forward or
              backward) and the time of their bare launch; rmsnorm_bwd also
              at Mixtral's and Jamba's widths, [8192,4096] and [2048,8192]),
@@ -129,8 +136,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 9. tuned   — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
-             exact tier, rmsnorm_matmul (decode) and matmul_bias_act
-             (training, on the tensor-core route only) must launch, step 1
+             exact tier, rmsnorm_matmul (decode, on the tensor-core routes
+             only) and matmul_bias_act (training, on the tensor-core route
+             only) must launch, step 1
              must pass the train phase's gate and one prefill's logits
              TOL_LOGITS, both against the plain path; the tuned steps'
              times are printed beside the train phase's heuristic step
@@ -330,7 +338,8 @@ def phase_build():
     for n, tags in (("flash_attention", ("_tc",)), ("flash_attention_bwd", ("_tc",)),
                     ("matmul", ("gemm_tc", "gemm_decode")),
                     ("expert_gemm", ("gemm_tc", "gemm_decode")),
-                    ("matmul_bias_act", ("gemm_tc", "gemm_decode"))):
+                    ("matmul_bias_act", ("gemm_tc", "gemm_decode")),
+                    ("rmsnorm_matmul", ("gemm_tc", "gemm_decode"))):
         counts = hgmma_counts(_build.lib_path(n))
         tc = {f: c for f, c in counts.items() if any(t in f for t in tags)}
         if n.startswith("flash"):
@@ -848,38 +857,66 @@ def _mba_case(prof, rows, m, k, n, act, gen, path):
         f"(rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
-def _rmm_case(prof, rows, m, d, n, gen, path):
+def _rmm_case(prof, rows, m, d, n, gen, path, dtype=torch.bfloat16, want=None):
+    """rmsnorm_matmul at [m,d]x[d,n]: the heuristic config and another one
+    against the plain version (a split-k launch twice, bit for bit), on the
+    route ``want``; timed beside the k-sliced loop (``loop_ms``, the
+    yardstick of force_loop), the product alone on matmul at the same config
+    (``matmul_ms``), the unfused pair through the port's kernels (rmsnorm,
+    then matmul on the same route: ``pair_ms``) and, for context, the
+    library pair F.rms_norm + torch.matmul (neither pair is one call)."""
     from repro_torch.kernels import fused as fu
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rmsnorm as rn
 
-    x = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
-    sc = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(torch.bfloat16)
-    w = (torch.randn((d, n), generator=gen, device="cuda") * d ** -0.5).to(torch.bfloat16)
+    x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+    sc = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
+    w = (torch.randn((d, n), generator=gen, device="cuda") * d ** -0.5).to(dtype)
+    bf = dtype == torch.bfloat16
+    tol = TOL_BF16 if bf else TOL_F32_GEMM
+    shape = f"[{m},{d}]x[{d},{n}] {'bf16' if bf else 'f32'}"
     heur = fu.rmsnorm_matmul.default_config(x, sc, w)
-    other = {"bm": 16, "bn": 64} if heur != {"bm": 16, "bn": 64} else {"bm": 32, "bn": 128}
-    plain = fu.rmsnorm_matmul_plain(x, sc, w)
-    errs = []
+    other = other_gemm_config(heur)
     for cfg in (heur, other):
-        if not fu.RMSNORM_MATMUL_SPACE.is_valid(cfg):
+        if not mm.MATMUL_SPACE.is_valid(cfg):
             raise AssertionError(f"illegal rmsnorm_matmul config {cfg}")
-        out = fu.rmsnorm_matmul_cuda(x, sc, w, **cfg)
-        torch.cuda.synchronize()
-        errs.append(rel_err(out, plain))
-        if errs[-1][1] > TOL_BF16:
-            raise AssertionError(f"rmsnorm_matmul [{m},{d}]x[{d},{n}] {cfg}: rel err "
-                                 f"{errs[-1][1]:.3g} > {TOL_BF16}")
-    ms = time_ms(lambda: fu.rmsnorm_matmul_cuda(x, sc, w, **heur))
-    ms_other = time_ms(lambda: fu.rmsnorm_matmul_cuda(x, sc, w, **other))
+    p = fu.rmm_plan(x, sc, w, heur)
+    if want is not None and p["route"] != want:
+        raise AssertionError(f"rmsnorm_matmul {shape}: the {p['route']} route, not {want}")
+    plain = fu.rmsnorm_matmul_plain(x, sc, w)
+    run = lambda cfg, **kw: fu.rmsnorm_matmul_cuda(x, sc, w, **cfg, **kw)
+    errs = gemm_runs(run, (heur, other), lambda cfg: fu.rmm_plan(x, sc, w, cfg), plain, tol,
+                     f"rmsnorm_matmul {shape}")
+    loop = run(heur, force_loop=True)
+    torch.cuda.synchronize()
+    if rel_err(loop, plain)[1] > tol:
+        raise AssertionError(f"rmsnorm_matmul {shape}: the k-sliced loop disagrees with the "
+                             f"plain version")
+    del loop
+    ms = time_ms(lambda: run(heur))
+    ms_other = time_ms(lambda: run(other))
+    loop_ms = time_ms(lambda: run(heur, force_loop=True), iters=5)
+    xn = rn.rmsnorm_cuda(x, sc, **rn.rmsnorm.default_config(x, sc))[0]
+    matmul_ms = time_ms(lambda: mm.matmul_cuda(xn, w, **heur))
+    pair_ms = time_ms(lambda: mm.matmul_cuda(
+        rn.rmsnorm_cuda(x, sc, **rn.rmsnorm.default_config(x, sc))[0], w, **heur))
+    lib_pair_ms = time_ms(lambda: torch.matmul(
+        torch.nn.functional.rms_norm(x, (d,), sc, 1e-6), w))
     plain_ms = time_ms(lambda: fu.rmsnorm_matmul_plain(x, sc, w))
-    b_ms, b_by = bound(prof, (m * d + d + d * n + m * n) * 2, 2.0 * m * d * n,
-                       prof.peak_flops_bf16)
-    row = dict(shape=f"[{m},{d}]x[{d},{n}] bf16", path=path, config=heur, ms=ms,
-               other_config=other, other_ms=ms_other, plain_ms=plain_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
-               max_rel_err=max(e[1] for e in errs))
+    esize = x.element_size()
+    b_ms, b_by = bound(prof, (m * d + d + d * n + m * n) * esize, 2.0 * m * d * n,
+                       prof.peak_flops_bf16 if bf else prof.peak_flops_fp32)
+    row = dict(shape=shape, path=path, route=p["route"], kernel=p["kernel"], splits=p["splits"],
+               config=heur, ms=ms, other_config=other, other_ms=ms_other, loop_ms=loop_ms,
+               matmul_ms=matmul_ms, pair_ms=pair_ms, library_pair_ms=lib_pair_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
     rows.append(row)
-    log(f"[kernels] rmsnorm_matmul {row['shape']}: {ms:.4f} ms {heur} ({ms_other:.4f} ms "
-        f"{other}); plain {plain_ms:.4f}, no one-call yardstick, bound {b_ms:.4f} ({b_by}); "
-        f"err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
+    log(f"[kernels] rmsnorm_matmul {shape}: {ms:.4f} ms {p['route']} {heur} ({ms_other:.4f} "
+        f"ms {other}); k-sliced loop {loop_ms:.4f} (loop_ms); matmul alone {matmul_ms:.4f}; "
+        f"unfused pair rmsnorm + matmul {pair_ms:.4f}; F.rms_norm + torch.matmul "
+        f"{lib_pair_ms:.4f}; plain {plain_ms:.4f}, no one-call yardstick, bound {b_ms:.4f} "
+        f"({b_by}); err {row['max_abs_err']:.3g} (rel {row['max_rel_err']:.2e} <= {tol})")
 
 
 def _egemm_case(prof, rows, e, c, k, n, gen, path, form="x@w", iters=20):
@@ -1146,8 +1183,18 @@ def phase_kernels(prof, seed: int):
                       (1000, 4860, "silu")):
         _mba_case(prof, results["matmul_bias_act"], m, d, n, act, gen, "train")
     _mba_case(prof, results["matmul_bias_act"], 8, d, d, "none", gen, "serve")
+    # rmsnorm_matmul: the decode unembed of each served model (qwen2_0_5b,
+    # also at a ragged 13 rows; Mixtral; Jamba, whose width the first port
+    # could not launch), the 64-row pool on the tc route, a width TMA cannot
+    # address (the WMMA loop) and fp32 at Jamba's width (the SIMT loop)
     for m in (8, 13):
-        _rmm_case(prof, results["rmsnorm_matmul"], m, d, vocab, gen, "serve")
+        _rmm_case(prof, results["rmsnorm_matmul"], m, d, vocab, gen, "serve", want="decode")
+    _rmm_case(prof, results["rmsnorm_matmul"], 8, 4096, 32000, gen, "moe", want="decode")
+    _rmm_case(prof, results["rmsnorm_matmul"], 8, 8192, 65536, gen, "hybrid", want="decode")
+    _rmm_case(prof, results["rmsnorm_matmul"], 64, d, vocab, gen, "serve", want="tc")
+    _rmm_case(prof, results["rmsnorm_matmul"], 8, 900, 32000, gen, "serve", want="wmma")
+    _rmm_case(prof, results["rmsnorm_matmul"], 8, 8192, 4096, gen, "hybrid",
+              dtype=torch.float32, want="simt")
     # The hybrid (Jamba-1.5-Large: d_model 8192, d_inner 16384, dt_rank 512,
     # d_state 16, 64/8 heads of 128): the scan at the longest prefill and at
     # a ragged one whose d_inner no block_d divides, the decode update at
@@ -2016,6 +2063,13 @@ def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float, heuristic_ste
         raise AssertionError(f"tuned serving: no tensor-core gemm launched: {serve_launches}")
     if serve_launches.get("rmsnorm_matmul", 0) <= 0:
         raise AssertionError("rmsnorm_matmul never launched on the tuned decode path")
+    # the decode unembed is a shape TMA addresses: the norm prologue on a
+    # tensor-core route, never the WMMA loop
+    check_routes(serve_launches, "tuned serving", want=(), kernels=("rmsnorm_matmul",))
+    if serve_launches.get("rmsnorm_matmul_decode", 0) + serve_launches.get(
+            "rmsnorm_matmul_tc", 0) != serve_launches["rmsnorm_matmul"]:
+        raise AssertionError(f"tuned serving: rmsnorm_matmul launched off the tensor-core "
+                             f"routes: {serve_launches}")
     for r in done:
         if r.output is None or len(r.output) != 16:
             raise AssertionError(f"bad output for a {len(r.prompt)}-token prompt: {r.output}")
@@ -2164,7 +2218,7 @@ def main() -> int:
                  **at(name, path, launches), "shapes": rows}
         if name == "matmul":
             entry["launches_transposed"] = train_launches.get("matmul_transposed", 0)
-        if name in ("matmul", "expert_gemm", "matmul_bias_act"):
+        if name in ("matmul", "expert_gemm", "matmul_bias_act", "rmsnorm_matmul"):
             entry["launches_by_route"] = {r: launches.get(f"{name}_{r}", 0)
                                           for r in ("tc", "decode", "simt", "wmma", "splitk")}
         if name in SERVE_KERNELS:

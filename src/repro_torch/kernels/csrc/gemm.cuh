@@ -1,8 +1,28 @@
-// The gemm shared by matmul.cu, expert_gemm.cu and matmul_bias_act.cu:
-// C[z] = epilogue(A[z] @ B[z]) for z < batch, each product [m,k] @ [k,n]
-// with fp32 accumulation and the output in the input dtype. matmul launches
-// one product; expert_gemm one per expert; matmul_bias_act one, with an
-// epilogue.
+// The gemm shared by matmul.cu, expert_gemm.cu, matmul_bias_act.cu and
+// rmsnorm_matmul.cu: C[z] = epilogue(A[z] @ B[z]) for z < batch, each
+// product [m,k] @ [k,n] with fp32 accumulation and the output in the input
+// dtype. matmul launches one product; expert_gemm one per expert;
+// matmul_bias_act one, with an epilogue; rmsnorm_matmul one, with a norm
+// prologue on A.
+//
+// The norm prologue (rmsnorm_matmul's, tc and decode routes, A and B
+// row-major, one product) makes A = rmsnorm(x, scale) on its way from the
+// ring to wgmma, in the reference's cast order: the row's fp32 sum of
+// squares over the true k, xn = bf16(x * rsqrt(mean + eps)), then
+// bf16(xn * scale). Before the k loop each consumer warp computes the
+// inverse rms of the rows its threads will rewrite from global x (one
+// warp a row, 16-byte loads), while the producer fills the ring; each
+// thread keeps its rows' values in registers. The producer loads the
+// slice's scale into the stage beside A's and B's slices. After a slice
+// lands, each consumer warpgroup rewrites its band of A's slice in place,
+// 16 bytes a thread at a time, each chunk un-swizzled to its (row, k), then
+// fence.proxy.async and a barrier over the warpgroup before wgmma reads
+// it. TMA zero-fills past k and past m, so the edges stay zero. On the tc
+// route it is a template parameter of gemm_tc (NORM); the decode route has
+// a kernel of its own, gemm_decode_norm, persistent over column tiles so
+// that a CTA computes its rows' statistics once. rmsnorm_matmul.cu alone
+// instantiates them: the other libraries' kernels are the same code as
+// without them.
 //
 // The epilogue (matmul_bias_act's) runs on the fp32 accumulator before the
 // one cast, on every route: + bias[col] (a [n] vector in the input dtype,
@@ -160,6 +180,136 @@ __device__ __forceinline__ void epilogue_acc(float (&acc)[N], const bf16* __rest
   }
 }
 
+// ---------------------------------------------------------------------------
+// The norm prologue
+// ---------------------------------------------------------------------------
+
+// What the prologue reads beside A's tensor map: the tensor map of the [k]
+// scale (a slice of BK elements lands in each ring stage beside A's and B's
+// slices, so that the rewrite reads it from shared memory), x's rows in
+// global memory for the statistics (row-major, ld elements apart; ld and
+// the base multiples of 16 bytes, as TMA needs) and eps. A kernel
+// parameter (__grid_constant__, so that TMA reads the map where it lies);
+// empty without NORM.
+struct Norm {
+  CUtensorMap tm_scale;
+  const bf16* x;
+  long long ld;
+  float eps;
+};
+
+// Shared memory the prologue adds to a ring of `stages` stages: a BK-element
+// scale slice a stage, from the first 128-byte boundary past the barriers
+// (at most 96 bytes of them), where TMA may write.
+__host__ __device__ constexpr int norm_smem(int bk, int stages) { return 128 + stages * bk * 2; }
+
+// A consumer thread's part of a warpgroup's band of Q * 16 rows of a K-major
+// A slice (64-element panels, each row 128 bytes under the 128-byte
+// swizzle, which moves 16-byte chunk c of row r to chunk c ^ (r % 8)):
+// thread t (of 128) rewrites physical chunk t % 8 of the band's rows
+// norm_row() + 16 q, q < Q, in every panel. Warp w's threads hold rows w +
+// 4 j + 16 q (j < 4), so that a decode CTA's 8 rows give each warp two
+// for its statistics. A thread's rows share r % 8, so its chunks hold one
+// logical chunk, k = 64 p + 8 * norm_chunk() in panel p.
+__device__ __forceinline__ int norm_row() {
+  const int t = threadIdx.x % 128;
+  return 4 * (t % 32 / 8) + t / 32;
+}
+
+__device__ __forceinline__ int norm_chunk() {
+  return (threadIdx.x % 8) ^ (norm_row() % 8);
+}
+
+// inv[q] = the fp32 inverse rms of row r0 + 4 * (lane / 8) + 16 q of x (0
+// at or past m), r0 the first row of this warp: the warp computes rows
+// r0 + 4 j + 16 q, j < 4, one warp a row, NORM_LOADS 16-byte loads of each
+// of the 4 rows in flight a lane. The statistics are a read of x from L2
+// whose latency, not its bytes, sets their time.
+constexpr int NORM_LOADS = 4;
+
+template <int Q>
+__device__ __forceinline__ void norm_stats(float (&inv)[Q], const Norm& nm, int r0, int m,
+                                           int k) {
+  const int lane = threadIdx.x % 32, chunks = k / 8;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    float ss[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = lane; c0 < chunks; c0 += 32 * NORM_LOADS) {
+      uint4 v[4][NORM_LOADS];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = r0 + 4 * j + 16 * q;
+        const uint4* row = reinterpret_cast<const uint4*>(nm.x + (size_t)r * nm.ld);
+#pragma unroll
+        for (int u = 0; u < NORM_LOADS; ++u)
+          v[j][u] = r < m && c0 + 32 * u < chunks ? __ldg(row + c0 + 32 * u)
+                                                  : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < NORM_LOADS; ++u) {
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[j][u]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            ss[j] = fmaf(f.x, f.x, ss[j]);
+            ss[j] = fmaf(f.y, f.y, ss[j]);
+          }
+        }
+    }
+    inv[q] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ss[j] += __shfl_xor_sync(0xffffffffu, ss[j], o);
+      if (j == lane / 8 && r0 + 4 * j + 16 * q < m)
+        inv[q] = rsqrtf(ss[j] / static_cast<float>(k) + nm.eps);
+    }
+  }
+}
+
+// Two elements of A: bf16(bf16(x * inv) * scale). The first product is
+// fp32 (a bf16 widens by a shift); the second is one bf16x2 multiply, whose
+// exact product of two bf16 values rounded once is bf16(float(xn) * scale).
+__device__ __forceinline__ uint32_t norm_pair(uint32_t xv, uint32_t sv, float inv) {
+  const __nv_bfloat162 xn = __floats2bfloat162_rn(__uint_as_float(xv << 16) * inv,
+                                                  __uint_as_float(xv & 0xffff0000u) * inv);
+  const __nv_bfloat162 o = __hmul2(xn, *reinterpret_cast<const __nv_bfloat162*>(&sv));
+  return *reinterpret_cast<const uint32_t*>(&o);
+}
+
+// Rewrite this thread's chunks of the band whose first row is `band` of
+// the slice at `tile` (NP panels of `rows` rows each, slice start k0; its
+// scale slice at `scale`; smem_raw: the generic address of shared memory's
+// start), then make the writes visible to the async proxy. The caller's
+// barrier over the warpgroup follows. Chunks at or past k stay TMA's zeros.
+template <int Q, int NP>
+__device__ __forceinline__ void norm_slice(uint8_t* smem_raw, uint32_t tile, uint32_t scale,
+                                           int rows, int band, const float (&inv)[Q], int k0,
+                                           int k) {
+  uint8_t* base = smem_raw + (tile - smem_addr(smem_raw)) + (band + norm_row()) * 128 +
+                  (threadIdx.x % 8) * 16;
+  const uint4* sc = reinterpret_cast<const uint4*>(smem_raw + (scale - smem_addr(smem_raw))) +
+                    norm_chunk();
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    if (k0 + 64 * p + 8 * norm_chunk() >= k) continue;
+    const uint4 s = sc[8 * p];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      uint4* chunk = reinterpret_cast<uint4*>(base + p * rows * 128 + q * 16 * 128);
+      uint4 v = *chunk;
+      v.x = norm_pair(v.x, s.x, inv[q]);
+      v.y = norm_pair(v.y, s.y, inv[q]);
+      v.z = norm_pair(v.z, s.z, inv[q]);
+      v.w = norm_pair(v.w, s.w, inv[q]);
+      *chunk = v;
+    }
+  }
+  fence_proxy_async();
+}
+
 // One box of a 2-D map (z < 0: a broadcast operand) or a 3-D one.
 __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                         int z, uint32_t bar) {
@@ -210,12 +360,12 @@ __device__ __forceinline__ void store_partial(float* __restrict__ w, const float
   }
 }
 
-template <bool TA, bool TB, int BM, int BN, int BK>
+template <bool TA, bool TB, int BM, int BN, int BK, bool NORM>
 __global__ void __launch_bounds__(Tc<BM, BN, BK>::THREADS, 1)
 gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
         bf16* __restrict__ c, float* __restrict__ ws, const bf16* __restrict__ bias, int act,
         int m, int n, int k, int batch, int bcast_a, int bcast_b, int stages, int kps,
-        int m_fast) {
+        int m_fast, const __grid_constant__ Norm nm) {
   using C = Tc<BM, BN, BK>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -224,6 +374,7 @@ gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtens
   auto empty = [&](int s) { return bars + 8 * stages + 8 * s; };
   auto tile_a = [&](int s) { return base + s * C::STAGE; };
   auto tile_b = [&](int s) { return base + s * C::STAGE + BM * BK * 2; };
+  auto scale_s = [&](int s) { return bars + 128 + s * BK * 2; };   // NORM: norm_smem
 
   const int z = blockIdx.z % batch, split = blockIdx.z / batch;
   const int row0 = (m_fast ? blockIdx.x : blockIdx.y) * BM;
@@ -247,7 +398,8 @@ gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtens
       for (int it = 0; it < nsl; ++it) {
         const int s = it % stages, k0 = (s0 + it) * BK;
         mbar_wait(empty(s), ((it / stages) & 1) ^ 1);
-        mbar_expect_tx(full(s), C::STAGE);
+        mbar_expect_tx(full(s), C::STAGE + (NORM ? BK * 2 : 0));
+        if constexpr (NORM) tma_load_3d(scale_s(s), &nm.tm_scale, k0, 0, 0, full(s));
         // A: K-major [BM][BK] in BK/64 panels, or MN-major [BK][BM] in BM/64
         if (!TA) {
 #pragma unroll
@@ -278,11 +430,17 @@ gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtens
   float acc[BN / 2];
 #pragma unroll
   for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  float inv[4];                   // NORM: the inverse rms of this thread's 4 rows of the band
+  if constexpr (NORM) norm_stats<4>(inv, nm, row0 + 64 * wg + warp % 4, m, k);
 
   for (int it = 0; it < nsl; ++it) {
     const int s = it % stages;
     mbar_wait(full(s), (it / stages) & 1);
     const uint32_t ta = tile_a(s), tb = tile_b(s);
+    if constexpr (NORM) {
+      norm_slice<4, BK / 64>(smem_raw, ta, scale_s(s), BM, 64 * wg, inv, (s0 + it) * BK, k);
+      named_sync(2 + wg, 128);
+    }
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
@@ -478,6 +636,147 @@ gemm_decode(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
       } else {
         for (int e = 0; e < 8 && gc + e < n; ++e)
           dst[e] = __float2bfloat16(epilogue(src[e], bias, act, gc + e));
+      }
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// decode with the norm prologue: swap-AB, persistent over column tiles
+// ---------------------------------------------------------------------------
+//
+// rmsnorm_matmul's decode route (A = x and B = w row-major, one product).
+// The statistics of a CTA's 16 rows cost one read of them from L2 before
+// the first slice can be rewritten, the same for every column tile, so a
+// CTA computes them once and walks column tiles blockIdx.x, + gridDim.x, ...
+// (the host sizes the grid to the CTAs the card holds at once): the ring
+// runs on from one tile's slices into the next one's, and each tile's
+// epilogue stages C in a region of its own while the producer already
+// loads the next tile. Split-k: blockIdx.z is the split.
+template <int BN, int BK>
+__global__ void __launch_bounds__(Dec<BN, BK>::THREADS, 1)
+gemm_decode_norm(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                 bf16* __restrict__ c, float* __restrict__ ws, int m, int n, int k, int stages,
+                 int kps, const __grid_constant__ Norm nm) {
+  using C = Dec<BN, BK>;
+  constexpr int NT = BN / 64;                               // m64 tiles of B^T
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + stages * C::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * stages + 8 * s; };
+  auto tile_w = [&](int s) { return base + s * C::STAGE; };
+  auto tile_x = [&](int s) { return base + s * C::STAGE + C::W_BYTES; };
+  auto scale_s = [&](int s) { return bars + 128 + s * BK * 2; };
+  float* so = reinterpret_cast<float*>(smem_raw + (bars + norm_smem(BK, stages) -
+                                                   smem_addr(smem_raw)));
+
+  const int split = blockIdx.z, row0 = blockIdx.y * DEC_ROWS, tiles = (n + BN - 1) / BN;
+  const int slices = (k + BK - 1) / BK;
+  const int s0 = split * kps, nsl = min(s0 + kps, slices) - s0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 32 == 4) {                              // producer
+    if (threadIdx.x % 32 == 0) {
+      int g = 0;                                            // slices loaded so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int it = 0; it < nsl; ++it, ++g) {
+          const int s = g % stages, k0 = (s0 + it) * BK, col0 = tile * BN;
+          mbar_wait(empty(s), ((g / stages) & 1) ^ 1);
+          mbar_expect_tx(full(s), C::STAGE + BK * 2);
+          tma_load_3d(scale_s(s), &nm.tm_scale, k0, 0, 0, full(s));
+          // B^T: MN-major [BK][BN]; A^T: K-major [16][BK]
+#pragma unroll
+          for (int p = 0; p < NT; ++p)
+            tma_load_2d(tile_w(s) + p * BK * 128, &tm_b, col0 + 64 * p, k0, full(s));
+#pragma unroll
+          for (int p = 0; p < BK / 64; ++p)
+            tma_load_2d(tile_x(s) + p * DEC_ROWS * 128, &tm_a, k0 + 64 * p, row0, full(s));
+        }
+    }
+    return;
+  }
+
+  float inv[1];                                             // this thread's row's
+  norm_stats<1>(inv, nm, row0 + threadIdx.x / 32, m, k);
+  int g = 0;                                                // slices consumed so far
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[NT][8];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
+    for (int it = 0; it < nsl; ++it, ++g) {
+      const int s = g % stages;
+      mbar_wait(full(s), (g / stages) & 1);
+      const uint32_t tw = tile_w(s), tx = tile_x(s);
+      norm_slice<1, BK / 64>(smem_raw, tx, scale_s(s), DEC_ROWS, 0, inv, (s0 + it) * BK, k);
+      named_sync(1, 128);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) reg_fence(acc[t]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dx = desc_k<BK, DEC_ROWS>(tx, 0, kk);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          wgmma_ss<1, 0>(acc[t], desc_mn<64, BK>(tw + t * BK * 128, kk), dx, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int t = 0; t < NT; ++t) reg_fence(acc[t]);
+      if (it > 0 && threadIdx.x == 0) mbar_arrive(empty((g - 1) % stages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < NT; ++t) reg_fence(acc[t]);
+    if (threadIdx.x == 0) mbar_arrive(empty((g - 1) % stages));  // the tile's last slice
+
+    // Stage C's [16][BN] tile in fp32 (acc rows are columns of C) once the
+    // last tile's stores have read the staging, then store whole rows of C
+    // (bf16), or the split's raw fp32 partials.
+    named_sync(1, 128);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) so[acc_col(j) * C::LDO + 64 * t + acc_row(j)] = acc[t][j];
+    named_sync(1, 128);
+    const int col0 = tile * BN;
+    constexpr int VPR = BN / 8;                             // 8-element vectors a row
+    for (int i = threadIdx.x; i < DEC_ROWS * VPR; i += 128) {
+      const int r = i / VPR, gr = row0 + r, gc = col0 + 8 * (i % VPR);
+      if (gr >= m || gc >= n) continue;
+      const float* src = so + r * C::LDO + 8 * (i % VPR);
+      if (gridDim.z > 1) {
+        float* dst = ws + ((size_t)split * m + gr) * n + gc;
+        if (n % 4 == 0) {
+          reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
+          if (gc + 4 < n)
+            reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
+        } else {
+          for (int e = 0; e < 8 && gc + e < n; ++e) dst[e] = src[e];
+        }
+      } else {
+        bf16* dst = c + (size_t)gr * n + gc;
+        if (n % 8 == 0) {
+          uint4 v;
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          for (int e = 0; e < 8 && gc + e < n; ++e) dst[e] = __float2bfloat16(src[e]);
+        }
       }
     }
   }
@@ -978,6 +1277,8 @@ struct Problem {
   cudaStream_t stream;
   const void* bias = nullptr;      // the epilogue's [n] bias (input dtype), or none
   int act = ACT_NONE;              // the epilogue's activation
+  const void* norm_scale = nullptr;  // the norm prologue's [k] scale (launch<true> only)
+  float eps = 0.f;                 // and its eps
 };
 
 // Encoded tensor maps of recent launches, by everything an encoding reads:
@@ -989,9 +1290,11 @@ struct MapKey {
   const void* p;
   long long inner, rows, ld, mats, stride;
   int box_inner, box_rows;
+  bool dense = false;              // no swizzle, rank 3 (the prologue's scale)
   bool operator==(const MapKey& o) const {
     return p == o.p && inner == o.inner && rows == o.rows && ld == o.ld && mats == o.mats &&
-           stride == o.stride && box_inner == o.box_inner && box_rows == o.box_rows;
+           stride == o.stride && box_inner == o.box_inner && box_rows == o.box_rows &&
+           dense == o.dense;
   }
 };
 
@@ -1013,8 +1316,10 @@ static cudaError_t cached_map(CUtensorMap* map, const MapKey& key) {
     return cudaSuccess;
   }
   const cudaError_t err =
-      make_bf16_map(map, key.p, key.stride ? 3 : 2, key.inner, key.rows, key.ld, key.mats,
-                    key.stride, key.box_inner, key.box_rows);
+      key.dense ? make_dense_map(map, key.p, true, key.inner, key.rows, key.mats, key.ld,
+                                 key.stride, key.box_inner, key.box_rows)
+                : make_bf16_map(map, key.p, key.stride ? 3 : 2, key.inner, key.rows, key.ld,
+                                key.mats, key.stride, key.box_inner, key.box_rows);
   if (err == cudaSuccess) {
     keys[slot] = key;
     maps[slot] = *map;
@@ -1047,7 +1352,23 @@ static cudaError_t opt_in(K kernel, int bytes, std::atomic<int> (&granted)[MAX_D
   return err;
 }
 
-template <bool TA, bool TB, int BM, int BN, int BK>
+// The prologue's view of a problem, its scale's map in boxes of bk elements
+// (NORM kernels read it; the others get an empty one).
+template <bool NORM>
+static cudaError_t norm_of(Norm* nm, const Problem& p, int bk) {
+  *nm = Norm{};
+  if constexpr (NORM) {
+    nm->x = static_cast<const bf16*>(p.a);
+    nm->ld = p.lda;
+    nm->eps = p.eps;
+    MapKey key{p.norm_scale, p.k, 1, p.k, 1, p.k, bk, 1};
+    key.dense = true;
+    return cached_map(&nm->tm_scale, key);
+  }
+  return cudaSuccess;
+}
+
+template <bool TA, bool TB, int BM, int BN, int BK, bool NORM>
 static cudaError_t launch_tc(const Problem& p) {
   using C = Tc<BM, BN, BK>;
   CUtensorMap ma, mb;
@@ -1058,18 +1379,21 @@ static cudaError_t launch_tc(const Problem& p) {
   // B [k,n]: box 64 k x BN rows (stored transposed) or 64 n x BK rows
   if ((err = operand_map(&mb, p.b, TB, p.k, p.n, p.ldb, p.batch, p.sb, 64, TB ? BN : BK)))
     return err;
-  const int smem = smem_bytes(GEMM_TC, REPRO_BF16, BM, BN, BK, p.stages);
+  Norm nm;
+  if ((err = norm_of<NORM>(&nm, p, BK))) return err;
+  const int smem =
+      smem_bytes(GEMM_TC, REPRO_BF16, BM, BN, BK, p.stages) + (NORM ? norm_smem(BK, p.stages) : 0);
   static std::atomic<int> granted[MAX_DEVICES];
-  if ((err = opt_in(gemm_tc<TA, TB, BM, BN, BK>, smem, granted))) return err;
+  if ((err = opt_in(gemm_tc<TA, TB, BM, BN, BK, NORM>, smem, granted))) return err;
   const int mt = (p.m + BM - 1) / BM, nt = (p.n + BN - 1) / BN;
   // the dimension with fewer tiles runs fastest: a wave then shares the
   // other operand's panels in L2
   const int m_fast = mt <= nt;
   const dim3 grid(m_fast ? mt : nt, m_fast ? nt : mt, p.batch * p.splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  gemm_tc<TA, TB, BM, BN, BK><<<grid, C::THREADS, smem, p.stream>>>(
+  gemm_tc<TA, TB, BM, BN, BK, NORM><<<grid, C::THREADS, smem, p.stream>>>(
       ma, mb, static_cast<bf16*>(p.c), p.ws, static_cast<const bf16*>(p.bias), p.act, p.m, p.n,
-      p.k, p.batch, p.sa == 0, p.sb == 0, p.stages, p.kps, m_fast);
+      p.k, p.batch, p.sa == 0, p.sb == 0, p.stages, p.kps, m_fast, nm);
   return cudaGetLastError();
 }
 
@@ -1095,13 +1419,60 @@ static cudaError_t launch_decode(const Problem& p) {
   return cudaGetLastError();
 }
 
+// Shared memory of one gemm_decode_norm CTA: the ring, its barriers and
+// scale slices (norm_smem), and C's staged tile (kernels/fused.py mirrors
+// it).
+static int decode_norm_smem(int bn, int bk, int stages) {
+  return 1024 + stages * (bn + DEC_ROWS) * bk * 2 + norm_smem(bk, stages) +
+         DEC_ROWS * (bn + 4) * 4;
+}
+
+template <int BN, int BK>
+static cudaError_t launch_decode_norm(const Problem& p) {
+  using C = Dec<BN, BK>;
+  CUtensorMap ma, mb;
+  Norm nm;
+  cudaError_t err;
+  if ((err = operand_map(&ma, p.a, false, p.m, p.k, p.lda, 1, 0, 64, DEC_ROWS)) ||
+      (err = operand_map(&mb, p.b, false, p.k, p.n, p.ldb, 1, 0, 64, BK)) ||
+      (err = norm_of<true>(&nm, p, BK)))
+    return err;
+  const int smem = decode_norm_smem(BN, BK, p.stages);
+  static std::atomic<int> granted[MAX_DEVICES];
+  if ((err = opt_in(gemm_decode_norm<BN, BK>, smem, granted))) return err;
+  // as many CTAs as the card holds at once (by ring depth), each walking
+  // column tiles
+  static std::atomic<int> resident[MAX_DEVICES][MAX_STAGES + 1];
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev))) return err;
+  int ctas = resident[dev][p.stages].load();
+  if (ctas == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_decode_norm<BN, BK>,
+                                                             C::THREADS, smem)))
+      return err;
+    ctas = sms * (per_sm > 0 ? per_sm : 1);
+    resident[dev][p.stages].store(ctas);
+  }
+  const int tiles = (p.n + BN - 1) / BN;
+  const dim3 grid(tiles < ctas ? tiles : ctas, (p.m + DEC_ROWS - 1) / DEC_ROWS, p.splits);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  gemm_decode_norm<BN, BK><<<grid, C::THREADS, smem, p.stream>>>(
+      ma, mb, static_cast<bf16*>(p.c), p.ws, p.m, p.n, p.k, p.stages, p.kps, nm);
+  return cudaGetLastError();
+}
+
 // Template dispatch over the layouts and tiles of the two tensor-core routes.
-template <bool TA, bool TB>
+template <bool TA, bool TB, bool NORM = false>
 static cudaError_t launch_tc_layout(const Problem& p) {
 #define REPRO_TC(BM, BN, BK) \
-  if (p.bm == BM && p.bn == BN && p.bk == BK) return launch_tc<TA, TB, BM, BN, BK>(p);
-#define REPRO_DEC(BN, BK) \
-  if (p.bn == BN && p.bk == BK) return launch_decode<TA, TB, BN, BK>(p);
+  if (p.bm == BM && p.bn == BN && p.bk == BK) return launch_tc<TA, TB, BM, BN, BK, NORM>(p);
+#define REPRO_DEC(BN, BK)                                                               \
+  if (p.bn == BN && p.bk == BK) {                                                       \
+    if constexpr (NORM) return launch_decode_norm<BN, BK>(p);                           \
+    else return launch_decode<TA, TB, BN, BK>(p);                                       \
+  }
   if (p.route == GEMM_TC) {
     REPRO_TC(64, 64, 64) REPRO_TC(64, 64, 128) REPRO_TC(64, 128, 64) REPRO_TC(64, 128, 128)
     REPRO_TC(64, 256, 64) REPRO_TC(64, 256, 128) REPRO_TC(128, 64, 64) REPRO_TC(128, 64, 128)
@@ -1175,7 +1546,10 @@ static cudaError_t launch_simt_b(const Problem& p, dim3 grid, int eb) {
   }
 }
 
-static cudaError_t launch_simt(const Problem& p) {
+// A template so that a library that never takes the route (rmsnorm_matmul)
+// does not compile its kernels.
+template <typename P>
+static cudaError_t launch_simt(const P& p) {
   const dim3 grid((p.n + SIMT_BN - 1) / SIMT_BN, (p.m + SIMT_BM - 1) / SIMT_BM,
                   p.batch * p.splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
@@ -1238,6 +1612,9 @@ static bool tma_aligned(const void* p, long long ld, long long stride) {
 // C[z] = A[z] @ B[z] for z < batch on the route and tiles the caller chose,
 // then (splits > 1) the sum of the splits. Returns cudaGetLastError() after
 // the launches, cudaErrorInvalidValue for a launch the route cannot take.
+// NORM: with the norm prologue (p.norm_scale, p.eps), on the tc and decode
+// routes only, for one product whose A and B are row-major.
+template <bool NORM = false>
 static int launch(const Problem& p) {
   if (p.batch <= 0 || p.m <= 0 || p.n <= 0) return cudaSuccess;
   if (p.k < 0 || p.lda < (p.ta ? p.m : p.k) || p.ldb < (p.tb ? p.k : p.n) || p.sa < 0 ||
@@ -1250,45 +1627,55 @@ static int launch(const Problem& p) {
     return cudaErrorInvalidValue;
   const bool bf = p.dtype == REPRO_BF16;
   cudaError_t err;
-  switch (p.route) {
-    case GEMM_TC:
-    case GEMM_DECODE: {
-      const bool tc = p.route == GEMM_TC;
-      if (!bf || p.k == 0 || p.stages < 2 || p.stages > MAX_STAGES ||
-          (tc ? p.bm != 64 && p.bm != 128 : p.bm != DEC_ROWS) ||
-          !tma_aligned(p.a, p.lda, p.sa) || !tma_aligned(p.b, p.ldb, p.sb) ||
-          smem_bytes(p.route, p.dtype, p.bm, p.bn, p.bk, p.stages) > 232448)
-        return cudaErrorInvalidValue;
-      if (p.ta)
-        err = p.tb ? launch_tc_layout<true, true>(p) : launch_tc_layout<true, false>(p);
-      else
-        err = p.tb ? launch_tc_layout<false, true>(p) : launch_tc_layout<false, false>(p);
-      break;
-    }
-    case GEMM_ROWS:                 // fp32 decode rows: ROWS_COLS columns a CTA
-      if (bf || p.m > DEC_ROWS || p.bn != ROWS_COLS || p.bk != ROWS_KC || p.lda > INT32_MAX ||
-          p.ldb > INT32_MAX)
-        return cudaErrorInvalidValue;
-      err = p.m <= 8 ? launch_rows<8>(p) : launch_rows<DEC_ROWS>(p);
-      break;
-    case GEMM_SIMT:                 // fp32, more than 16 rows: register tiles
-      if (bf || p.bm != SIMT_BM || p.bn != SIMT_BN || p.bk != SIMT_BK || p.stages != SIMT_STAGES)
-        return cudaErrorInvalidValue;
-      err = launch_simt(p);
-      break;
-    case GEMM_WMMA:
-    case GEMM_LOOP: {               // the first port's tile loops: bf16 WMMA, fp32 SIMT
-      if ((p.route == GEMM_WMMA) != bf || (bf && p.splits > 1) || !pow2(p.bm) || p.bm < 16 ||
-          !pow2(p.bn) || p.bn < 32 || !pow2(p.bk) || p.bk < 16 ||
-          32 * (p.bm / (16 * (p.bm == 16 ? 1 : 2))) * (p.bn / 32) > 512 ||
-          loop_smem_bytes(p.dtype, p.bm, p.bn, p.bk) > 232448 || p.lda > INT32_MAX ||
-          p.ldb > INT32_MAX)
-        return cudaErrorInvalidValue;
-      err = p.bm == 16 ? launch_loop<1>(p) : launch_loop<2>(p);
-      break;
-    }
-    default:
+  if (p.route == GEMM_TC || p.route == GEMM_DECODE) {
+    const bool tc = p.route == GEMM_TC;
+    if (!bf || p.k == 0 || p.stages < 2 || p.stages > MAX_STAGES ||
+        (tc ? p.bm != 64 && p.bm != 128 : p.bm != DEC_ROWS) ||
+        !tma_aligned(p.a, p.lda, p.sa) || !tma_aligned(p.b, p.ldb, p.sb) ||
+        (NORM ? (tc ? smem_bytes(p.route, p.dtype, p.bm, p.bn, p.bk, p.stages) +
+                          norm_smem(p.bk, p.stages)
+                    : decode_norm_smem(p.bn, p.bk, p.stages))
+              : smem_bytes(p.route, p.dtype, p.bm, p.bn, p.bk, p.stages)) > 232448)
       return cudaErrorInvalidValue;
+    if constexpr (NORM) {
+      // the scale is a TMA operand too: a 16-byte aligned base
+      if (p.ta || p.tb || p.batch != 1 || p.k % 8 != 0 || !tma_aligned(p.norm_scale, 0, 0))
+        return cudaErrorInvalidValue;
+      err = launch_tc_layout<false, false, true>(p);
+    } else if (p.ta) {
+      err = p.tb ? launch_tc_layout<true, true>(p) : launch_tc_layout<true, false>(p);
+    } else {
+      err = p.tb ? launch_tc_layout<false, true>(p) : launch_tc_layout<false, false>(p);
+    }
+  } else if constexpr (NORM) {     // the prologue exists on the tensor-core routes only
+    return cudaErrorInvalidValue;
+  } else {
+    switch (p.route) {
+      case GEMM_ROWS:                 // fp32 decode rows: ROWS_COLS columns a CTA
+        if (bf || p.m > DEC_ROWS || p.bn != ROWS_COLS || p.bk != ROWS_KC || p.lda > INT32_MAX ||
+            p.ldb > INT32_MAX)
+          return cudaErrorInvalidValue;
+        err = p.m <= 8 ? launch_rows<8>(p) : launch_rows<DEC_ROWS>(p);
+        break;
+      case GEMM_SIMT:                 // fp32, more than 16 rows: register tiles
+        if (bf || p.bm != SIMT_BM || p.bn != SIMT_BN || p.bk != SIMT_BK || p.stages != SIMT_STAGES)
+          return cudaErrorInvalidValue;
+        err = launch_simt(p);
+        break;
+      case GEMM_WMMA:
+      case GEMM_LOOP: {               // the first port's tile loops: bf16 WMMA, fp32 SIMT
+        if ((p.route == GEMM_WMMA) != bf || (bf && p.splits > 1) || !pow2(p.bm) || p.bm < 16 ||
+            !pow2(p.bn) || p.bn < 32 || !pow2(p.bk) || p.bk < 16 ||
+            32 * (p.bm / (16 * (p.bm == 16 ? 1 : 2))) * (p.bn / 32) > 512 ||
+            loop_smem_bytes(p.dtype, p.bm, p.bn, p.bk) > 232448 || p.lda > INT32_MAX ||
+            p.ldb > INT32_MAX)
+          return cudaErrorInvalidValue;
+        err = p.bm == 16 ? launch_loop<1>(p) : launch_loop<2>(p);
+        break;
+      }
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess || p.splits == 1) return err;
   const long long count = (long long)p.batch * p.m * p.n;

@@ -11,10 +11,15 @@ Replace the TPU kernels ``repro/kernels/fused.py:_mba_kernel``
   entry over ``csrc/gemm.cuh``: ``matmul``'s kernels, routes, knob space
   (:data:`~.matmul.MATMUL_SPACE`), heuristic and split-k partition, with
   the epilogue on every route.
-* ``rmsnorm_matmul`` -- ``rmsnorm(x, scale) @ w``: each CTA normalises its
-  rows into shared memory and streams the weight through in k slices.
-  CUDA source ``csrc/rmsnorm_matmul.cu``, whose header says why the TPU's
-  resident (d, bn) weight tile does not come across.
+* ``rmsnorm_matmul`` -- ``rmsnorm(x, scale) @ w``: the same gemm with a
+  norm prologue on x. CUDA source ``csrc/rmsnorm_matmul.cu``, a thin entry
+  over ``csrc/gemm.cuh``'s tensor-core routes (decode, tc, split-k) on
+  ``matmul``'s space, heuristic and route rule: each CTA computes its rows'
+  inverse rms and normalises each k slice of x in shared memory before
+  ``wgmma`` reads it, so every width launches. bf16 operands TMA cannot
+  address and fp32 run a k-sliced loop of the same file
+  (:func:`rmm_plan`). Each launch counts its route as ``matmul`` does
+  (``rmsnorm_matmul_decode``, ``_tc``, ``_wmma``, ``_simt``, ``_splitk``).
 
 Model sites take these only where the tuning database holds an exact record
 for the call (``runtime.fusion_wins``); everywhere else they keep their
@@ -32,14 +37,12 @@ import ctypes
 
 import torch
 
-from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
-from ..core.platform import H100_SXM
+from ..core import DispatchSpec, tunable
 from . import _build, ref
 from . import matmul as mm
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {"none": 0, "gelu": 1, "silu": 2}
-MAX_THREADS = 512
 
 
 def _check_2d(name: str, *ts):
@@ -169,58 +172,14 @@ def matmul_bias_act(x, w, b, *, bm: int, bn: int, bk: int, stages: int, splits: 
 # rmsnorm_matmul: the norm as the gemm's prologue
 # ---------------------------------------------------------------------------
 
-RMM_BK = 64                 # rows of the weight staged per k step (the .cu's RMM_BK)
-# The space's shared-memory limit is taken at a model width of 1024 in
-# bf16, which admits 64-row blocks; a wider or fp32 call whose row block
-# does not fit is refused at launch and the heuristic picks fewer rows.
-D_NOMINAL = 1024
-
-
-def rmm_smem_bytes(c, d: int, dtype_bytes: int) -> int:
-    """Shared memory of one CTA (mirrors repro_rmsnorm_matmul_smem_bytes)."""
-    bm, bn = c["bm"], c["bn"]
-    dk = -(-d // RMM_BK) * RMM_BK
-    if dtype_bytes == 2:
-        return bm * (dk + 8) * 2 + max((RMM_BK + 8) * (bn + 8) * 2, bm * (bn + 4) * 4)
-    return (bm * (dk + 4) + RMM_BK * (bn + 4)) * 4
-
-
-def _rmm_threads(c) -> int:
-    fm = 1 if c["bm"] == 16 else 2
-    return 32 * (c["bm"] // (16 * fm)) * (c["bn"] // 32)
-
-
-RMSNORM_MATMUL_SPACE = ParamSpace(
-    [
-        PowerOfTwoParam("bm", 16, 128),
-        PowerOfTwoParam("bn", 32, 256),
-    ],
-    [
-        Constraint(lambda c: _rmm_threads(c) <= MAX_THREADS,
-                   "CTA exceeds 512 threads (one warp per 32x32 output sub-tile)"),
-        Constraint(lambda c: rmm_smem_bytes(c, D_NOMINAL, 2) <= H100_SXM.smem_per_block,
-                   "normalised row block and weight stage exceed the 227 KB of shared "
-                   "memory a block may use"),
-    ],
-)
-
-
 def _rmm_heuristic(x, scale, w):
-    """JAX's pick (rows and columns at the next power of two, at most 128
-    and between 128 and 1024) clipped to this space, then fewer rows while
-    the row block of this width and dtype does not fit a block."""
+    """matmul's rule (:func:`~.matmul.gemm_heuristic`) at the call's rows,
+    width and vocabulary: the decode route for at most 16 rows, the tc
+    route's tiles above."""
     m = 1
     for s in x.shape[:-1]:
         m *= int(s)
-    d, n = x.shape[-1], w.shape[1]
-    pick = lambda dim, cap: min(cap, max(8, 1 << (int(dim) - 1).bit_length()))
-    cfg = {"bm": min(max(pick(m, 128), 16), 128),
-           "bn": min(max(128, min(pick(n, 512), 1024)), 256)}
-    nbytes = x.element_size()
-    while cfg["bm"] > 16 and (_rmm_threads(cfg) > MAX_THREADS
-                              or rmm_smem_bytes(cfg, d, nbytes) > H100_SXM.smem_per_block):
-        cfg["bm"] //= 2
-    return cfg
+    return mm.gemm_heuristic(m, w.shape[1], x.shape[-1])
 
 
 def _rmm_canon(x, scale, w):
@@ -254,8 +213,38 @@ def rmsnorm_matmul_plain(x, scale, w, eps: float = 1e-6):
     return ref.rmsnorm_matmul(x, scale, w, eps)
 
 
-def rmsnorm_matmul_cuda(x, scale, w, *, bm: int, bn: int, eps: float = 1e-6):
-    """Launch csrc/rmsnorm_matmul.cu on CUDA tensors."""
+_RMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def rmm_plan(x, scale, w, cfg, force_loop: bool = False) -> dict:
+    """The launch of one call: :func:`~.matmul.plan`'s route and tiles for
+    x and w, the scale being a TMA operand of the tensor-core routes too
+    (its base a multiple of 16 bytes). fp32, a scale TMA cannot address and
+    ``force_loop`` take the k-sliced loop of ``csrc/rmsnorm_matmul.cu`` at
+    :func:`~.matmul.wmma_tiles` (route ``wmma`` in bf16, ``simt`` in fp32):
+    the prologue exists on the tensor-core routes only."""
+    loop = force_loop or x.dtype == torch.float32 or scale.data_ptr() % 16 != 0
+    return mm.plan(x, w, cfg, loop)
+
+
+def prologue_smem_bytes(c) -> int:
+    """Shared memory of one tensor-core CTA with the norm prologue (mirrors
+    gemm.cuh's norm_smem and decode_norm_smem): the tc route's is matmul's
+    plus a scale slice a stage from a 128-byte boundary; the decode route's
+    persistent kernel keeps C's staged tile apart from its ring."""
+    bn, bk, st = c["bn"], c["bk"], c["stages"]
+    norm = 128 + st * bk * 2
+    if c["bm"] == mm.DECODE_ROWS:
+        return 1024 + st * (bn + mm.DECODE_ROWS) * bk * 2 + norm + mm.DECODE_ROWS * (bn + 4) * 4
+    return mm.smem_bytes(c) + norm
+
+
+def rmsnorm_matmul_cuda(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, splits: int,
+                        eps: float = 1e-6, force_loop: bool = False):
+    """Launch csrc/rmsnorm_matmul.cu on CUDA tensors, on the route
+    :func:`rmm_plan` gives the call. ``force_loop`` runs the k-sliced loop
+    whatever the rule says (a before-and-after of the same call)."""
     _check_2d("rmsnorm_matmul", x, w)
     if x.shape[1] != w.shape[0] or scale.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm_matmul takes [m,d], [d], [d,n], got {tuple(x.shape)}, "
@@ -263,27 +252,32 @@ def rmsnorm_matmul_cuda(x, scale, w, *, bm: int, bn: int, eps: float = 1e-6):
     _check_common("rmsnorm_matmul", x, scale, w)
     m, d = x.shape
     n = w.shape[1]
+    p = rmm_plan(x, scale, w, dict(bm=bm, bn=bn, bk=bk, stages=stages, splits=splits),
+                 force_loop)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = _build.entry("rmsnorm_matmul", "repro_rmsnorm_matmul",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                      + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), scale.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, d,
-             float(eps), _DTYPES[x.dtype], bm, bn, _build.stream_ptr(x.device))
-    _build.check("rmsnorm_matmul", err, f"rmsnorm_matmul {m}x{d}x{n} bm={bm} bn={bn}")
-    _build.LAUNCHES["rmsnorm_matmul"] += 1
+    ws = mm.workspace(p, 1, m, n, x.device)
+    fn = _build.entry("rmsnorm_matmul", "repro_rmsnorm_matmul", _RMM_ARGTYPES)
+    err = fn(x.data_ptr(), scale.data_ptr(), w.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(), m, n, d, float(eps), _DTYPES[x.dtype],
+             p["code"], p["bm"], p["bn"], p["bk"], p["stages"], p["splits"], p["kps"],
+             _build.stream_ptr(x.device))
+    _build.check("rmsnorm_matmul", err, f"rmsnorm_matmul {m}x{d}x{n} {p}")
+    mm.count_launch("rmsnorm_matmul", p, False)
     return out
 
 
 @tunable(
     "rmsnorm_matmul",
-    space=RMSNORM_MATMUL_SPACE,
+    space=mm.MATMUL_SPACE,
     reference=ref.rmsnorm_matmul,
     heuristic=_rmm_heuristic,
     dispatch=DispatchSpec(canonicalize=_rmm_canon, vjp="dispatch", bwd=_rmm_bwd),
 )
-def rmsnorm_matmul(x, scale, w, *, bm: int, bn: int, eps: float = 1e-6):
+def rmsnorm_matmul(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, splits: int,
+                   eps: float = 1e-6):
     if x.is_cuda:
-        return rmsnorm_matmul_cuda(x, scale, w, bm=bm, bn=bn, eps=eps)
+        return rmsnorm_matmul_cuda(x, scale, w, bm=bm, bn=bn, bk=bk, stages=stages,
+                                   splits=splits, eps=eps)
     if x.device.type == "cpu":
         return rmsnorm_matmul_plain(x, scale, w, eps)
     raise RuntimeError(f"rmsnorm_matmul has no kernel for device {x.device}")

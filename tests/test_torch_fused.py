@@ -84,6 +84,7 @@ def test_matmul_bias_act_matches_pallas(dtype, act, m, k, n, blocks):
     (16, 64, 128, (8, 128)),
     (13, 100, 45, (8, 128)),            # ragged rows and columns
     (8, 96, 300, (8, 256)),
+    (8, 8192, 40, (8, 128)),            # the hybrid's width, a narrow n
 ])
 def test_rmsnorm_matmul_matches_pallas(dtype, m, d, n, blocks):
     jx, tx = _pair(_np(m, d, seed=m), dtype)
@@ -151,10 +152,8 @@ def _dbs(records):
     for kernel, shapes, dt, extra, cfg in records:
         jdb.put(JRecord(j_make_key(kernel, jplat, shapes, dt, extra), cfg, 1e-6, "w", 1, 0.0))
     for kernel, shapes, dt, extra, cfg in records:
-        tcfg = {"matmul_bias_act": {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 1},
-                "rmsnorm_matmul": {"bm": 16, "bn": 32}}[kernel]
-        tdb.put(Record(make_key(kernel, "torch-cpu", shapes, dt, extra), tcfg, 1e-6, "w", 1,
-                       0.0))
+        tdb.put(Record(make_key(kernel, "torch-cpu", shapes, dt, extra), TORCH_CFG[kernel], 1e-6,
+                       "w", 1, 0.0))
     return jdb, tdb
 
 
@@ -172,6 +171,9 @@ def _run_both(fn_j, fn_t, records, dtype="float32"):
 
 
 MBA_CFG = {"bm": 8, "bn": 128, "bk": 128}
+# The port's records: both fused tunables take matmul's space.
+TORCH_CFG = {"matmul_bias_act": {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 1},
+             "rmsnorm_matmul": {"bm": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1}}
 
 
 @pytest.mark.parametrize("kind,act", [("swiglu", "silu"), ("geglu", "gelu"),
@@ -228,17 +230,20 @@ def test_rmsnorm_dense_routes_fused_exactly_when_banked(banked):
 def test_fused_spaces_are_hopper_limits():
     from repro_torch.core.platform import H100_SXM
 
-    for cfg in fu.RMSNORM_MATMUL_SPACE.enumerate():
-        assert fu.rmm_smem_bytes(cfg, fu.D_NOMINAL, 2) <= H100_SXM.smem_per_block
-    assert not fu.RMSNORM_MATMUL_SPACE.is_valid({"bm": 128, "bn": 256})
-    # the decode unembed and the training rows: heuristics that fit the card
-    big = torch.empty(8, 896, dtype=torch.bfloat16)
+    # both fused tunables take matmul's space, every config of which fits a
+    # block with the norm prologue too: it keeps its rows' statistics in
+    # registers and rewrites A's slice in place, and adds only a scale slice
+    # a stage
+    assert fu.rmsnorm_matmul.space is mm.MATMUL_SPACE
+    for cfg in mm.MATMUL_SPACE.enumerate():
+        assert mm.smem_bytes(cfg) < fu.prologue_smem_bytes(cfg) <= H100_SXM.smem_per_block
+    assert not mm.MATMUL_SPACE.is_valid({"bm": 16, "bn": 256})       # the first port's space
+    # the decode unembed and the training rows: heuristics of the space
     w = torch.empty(896, 151936, dtype=torch.bfloat16, device="meta")
-    assert fu.rmsnorm_matmul.default_config(big, None, w) == {"bm": 16, "bn": 256}
+    big = torch.empty(8, 896, dtype=torch.bfloat16, device="meta")
+    assert fu.rmsnorm_matmul.default_config(big, None, w) == mm.gemm_heuristic(8, 151936, 896)
     rows = torch.empty(8192, 896, dtype=torch.bfloat16, device="meta")
-    cfg = fu._rmm_heuristic(rows, None, w)
-    assert fu.RMSNORM_MATMUL_SPACE.is_valid(cfg)
-    assert fu.rmm_smem_bytes(cfg, 896, 2) <= H100_SXM.smem_per_block
+    assert mm.MATMUL_SPACE.is_valid(fu._rmm_heuristic(rows, None, w))
     # matmul_bias_act runs on matmul's space: the training gate's heuristic
     # is legal and takes the tensor-core route
     x = torch.empty(8192, 896, dtype=torch.bfloat16, device="meta")
@@ -246,3 +251,76 @@ def test_fused_spaces_are_hopper_limits():
     cfg = fu.matmul_bias_act.default_config(x, gate, None)
     assert fu.matmul_bias_act.space is mm.MATMUL_SPACE and mm.MATMUL_SPACE.is_valid(cfg)
     assert mm.route(x, gate, cfg["bm"]) == "tc"
+
+
+# The decode unembeds of the three served models, a ragged row count, the
+# 64-row pool and wide rows at the hybrid's width: the heuristic is a legal
+# config of matmul's space on the decode route up to 16 rows, tc above.
+@pytest.mark.parametrize("m,d,n", [(8, 896, 151936), (13, 896, 151936), (8, 4096, 32000),
+                                   (8, 8192, 65536), (64, 896, 151936), (64, 8192, 65536),
+                                   (2048, 8192, 65536)])
+def test_rmsnorm_matmul_heuristic_is_legal(m, d, n):
+    x = torch.empty(m, d, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(d, n, dtype=torch.bfloat16, device="meta")
+    cfg = fu.rmsnorm_matmul.default_config(x, None, w)
+    assert mm.MATMUL_SPACE.is_valid(cfg) and cfg == mm.gemm_heuristic(m, n, d)
+    assert (cfg["bm"] == mm.DECODE_ROWS) == (m <= mm.DECODE_ROWS)
+    kps, splits = mm.split_k(d, cfg["bk"], cfg["splits"])
+    assert splits * kps >= -(-d // cfg["bk"]) > (splits - 1) * kps
+
+
+# The route rule: aligned bf16 takes decode (bm 16) or tc (bm 64, 128); a
+# width whose rows TMA cannot address (d = 100: 200-byte rows) or a scale
+# one element past an aligned base the k-sliced WMMA loop at matmul's WMMA
+# tiles; fp32 the k-sliced SIMT loop (counted as ``simt`` and
+# ``simt_loop``); force_loop the loop of its dtype.
+@pytest.mark.parametrize("dtype,m,d,cfg_bm,force_loop,scale_off,route,kernel", [
+    (torch.bfloat16, 8, 896, None, False, 0, "decode", "decode"),
+    (torch.bfloat16, 13, 8192, None, False, 0, "decode", "decode"),
+    (torch.bfloat16, 64, 896, None, False, 0, "tc", "tc"),
+    (torch.bfloat16, 200, 896, 128, False, 0, "tc", "tc"),
+    (torch.bfloat16, 64, 896, 16, False, 0, "decode", "decode"),    # a record's bm rules
+    (torch.bfloat16, 8, 100, None, False, 0, "wmma", "wmma"),
+    (torch.bfloat16, 64, 100, 128, False, 0, "wmma", "wmma"),
+    (torch.bfloat16, 8, 896, None, False, 1, "wmma", "loop"),
+    (torch.bfloat16, 8, 896, None, True, 0, "wmma", "loop"),
+    (torch.float32, 8, 896, None, False, 0, "simt", "loop"),
+    (torch.float32, 200, 8192, 128, False, 0, "simt", "loop"),
+])
+def test_rmsnorm_matmul_route_rule(dtype, m, d, cfg_bm, force_loop, scale_off, route, kernel):
+    x, w = torch.zeros(m, d, dtype=dtype), torch.zeros(d, 40, dtype=dtype)
+    s = torch.zeros(d + 8, dtype=dtype)[scale_off:scale_off + d]
+    assert (s.data_ptr() % 16 == 0) == (scale_off == 0)
+    cfg = fu.rmsnorm_matmul.default_config(x, s, w)
+    if cfg_bm is not None:
+        cfg = dict(cfg, bm=cfg_bm, bn=128, bk=64, stages=4)
+    assert mm.MATMUL_SPACE.is_valid(cfg)
+    p = fu.rmm_plan(x, s, w, cfg, force_loop)
+    assert (p["route"], p["kernel"]) == (route, kernel)
+    if route in ("wmma", "simt"):       # the loop's tiles whatever the config
+        assert {k: p[k] for k in ("bm", "bn", "bk")} == {
+            k: mm.wmma_tiles(m)[k] for k in ("bm", "bn", "bk")}
+        assert p["splits"] == 1
+    else:
+        assert {k: p[k] for k in ("bm", "bn", "bk", "stages")} == {
+            k: cfg[k] for k in ("bm", "bn", "bk", "stages")}
+
+
+# A record of the first port's {bm, bn} space is no config of the new one:
+# the site resolves at the heuristic tier and the fused site is not opted
+# in; a record of the new space opts it in at the exact tier.
+@pytest.mark.parametrize("record,tier,wins", [({"bm": 16, "bn": 64}, "heuristic", False),
+                                              (TORCH_CFG["rmsnorm_matmul"], "exact", True)],
+                         ids=["first-port-space", "matmul-space"])
+def test_rmsnorm_matmul_record_space(record, tier, wins):
+    x, s = _np(8, D, seed=11), 1 + _np(D, seed=12, scale=0.1)
+    w = _np(D, 300, seed=13, scale=D ** -0.5)
+    db = TuningDatabase(None)
+    db.put(Record(make_key("rmsnorm_matmul", "torch-cpu", [(8, D), (D,), (D, 300)], "float32"),
+                  record, 1e-6, "w", 1, 0.0))
+    tx, ts, tw = map(torch.from_numpy, (x, s, w))
+    with runtime(db=db) as rt:
+        assert rt.fusion_wins("rmsnorm_matmul", tx, ts, tw, eps=1e-6) == wins
+        out = dispatch("rmsnorm_matmul", tx, ts, tw, eps=1e-6)
+    assert rt.telemetry.snapshot()["tiers"] == {tier: 1}
+    _close(out, jref.rmsnorm_matmul(*map(jnp.asarray, (x, s, w))), "float32")

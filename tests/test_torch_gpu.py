@@ -590,7 +590,8 @@ def test_matmul_bias_act_kernel_matches_plain(cuda, dtype, m, k, n, act, config)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d,n", [(8, 896, 151936), (5, 100, 37), (33, 64, 130),
                                    (17, 896, 1000), (1, 33, 65), (130, 896, 4864)])
-@pytest.mark.parametrize("config", [None, {"bm": 16, "bn": 32}, {"bm": 32, "bn": 128}])
+@pytest.mark.parametrize("config", [None, {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 2},
+                                    {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1}])
 def test_rmsnorm_matmul_kernel_matches_plain(cuda, dtype, m, d, n, config):
     rs = np.random.RandomState(m + d + n)
     x = _t(rs, (m, d), dtype, cuda)
@@ -603,15 +604,81 @@ def test_rmsnorm_matmul_kernel_matches_plain(cuda, dtype, m, d, n, config):
     _close(out, fu.rmsnorm_matmul_plain(x, s, w), dtype)
 
 
+# rmsnorm_matmul on every route: the decode and tc routes' norm prologue
+# (one and two consumer warpgroups, split-k on both), the k-sliced loops
+# (bf16 at d = 100, whose rows TMA cannot address; fp32 at every width),
+# and force_loop's. n = 520 is no multiple of a tile.
+RMM_ROUTE_CONFIGS = {
+    "decode": {"bm": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1},
+    "decode_splitk": {"bm": 16, "bn": 128, "bk": 64, "stages": 3, "splits": 4},
+    "tc64": {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1},
+    "tc128": {"bm": 128, "bn": 256, "bk": 64, "stages": 3, "splits": 1},
+    "tc_splitk": {"bm": 128, "bn": 128, "bk": 128, "stages": 3, "splits": 2},
+    "loop": {"bm": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", (100, 896, 4096, 8192))
+@pytest.mark.parametrize("m", (1, 8, 13, 16, 64, 200))
+@pytest.mark.parametrize("name", list(RMM_ROUTE_CONFIGS))
+def test_rmsnorm_matmul_routes_match_plain(cuda, dtype, d, m, name):
+    n = 520
+    cfg = RMM_ROUTE_CONFIGS[name]
+    rs = np.random.RandomState(m + d + len(name))
+    x = _t(rs, (m, d), dtype, cuda)
+    s = (1 + 0.1 * _t(rs, (d,), torch.float32, cuda)).to(dtype)
+    w = _t(rs, (d, n), dtype, cuda, d ** -0.5)
+    force = name == "loop"
+    p = fu.rmm_plan(x, s, w, cfg, force)
+    if dtype == torch.float32:
+        want = "simt"
+    elif d == 100 or force:
+        want = "wmma"
+    else:
+        want = "decode" if cfg["bm"] == 16 else "tc"
+    assert p["route"] == want
+    kernels.reset_launch_counts()
+    out = fu.rmsnorm_matmul_cuda(x, s, w, **cfg, force_loop=force)
+    again = fu.rmsnorm_matmul_cuda(x, s, w, **cfg, force_loop=force)
+    torch.cuda.synchronize()
+    counts = {"rmsnorm_matmul": 2, f"rmsnorm_matmul_{want}": 2}
+    if want == "simt":
+        counts["rmsnorm_matmul_simt_loop"] = 2
+    if p["splits"] > 1:
+        counts["rmsnorm_matmul_splitk"] = 2
+    assert kernels.launch_counts() == counts
+    assert out.dtype == dtype and out.shape == (m, n)
+    _close(out, fu.rmsnorm_matmul_plain(x, s, w), dtype)
+    assert torch.equal(out, again)        # split-k sums in a fixed order: bitwise equal
+
+
+def test_rmsnorm_matmul_takes_the_loop_for_an_unaligned_scale(cuda):
+    """A scale one element past an aligned base is no TMA operand: the
+    k-sliced WMMA loop, whatever the config."""
+    rs = np.random.RandomState(7)
+    x, w = _t(rs, (70, 896), torch.bfloat16, cuda), _t(rs, (896, 520), torch.bfloat16, cuda)
+    s = (1 + 0.1 * _t(rs, (897,), torch.float32, cuda)).to(torch.bfloat16)[1:]
+    assert s.data_ptr() % 16
+    for cfg in (RMM_ROUTE_CONFIGS["decode"], RMM_ROUTE_CONFIGS["tc128"]):
+        kernels.reset_launch_counts()
+        out = fu.rmsnorm_matmul_cuda(x, s, w, **cfg)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {"rmsnorm_matmul": 1, "rmsnorm_matmul_wmma": 1}
+        _close(out, fu.rmsnorm_matmul_plain(x, s, w), torch.bfloat16)
+
+
 def test_fused_wrappers_count_their_launches(cuda):
     kernels.reset_launch_counts()
     x, w = torch.randn(4, 64, device=cuda), torch.randn(64, 32, device=cuda)
     cfg = {"bm": 16, "bn": 64, "bk": 64, "stages": 4, "splits": 1}
     fu.matmul_bias_act(x, w, torch.zeros(32, device=cuda), act="silu", **cfg)
-    fu.rmsnorm_matmul(x, torch.ones(64, device=cuda), w, bm=16, bn=32)
+    fu.rmsnorm_matmul(x, torch.ones(64, device=cuda), w, **cfg)
     fu.matmul_bias_act_plain(x, w, torch.zeros(32, device=cuda), "silu")
+    fu.rmsnorm_matmul_plain(x, torch.ones(64, device=cuda), w)
     assert kernels.launch_counts() == {**_route_counts("matmul_bias_act", x, w, cfg),
-                                       "rmsnorm_matmul": 1}
+                                       "rmsnorm_matmul": 1, "rmsnorm_matmul_simt": 1,
+                                       "rmsnorm_matmul_simt_loop": 1}
     assert kernels.launch_counts()["matmul_bias_act_simt"] == 1
 
 
@@ -749,29 +816,97 @@ def test_null_epilogue_leaves_matmul_and_expert_gemm_bit_equal(cuda, case):
     assert _digest(y) == NULL_EPILOGUE_DIGESTS[case]
 
 
+# Outputs of matmul_bias_act on each route, recorded (as above) from the
+# kernels before the norm prologue existed (commit 8723075, NVIDIA H100
+# 80GB HBM3, 700 W; prologue_digests() run on that tree): the prologue is a
+# template parameter of gemm.cuh's kernels that only rmsnorm_matmul
+# instantiates, and must leave every bit of the other libraries as it was
+# (matmul's and expert_gemm's are held by NULL_EPILOGUE_DIGESTS, on the same
+# kernels).
+def _null_prologue_cases():
+    """(name, dtype, (m, k, n, w stored transposed), activation, config)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    tc = {"bm": 128, "bn": 256, "bk": 64, "stages": 3, "splits": 1}
+    return [
+        ("mba_tc_bm128_silu", bf, (300, 328, 4864, False), "silu", tc),
+        ("mba_tc_bm64_transposed_gelu", bf, (200, 896, 130, True), "gelu",
+         {"bm": 64, "bn": 128, "bk": 64, "stages": 4, "splits": 1}),
+        ("mba_tc_splitk_none", bf, (2048, 8192, 136, True), "none",
+         {"bm": 128, "bn": 128, "bk": 64, "stages": 4, "splits": 4}),
+        ("mba_decode_silu", bf, (8, 896, 4864, False), "silu",
+         {"bm": 16, "bn": 64, "bk": 128, "stages": 4, "splits": 1}),
+        ("mba_decode_splitk_gelu", bf, (13, 4096, 1000, True), "gelu",
+         {"bm": 16, "bn": 128, "bk": 64, "stages": 3, "splits": 8}),
+        ("mba_wmma_silu", bf, (37, 100, 45, False), "silu", tc),
+        ("mba_simt_gelu", f32, (300, 328, 200, False), "gelu", tc),
+        ("mba_simt_rows_silu", f32, (8, 4096, 1024, False), "silu", tc),
+    ]
+
+
+def _null_prologue_output(dtype, shape, act, cfg, device):
+    m, k, n, tb = shape
+    rs = np.random.RandomState(m * 7 + k * 3 + n + 1)
+    x = _t(rs, (m, k), dtype, device)
+    w = _t(rs, (n, k) if tb else (k, n), dtype, device, k ** -0.5)
+    b = _t(rs, (n,), dtype, device, 0.5)
+    return fu.matmul_bias_act_cuda(x, w.T if tb else w, b, act=act, **cfg)
+
+
+def prologue_digests(device="cuda"):
+    """{case: digest} of every matmul_bias_act case on this checkout's
+    kernels (how NULL_PROLOGUE_DIGESTS was made, on the kernels of that
+    commit)."""
+    return {name: _digest(_null_prologue_output(dtype, shape, act, cfg, device))
+            for name, dtype, shape, act, cfg in _null_prologue_cases()}
+
+
+NULL_PROLOGUE_DIGESTS = {
+    "mba_tc_bm128_silu": "ce9b807ae7fde9d9",
+    "mba_tc_bm64_transposed_gelu": "eb5dda42d3a41eb7",
+    "mba_tc_splitk_none": "d9115c0fa14f95ea",
+    "mba_decode_silu": "c51b52312dbf279e",
+    "mba_decode_splitk_gelu": "ee8f15a3f8550006",
+    "mba_wmma_silu": "92205f282ee1e509",
+    "mba_simt_gelu": "9c2ea2bdc12aa420",
+    "mba_simt_rows_silu": "4eae56bc9add96e2",
+}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _null_prologue_cases()])
+def test_null_prologue_leaves_matmul_bias_act_bit_equal(cuda, case):
+    name, dtype, shape, act, cfg = next(c for c in _null_prologue_cases() if c[0] == case)
+    y = _null_prologue_output(dtype, shape, act, cfg, cuda)
+    again = _null_prologue_output(dtype, shape, act, cfg, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert _digest(y) == NULL_PROLOGUE_DIGESTS[case]
+
+
 def test_wallclock_evaluator_on_the_card(cuda):
     """CUDA-event timing of a kernel variant behind the correctness gate; a
-    row block too large for shared memory is a refused launch, pruned with
-    its CUDA code; a wrong variant fails the gate."""
+    ring too large for shared memory is a refused launch, pruned with its
+    CUDA code; a wrong variant fails the gate."""
     from repro_torch.core.evaluate import REFUSED_LAUNCH_CODES, WallClockEvaluator
 
     rs = np.random.RandomState(0)
-    x, s = _t(rs, (64, 896), torch.float32, cuda), _t(rs, (896,), torch.float32, cuda)
-    w = _t(rs, (896, 512), torch.float32, cuda, 896 ** -0.5)
+    x, s = _t(rs, (64, 896), torch.bfloat16, cuda), _t(rs, (896,), torch.bfloat16, cuda)
+    w = _t(rs, (896, 512), torch.bfloat16, cuda, 896 ** -0.5)
     ref = fu.rmsnorm_matmul_plain(x, s, w)
+    cfg = fu.rmsnorm_matmul.default_config(x, s, w)
     ev = WallClockEvaluator(repeats=3, warmup=1)
-    ok = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, bm=16, bn=64), (x, s, w), ref)
+    ok = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, **cfg), (x, s, w), ref)
     assert ok.ok and 0 < ok.objective < 1.0 and len(ok.meta["times"]) == 3
-    # fp32 at d = 896: a 64-row block plus the stage needs 297 KB
-    big = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, bm=64, bn=256), (x, s, w), ref)
+    # the tc route at 128 x 256 tiles in k slices of 128, a ring of 6: 576 KB
+    big_cfg = {"bm": 128, "bn": 256, "bk": 128, "stages": 6, "splits": 1}
+    big = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, **big_cfg), (x, s, w), ref)
     assert not big.ok and big.error.startswith("refused launch")
     assert any(f"CUDA error {c})" in big.error for c in REFUSED_LAUNCH_CODES)
-    bad = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, bm=16, bn=64) * 1.1, (x, s, w), ref)
+    bad = ev.evaluate(lambda *a: fu.rmsnorm_matmul_cuda(*a, **cfg) * 1.1, (x, s, w), ref)
     assert not bad.ok and bad.error == "correctness gate failed"
     # the card still runs after the refused launch
-    again = fu.rmsnorm_matmul_cuda(x, s, w, bm=16, bn=64)
+    again = fu.rmsnorm_matmul_cuda(x, s, w, **cfg)
     torch.cuda.synchronize()
-    _close(again, ref, torch.float32)
+    _close(again, ref, torch.bfloat16)
 
 
 def test_fused_dispatch_gradients_on_the_card(cuda):

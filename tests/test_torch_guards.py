@@ -179,7 +179,8 @@ def test_fused_wrappers_never_fall_back_off_the_cpu():
         fu.matmul_bias_act(meta(8, 16), meta(16, 32), meta(32), bm=16, bn=64, bk=64, stages=4,
                            splits=1)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        fu.rmsnorm_matmul(meta(8, 16), meta(16), meta(16, 32), bm=16, bn=32)
+        fu.rmsnorm_matmul(meta(8, 16), meta(16), meta(16, 32), bm=16, bn=64, bk=64, stages=4,
+                          splits=1)
 
 
 def test_train_launcher_switches_the_backward_plane(capsys):

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import evaluate as jeval  # noqa: E402
 from repro.core.tuner import _args_key as j_args_key  # noqa: E402
+from repro.core.annotate import _REGISTRY as j_registry  # noqa: E402
 from repro.core.annotate import tunable as j_tunable  # noqa: E402
 from repro.core.params import ParamSpace as JSpace  # noqa: E402
 from repro.core.params import PowerOfTwoParam as JPow  # noqa: E402
@@ -174,12 +175,18 @@ def test_record_key_is_the_jax_key_under_the_port_platform():
     (key,) = db.keys()
     assert key == make_key("ttoy4", "torch-cpu", [(300,)], "float32")
 
-    @j_tunable("ttoy4_jax", space=JSpace([JPow("chunk", 8, 64)]))
-    def jtoy(x, *, chunk):
-        return x
+    # a fake in the JAX package's registry, removed again: the registry is
+    # process-wide, and the JAX package's contract checks read all of it
+    try:
+        @j_tunable("ttoy4_jax", space=JSpace([JPow("chunk", 8, 64)]))
+        def jtoy(x, *, chunk):
+            return x
 
-    jkey = j_args_key(jtoy, (jnp.zeros(300, jnp.float32),), "torch-cpu")
+        jkey = j_args_key(jtoy, (jnp.zeros(300, jnp.float32),), "torch-cpu")
+    finally:
+        j_registry.pop("ttoy4_jax", None)
     assert key.split("|")[2:] == jkey.split("|")[2:]
+    assert "ttoy4_jax" not in j_registry
 
 
 def test_tune_or_lookup_roundtrip():
