@@ -48,7 +48,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              16384 (xc bf16, the TMA loader) and at a ragged s=1500,
              d_inner 16380 (the cp.async loader), each at its heuristic
              config and at another lane count and ring depth, with the
-             warps an SM each holds;
+             warps an SM each holds, and at the hybrid-train phase's
+             b=2, d_inner 8192; the scan's backward, the ssm_scan_bwd
+             tunable (torch code, not a kernel) at its heuristic chunk at
+             that shape and at Jamba's full width (b=1, d_inner 16384),
+             against the ref.ssm_scan_bwd oracle, timed (not gated) beside
+             the forward kernel;
              ssm_update at the 8-slot pool, with its bare launch's time
              warm and cold in L2 and the host time of one call (two
              configs); flash attention at 64/8 heads
@@ -115,16 +120,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
              master copy, batch 4 x seq 2048 from SyntheticPipeline(seed),
              RunConfig(remat="none", loss_chunk=512), AdamWConfig(
-             warmup_steps=2), 6 steps through the Trainer; step 1's loss and
-             every gradient leaf are held against the plain path
-             (reference mode on the card, same parameters and batch); every
+             warmup_steps=2), 6 steps through the Trainer; step 1's loss is
+             held against the plain path (reference mode on the card, same
+             parameters and batch), and every gradient leaf and every
+             layer's input cotangent against the plain path fed the kernel
+             path's layer outputs and cotangents, one layer at a time (each
+             leaf's distance with the two paths on their own is printed,
+             and for a leaf over its limit there, each path's distance from
+             an fp32 computation of the step); every
              loss must be finite, every kernel's launch counter (transposed
              matmul included) must rise, rmsnorm_bwd must launch 49 times
              a step (one a norm: 2 a layer and the final one), and no fwd
              or bwd dispatch may fall to the reference tier; torch.profiler
              splits one more step by kernel, with rmsnorm_bwd's device time;
-8. campaign — plans full-width qwen2_0_5b (the train phase's step, every
-             dispatch site forward and backward, and serving at
+8. hybrid-train — Jamba-1.5-Large without experts, one super-block (1
+             attention + 7 Mamba layers), its width cut to the original
+             Jamba's published widths (arXiv:2403.19887: d_model 4096,
+             d_ff 14336, 32/8 heads of 128; d_inner 8192, 2.73 B
+             parameters), bf16 with the fp32 AdamW state, batch 2 x 2048
+             (1 x 2048 if the step's peak passes 75 GiB; the batch that ran
+             is printed), RunConfig(remat="none", loss_chunk=512), heuristic
+             configs; step 1 held against the plain path as in the train
+             phase, then 4 steps: 7 ssm_scan launches a step,
+             ssm_scan_bwd in the backward's telemetry, 17 rmsnorm_bwd a
+             step, flash_attention_bwd launched, the fp32 gemms (dt_proj,
+             out_proj) and their gradients on gemm_simt (42 a step), no
+             dispatch at the reference tier; prints the step time, tokens/s,
+             peak memory, the device's busy time and idle share, and
+             ssm_scan_bwd's share of a step by host clock and device time;
+9. moe-train — Mixtral-8x7B at its published widths, 2 of 32 layers (3.2 B
+             parameters), batch 4 x 2048 (2 x 2048 past 75 GiB), the same
+             way, step 1's gradients gated on the kernel path's routes
+             replayed into the plain path (routing on its own is reported
+             only); expert_gemm's forward and transposed-gradient launches
+             (9 a layer a step, all on tc), a finite aux loss above 0; prints
+             as the hybrid phase, with expert_gemm's device share;
+10. campaign — plans full-width qwen2_0_5b (the train phase's step, every
+             dispatch site forward and backward, and serving at the token
+             cap of the engine's warmup, 65536, at
              max_batch=8, max_seq=2048), tunes every job on the card with
              the CUDA-event WallClockEvaluator behind the correctness gate
              at a small budget (``--campaign-budget``), and exports the
@@ -133,7 +166,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              trials, pruned trials by reason, seconds, and per kernel the
              tuned configs' time beside the heuristic configs' from the
              same calls;
-9. tuned   — on that database: ServingEngine.warmup and a few staggered
+11. tuned  — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode, on the tensor-core routes
@@ -144,7 +177,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              times are printed beside the train phase's heuristic step
              times (reported, not claimed), and torch.profiler splits one
              more tuned step by kernel;
-10. summary — one ``{"kernels": [...]}`` line, then the last line
+12. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -152,6 +185,7 @@ Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -188,16 +222,29 @@ TOL_XENT = 1e-4
 # tokens of fp32 losses whose bf16 logits were rounded at different
 # places; sound runs read 1.6e-5 and 2.5e-5 relative, the limit is 1e-3.
 # At random init the loss stays near log V whatever the layers compute, so
-# the gradients carry the check. Per leaf ||g_k - g_p|| / ||g_p||: sound
-# runs read a median of 7.9e-3 and at most 1.56e-2 on every leaf but the
-# k-projection biases, limit 3e-2. The k bias's gradient is a sum over all
-# positions of dk, most of which cancels (a per-row shift of the scores
-# leaves softmax unchanged; only RoPE keeps the shift from being exact),
-# so it is a small difference of large terms: readings 1.55e-2 to 2.02e-2,
-# limit 4e-2. A GQA group's q head left out of dk/dv reads about 0.14.
+# the gradients carry the check. Per leaf ||g_k - g_p|| / ||g_p||, each path
+# on its own: sound runs of qwen2_0_5b read a median of 7.9e-3 and at most
+# 1.56e-2 on every leaf but the k-projection biases, limit 3e-2. The k
+# bias's gradient is a sum over all positions of dk, most of which cancels
+# (a per-row shift of the scores leaves softmax unchanged; only RoPE keeps
+# the shift from being exact), so it is a small difference of large terms:
+# readings 1.55e-2 to 2.02e-2, limit 4e-2. A GQA group's q head left out
+# of dk/dv reads about 0.14. Run on their own, two bf16 computations part
+# at their first rounding that differs and the differences compound layer
+# after layer: the hybrid's Mamba step-size leaves (dt_proj, dt_bias,
+# x_proj) read up to 3.7e-2 apart, each path 2.6e-2 to 3.2e-2 from an fp32
+# computation of the step. So the gate holds the same limits layer by
+# layer, on equal inputs and output cotangents (gate_step1), and the
+# distances on their own are reported.
 TOL_LOSS = 1e-3
 TOL_GRAD = 3e-2
 TOL_GRAD_KBIAS = 4e-2
+# A step-1 gate that fails is recorded here and its phase runs on, so the
+# rest of the run still prints its measurements; main() then exits 1.
+GATE_FAILURES = []
+# Leaves over their limit, the two paths each on its own, that the gate
+# reports against fp32 (each keeps two fp32 gradients until then).
+REPORT_LEAVES = 32
 # fp32 gemms (the hybrid's dt_proj and out_proj): both sides sum in fp32
 # (TF32 off), in another order over k up to 16,384 terms: 1e-4 of max|plain|.
 TOL_F32_GEMM = 1e-4
@@ -1015,7 +1062,7 @@ def _ssm_inputs(gen, lead, di, ds, state_scale):
             A, state_scale * rn(lead[0], di, ds))
 
 
-def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, want_loader, ds=16):
+def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, want_loader, ds=16, path="hybrid"):
     from repro_torch import kernels
     from repro_torch.kernels import ssm_scan as ss
 
@@ -1052,7 +1099,7 @@ def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, want_loader, ds=16):
     nbytes = b * s * di * (2 + 4 + 4) + b * s * ds * 8 + di * ds * 4 + 2 * b * di * ds * 4
     b_ms, b_by = _ssm_bound(prof, sfu, nbytes, b * s * di, ds)
     grid = b * -(-di // heur["block_d"])
-    row = dict(shape=f"b={b} s={s} di={di} ds={ds} xc bf16", path="hybrid", config=heur, ms=ms,
+    row = dict(shape=f"b={b} s={s} di={di} ds={ds} xc bf16", path=path, config=heur, ms=ms,
                other_config=other, other_ms=ms_other, loader=ld, warps_per_sm=warps[0],
                other_warps_per_sm=warps[1], plain_ms=plain_ms, library_ms=None,
                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
@@ -1063,6 +1110,44 @@ def _ssm_scan_case(prof, rows, b, s, di, gen, sfu, want_loader, ds=16):
         f"{grid} CTAs on {prof.sm_count} SMs; plain {plain_ms:.4f}, no one-call yardstick, "
         f"bound {b_ms:.4f} ({b_by}); err {row['max_abs_err']:.3g} (rel "
         f"{row['max_rel_err']:.2e} <= {TOL_SSM})")
+
+
+def _ssm_scan_bwd_case(rows, fwd_rows, b, s, di, gen, ds=16):
+    """The scan's backward, the ``ssm_scan_bwd`` tunable (torch code: the
+    chunk-windowed adjoint recurrence) at its heuristic chunk, against the
+    ``ref.ssm_scan_bwd`` oracle (autograd through the sequential scan) on
+    the same inputs, with the final state's cotangent zero as in training.
+    Its time is recorded beside the forward kernel's at the same shape, not
+    gated: host clock a call (it is paced by its launches) and the device
+    time of the kernels one call launches."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+
+    args = _ssm_inputs(gen, (b, s), di, ds, 0.0)
+    cts = (torch.randn((b, s, di), generator=gen, device="cuda"),
+           torch.zeros((b, di, ds), device="cuda"))
+    cfg = ss.ssm_scan_bwd.default_config(*cts, *args)
+    got = ss.ssm_scan_bwd(*cts, *args, **cfg)
+    want = ref.ssm_scan_bwd(*cts, *args)
+    names = ("d_xc", "d_dt", "d_B", "d_C", "d_A", "d_h0")
+    errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
+    del got, want
+    # d_xc is bf16 on the oracle's side (xc's dtype): one bf16 rounding
+    bad = {n: e[1] for n, e in errs.items() if e[1] > (TOL_BF16 if n == "d_xc" else TOL_SSM)}
+    if bad:
+        raise AssertionError(f"ssm_scan_bwd b={b} s={s} di={di} {cfg}: rel errs {bad}")
+    call = lambda: ss.ssm_scan_bwd(*cts, *args, **cfg)
+    ms = time_ms(call, iters=3, warmup=1)
+    dev_ms = sum(device_split(call, iters=1).values())
+    shape = f"b={b} s={s} di={di} ds={ds} xc bf16"
+    fwd = next(r for r in fwd_rows if r["shape"] == shape)
+    row = dict(shape=shape, config=cfg, ms=ms, device_ms=dev_ms, fwd_kernel_ms=fwd["ms"],
+               max_rel_err={n: e[1] for n, e in errs.items()})
+    rows.append(row)
+    log(f"[kernels] ssm_scan_bwd (torch code) {shape} {cfg}: {ms:.3f} ms a call, "
+        f"{dev_ms:.3f} ms of it device busy (torch.profiler); the forward kernel {fwd['ms']:.4f} "
+        f"ms ({ms / fwd['ms']:.0f}x); vs the oracle, rel err " + ", ".join(
+            f"{n} {e[1]:.2e}" for n, e in errs.items()) + f" (tol {TOL_SSM}, d_xc {TOL_BF16})")
 
 
 def cold_ms(launch, reps: int = 20) -> float:
@@ -1146,7 +1231,7 @@ def phase_kernels(prof, seed: int):
     results = {k: [] for k in ("matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
                                "softmax_xent_bwd", "flash_attention", "flash_attention_bwd",
                                "matmul_bias_act", "rmsnorm_matmul", "ssm_scan", "ssm_update",
-                               "expert_gemm")}
+                               "expert_gemm", "ssm_scan_bwd")}
     # Serving: decode (m = 8 slots), the largest prefill bucket (m = 2048)
     # and the prefill unembed of the last position (m = 1).
     for m in (8, 2048):
@@ -1206,6 +1291,12 @@ def phase_kernels(prof, seed: int):
         f"clock)")
     _ssm_scan_case(prof, results["ssm_scan"], 1, 2048, 16384, gen, sfu, "tma")
     _ssm_scan_case(prof, results["ssm_scan"], 1, 1500, 16380, gen, sfu, "cpasync")
+    # The hybrid-train phase's scan (batch 2 x 2048, d_inner 8192), and the
+    # scan's backward at that shape and at Jamba's full width
+    _ssm_scan_case(prof, results["ssm_scan"], 2, 2048, 8192, gen, sfu, "tma",
+                   path="hybrid_train")
+    for b, di_ in ((2, 8192), (1, 16384)):
+        _ssm_scan_bwd_case(results["ssm_scan_bwd"], results["ssm_scan"], b, 2048, di_, gen)
     _ssm_update_case(prof, results["ssm_update"], 8, 16384, gen, sfu)
     _flash_case(prof, results["flash_attention"], 2048, gen, "hybrid", h=64, kvh=8, d=128)
     _flash_case(prof, results["flash_attention"], 1500, gen, "hybrid", h=64, kvh=8, d=128)
@@ -1594,44 +1685,55 @@ MOE_LENGTHS = (8, 16, 37, 300, 1024, 1500, 2048, 5000)
 class RouteTap:
     """Records the expert ids of every ``moe._route`` call while active
     (the router is plain torch, so recording changes nothing it computes),
-    each with its ``valid`` mask and the rows ``active()`` names live.
+    each with its ``valid`` mask and the rows ``active()`` names live; also
+    each call's ids by its router weight (``by_router``, the last call's)
+    and each call's load-balancing loss (``auxes``).
 
-    With ``replay`` (the ``calls`` of an earlier tap, in order), each call
-    takes the recorded expert ids instead of its own top-k and weights them
-    by its own router probabilities: the plain path on the kernel path's
-    routes."""
+    With ``replay`` (the ``by_router`` of an earlier tap that saw one call a
+    router), each call takes the ids recorded for its router weight in place
+    of its own top-k, and ``_route`` weights them by its own router
+    probabilities and takes its aux loss on them: the plain path on the
+    kernel path's routes. A layer that runs again in a recompute takes its
+    routes again."""
 
     def __init__(self, active=None, replay=None):
         self.calls = []
+        self.by_router = {}
+        self.auxes = []
         self.active = active
-        self.replay = None if replay is None else iter(replay)
+        self.replay = replay
 
     def __enter__(self):
         from repro_torch.models import moe
 
         self._orig = orig = moe._route
+        self._orig_top_k = orig_top_k = moe._top_k
+        current = {}
+
+        def top_k(probs, k):
+            if self.replay is None:
+                return orig_top_k(probs, k)
+            ids = self.replay[current["router"]]
+            return probs.gather(1, ids), ids
 
         def tap(router_w, x2, top_k, valid=None):
+            current["router"] = router_w.data_ptr()
             out = orig(router_w, x2, top_k, valid=valid)
-            if self.replay is not None:
-                ids = next(self.replay)[0]
-                probs = torch.softmax(x2.float() @ router_w, dim=-1)
-                w = probs.gather(1, ids)
-                w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
-                if valid is not None:
-                    w = w * valid.float()[:, None]
-                out = (w, ids, out[2])
             live = None if self.active is None else self.active()
             self.calls.append((out[1].detach(), valid, live))
+            self.by_router[current["router"]] = out[1].detach()
+            self.auxes.append(out[2].detach())
             return out
 
         moe._route = tap
+        moe._top_k = top_k
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
 
         moe._route = self._orig
+        moe._top_k = self._orig_top_k
 
 
 def capacity_drops(ids, n_experts: int, cap: int):
@@ -1795,7 +1897,7 @@ def phase_moe(seed: int):
     with torch.inference_mode():
         for mode, replay in (("kernel", None), ("reference", None),
                              ("pinned", "kernel")):
-            with RouteTap(replay=replay and taps[replay].calls) as taps[mode], \
+            with RouteTap(replay=replay and taps[replay].by_router) as taps[mode], \
                     runtime(mode="kernel" if mode == "kernel" else "reference"):
                 logits[mode], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
                                              cache_len=ecfg.max_seq, true_len=5000)
@@ -1822,10 +1924,107 @@ def phase_moe(seed: int):
     return launches
 
 
-def gate_step1(trainer, cfg, run, data, tag: str) -> None:
+def _fp32_copy(tree):
+    """The parameter tree, every leaf an fp32 copy cut from the graph."""
+    if isinstance(tree, dict):
+        return {k: _fp32_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fp32_copy(v) for v in tree)
+    return tree.detach().float()
+
+
+class _Pinned(torch.autograd.Function):
+    """A layer's output carrying another computation's value and cotangent:
+    the forward gives ``value`` in place of ``own``, and the backward sends
+    ``ct`` into ``own``'s graph in place of the cotangent that arrives,
+    which it keeps in ``arrived[i]``."""
+
+    @staticmethod
+    def forward(ctx, own, value, ct, arrived, i):
+        ctx.ct, ctx.arrived, ctx.i = ct, arrived, i
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.arrived[ctx.i] = g
+        return ctx.ct, None, None, None, None
+
+
+class LayerTap:
+    """Wraps ``transformer._train_layer`` while active. Recording (no
+    ``pin``): each train-mode layer call's output and, once the backward has
+    run, the cotangent that reached it (``outs``, ``cts``, by call). Pinning
+    (``pin``, a recording tap of the same parameters and batch): the i-th
+    layer call returns the recorded i-th output in place of its own, and its
+    backward takes the recorded cotangent in place of the one that arrives,
+    which is kept (``arrived``); ``branch[i]`` holds how far its own output
+    less its input sits from the recorded one's, ||d_own - d_rec|| /
+    ||d_rec||. The plain path then computes every layer,
+    and the embedding and the head, on the recorded path's inputs and
+    output cotangents: a layer's gradients differ by what that layer
+    computes, not by bf16 roundings compounded over the layers around it."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+        self.outs, self.cts, self.arrived, self.branch = [], {}, {}, {}
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        self._orig = orig = tf._train_layer
+
+        def layer(block, x, spec, cfg, run):
+            out, aux = orig(block, x, spec, cfg, run)
+            i = len(self.outs)
+            if self.pin is None:
+                self.outs.append(out.detach())
+                out.register_hook(lambda g, i=i: self.cts.__setitem__(i, g))
+                return out, aux
+            self.outs.append(None)
+            rec = self.pin.outs[i]
+            self.branch[i] = _rel(out.detach().float() - x.detach().float(),
+                                  rec.float() - x.detach().float())
+            return _Pinned.apply(out, self.pin.outs[i], self.pin.cts[i], self.arrived, i), aux
+
+        tf._train_layer = layer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+
+        tf._train_layer = self._orig
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in fp32."""
+    return (a.float() - b.float()).norm().item() / max(b.float().norm().item(), 1e-30)
+
+
+def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
     """Step 1's loss and gradients: the trainer's kernel path against the
     plain path (reference mode, remat="full" so its fp32 attention scores
-    are live for one layer at a time) on the same parameters and batch."""
+    and its scan's autograd graph are live for one layer at a time) on the
+    same parameters and batch.
+
+    Gated: the plain path's loss on its own against the kernel path's
+    (TOL_LOSS); then, layer by layer, the plain path on the kernel path's
+    layer outputs and their cotangents (LayerTap): every gradient leaf
+    (TOL_GRAD; TOL_GRAD_KBIAS for the k biases), the cotangent each layer's
+    plain backward hands down and each layer's output less its input
+    (TOL_GRAD), so each reading compares one layer, or the embedding or the
+    head, on equal inputs. Reported, not
+    gated: each leaf's distance when the two paths run on their own, where
+    the bf16 roundings that differ in the first layer compound through the
+    rest, and for each leaf over TOL_GRAD there each path's distance from
+    an fp32 computation of the step (the parameters cast, reference mode).
+    A failure goes to GATE_FAILURES. With ``replay_routes`` (an MoE arch)
+    the plain path takes the kernel path's expert ids, layer by layer (its
+    recompute too), in both its passes; a forward-only plain pass routing
+    on its own reports how many tokens' routes flip and what that does to
+    the loss. Returns the kernel path's MoE load-balancing loss (None
+    without ``replay_routes``)."""
+    import dataclasses
+
     from repro_torch.convert import batch_to_tensors
     from repro_torch.core.runtime import runtime
     from repro_torch.data.pipeline import SyntheticPipeline
@@ -1833,42 +2032,126 @@ def gate_step1(trainer, cfg, run, data, tag: str) -> None:
     from repro_torch.models.transformer import RunConfig
     from repro_torch.optim import adamw
 
-    batch = batch_to_tensors(SyntheticPipeline(cfg, data).next_batch(), "cuda")
-    names = [n for n, _ in adamw.named_leaves(trainer.params)]
-    loss_k, grads_k = trainer.loss_and_grads(batch)
     leaves = adamw.leaves(trainer.params)
-    with runtime(mode="reference", name="plain"):
-        loss_p, _ = lm.loss_fn(trainer.params, batch, cfg,
-                               RunConfig(remat="full", loss_chunk=run.loss_chunk))
+    batch = batch_to_tensors(SyntheticPipeline(cfg, data).next_batch(), leaves[0].device)
+    names = [n for n, _ in adamw.named_leaves(trainer.params)]
+    tap = RouteTap() if replay_routes else contextlib.nullcontext()
+    routes = lambda: (RouteTap(replay=tap.by_router) if replay_routes
+                      else contextlib.nullcontext())
+    with tap, LayerTap() as layers:
+        loss_k, grads_k = trainer.loss_and_grads(batch)
+    plain_run = RunConfig(remat="full", loss_chunk=run.loss_chunk)
+    kbias = lambda name: name.endswith("/mixer/k/b")
+    limit = lambda name: TOL_GRAD_KBIAS if kbias(name) else TOL_GRAD
+
+    # end to end: the plain path on its own
+    with runtime(mode="reference", name="plain"), routes():
+        loss_p, _ = lm.loss_fn(trainer.params, batch, cfg, plain_run)
         grads_p = torch.autograd.grad(loss_p, leaves)
     lk, lp = float(loss_k), float(loss_p.detach())
     loss_rel = abs(lk - lp) / abs(lp)
-    rels = []
+    on_routes = " on the kernel path's routes" if replay_routes else ""
+    log(f"[{tag}] step-1 loss kernel path {lk:.6f}, plain path{on_routes} {lp:.6f}: rel "
+        f"{loss_rel:.3e} (tol {TOL_LOSS})")
+    rels, over = [], {}
     for name, gk, gp in zip(names, grads_k, grads_p):
-        num = (gk.float() - gp.float()).norm().item()
-        rels.append((num / max(gp.float().norm().item(), 1e-30), name))
+        rels.append((_rel(gk, gp), name))
+        if rels[-1][0] > limit(name) and len(over) < REPORT_LEAVES:
+            over[name] = (rels[-1][0], gk.float(), gp.float())
+    del grads_p
     rels.sort(reverse=True)
-    kbias = lambda name: name.endswith("/mixer/k/b")
+    log(f"[{tag}] report only, each path on its own: ||g_k - g_p|| / ||g_p|| over {len(rels)} "
+        f"leaves: median {rels[len(rels) // 2][0]:.3e}, max {rels[0][0]:.3e} ({rels[0][1]}); "
+        f"{sum(r > limit(n) for r, n in rels)} over TOL_GRAD ({TOL_GRAD}; k biases "
+        f"{TOL_GRAD_KBIAS})")
+    if over:
+        # each path against an fp32 computation of the step: bf16 rounding
+        # leaves both about as far from it as from each other
+        p32 = _fp32_copy(trainer.params)
+        want = [t for n, t in adamw.named_leaves(p32) if n in over]
+        for t in want:
+            t.requires_grad_()
+        with runtime(mode="reference", name="fp32"), routes():
+            loss_t, _ = lm.loss_fn(p32, batch, dataclasses.replace(cfg, dtype="float32"),
+                                   plain_run)
+            grads_t = torch.autograd.grad(loss_t, want)
+        log(f"[{tag}] report only, the first {len(over)} of them against an fp32 computation "
+            f"of step 1 (loss {float(loss_t.detach()):.6f}): ||g - g_32|| / ||g_32||")
+        for (name, (rel, gk, gp)), gt in zip(over.items(), grads_t):
+            log(f"[{tag}]   {name}: kernel path {_rel(gk, gt):.3e}, plain path "
+                f"{_rel(gp, gt):.3e}; between them {rel:.3e}")
+        del p32, want, grads_t
+    over.clear()
+
+    # gated: layer by layer, the plain path on the kernel path's layer
+    # outputs and cotangents
+    with runtime(mode="reference", name="plain-pinned"), routes(), LayerTap(pin=layers) as pin:
+        loss_q, _ = lm.loss_fn(trainer.params, batch, cfg, plain_run)
+        grads_q = torch.autograd.grad(loss_q, leaves)
+    bad = []
+    rels = []
+    for name, gk, gq in zip(names, grads_k, grads_q):
+        rels.append((_rel(gk, gq), name))
+        if rels[-1][0] > limit(name):
+            bad.append((round(rels[-1][0], 6), name))
+    cts = [(_rel(layers.cts[i], pin.arrived[i]), i) for i in range(len(layers.outs))]
+    bad_ct = sorted(((round(r, 6), i) for r, i in cts if r > TOL_GRAD), reverse=True)
+    fwd = sorted(((r, i) for i, r in pin.branch.items()), reverse=True)
+    bad_fwd = [(round(r, 6), i) for r, i in fwd if r > TOL_GRAD]
+    del grads_k, grads_q, layers, pin
+    rels.sort(reverse=True)
+    cts.sort(reverse=True)
     rk = [r for r in rels if kbias(r[1])]
     ro = [r for r in rels if not kbias(r[1])]
-    log(f"[{tag}] step-1 loss kernel path {lk:.6f}, plain path {lp:.6f}: rel {loss_rel:.3e} "
-        f"(tol {TOL_LOSS})")
-    log(f"[{tag}] step-1 gradients, ||g_k - g_p|| / ||g_p|| over {len(rels)} leaves: median "
+    log(f"[{tag}] step-1 gradients layer by layer (the plain path on the kernel path's layer "
+        f"outputs and cotangents), ||g_k - g_p|| / ||g_p|| over {len(rels)} leaves: median "
         f"{rels[len(rels) // 2][0]:.3e}; {len(ro)} leaves other than the k biases: max "
-        f"{ro[0][0]:.3e} ({ro[0][1]}) (tol {TOL_GRAD}); {len(rk)} k biases: max "
-        f"{rk[0][0]:.3e} ({rk[0][1]}), min {rk[-1][0]:.3e} (tol {TOL_GRAD_KBIAS})")
-    for rel, name in ro[:4] + rk[:4]:
+        f"{ro[0][0]:.3e} ({ro[0][1]}) (tol {TOL_GRAD})" + (
+            f"; {len(rk)} k biases: max {rk[0][0]:.3e} ({rk[0][1]}) (tol {TOL_GRAD_KBIAS})"
+            if rk else "") + f"; {len(cts)} layer outputs' cotangents handed down: max "
+        f"{cts[0][0]:.3e} (layer call {cts[0][1]}) (tol {TOL_GRAD}); layer outputs less "
+        f"their inputs: max {fwd[0][0]:.3e} (layer call {fwd[0][1]}) (tol {TOL_GRAD}); loss "
+        f"{float(loss_q.detach()):.6f}")
+    for rel, name in rels[:4]:
         log(f"[{tag}]   {rel:.3e}  {name}")
-    del grads_k, grads_p, batch
-    bad = ([r for r in ro if r[0] > TOL_GRAD] + [r for r in rk if r[0] > TOL_GRAD_KBIAS])
-    if loss_rel > TOL_LOSS or bad:
-        raise AssertionError(f"kernel path differs from the plain path: loss rel {loss_rel:.3g} "
-                             f"(tol {TOL_LOSS}); leaves over their limit: {bad[:8]}")
+    aux = None
+    if replay_routes:
+        aux = float(sum(tap.auxes))
+        with torch.no_grad(), runtime(mode="reference", name="plain-free"), RouteTap() as free:
+            loss_f, _ = lm.loss_fn(trainer.params, batch, cfg,
+                                   RunConfig(remat="none", loss_chunk=run.loss_chunk))
+        flips = [int((free.by_router[k] != ids).any(-1).sum())
+                 for k, ids in tap.by_router.items()]
+        n_tok = next(iter(tap.by_router.values())).shape[0]
+        log(f"[{tag}] report only: the plain path routing on its own: loss {float(loss_f):.6f}, "
+            f"rel {abs(lk - float(loss_f)) / abs(float(loss_f)):.3e} to the kernel path's; tokens "
+            f"whose routes differ from the kernel path's, by layer: {flips} of {n_tok}")
+        log(f"[{tag}] step-1 MoE load-balancing loss (kernel path, summed over layers): {aux:.6f}")
+    del batch
+    bad.sort(reverse=True)
+    if loss_rel > TOL_LOSS or bad or bad_ct or bad_fwd:
+        msg = (f"{tag}: step-1 gate: kernel path differs from the plain path: loss rel "
+               f"{loss_rel:.3g} (tol {TOL_LOSS}); layer by layer, {len(bad)} leaves over their "
+               f"limit, the worst: {bad[:8]}; {len(bad_ct)} cotangents handed down over "
+               f"{TOL_GRAD}, the worst (rel, layer call): {bad_ct[:4]}; {len(bad_fwd)} layer "
+               f"outputs less their inputs over {TOL_GRAD}, the worst: {bad_fwd[:4]}")
+        log(f"[{tag}] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+    return aux
 
 
-def phase_train(seed: int):
+# A training phase drops to its smaller batch only when the larger one's
+# step passes this peak of allocated memory (of the card's 80 GB).
+TRAIN_PEAK_LIMIT = 75 * 2**30
+
+
+def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: bool = False):
+    """Train ``cfg`` through the Trainer at seq 2048 and the first batch of
+    ``batches`` whose steps stay under TRAIN_PEAK_LIMIT: step 1 gated
+    against the plain path, then ``steps`` steps with the launch counters
+    and the telemetry counting from 0. Returns (trainer, batch, metrics,
+    launches, telemetry snapshot, peak bytes, the step-1 aux loss)."""
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core.runtime import runtime
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import lm
@@ -1876,66 +2159,257 @@ def phase_train(seed: int):
     from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
 
-    cfg = get_config("qwen2_0_5b")
     run = RunConfig(remat="none", loss_chunk=512, microbatches=1)
-    data = DataConfig(seed=seed, batch_size=4, seq_len=2048)
+    for i, batch in enumerate(batches):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        data = DataConfig(seed=seed, batch_size=batch, seq_len=2048)
+        rt = runtime(name=tag)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, run, data, adamw.AdamWConfig(warmup_steps=2, total_steps=steps),
+                          TrainerConfig(total_steps=steps, seed=seed), runtime=rt,
+                          device="cuda")
+        torch.cuda.synchronize()
+        log(f"[{tag}] {lm.param_count(trainer.params) / 1e9:.3f} B params {cfg.dtype} + fp32 "
+            f"AdamW master and moments: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated; batch {batch} x 2048; init {time.perf_counter() - t0:.1f} s")
+        aux = gate_step1(trainer, cfg, run, data, tag, replay_routes=replay_routes)
+        gate_peak = torch.cuda.max_memory_allocated()
+        rt.telemetry.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] peak memory allocated: {peak / 2**30:.2f} GiB over {steps} steps "
+            f"({gate_peak / 2**30:.2f} GiB in the step-1 gate, the plain path's included)")
+        if peak > TRAIN_PEAK_LIMIT and i + 1 < len(batches):
+            log(f"[{tag}] the peak passes {TRAIN_PEAK_LIMIT / 2**30:.0f} GiB at batch {batch} x "
+                f"2048: dropping to {batches[i + 1]} x 2048")
+            del trainer, metrics
+            continue
+        log(f"[{tag}] batch {batch} x 2048 ran")
+        return trainer, batch, metrics, launches, rt.telemetry.snapshot(), peak, aux
+    raise AssertionError(f"{tag}: no batch ran")
+
+
+def _train_checks(tag: str, snap, launches, want: dict) -> None:
+    """No fwd or bwd dispatch at the reference tier, and each launch
+    counter in ``want`` at its count."""
+    log(f"[{tag}] launches: {launches}")
+    log(f"[{tag}] telemetry by phase: {snap['phases']}")
+    for phase in ("fwd", "bwd"):
+        if snap["phases"].get(phase, {}).get("reference", 0):
+            raise AssertionError(f"{tag}: {phase} dispatches fell to the reference tier: "
+                                 f"{snap['phases'][phase]}")
+    off = {k: (launches.get(k, 0), n) for k, n in want.items() if launches.get(k, 0) != n}
+    if off:
+        raise AssertionError(f"{tag}: launch counts (counted, expected): {off}")
+    log(f"[{tag}] launch counts checked: {want}")
+
+
+def _step_report(tag: str, metrics, tokens: int):
+    """The step time (median of steps 2 on) and tokens/s; returns the ms."""
+    times = [1e3 * m["step_time_s"] for m in metrics]
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite loss: {losses}")
+    step_ms = float(np.median(times[1:]))
+    norms = ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+    log(f"[{tag}] losses: {', '.join(f'{x:.4f}' for x in losses)}; grad norms: {norms}")
+    log(f"[{tag}] step times (ms): {', '.join(f'{t:.1f}' for t in times)}; step time "
+        f"{step_ms:.2f} ms median of steps 2-{len(times)}; {tokens / (step_ms / 1e3):.0f} "
+        f"tokens/s ({tokens} tokens a step)")
+    return step_ms
+
+
+# The marker kernel tunable_share launches around each call of a tunable:
+# torch.cuda._sleep(0)'s spin_kernel, which nothing else in a step runs.
+MARKER = "spin_kernel"
+
+
+def marked_device_ms(prof) -> tuple:
+    """(device ms between each pair of MARKER kernels, device ms of the
+    rest, markers left out, markers seen) in a torch.profiler window of one
+    stream, its device activity in stream order."""
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    inside, marks, in_us, out_us = False, 0, 0.0, 0.0
+    for ev in evs:
+        if MARKER in ev.name:
+            inside, marks = not inside, marks + 1
+        elif inside:
+            in_us += ev.time_range.elapsed_us()
+        else:
+            out_us += ev.time_range.elapsed_us()
+    return in_us / 1e3, out_us / 1e3, marks
+
+
+def tunable_share(tag: str, name: str, step) -> None:
+    """A dispatched tunable's share of two more steps. Host: its calls'
+    host time (each call synchronised before and after) against the step's
+    host clock. Device: a step under torch.profiler (device activity) with
+    a MARKER kernel launched before and after each call; the device time of
+    the kernels between each pair against the device busy time of that same
+    step, markers left out (a kernel launched through ctypes is not linked
+    to a host range, so the calls are found on the device's own timeline)."""
+    from repro_torch.core.annotate import get_tunable
+
+    tun = get_tunable(name)
+    orig = tun.fn
+    host = []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        return out
+
+    def marked(*args, **kw):
+        torch.cuda._sleep(0)
+        out = orig(*args, **kw)
+        torch.cuda._sleep(0)
+        return out
+
+    try:
+        tun.fn = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        tun.fn = marked
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        tun.fn = orig
+    if not host:
+        raise AssertionError(f"{tag}: no {name} call in the step")
+    host_ms = 1e3 * sum(host)
+    dev_ms, rest_ms, marks = marked_device_ms(prof)
+    busy_ms = dev_ms + rest_ms
+    if marks != 2 * len(host) or not dev_ms > 0:
+        raise AssertionError(f"{tag}: torch.profiler saw {marks} markers around {len(host)} "
+                             f"{name} calls, {dev_ms} ms of device time between them")
+    log(f"[{tag}] {name}: {len(host)} calls a step; host clock {host_ms:.2f} ms of the "
+        f"instrumented step's {wall_ms:.2f} ms ({100 * host_ms / wall_ms:.1f}%); device time "
+        f"{dev_ms:.3f} ms of the profiled step's {busy_ms:.2f} ms busy "
+        f"({100 * dev_ms / busy_ms:.1f}%; torch.profiler, the kernels between markers around "
+        f"its calls)")
+
+
+def phase_train(seed: int):
+    """Train full-width qwen2_0_5b, 6 steps at batch 4 x 2048."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2_0_5b")
     steps = 6
-    rt = runtime(name="train")
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg, run, data, adamw.AdamWConfig(warmup_steps=2, total_steps=steps),
-                      TrainerConfig(total_steps=steps, seed=seed), runtime=rt, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{lm.param_count(trainer.params) / 1e6:.1f} M params {cfg.dtype} + fp32 AdamW "
-        f"state; batch {data.batch_size} x {data.seq_len}; init {time.perf_counter() - t0:.1f} s")
-
-    gate_step1(trainer, cfg, run, data, "train")
-
-    rt.telemetry.reset()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    metrics = trainer.train()
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    snap = rt.telemetry.snapshot()
-    log(f"[train] launches over {steps} steps: {launches}")
-    log(f"[train] telemetry by phase: {snap['phases']}")
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}")
+    trainer, batch, metrics, launches, snap, _, _ = _train_run("train", cfg, seed, (4,), steps)
     missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training path: {missing}")
-    for phase in ("fwd", "bwd"):
-        if snap["phases"].get(phase, {}).get("reference", 0):
-            raise AssertionError(f"{phase} dispatches fell to the reference tier: "
-                                 f"{snap['phases'][phase]}")
-    check_routes(launches, "train", want=("tc",))
     # one rmsnorm_bwd a norm a step: 2 a layer and the final one
-    want_bwd = (2 * cfg.num_layers + 1) * steps
-    if launches.get("rmsnorm_bwd", 0) != want_bwd:
-        raise AssertionError(f"expected {want_bwd // steps} rmsnorm_bwd launches a step over "
-                             f"{steps} steps, counted {launches.get('rmsnorm_bwd', 0)}")
-    log(f"[train] rmsnorm_bwd {want_bwd // steps} launches a step (checked)")
-    losses = [m["loss"] for m in metrics]
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    times = [m["step_time_s"] for m in metrics]
-    timed = times[1:]
-    step_ms = 1e3 * float(np.median(timed))
-    tokens = data.batch_size * data.seq_len
-    log(f"[train] losses: {', '.join(f'{x:.4f}' for x in losses)}")
-    norms = ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
-    log(f"[train] grad norms: {norms}")
-    log(f"[train] step times (ms): {', '.join(f'{1e3 * t:.1f}' for t in times)}; step 1 is "
-        f"the warm-up")
-    log(f"[train] step time {step_ms:.2f} ms median of steps 2-{steps}; "
-        f"{tokens / (step_ms / 1e3):.0f} tokens/s; peak memory allocated {peak / 2**30:.2f} GiB")
+    _train_checks("train", snap, launches, {"rmsnorm_bwd": (2 * cfg.num_layers + 1) * steps})
+    check_routes(launches, "train", want=("tc",))
+    tokens = batch * 2048
+    step_ms = _step_report("train", metrics, tokens)
     by_name, busy = profile(f"train step ({tokens} tokens)", trainer.run_one_step, 1,
                             wall_ms=step_ms)
     kernel_share(f"train step ({tokens} tokens)", by_name, busy, "rmsnorm_bwd",
                  ("rmsnorm_bwd_rows", "rmsnorm_bwd_dw"))
-    return launches, step_ms, [1e3 * t for t in times]
+    return launches, step_ms, [1e3 * m["step_time_s"] for m in metrics]
+
+
+def phase_hybrid_train(seed: int):
+    """Train Jamba without experts, one super-block, at the original Jamba's
+    published widths."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("jamba_1_5_large"), num_experts=0, experts_per_token=0,
+                              num_layers=8, d_model=4096, d_ff=14336, num_heads=32,
+                              num_kv_heads=8)
+    n_mamba, steps = 7, 4
+    log(f"[hybrid-train] {cfg.name} without experts, one super-block (1 attention + "
+        f"{n_mamba} Mamba layers, dense SwiGLU FFNs), width cut from Jamba-1.5-Large "
+        f"(arXiv:2408.12570) to the original Jamba's published widths (arXiv:2403.19887, "
+        f"ai21labs/Jamba-v0.1): d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.hd}, d_inner {cfg.mamba_expand * cfg.d_model}, "
+        f"d_state {cfg.mamba_d_state}, dt_rank {-(-cfg.d_model // 16)}, vocab {cfg.vocab_size}")
+    t_phase = time.perf_counter()
+    trainer, batch, metrics, launches, snap, peak, _ = _train_run(
+        "hybrid-train", cfg, seed, (2, 1), steps)
+    # a step: 7 scans; 17 norms (2 a layer and the final one); the fp32 gemms
+    # dt_proj and out_proj, each forward and its two gradients, 6 a Mamba layer
+    _train_checks("hybrid-train", snap, launches, {
+        "ssm_scan": n_mamba * steps, "rmsnorm_bwd": (2 * cfg.num_layers + 1) * steps,
+        "matmul_simt": 6 * n_mamba * steps, "matmul_simt_tile": 6 * n_mamba * steps,
+        "matmul_simt_loop": 0, "matmul_wmma": 0})
+    missing = [k for k in ("flash_attention", "flash_attention_bwd", "softmax_xent_bwd",
+                           "matmul_transposed") if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"hybrid-train: never launched: {missing}")
+    bwd_keys = snap["by_key_phase"].get("bwd", {})
+    if not any(k.startswith("ssm_scan_bwd|") for k in bwd_keys):
+        raise AssertionError(f"hybrid-train: no ssm_scan_bwd dispatch in the backward: "
+                             f"{sorted(bwd_keys)[:8]}")
+    check_routes(launches, "hybrid-train", want=("tc", "simt"))
+    tokens = batch * 2048
+    step_ms = _step_report("hybrid-train", metrics, tokens)
+    by_name, busy = profile(f"hybrid train step ({tokens} tokens)", trainer.run_one_step, 1,
+                            wall_ms=step_ms)
+    kernel_share("hybrid train step", by_name, busy, "ssm_scan", ("ssm_scan_ws",))
+    kernel_share("hybrid train step", by_name, busy, "the fp32 route (every simt kernel)",
+                 ("gemm_simt",))
+    tunable_share("hybrid-train", "ssm_scan_bwd", trainer.run_one_step)
+    log(f"[hybrid-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    return launches, batch
+
+
+def phase_moe_train(seed: int):
+    """Train Mixtral-8x7B at its published widths, 2 of its 32 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), num_layers=2)
+    steps = 4
+    log(f"[moe-train] {cfg.name} at its published widths cut to {cfg.num_layers} of 32 layers: "
+        f"d_model {cfg.d_model}, {cfg.num_experts} experts top-{cfg.experts_per_token} of width "
+        f"{cfg.d_ff}, window {cfg.window}, vocab {cfg.vocab_size}")
+    t_phase = time.perf_counter()
+    trainer, batch, metrics, launches, snap, peak, aux = _train_run(
+        "moe-train", cfg, seed, (4, 2), steps, replay_routes=True)
+    if not (np.isfinite(aux) and aux > 0):
+        raise AssertionError(f"moe-train: the load-balancing loss is {aux}")
+    # a layer a step: gate, up and down forward, and each one's two gradients
+    # on transposed operands
+    per = 3 * cfg.num_layers * steps
+    _train_checks("moe-train", snap, launches, {
+        "expert_gemm": 3 * per, "expert_gemm_tc": 3 * per, "expert_gemm_transposed": 2 * per,
+        "matmul_wmma": 0, "expert_gemm_wmma": 0,
+        "rmsnorm_bwd": (2 * cfg.num_layers + 1) * steps})
+    missing = [k for k in ("flash_attention", "flash_attention_bwd", "softmax_xent_bwd")
+               if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"moe-train: never launched: {missing}")
+    check_routes(launches, "moe-train", want=("tc",), kernels=("matmul", "expert_gemm"))
+    tokens = batch * 2048
+    step_ms = _step_report("moe-train", metrics, tokens)
+    profile(f"moe train step ({tokens} tokens)", trainer.run_one_step, 1, wall_ms=step_ms)
+    tunable_share("moe-train", "expert_gemm", trainer.run_one_step)
+    log(f"[moe-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    return launches, batch
 
 
 ALL_KERNELS = TRAIN_KERNELS + ("matmul_bias_act", "rmsnorm_matmul")
@@ -1955,8 +2429,12 @@ def phase_campaign(seed: int, budget: int, workdir: str):
 
     cfg = get_config("qwen2_0_5b")
     run = RunConfig(remat="none", loss_chunk=512, microbatches=1)
+    # serving at the token cap the engine's warmup plans with (its default,
+    # 65536), so the campaign tunes every key the warmup resolves: with the
+    # planner's 8192 it would leave out the plain decode attention's
+    # attn_chunks lookup at the pool's full depth (8 x 2048 rows)
     jobs = (planner.plan_training_jobs(cfg, SHAPES["train_2k"], run=run)
-            + planner.plan_serving_jobs(cfg, max_batch=8, max_seq=2048))
+            + planner.plan_serving_jobs(cfg, max_batch=8, max_seq=2048, max_tokens=65536))
     prof = detect_platform("cuda")
     manifest = scheduler.build_manifest(jobs, budget, path=os.path.join(workdir, "campaign.json"),
                                         profile=prof, min_budget=2, max_budget=8)
@@ -2158,6 +2636,11 @@ def main() -> int:
     moe_launches = phase_moe(args.seed)
     torch.cuda.empty_cache()
     train_launches, heuristic_step_ms, heuristic_steps = phase_train(args.seed)
+    torch.cuda.empty_cache()
+    hybrid_train_launches, hybrid_batch = phase_hybrid_train(args.seed)
+    torch.cuda.empty_cache()
+    moe_train_launches, moe_batch = phase_moe_train(args.seed)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         db_path, _ = phase_campaign(args.seed, args.campaign_budget, workdir)
         tuned_serve, tuned_train = phase_tuned(args.seed, db_path, heuristic_step_ms,
@@ -2179,7 +2662,12 @@ def main() -> int:
     # only on the MoE path: its entry pairs the moe serving run's launches
     # with the decode pool's gate projection, and the three serving kernels
     # carry a "moe" object too (the decode unembed, the 8192 bucket's norm
-    # and its windowed attention).
+    # and its windowed attention). The two training phases add an object
+    # each: ssm_scan's "hybrid_train" pairs the hybrid training run's
+    # launches with its scan at batch 2 x 2048, d_inner 8192, expert_gemm's
+    # "moe_train" the MoE training run's with the gate projection at
+    # capacity 2560 (batch 4 x 2048), each with the batch the phase ran;
+    # ssm_scan's "bwd_torch" holds the backward tunable's times.
     pick = {"train": {"matmul": "[2048,896]@[896,151936] bf16", "rmsnorm": "[8192,896] bf16",
                       "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
                       "softmax_xent_bwd": "[2048,151936] bf16",
@@ -2195,7 +2683,9 @@ def main() -> int:
                        "ssm_update": "b=8 di=16384 ds=16 xc bf16"},
             "moe": {"matmul": "[8,4096]@[4096,32000] bf16", "rmsnorm": "[8192,4096] bf16",
                     "flash_attention": "q[1,32,8192,128] kv[1,8,8192,128] causal w4096 bf16",
-                    "expert_gemm": "[8,2,4096]@[8,4096,14336] bf16"}}
+                    "expert_gemm": "[8,2,4096]@[8,4096,14336] bf16"},
+            "hybrid_train": {"ssm_scan": "b=2 s=2048 di=8192 ds=16 xc bf16"},
+            "moe_train": {"expert_gemm": "[8,2560,4096]@[8,4096,14336] bf16"}}
     main_path = {"matmul_bias_act": ("train", tuned_train),
                  "rmsnorm_matmul": ("serve", tuned_serve),
                  "ssm_scan": ("hybrid", hybrid_launches),
@@ -2204,10 +2694,12 @@ def main() -> int:
     timing_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(name, path, launches):
-        top = next(r for r in results[name] if r["path"] == path
+        top = next(r for r in results[name] if r["path"] in (path, path.split("_")[0])
                    and r["shape"] == pick[path][name])
         return {"path": path, "launches": launches.get(name, 0),
                 **{k: top[k] for k in timing_keys}}
+
+    bwd_torch = results.pop("ssm_scan_bwd")
 
     entries = []
     for name, rows in results.items():
@@ -2221,6 +2713,16 @@ def main() -> int:
         if name in ("matmul", "expert_gemm", "matmul_bias_act", "rmsnorm_matmul"):
             entry["launches_by_route"] = {r: launches.get(f"{name}_{r}", 0)
                                           for r in ("tc", "decode", "simt", "wmma", "splitk")}
+        if name == "ssm_scan":
+            entry["hybrid_train"] = dict(at(name, "hybrid_train", hybrid_train_launches),
+                                         batch=hybrid_batch)
+            entry["bwd_torch"] = bwd_torch
+        if name == "expert_gemm":
+            entry["moe_train"] = dict(at(name, "moe_train", moe_train_launches),
+                                      batch=moe_batch)
+            entry["moe_train"]["launches_by_route"] = {
+                r: moe_train_launches.get(f"expert_gemm_{r}", 0)
+                for r in ("tc", "decode", "simt", "wmma", "splitk", "transposed")}
         if name in SERVE_KERNELS:
             entry["serve"] = at(name, "serve", serve_launches)
             entry["hybrid"] = at(name, "hybrid", hybrid_launches)
@@ -2229,6 +2731,10 @@ def main() -> int:
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)
     log(json.dumps({"kernels": entries}))
+    if GATE_FAILURES:
+        for msg in GATE_FAILURES:
+            log(f"[FAILED] {msg}")
+        return 1
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -10,16 +10,19 @@ scenario names:
   their two transposed-operand gradients, the fused FFN activation site,
   the norms and their ``rmsnorm_bwd``, the chunked loss's unembed gemms,
   ``softmax_xent`` and ``softmax_xent_bwd``, causal flash attention and its
-  backward;
+  backward; a hybrid arch adds its Mamba layers' projections (``dt_proj``
+  and ``out_proj`` in fp32) with ``ssm_scan`` and ``ssm_scan_bwd``;
 * :func:`plan_train_jobs` -- the shorter shape-level roster (forward sites
-  only);
+  only, with the model-level ``attn_chunks`` site);
 * :func:`plan_serving_jobs` -- every slot-pool bucket a continuous
   :class:`~repro_torch.serving.engine.ServingEngine` runs: batch-1
   admission prefills at each power-of-two sequence bucket and the decode
-  pool at the full slot width, with the fused final-norm -> unembed site;
-  a hybrid arch adds its Mamba layers' projections with the ``ssm_scan``
-  site at each prefill bucket and the ``ssm_update`` site in the pool, and
-  an MoE arch its ``expert_gemm`` sites at each bucket's capacity.
+  pool at the full slot width, with the fused final-norm -> unembed site
+  and the ``attn_chunks`` sites (each prefill, and one decode-shaped
+  lookup at the pool's full depth); a hybrid arch adds its Mamba layers'
+  projections with the ``ssm_scan`` site at each prefill bucket and the
+  ``ssm_update`` site in the pool, and an MoE arch its ``expert_gemm``
+  sites at each bucket's capacity.
 
 MoE layers add their grouped ``expert_gemm`` sites keyed on (experts x
 capacity x hidden), with the two transposed-operand gradients in training,
@@ -27,8 +30,7 @@ as the JAX planner does. The planner evaluates nothing. Leading (token)
 dims are capped by ``max_tokens``; its default admits the 8,192-token step
 of the one-card trainer (batch 4 x 2048), whose sites the JAX default of
 4,096 would cap into keys the step never looks up. The xLSTM mixers are
-not ported, and Mamba layers are served but not trained yet: a config that
-needs what the port lacks raises.
+not ported: a config that has one raises.
 """
 from __future__ import annotations
 
@@ -41,22 +43,27 @@ from ..core.tuner import promoted_dtype
 from ..models.moe import expert_capacity
 from ..models.transformer import RunConfig
 
-# The tunables a campaign tunes by default: the ported kernels' dispatch
-# sites, the *_bwd ones being the backward plane (matmul gradients reuse
-# matmul). A record for a fused site is what opts the site into fusion.
+# The tunables a campaign tunes by default, as in the JAX planner: the
+# dispatch sites (``attn_chunks`` being the model-level chunked attention),
+# the *_bwd ones being the backward plane (matmul and expert_gemm gradients
+# reuse their forward tunables). A record for a fused site is what opts the
+# site into fusion.
 DEFAULT_KERNELS = (
     "matmul",
     "rmsnorm",
     "flash_attention",
     "softmax_xent",
-    "rmsnorm_bwd",
-    "flash_attention_bwd",
-    "softmax_xent_bwd",
-    "matmul_bias_act",
-    "rmsnorm_matmul",
+    "attn_chunks",
     "ssm_scan",
     "ssm_update",
     "expert_gemm",
+    "rmsnorm_bwd",
+    "flash_attention_bwd",
+    "softmax_xent_bwd",
+    "ssm_scan_bwd",
+    "ssm_update_bwd",
+    "matmul_bias_act",
+    "rmsnorm_matmul",
 )
 
 MAX_TOKENS = 8192
@@ -163,16 +170,6 @@ def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
                            cfg.capacity_factor)
 
 
-def _train_counts(cfg: ArchConfig) -> Dict[str, float]:
-    """:func:`_site_counts` of a config the port can train."""
-    counts = _site_counts(cfg)
-    if counts["mamba"]:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba layers are served but not trained yet (ROADMAP, hybrid "
-            f"training: ssm_scan_bwd and ssm_update_bwd, the training planner rows)")
-    return counts
-
-
 def _mamba_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
     """(d_inner, d_state, dt_rank) as ``ssm.mamba_init`` derives them."""
     return cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state, max(1, -(-cfg.d_model // 16))
@@ -200,7 +197,7 @@ def plan_train_jobs(
     scen = f"{cfg.name}/{shape.name}"
     B, S = shape.global_batch, shape.seq_len
     T = max(1, min(max_tokens, B * S))
-    counts = _train_counts(cfg)
+    counts = _site_counts(cfg)
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
 
@@ -208,7 +205,7 @@ def plan_train_jobs(
     if cfg.d_ff > 0:
         add("matmul", [(T, d), (d, cfg.d_ff)], [f, f], counts["ffn"], scen)
     # The JAX roster counts two norms a layer whatever its FFN.
-    add("rmsnorm", [(T, d), (d,)], [f, f], 2 * counts["attn"], scen)
+    add("rmsnorm", [(T, d), (d,)], [f, f], 2 * counts["layers"], scen)
     if shape.kind == "train":
         add("softmax_xent", [(T, cfg.vocab_size), (T,)], [f, "int32"], 1.0, scen)
     s_att = max(1, min(S, max_seq))
@@ -216,6 +213,18 @@ def plan_train_jobs(
     q = (b_att, H, s_att, hd)
     kv = (b_att, KV, s_att, hd)
     add("flash_attention", [q, kv, kv], [f, f, f], counts["attn"], scen, extra="cTruew0")
+    add("attn_chunks", [q, kv, kv], [f, f, f], counts["attn"], scen)
+    # Mamba: the projections at token rows and the batch-shaped scan
+    n_mamba = counts["mamba"]
+    if n_mamba > 0:
+        di, ds, dtr = _mamba_dims(cfg)
+        add("matmul", [(T, d), (d, 2 * di)], [f, f], n_mamba, scen)
+        add("matmul", [(T, di), (di, dtr + 2 * ds)], [f, f], n_mamba, scen)
+        add("matmul", [(T, dtr), (dtr, di)], [F32, F32], n_mamba, scen)
+        add("matmul", [(T, di), (di, d)], [F32, F32], n_mamba, scen)
+        add("ssm_scan", [(b_att, s_att, di), (b_att, s_att, di), (b_att, s_att, ds),
+                         (b_att, s_att, ds), (di, ds), (b_att, di, ds)],
+            [f, F32, F32, F32, F32, F32], n_mamba, scen)
     # MoE expert FFN: capacity from the step's whole token count, capped
     if counts["moe"] > 0:
         e, cap = cfg.num_experts, min(max_tokens, _capacity(cfg, B * S))
@@ -256,15 +265,15 @@ def plan_training_jobs(
     scen = f"{cfg.name}/{shape.name}@dp1"
     s = min(S, max_seq)
     T = min(b_loc * s, max_tokens)
-    counts = _train_counts(cfg)
+    counts = _site_counts(cfg)
     n_attn, n_ffn, n_norm = counts["attn"], counts["ffn"], counts["norm"]
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
 
-    def add_gemm(m, kdim, n, weight):
-        add("matmul", [(m, kdim), (kdim, n)], [f, f], weight, scen)
-        add("matmul", [(m, n), (n, kdim)], [f, f], weight, scen)     # dL/dx
-        add("matmul", [(kdim, m), (m, n)], [f, f], weight, scen)     # dL/dw
+    def add_gemm(m, kdim, n, weight, dtype=f):
+        add("matmul", [(m, kdim), (kdim, n)], [dtype, dtype], weight, scen)
+        add("matmul", [(m, n), (n, kdim)], [dtype, dtype], weight, scen)     # dL/dx
+        add("matmul", [(kdim, m), (m, n)], [dtype, dtype], weight, scen)     # dL/dw
 
     def add_egemm(e, c, kdim, n, weight):
         """An expert_gemm site and its two gradients, dL/dx = ct[e,c,n] @
@@ -304,6 +313,21 @@ def plan_training_jobs(
         add("flash_attention", [q, kv, kv], [f, f, f], n, scen, extra=f"cTruew{w}")
         add("flash_attention_bwd", [q, q, kv, kv, q, lse_s], [f, f, f, f, f, "float32"], n,
             scen, extra=f"cTruew{w}")
+    # Mamba: the four projections (dt_proj and out_proj in fp32) with their
+    # gradients, the scan at the attention's batch and its backward, whose
+    # two fp32 cotangents take the shapes of y and of the final state
+    n_mamba = counts["mamba"]
+    if n_mamba > 0:
+        di, ds, dtr = _mamba_dims(cfg)
+        add_gemm(T, d, 2 * di, n_mamba)                               # in_proj
+        add_gemm(T, di, dtr + 2 * ds, n_mamba)                        # x_proj
+        add_gemm(T, dtr, di, n_mamba, dtype=F32)                      # dt_proj
+        add_gemm(T, di, d, n_mamba, dtype=F32)                        # out_proj
+        xc_s, bc_s, a_s, h_s = (b_att, s, di), (b_att, s, ds), (di, ds), (b_att, di, ds)
+        add("ssm_scan", [xc_s, xc_s, bc_s, bc_s, a_s, h_s], [f, F32, F32, F32, F32, F32],
+            n_mamba, scen)
+        add("ssm_scan_bwd", [xc_s, h_s, xc_s, xc_s, bc_s, bc_s, a_s, h_s],
+            [F32, F32, f, F32, F32, F32, F32, F32], n_mamba, scen)
     # MoE expert FFN: capacity from the microbatch's whole token count
     # (expert_gemm args are not batch-sharded), capped like every leading dim
     if counts["moe"] > 0:
@@ -374,6 +398,7 @@ def plan_serving_jobs(
             add("rmsnorm", [(s, d), (d,)], [f, f], n_norm, scen)
             q, kv = (1, H, s, hd), (1, KV, s, hd)
             add("flash_attention", [q, kv, kv], [f, f, f], n_attn, scen, extra="cTruew0")
+            add("attn_chunks", [q, kv, kv], [f, f, f], n_attn, scen)
             # Mamba at prefill: the projections over s rows, dt_proj and
             # out_proj in fp32, and the batch-1 scan
             add("matmul", [(s, d), (d, 2 * di)], [f, f], n_mamba, scen)
@@ -409,6 +434,12 @@ def plan_serving_jobs(
         cap = _capacity(cfg, B) if n_moe else 0
         add("expert_gemm", [(e, cap, d), (e, d, cfg.d_ff)], [f, f], n_up * n_moe * s, scen)
         add("expert_gemm", [(e, cap, cfg.d_ff), (e, cfg.d_ff, d)], [f, f], n_moe * s, scen)
+    # the plain path's decode attention: one query row against the pool's
+    # cache, which is allocated at the full depth once
+    s_max = _seq_buckets(max_seq)[-1]
+    if B * s_max <= max_tokens:
+        add("attn_chunks", [(B, H, 1, hd), (B, KV, s_max, hd), (B, KV, s_max, hd)], [f, f, f],
+            n_attn * s_max, f"{cfg.name}/serve_decode_b{B}s{s_max}")
     return jobs
 
 

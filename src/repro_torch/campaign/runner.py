@@ -56,6 +56,12 @@ def call_kwargs(job: TuningJob) -> Dict[str, Any]:
     return {}
 
 
+# (dt arg, A arg) of each selective-scan job: the backward jobs lead with
+# the two cotangents, which shifts the forward's args right by two.
+SSM_COEFFS = {"ssm_scan": (1, 4), "ssm_update": (1, 4),
+              "ssm_scan_bwd": (3, 6), "ssm_update_bwd": (3, 6)}
+
+
 def _float_tensor(t: np.ndarray, dtype: str, device) -> torch.Tensor:
     """``jnp.asarray(t, dtype)`` for a float64 draw: with 64-bit mode off,
     JAX narrows float64 to float32 and then rounds to the target type. The
@@ -70,23 +76,35 @@ def materialize_args(job: TuningJob, seed: int = 0, device=None):
 
     Float args are unit gaussians (attention operands scaled by 0.3),
     integer args labels drawn against the first >= 2-D arg's last dim (the
-    vocabulary). The backward jobs' residual operands are derived from
-    their primal args, as the forward would have saved them: the rmsnorm
-    inverse rms, the cross entropy lse, the attention output and lse.
+    vocabulary). The selective scan's jobs draw their coefficients in the
+    ranges the mixer gives: dt a small positive step (``|t| * 0.1 +
+    0.01``), A a stable decay rate (``-|t| - 0.1``), every other float arg
+    scaled by 0.3; unit draws would overflow the state within a few dozen
+    steps. The backward jobs' residual operands are derived from their
+    primal args, as the forward would have saved them: the rmsnorm inverse
+    rms, the cross entropy lse, the attention output and lse.
     """
     device = torch.device("cpu") if device is None else torch.device(device)
     # crc32, not hash(): str hashes are salted per process.
     rs = np.random.RandomState(seed ^ (zlib.crc32(job.kernel.encode()) & 0xFFFF))
     hi = max(2, max((int(s[-1]) for s in job.arg_shapes if len(s) >= 2), default=2))
-    attn_like = ("flash_attention", "flash_attention_bwd")
+    attn_like = ("flash_attention", "flash_attention_bwd", "attn_chunks")
     args = []
-    for shape, dtype in zip(job.arg_shapes, job.arg_dtypes):
+    for i, (shape, dtype) in enumerate(zip(job.arg_shapes, job.arg_dtypes)):
         if dtype.startswith("int") or dtype.startswith("uint"):
             labels = rs.randint(0, hi, size=shape).astype(np.int32)
             args.append(torch.from_numpy(labels).to(device))
             continue
         t = rs.randn(*shape)
-        if job.kernel in attn_like:
+        if job.kernel in SSM_COEFFS:
+            dt_i, a_i = SSM_COEFFS[job.kernel]
+            if i == dt_i:
+                t = np.abs(t) * 0.1 + 0.01
+            elif i == a_i:
+                t = -np.abs(t) - 0.1
+            else:
+                t = t * 0.3
+        elif job.kernel in attn_like:
             t = t * 0.3
         args.append(_float_tensor(t, dtype, device))
     if job.kernel == "rmsnorm_bwd" and len(args) >= 4:

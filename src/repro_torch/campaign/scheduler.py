@@ -66,7 +66,7 @@ def site_roofline_seconds(kernel: str, arg_shapes: Tuple[Tuple[int, ...], ...], 
         rows, vocab = sh[1]
         flops = 5.0 * rows * vocab
         mem = 2.0 * rows * vocab * dt
-    elif kernel == "flash_attention":
+    elif kernel in ("flash_attention", "attn_chunks"):
         b, h, s, hd = sh[0]
         flops = 2.0 * 2.0 * b * h * s * (s / 2.0) * hd
         mem = (sum(_prod(x) for x in sh) + _prod(sh[0])) * dt
@@ -84,6 +84,29 @@ def site_roofline_seconds(kernel: str, arg_shapes: Tuple[Tuple[int, ...], ...], 
         n = sh[2][1]
         flops = 2.0 * rows * d * n + 4.0 * rows * d
         mem = (rows * d + d + d * n + rows * n) * dt
+    elif kernel == "expert_gemm" and len(sh) >= 2 and len(sh[0]) == 3:
+        e, c, k = sh[0]
+        n = sh[1][2]
+        flops = 2.0 * e * c * k * n
+        mem = e * (c * k + k * n + c * n) * dt
+    elif kernel in ("ssm_scan", "ssm_scan_bwd"):
+        off = 2 if kernel == "ssm_scan_bwd" else 0      # the two cotangents lead
+        b, s, di = sh[off]
+        ds = sh[off + 2][2]
+        flops = 6.0 * b * s * di * ds
+        mem = (sum(_prod(x) for x in sh) + 2.0 * _prod(sh[off])) * 4
+        if kernel == "ssm_scan_bwd":                    # the recompute and the gradients
+            flops *= 3.0
+            mem *= 2.0
+    elif kernel in ("ssm_update", "ssm_update_bwd"):
+        off = 2 if kernel == "ssm_update_bwd" else 0
+        b, di = sh[off]
+        ds = sh[off + 2][1]
+        flops = 6.0 * b * di * ds
+        mem = (sum(_prod(x) for x in sh) + _prod(sh[-1])) * 4
+        if kernel == "ssm_update_bwd":
+            flops *= 3.0
+            mem *= 2.0
     else:
         elems = sum(_prod(s) for s in sh)
         flops = 2.0 * elems

@@ -601,8 +601,10 @@ def _as_tunable(t: Union[str, Tunable]) -> Tunable:
 
 
 def ensure_registered() -> None:
-    """Import the modules whose ``@tunable`` decorators fill the registry."""
+    """Import the modules whose ``@tunable`` decorators fill the registry:
+    the kernels and the model-level tunables (``attn_chunks``)."""
     from .. import kernels  # noqa: F401
+    from ..models import tunables  # noqa: F401
 
 
 def _root_runtime() -> TunedRuntime:

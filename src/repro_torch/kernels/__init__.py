@@ -3,9 +3,10 @@
 Importing this package registers the tunables (``matmul``, ``rmsnorm``,
 ``rmsnorm_bwd``, ``softmax_xent``, ``softmax_xent_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``matmul_bias_act``, ``rmsnorm_matmul``,
-``ssm_scan``, ``ssm_update``, ``expert_gemm``) and builds
-nothing: a kernel's CUDA library is
-built at its first launch (see :mod:`._build`).
+``ssm_scan``, ``ssm_update``, ``expert_gemm``, and the SSM backwards
+``ssm_scan_bwd`` and ``ssm_update_bwd``, which are torch code, not kernels)
+and builds nothing: a kernel's CUDA library is built at its first launch
+(see :mod:`._build`).
 """
 from . import attention, fused, matmul, moe_gemm, rmsnorm, ssm_scan, xent  # noqa: F401
 from ._build import launch_counts, reset_launch_counts  # noqa: F401

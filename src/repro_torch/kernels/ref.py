@@ -197,3 +197,15 @@ def softmax_xent_bwd(ct: torch.Tensor, logits: torch.Tensor, labels: torch.Tenso
     residual, which the oracle recomputes."""
     del lse
     return vjp(lambda ll: softmax_xent(ll, labels), (logits,), ct)[0]
+
+
+def ssm_scan_bwd(ct_y: torch.Tensor, ct_h: torch.Tensor, xc, dt, B, C, A, h0):
+    """VJP of :func:`ssm_scan`: (d_xc, d_dt, d_B, d_C, d_A, d_h0). ``ct_y``
+    is the cotangent of the per-step outputs, ``ct_h`` of the final state
+    (prefill hands it to decode, so it is live)."""
+    return vjp(ssm_scan, (xc, dt, B, C, A, h0), (ct_y, ct_h))
+
+
+def ssm_update_bwd(ct_y: torch.Tensor, ct_h: torch.Tensor, xc, dt, B, C, A, h):
+    """VJP of :func:`ssm_update`: (d_xc, d_dt, d_B, d_C, d_A, d_h)."""
+    return vjp(ssm_update, (xc, dt, B, C, A, h), (ct_y, ct_h))

@@ -49,9 +49,16 @@ so a warp's state accesses are contiguous 16-byte runs. Its CTA is
 warp to 1,024); each thread keeps its float4s of A in registers across the
 CTA's rows.
 
-No backward: serving is the path these kernels are on. A kernel-mode
-dispatch on tensors that need a gradient raises (``vjp="none"``); hybrid
-training, with ``ssm_scan_bwd`` and ``ssm_update_bwd``, is a later slice.
+Backwards are dispatch sites of their own, as in the JAX package: both
+forward sites declare ``vjp="dispatch"``, and their plans dispatch
+``ssm_scan_bwd`` and ``ssm_update_bwd`` with both cotangents in fp32.
+These are torch code, not kernels (their JAX counterparts are jnp, not
+Pallas), gated against the autograd VJPs ``ref.ssm_scan_bwd`` and
+``ref.ssm_update_bwd``. The scan's backward is the adjoint recurrence
+``g_t = exp(dt_{t+1} A) g_{t+1} + ct_y_t C_t`` walked ``chunk`` steps at a
+time: the states of a chunk are recomputed from its saved entry state, so
+at most a few ``[chunk, b, di, ds]`` tensors are live, never ``[b, s, di,
+ds]``.
 """
 from __future__ import annotations
 
@@ -284,6 +291,15 @@ def ssm_scan_ctas_per_sm(dtype, ds: int, cfg: dict, ld: str) -> int:
     return out.value
 
 
+def _ssm_scan_bwd_plan(ct, xc, dt, B, C, A, h0):
+    """Backward plan: one ``ssm_scan_bwd`` dispatch site on the cotangents of
+    y and of the final state (zeros where the caller dropped it), in fp32."""
+    from ..core.runtime import dispatch
+
+    ct_y, ct_h = ct
+    return dispatch("ssm_scan_bwd", ct_y.float(), ct_h.float(), xc, dt, B, C, A, h0)
+
+
 @tunable(
     "ssm_scan",
     space=SSM_SCAN_SPACE,
@@ -291,7 +307,8 @@ def ssm_scan_ctas_per_sm(dtype, ds: int, cfg: dict, ld: str) -> int:
     heuristic=_ssm_scan_heuristic,
     # A is the [di, ds] state matrix (a weight, never batch-sharded).
     dispatch=DispatchSpec(canonicalize=_contiguous, example=_ssm_scan_example,
-                          data_parallel_args=(0, 1, 2, 3, 5), vjp="none"),
+                          data_parallel_args=(0, 1, 2, 3, 5), vjp="dispatch",
+                          bwd=_ssm_scan_bwd_plan),
 )
 def ssm_scan(xc, dt, B, C, A, h0, *, chunk: int, block_d: int, stages: int, lanes: int):
     if xc.is_cuda:
@@ -300,6 +317,109 @@ def ssm_scan(xc, dt, B, C, A, h0, *, chunk: int, block_d: int, stages: int, lane
     if xc.device.type == "cpu":
         return ssm_scan_plain(xc, dt, B, C, A, h0)
     raise RuntimeError(f"ssm_scan has no kernel for device {xc.device}")
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan_bwd: the chunk-windowed adjoint recurrence
+# ---------------------------------------------------------------------------
+
+
+SSM_SCAN_BWD_SPACE = ParamSpace([PowerOfTwoParam("chunk", 8, 512)])
+
+
+def _pick_pow2(d: int, lo: int, cap: int) -> int:
+    """The JAX package's heuristic rounding: the power of two at or above
+    ``d``, within [lo, cap]."""
+    return min(cap, max(lo, _pow2_at_least(max(d, 1))))
+
+
+def _ssm_scan_bwd_heuristic(ct_y, ct_h, xc, dt, B, C, A, h0):
+    return {"chunk": _pick_pow2(xc.shape[1], 8, 64)}
+
+
+def _cotangents(rs, y_shape, h_shape):
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return t(rs.randn(*y_shape) * 0.5), t(rs.randn(*h_shape) * 0.5)
+
+
+def _ssm_scan_bwd_example():
+    (xc, dt, B, C, A, h0), _ = _ssm_scan_example()
+    return _cotangents(np.random.RandomState(1), xc.shape, h0.shape) + (
+        xc, dt, B, C, A, h0), {}
+
+
+@tunable(
+    "ssm_scan_bwd",
+    space=SSM_SCAN_BWD_SPACE,
+    reference=ref.ssm_scan_bwd,
+    heuristic=_ssm_scan_bwd_heuristic,
+    dispatch=DispatchSpec(example=_ssm_scan_bwd_example,
+                          data_parallel_args=(0, 1, 2, 3, 4, 5, 7),
+                          # the reference's VJP: grad-of-grad differentiates through
+                          vjp="reference"),
+)
+def ssm_scan_bwd(ct_y, ct_h, xc, dt, B, C, A, h0, *, chunk: int):
+    """VJP of the scan, (d_xc, d_dt, d_B, d_C, d_A, d_h0) in fp32, with
+    ``chunk`` as the rematerialisation window.
+
+    With ``a_t = exp(dt_t A)`` and ``u_t = (dt_t xc_t) B_t``, the forward is
+    ``h_t = a_t h_{t-1} + u_t``; the state's cotangent runs backwards as
+    ``g_t = a_{t+1} g_{t+1} + ct_y_t C_t`` from ``g_{s-1} = ct_h + ct_y_{s-1}
+    C_{s-1}``. A first pass keeps each chunk's entry state; the second walks
+    the chunks in reverse, recomputes a chunk's states from its entry
+    state, runs g through it and takes the chunk's gradients at once (d_A
+    summed over the chunks). One fused multiply-add a step in each of the
+    three walks; time-major ``[chunk, b, di, ds]`` tensors, so each step's
+    slice is contiguous."""
+    b, s, di = xc.shape
+    dev = xc.device
+    chunk = max(1, min(int(chunk), s))
+    bounds = [(c0, min(c0 + chunk, s)) for c0 in range(0, s, chunk)]
+    A = A.float()
+    tm = lambda t: t.transpose(0, 1).float()          # [b, L, ...] -> [L, b, ...]
+
+    def coeffs(c0, c1):
+        d, x = tm(dt[:, c0:c1]), tm(xc[:, c0:c1])
+        a = torch.exp(d[..., None] * A)                               # [L, b, di, ds]
+        u = (d * x)[..., None] * tm(B[:, c0:c1])[:, :, None, :]      # [L, b, di, ds]
+        return d, x, a, u
+
+    with torch.no_grad():
+        entry, h = [], h0.float()
+        for c0, c1 in bounds:
+            entry.append(h)
+            _, _, a, u = coeffs(c0, c1)
+            for a_t, u_t in zip(a.unbind(0), u.unbind(0)):     # views made once a chunk
+                h = torch.addcmul(u_t, a_t, h)
+        d_xc = torch.empty((b, s, di), dtype=torch.float32, device=dev)
+        d_dt = torch.empty_like(d_xc)
+        d_B = torch.empty(B.shape, dtype=torch.float32, device=dev)
+        d_C = torch.empty_like(d_B)
+        d_A = torch.zeros_like(A)
+        g = ct_h.float()                  # the state's cotangent from beyond the chunk
+        for (c0, c1), h_in in zip(reversed(bounds), reversed(entry)):
+            n = c1 - c0
+            d, x, a, hs = coeffs(c0, c1)
+            a_t, h_t = a.unbind(0), hs.unbind(0)
+            h_t[0].addcmul_(a_t[0], h_in)    # u becomes the chunk's states
+            for t in range(1, n):
+                h_t[t].addcmul_(a_t[t], h_t[t - 1])
+            cy, Bt, Ct = tm(ct_y[:, c0:c1]), tm(B[:, c0:c1]), tm(C[:, c0:c1])
+            G = cy[..., None] * Ct[:, :, None, :]
+            g_t = G.unbind(0)
+            g_t[n - 1].add_(g)
+            for t in range(n - 2, -1, -1):
+                g_t[t].addcmul_(a_t[t + 1], g_t[t + 1])
+            g = a[0] * G[0]
+            d_C[:, c0:c1] = (cy[..., None] * hs).sum(2).transpose(0, 1)
+            d_u = (G * Bt[:, :, None, :]).sum(-1)                     # d(dt * xc), [L, b, di]
+            d_B[:, c0:c1] = (G * (d * x)[..., None]).sum(2).transpose(0, 1)
+            h_prev = torch.cat([h_in[None], hs[:-1]])
+            d_log = G.mul_(h_prev).mul_(a)                           # d(dt * A)
+            d_A += (d_log * d[..., None]).sum((0, 1))
+            d_dt[:, c0:c1] = ((d_log * A).sum(-1) + d_u * x).transpose(0, 1)
+            d_xc[:, c0:c1] = (d_u * d).transpose(0, 1)
+    return d_xc, d_dt, d_B, d_C, d_A, g
 
 
 # ---------------------------------------------------------------------------
@@ -337,13 +457,21 @@ def ssm_update_cuda(xc, dt, B, C, A, h, *, block_b: int, block_d: int, lanes: in
     return y, hn
 
 
+def _ssm_update_bwd_plan(ct, xc, dt, B, C, A, h):
+    from ..core.runtime import dispatch
+
+    ct_y, ct_h = ct
+    return dispatch("ssm_update_bwd", ct_y.float(), ct_h.float(), xc, dt, B, C, A, h)
+
+
 @tunable(
     "ssm_update",
     space=SSM_UPDATE_SPACE,
     reference=ref.ssm_update,
     heuristic=_ssm_update_heuristic,
     dispatch=DispatchSpec(canonicalize=_contiguous, example=_ssm_update_example,
-                          data_parallel_args=(0, 1, 2, 3, 5), vjp="none"),
+                          data_parallel_args=(0, 1, 2, 3, 5), vjp="dispatch",
+                          bwd=_ssm_update_bwd_plan),
 )
 def ssm_update(xc, dt, B, C, A, h, *, block_b: int, block_d: int, lanes: int):
     if xc.is_cuda:
@@ -352,3 +480,45 @@ def ssm_update(xc, dt, B, C, A, h, *, block_b: int, block_d: int, lanes: int):
     if xc.device.type == "cpu":
         return ssm_update_plain(xc, dt, B, C, A, h)
     raise RuntimeError(f"ssm_update has no kernel for device {xc.device}")
+
+
+# ---------------------------------------------------------------------------
+# ssm_update_bwd
+# ---------------------------------------------------------------------------
+
+
+SSM_UPDATE_BWD_SPACE = ParamSpace([PowerOfTwoParam("block_d", 8, 512)])
+
+
+def _ssm_update_bwd_heuristic(ct_y, ct_h, xc, dt, B, C, A, h):
+    return {"block_d": _pick_pow2(xc.shape[1], 8, 256)}
+
+
+def _ssm_update_bwd_example():
+    (xc, dt, B, C, A, h), _ = _ssm_update_example()
+    return _cotangents(np.random.RandomState(3), xc.shape, h.shape) + (
+        xc, dt, B, C, A, h), {}
+
+
+@tunable(
+    "ssm_update_bwd",
+    space=SSM_UPDATE_BWD_SPACE,
+    reference=ref.ssm_update_bwd,
+    heuristic=_ssm_update_bwd_heuristic,
+    dispatch=DispatchSpec(example=_ssm_update_bwd_example,
+                          data_parallel_args=(0, 1, 2, 3, 4, 5, 7),
+                          # the reference's VJP: grad-of-grad differentiates through
+                          vjp="reference"),
+)
+def ssm_update_bwd(ct_y, ct_h, xc, dt, B, C, A, h, *, block_d: int):
+    """The decode update's VJP in ``block_d``-channel strips of d_inner (the
+    working-set knob): (d_xc, d_dt, d_B, d_C, d_A, d_h), d_B and d_C summed
+    across strips."""
+    di = xc.shape[1]
+    bd = max(1, min(int(block_d), di))
+    strips = [ref.ssm_update_bwd(ct_y[:, lo:lo + bd], ct_h[:, lo:lo + bd], xc[:, lo:lo + bd],
+                                 dt[:, lo:lo + bd], B, C, A[lo:lo + bd], h[:, lo:lo + bd])
+              for lo in range(0, di, bd)]
+    cat = lambda i, dim: torch.cat([g[i] for g in strips], dim=dim)
+    return (cat(0, 1), cat(1, 1), sum(g[2] for g in strips), sum(g[3] for g in strips),
+            cat(4, 0), cat(5, 1))

@@ -81,9 +81,12 @@ def _mamba_out(p, y, xc, z, out_dtype):
     return dispatch("matmul", g, p["out_proj"].float()).to(out_dtype)
 
 
-def mamba_forward(p: Params, x: torch.Tensor, *, return_state: bool = False):
+def mamba_forward(p: Params, x: torch.Tensor, *, return_state: bool = False, scan_fn=None):
     """x [b, s, d] -> y, or (y, state) with the state decode continues
-    from. The scan runs at exactly s steps, so the state is h at step s-1."""
+    from. The scan runs at exactly s steps, so the state is h at step s-1.
+    The scan is the ``ssm_scan`` dispatch site unless ``scan_fn`` (same
+    ``(xc, dt, B, C, A, h0) -> (y, hN)`` contract) pins another schedule,
+    as the ``mamba_chunk`` tunable does."""
     b = x.shape[0]
     di = p["conv_b"].shape[0]
     d_state = p["A_log"].shape[1]
@@ -93,7 +96,10 @@ def mamba_forward(p: Params, x: torch.Tensor, *, return_state: bool = False):
     dt, B, C = _mamba_dtBC(p, xc)
     A = -torch.exp(p["A_log"])
     h0 = torch.zeros((b, di, d_state), dtype=torch.float32, device=x.device)
-    y, hN = dispatch("ssm_scan", xc, dt, B, C, A, h0)
+    if scan_fn is None:
+        y, hN = dispatch("ssm_scan", xc, dt, B, C, A, h0)
+    else:
+        y, hN = scan_fn(xc, dt, B, C, A, h0)
     out = _mamba_out(p, y, xc, z, x.dtype)
     if not return_state:
         return out

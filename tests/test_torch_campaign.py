@@ -9,8 +9,9 @@
   the JAX scheduler's; transfer seeds and cover sets equal its transfer
   layer's.
 * ``materialize_args`` gives the JAX runner's tensors: primals bit for bit
-  (bf16 included), residuals within f32 tolerance (1e-5 relative: the
-  same fp32 reductions in another order).
+  (bf16 included; the selective scan's dt and A drawn in their ranges),
+  residuals within f32 tolerance (1e-5 relative: the same fp32 reductions
+  in another order).
 * The manifest resumes, and the CLI plans, runs, reports and exports.
 """
 import dataclasses
@@ -112,10 +113,13 @@ def _full_plan():
 def test_full_width_plan_has_one_job_per_fused_site():
     t, _ = _full_plan()
     d = scheduler.dedupe_jobs(t, "h100-sxm")
-    assert len(d) == 73
-    # every default kernel but the selective scan's two and the expert gemm, which
-    # qwen2_0_5b has no site for
-    assert {j.kernel for j in d} == set(KERNELS) - {"ssm_scan", "ssm_update", "expert_gemm"}
+    assert len(d) == 81
+    # every default kernel but the selective scan's four and the expert gemm, which
+    # qwen2_0_5b has no site for; attn_chunks at the 8 prefill buckets (the decode
+    # lookup, 8 x 2048 rows, is over max_tokens)
+    assert {j.kernel for j in d} == set(KERNELS) - {"ssm_scan", "ssm_update", "ssm_scan_bwd",
+                                                    "ssm_update_bwd", "expert_gemm"}
+    assert sum(j.kernel == "attn_chunks" for j in d) == 8
     (rmm,) = [j for j in d if j.kernel == "rmsnorm_matmul"]
     assert rmm.arg_shapes == ((8, 896), (896,), (896, 151936))
 
@@ -132,6 +136,25 @@ def test_dedupe_priorities_and_budgets_equal_jax():
         tb = scheduler.allocate_budget([dataclasses.replace(x) for x in tp], total, lo, hi)
         jb = jsched.allocate_budget([dataclasses.replace(x) for x in jp], total, lo, hi)
         assert [x.budget for x in tb] == [x.budget for x in jb]
+
+
+@pytest.mark.parametrize("arch", ["jamba_1_5_large", "mixtral_8x7b"])
+def test_hybrid_and_moe_priorities_equal_jax(arch):
+    """The scheduler prices the selective scan's, its backward's, the update's
+    and the expert gemm's sites as the JAX package's analytic model does."""
+    jcfg, tcfg = jconfigs.get_config(arch), get_config(arch)
+    tshape, jshape = _shape(False)
+    t = (planner.plan_training_jobs(tcfg, tshape, run=RunConfig(loss_chunk=512))
+         + planner.plan_serving_jobs(tcfg, 8, 2048))
+    j = (jplanner.plan_training_jobs(jcfg, jshape, run=JRun(remat="none", loss_chunk=512,
+                                                            microbatches=1),
+                                     kernels=KERNELS, max_tokens=8192)
+         + jplanner.plan_serving_jobs(jcfg, 8, 2048, kernels=KERNELS, max_tokens=8192))
+    td, jd = scheduler.dedupe_jobs(t, "h100-sxm"), jsched.dedupe_jobs(j, "h100-sxm")
+    tp, jp = scheduler.prioritize_jobs(td, H100_SXM), jsched.prioritize_jobs(jd, H100_SXM)
+    assert _rows(tp) == _rows(jp)
+    np.testing.assert_allclose([x.priority for x in tp], [x.priority for x in jp], rtol=1e-12)
+    assert {"expert_gemm"} <= {x.kernel for x in tp}
 
 
 def test_transfer_equals_jax():
@@ -167,6 +190,17 @@ MATERIALIZE = [
                                  (1, 2, 24, 16), (1, 4, 24, 16), (1, 4, 24)],
          ["float32"] * 5 + ["float32"], "cTruew0"),
     _job("matmul_bias_act", [(12, 32), (32, 48), (48,)], ["bfloat16"] * 3, "asilu"),
+    _job("attn_chunks", [(1, 4, 24, 16), (1, 2, 24, 16), (1, 2, 24, 16)], ["bfloat16"] * 3),
+    # the selective scan's jobs draw dt > 0 and A < 0 at their own indices
+    _job("ssm_scan", [(1, 64, 32), (1, 64, 32), (1, 64, 16), (1, 64, 16), (32, 16),
+                      (1, 32, 16)], ["bfloat16"] + ["float32"] * 5),
+    _job("ssm_update", [(3, 32), (3, 32), (3, 16), (3, 16), (32, 16), (3, 32, 16)],
+         ["float32"] * 6),
+    _job("ssm_scan_bwd", [(1, 64, 32), (1, 32, 16), (1, 64, 32), (1, 64, 32), (1, 64, 16),
+                          (1, 64, 16), (32, 16), (1, 32, 16)],
+         ["float32", "float32", "bfloat16"] + ["float32"] * 5),
+    _job("ssm_update_bwd", [(3, 32), (3, 32, 16), (3, 32), (3, 32), (3, 16), (3, 16),
+                            (32, 16), (3, 32, 16)], ["float32"] * 8),
 ]
 RESIDUAL = {"rmsnorm_bwd": (3,), "softmax_xent_bwd": (3,), "flash_attention_bwd": (4, 5)}
 

@@ -1,8 +1,10 @@
 """End to end on the CPU: a campaign-tuned database serves every dispatch of
 the port's training step and serving engine at the exact tier.
 
-The port of ``tests/test_train_e2e_campaign.py`` for ``qwen2_0_5b`` on one
-device (the reduced config, the kernels' plain versions):
+The port of ``tests/test_train_e2e_campaign.py`` on one device (the reduced
+configs, the kernels' plain versions), training reduced qwen2_0_5b, Jamba
+with its experts (``ssm_scan_bwd`` and ``expert_gemm`` in the backward
+plane) and Mixtral (``expert_gemm``), serving qwen2_0_5b:
 
   1. plan: the train step's dispatch sites, forward and backward
      (``plan_training_jobs``), and the serving engine's buckets;
@@ -37,26 +39,46 @@ from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # n
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 MAX_BATCH, MAX_SEQ = 4, 64
+# The archs whose training step a campaign tunes, and the kernels each step's
+# backward plane must dispatch besides the dense ones (matmul gradients reuse
+# matmul, expert_gemm's reuse expert_gemm).
+TRAIN_ARCHS = {"qwen2_0_5b": set(), "jamba_1_5_large": {"ssm_scan_bwd", "expert_gemm"},
+               "mixtral_8x7b": {"expert_gemm"}}
+_CAMPAIGNS = {}
+
+
+def _campaign(arch, tmp_path_factory):
+    """Plan, tune and export one arch's training step (and, for qwen2_0_5b,
+    the serving buckets), once a module."""
+    if arch not in _CAMPAIGNS:
+        tmp = tmp_path_factory.mktemp(f"e2e-{arch}")
+        cfg = get_config(arch).reduced()
+        shape = SHAPES["train_smoke"]
+        run = planner.default_run(cfg, shape)
+        jobs = planner.plan_training_jobs(cfg, shape, run=run)
+        if arch == "qwen2_0_5b":
+            jobs += planner.plan_serving_jobs(cfg, MAX_BATCH, MAX_SEQ)
+        manifest = scheduler.build_manifest(jobs, total_budget=3 * len(jobs),
+                                            path=str(tmp / "campaign.json"), profile=TORCH_CPU,
+                                            min_budget=2, max_budget=3)
+        db = TuningDatabase(str(tmp / "tuning.json"))
+        summary = runner.run_campaign(manifest, db, evaluator=WallClockEvaluator(1, 0),
+                                      search_factory=lambda j: RandomSearch(budget=2),
+                                      device="cpu")
+        exported = runner.export_campaign_db(db, str(tmp / "torch-cpu.db.json"), "torch-cpu")
+        planned = {j.db_key("torch-cpu") for j in manifest.jobs}
+        _CAMPAIGNS[arch] = (cfg, shape, run, summary, TuningDatabase(exported.path), planned)
+    return _CAMPAIGNS[arch]
+
+
+@pytest.fixture(scope="module", params=sorted(TRAIN_ARCHS))
+def campaign(request, tmp_path_factory):
+    return request.param, _campaign(request.param, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
-def campaign(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("e2e")
-    cfg = get_config("qwen2_0_5b").reduced()
-    shape = SHAPES["train_smoke"]
-    run = planner.default_run(cfg, shape)
-    jobs = (planner.plan_training_jobs(cfg, shape, run=run)
-            + planner.plan_serving_jobs(cfg, MAX_BATCH, MAX_SEQ))
-    manifest = scheduler.build_manifest(jobs, total_budget=3 * len(jobs),
-                                        path=str(tmp / "campaign.json"), profile=TORCH_CPU,
-                                        min_budget=2, max_budget=3)
-    db = TuningDatabase(str(tmp / "tuning.json"))
-    summary = runner.run_campaign(manifest, db, evaluator=WallClockEvaluator(1, 0),
-                                  search_factory=lambda j: RandomSearch(budget=2),
-                                  device="cpu")
-    exported = runner.export_campaign_db(db, str(tmp / "torch-cpu.db.json"), "torch-cpu")
-    planned = {j.db_key("torch-cpu") for j in manifest.jobs}
-    return cfg, shape, run, summary, TuningDatabase(exported.path), planned
+def qwen_campaign(tmp_path_factory):
+    return _campaign("qwen2_0_5b", tmp_path_factory)
 
 
 def _only_exact(snap, phases):
@@ -68,13 +90,13 @@ def _only_exact(snap, phases):
 
 
 def test_campaign_banks_every_job(campaign):
-    _, _, _, summary, db, planned = campaign
+    _, (_, _, _, summary, db, planned) = campaign
     assert summary["poisoned"] == 0 and summary["done"] == summary["jobs"] == len(planned)
     assert set(db.keys()) == planned
 
 
 def test_tuned_training_is_all_exact_hits(campaign):
-    cfg, shape, run, _, db, planned = campaign
+    arch, (cfg, shape, run, _, db, planned) = campaign
     rt = runtime(db=db, name="train-e2e")
     trainer = Trainer(cfg, run, DataConfig(seed=0, batch_size=shape.global_batch,
                                            seq_len=shape.seq_len),
@@ -87,15 +109,17 @@ def test_tuned_training_is_all_exact_hits(campaign):
     assert set(snap["by_key"]) <= planned
     kernels = {k.split("|")[0] for k in snap["by_key"]}
     assert {"matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent", "softmax_xent_bwd",
-            "flash_attention", "flash_attention_bwd", "matmul_bias_act"} <= kernels
+            "flash_attention", "flash_attention_bwd"} <= kernels
     fwd = {k.split("|")[0] for k in snap["by_key_phase"]["fwd"]}
     bwd = {k.split("|")[0] for k in snap["by_key_phase"]["bwd"]}
-    assert "matmul_bias_act" in fwd and "matmul" in bwd   # the fused gate's plan
+    assert TRAIN_ARCHS[arch] <= bwd and "matmul" in bwd
+    # the fused SwiGLU gate (its backward plan: matmul) wherever a dense FFN is planned
+    assert ("matmul_bias_act" in fwd) == any(k.startswith("matmul_bias_act|") for k in planned)
     assert snap["cache_hits"] > 0                         # the second step hit the cache
 
 
-def test_warmed_engine_serves_at_the_exact_tier(campaign):
-    cfg, _, _, _, db, planned = campaign
+def test_warmed_engine_serves_at_the_exact_tier(qwen_campaign):
+    cfg, _, _, _, db, planned = qwen_campaign
     params = lm.init_params(cfg, seed=0, device="cpu")
     engine = ServingEngine(cfg, RunConfig(), params,
                            EngineConfig(max_batch=MAX_BATCH, max_seq=MAX_SEQ))

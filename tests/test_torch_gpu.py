@@ -1057,6 +1057,55 @@ def test_ssm_update_every_config_on_ragged_rows(cuda, b, di, aligned, config):
     assert torch.equal(y, y2) and torch.equal(hn, hn2)
 
 
+@pytest.mark.parametrize("di,want", [(256, "tma"), (250, "cpasync")])
+def test_ssm_scan_kernel_mode_gradient_matches_plain_autograd(cuda, di, want):
+    """A kernel-mode dispatch of the scan on the card, differentiated: the
+    forward launches the kernel (on the loader its rows take), the backward
+    plan dispatches ssm_scan_bwd; every gradient, xc's in bf16, against
+    autograd through the plain version (f32 tolerance; bf16's for xc)."""
+    import repro_torch
+
+    args = _ssm_inputs(np.random.RandomState(di), (2, 45), di, 16, torch.bfloat16, cuda)
+    assert ss.loader(*args[:4]) == want
+    rs = np.random.RandomState(1)
+    ct_y = torch.from_numpy(rs.randn(2, 45, di).astype(np.float32)).to(cuda)
+    ct_h = torch.from_numpy(rs.randn(2, di, 16).astype(np.float32)).to(cuda)
+    leaves = [a.clone().requires_grad_() for a in args]
+    kernels.reset_launch_counts()
+    with repro_torch.runtime(mode="kernel") as rt:
+        y, h = repro_torch.dispatch("ssm_scan", *leaves)
+        got = torch.autograd.grad((y, h), leaves, (ct_y, ct_h))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"ssm_scan": 1, f"ssm_scan_{want}": 1}
+    assert any(k.startswith("ssm_scan_bwd|")
+               for k in rt.telemetry.snapshot()["by_key_phase"]["bwd"])
+    plain = [a.clone().requires_grad_() for a in args]
+    p_y, p_h = ss.ssm_scan_plain(*plain)
+    wants = torch.autograd.grad((p_y, p_h), plain, (ct_y, ct_h))
+    assert got[0].dtype == torch.bfloat16
+    for g, w in zip(got, wants):
+        _close(g, w, g.dtype)
+
+
+@pytest.mark.parametrize("b,s,di", [(2, 300, 512), (1, 77, 250)])
+def test_ssm_scan_bwd_on_the_card_matches_the_oracle(cuda, b, s, di):
+    """The backward tunable (torch code) on card tensors at its heuristic
+    chunk and at 8 and 512, against the autograd oracle (f32 tolerance;
+    the oracle's d_xc is bf16, so bf16's there)."""
+    from repro_torch.kernels import ref
+
+    args = _ssm_inputs(np.random.RandomState(s), (b, s), di, 16, torch.bfloat16, cuda)
+    rs = np.random.RandomState(2)
+    cts = (torch.from_numpy(rs.randn(b, s, di).astype(np.float32)).to(cuda),
+           torch.from_numpy(rs.randn(b, di, 16).astype(np.float32)).to(cuda))
+    wants = ref.ssm_scan_bwd(*cts, *args)
+    for cfg in (ss.ssm_scan_bwd.default_config(*cts, *args), {"chunk": 8}, {"chunk": 512}):
+        got = ss.ssm_scan_bwd(*cts, *args, **cfg)
+        assert all(g.is_cuda for g in got)
+        for g, w in zip(got, wants):
+            _close(g, w, w.dtype)
+
+
 def test_ssm_wrappers_count_only_kernel_launches(cuda):
     args = _ssm_inputs(np.random.RandomState(0), (1, 9), 64, 16, torch.float32, cuda)
     kernels.reset_launch_counts()

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro  # noqa: E402
 import repro_torch  # noqa: E402
 from repro.campaign import planner as jplanner  # noqa: E402
+from repro.configs import base as jconfigs  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.distributed.sharding import Layout  # noqa: E402
 from repro.launch.mesh import make_host_mesh  # noqa: E402
@@ -313,18 +314,40 @@ def test_serving_plan_equals_jax(reduced, serving, max_tokens):
 
 def test_errors_name_the_missing_slice():
     """Jamba with its MoE layers initialises (every second layer an MoE
-    FFN); training a Mamba layer, with or without experts, still names the
-    hybrid-training slice."""
+    FFN), and hybrid training is no longer a missing slice: Jamba's training
+    plans, with and without experts, reduced and at full width, equal the
+    JAX planner's, the Mamba rows and the scan's backward included."""
     cfg = get_config("jamba_1_5_large").reduced()
     params = lm.init_params(cfg, 0, "cpu")
     block = params["segments"][0][0]
     assert [("moe" in block[f"l{i}"], "ffn" in block[f"l{i}"]) for i in range(8)] == \
         [(False, True), (True, False)] * 4
-    for c in (cfg, _dense(get_config)):
-        with pytest.raises(NotImplementedError, match="hybrid training"):
-            planner.plan_training_jobs(c, SHAPES["train_2k"])
-        with pytest.raises(NotImplementedError, match="hybrid training"):
-            planner.plan_train_jobs(c, SHAPES["train_2k"])
+    for reduced in (True, False):
+        name, chunk = ("train_smoke", 32) if reduced else ("train_2k", 512)
+        t_shape = SHAPES[name]
+        j_shape = jconfigs.ShapeSpec(t_shape.name, t_shape.seq_len, t_shape.global_batch,
+                                     t_shape.kind)
+        for experts in (True, False):
+            get = lambda g: (g("jamba_1_5_large") if experts else _dense(g, False))
+            tcfg, jcfg = get(get_config), get(j_get_config)
+            if reduced:
+                tcfg, jcfg = tcfg.reduced(), jcfg.reduced()
+            t = (planner.plan_training_jobs(tcfg, t_shape, run=RunConfig(loss_chunk=chunk))
+                 + planner.plan_train_jobs(tcfg, t_shape))
+            j = (jplanner.plan_training_jobs(
+                     jcfg, j_shape, run=JRun(remat="none", loss_chunk=chunk, microbatches=1),
+                     kernels=planner.DEFAULT_KERNELS, max_tokens=planner.MAX_TOKENS)
+                 + jplanner.plan_train_jobs(jcfg, j_shape, kernels=planner.DEFAULT_KERNELS,
+                                            max_tokens=planner.MAX_TOKENS))
+            assert _rows(t) == _rows(j)
+            kernels = {x.kernel for x in t}
+            assert {"ssm_scan", "ssm_scan_bwd", "attn_chunks"} <= kernels
+            assert ("expert_gemm" in kernels) == experts
+            if not reduced:
+                (bwd,) = [x for x in t if x.kernel == "ssm_scan_bwd"]
+                assert bwd.arg_shapes[:3] == ((4, 2048, 16384), (4, 16384, 16),
+                                              (4, 2048, 16384))
+                assert bwd.weight == 63             # 9 super-blocks of 7 Mamba layers
 
 
 @pytest.mark.parametrize("reduced,serving,max_tokens", [

@@ -34,7 +34,7 @@ import repro_torch  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
-from repro_torch.core.annotate import registered  # noqa: E402
+from repro_torch.core.annotate import DispatchSpec, Tunable, registered  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -171,12 +171,21 @@ def test_wrappers_check_before_they_launch():
 
 
 def test_kernel_dispatch_refuses_a_gradient():
-    """No backward in this slice: a kernel-mode dispatch on tensors that
-    need a gradient raises instead of returning a tensor cut from the graph."""
+    """A kernel-mode dispatch on tensors that need a gradient never returns a
+    tensor cut from the graph: the two SSM sites now carry one (their
+    backward plans), and a site that declares no backward raises."""
     _, t = _both(_inputs(0, (1, 5), 8, 4, "float32"), "float32")
     t[0].requires_grad_()
-    with repro_torch.runtime(), pytest.raises(RuntimeError, match="declares no backward"):
-        repro_torch.dispatch("ssm_scan", *t)
+    with repro_torch.runtime():
+        y, h = repro_torch.dispatch("ssm_scan", *t)
+        assert y.grad_fn is not None and h.grad_fn is not None
+        y, h = repro_torch.dispatch("ssm_update", *(a[:, 0] if i < 4 else a
+                                                    for i, a in enumerate(t)))
+        assert y.grad_fn is not None
+        toy = Tunable("toy_no_bwd", lambda xc, *, chunk: xc * 2, ss.SSM_SCAN_BWD_SPACE,
+                      dispatch=DispatchSpec(vjp="none"))
+        with pytest.raises(RuntimeError, match="declares no backward"):
+            repro_torch.dispatch(toy, t[0])
 
 
 def test_scan_space_limits():
