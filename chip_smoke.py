@@ -15,7 +15,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              bf16 flash kernel (``flash_*_tc``) or a bf16 gemm kernel of the
              tensor-core or decode route (``gemm_tc``, ``gemm_decode``) of
              the matmul, expert_gemm, matmul_bias_act or rmsnorm_matmul
-             library has none;
+             library has none, or if the flash libraries lack their head
+             dim 256 tensor-core kernels (three forward configs; the dq and
+             dk/dv passes) or those have none;
 3. kernels — runs each kernel at the serving and training paths' shapes in
              bf16 (matmul also on the backward's transposed operands; the
              fused matmul_bias_act at the training gate projection with
@@ -73,6 +75,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              is its one-call yardstick); flash attention at 32/8 heads of
              128 with the 4096 window over 8192 positions; its projections
              and norms at decode and prefill rows;
+   And the new archs': the flash forward and backward at head dim 256
+             (PaliGemma's 8 q heads on one kv head) at its training step's
+             b=2 x 2048 and at a ragged 1000, each beside SDPA and its
+             bound; Gemma3-27B's local (window 1024) and global attention
+             over a 3000-token prefill, its FFN gemm at decode rows, its
+             norm at the 4096 bucket and its decode final norm -> unembed
+             (d 5376 x 262,144); expert_gemm at Arctic's 128 experts
+             (d_model 7168, width 4864) at capacities 10 and 2;
 4. serve   — full-width qwen2_0_5b in bf16 from a seeded random init,
              ServingEngine(max_batch=8, max_seq=2048), 16 staggered
              requests with prompts of 16..1500 tokens and 32 new tokens
@@ -117,7 +127,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
              routes flip between the two); prints the share of
              (token, choice) routes capacity drops at decode, and
              torch.profiler splits a decode step and that prefill by kernel;
-7. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
+7. gemma   — Gemma3-27B (hf:google/gemma-3) at full depth, all 62
+             layers (52 local on a 1024 window, 10 global), bf16 from a
+             seeded random init (28.4 B parameters, 52.9 GiB),
+             ServingEngine(max_batch=8, max_seq=4096), 8 staggered requests
+             of 8..3000 tokens (four past the window: the ring caches wrap
+             at prefill and at decode), 32 new tokens each, half greedy, on
+             a database holding one record tuned here, the decode final norm
+             -> unembed (so rmsnorm_matmul runs on its decode route, once a
+             decode step); flash_attention launches 62 times a prefill, 52
+             windowed and 10 full (by the telemetry's keys), no dispatch at
+             the reference tier, peak memory under 75 GiB; prints prefill
+             and decode-step times, tokens/s, peak memory, the decode
+             step's computed floor and, by torch.profiler, a decode step's
+             and the 3000-token prefill's device idle share; the 3000-token
+             prefill's logits against the plain path end to end (printed:
+             62 layers are past TOL_LOGITS's argument) and gated layer by
+             layer (PrefillTap: each layer's output less its input on equal
+             inputs at TOL_GRAD, the head on the kernel path's last hidden
+             state at TOL_LOGITS);
+8. archs   — qwen2_5_3b (hf:Qwen/Qwen2.5-3B), minitron_4b (arXiv:2407.14679,
+             relu²) and musicgen_large (arXiv:2306.05284, audio frames) at
+             full width cut to 4 layers, and arctic_480b
+             (hf:Snowflake/snowflake-arctic-base, 128 experts beside a dense
+             FFN) to 1 of 35 (14.1 B parameters), each freed before the next:
+             one 512-token prefill and 4 greedy decode steps through
+             lm.prefill and lm.decode_step (MusicGen: one forward with its
+             loss over 2 x 1024 frames), the kernel path's logits against
+             the plain path's at each step at TOL_LOGITS (Arctic on the
+             kernel path's routes, RouteTap); Arctic's expert_gemm launches
+             counted (15);
+9. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
              master copy, batch 4 x seq 2048 from SyntheticPipeline(seed),
              RunConfig(remat="none", loss_chunk=512), AdamWConfig(
              warmup_steps=2), 6 steps through the Trainer; step 1's loss is
@@ -133,7 +173,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              a step (one a norm: 2 a layer and the final one), and no fwd
              or bwd dispatch may fall to the reference tier; torch.profiler
              splits one more step by kernel, with rmsnorm_bwd's device time;
-8. hybrid-train — Jamba-1.5-Large without experts, one super-block (1
+10. paligemma-train — PaliGemma-3B (arXiv:2407.07726) at full width and
+             depth (18 layers, 8 q heads of 256 on one kv head, vocab
+             257,216, 3.04 B parameters), its 256 patch embeddings (a stub
+             frontend) before the tokens and loss_mask 0 on them, batch 2 x
+             2048 (1 x 2048 past 75 GiB; the batch that ran is printed),
+             RunConfig(remat="none", loss_chunk=512), 4 steps; step 1 gated
+             as in the train phase; 18 flash forward and 18 backward launches
+             in each step (counted step by step), every flash key at d = 256,
+             37 rmsnorm_bwd a step; the d = 256 kernels' device share;
+11. hybrid-train — Jamba-1.5-Large without experts, one super-block (1
              attention + 7 Mamba layers), its width cut to the original
              Jamba's published widths (arXiv:2403.19887: d_model 4096,
              d_ff 14336, 32/8 heads of 128; d_inner 8192, 2.73 B
@@ -148,14 +197,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dispatch at the reference tier; prints the step time, tokens/s,
              peak memory, the device's busy time and idle share, and
              ssm_scan_bwd's share of a step by host clock and device time;
-9. moe-train — Mixtral-8x7B at its published widths, 2 of 32 layers (3.2 B
+12. moe-train — Mixtral-8x7B at its published widths, 2 of 32 layers (3.2 B
              parameters), batch 4 x 2048 (2 x 2048 past 75 GiB), the same
              way, step 1's gradients gated on the kernel path's routes
              replayed into the plain path (routing on its own is reported
              only); expert_gemm's forward and transposed-gradient launches
              (9 a layer a step, all on tc), a finite aux loss above 0; prints
              as the hybrid phase, with expert_gemm's device share;
-10. campaign — plans full-width qwen2_0_5b (the train phase's step, every
+13. campaign — plans full-width qwen2_0_5b (the train phase's step, every
              dispatch site forward and backward, and serving at the token
              cap of the engine's warmup, 65536, at
              max_batch=8, max_seq=2048), tunes every job on the card with
@@ -166,7 +215,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              trials, pruned trials by reason, seconds, and per kernel the
              tuned configs' time beside the heuristic configs' from the
              same calls;
-11. tuned  — on that database: ServingEngine.warmup and a few staggered
+14. tuned  — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode, on the tensor-core routes
@@ -177,7 +226,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              times are printed beside the train phase's heuristic step
              times (reported, not claimed), and torch.profiler splits one
              more tuned step by kernel;
-12. summary — one ``{"kernels": [...]}`` line, then the last line
+15. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -185,6 +234,7 @@ Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -209,33 +259,41 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # order over 2048 keys.
 TOL_BF16 = 1e-2
 TOL_LSE = 1e-3
-# Whole-model prefill logits, kernel path vs plain path: 24 layers of bf16
-# activations whose roundings differ (rmsnorm's kernel multiplies by the
-# weight before its cast, the reference after), so a few percent.
+# Whole-model prefill and decode logits, kernel path vs plain path, end to
+# end: at most 24 layers of bf16 activations whose roundings differ
+# (rmsnorm's kernel multiplies by the weight before its cast, the reference
+# after), so a few percent. The argument covers qwen2_0_5b's 24 layers (the
+# serve and tuned phases), the hybrid's and Mixtral's 8 and the archs
+# phase's 4 and 1. Gemma3-27B's 62 layers are past it: its prefill is gated
+# layer by layer (PrefillTap, each layer's output less its input at
+# TOL_GRAD, the head at TOL_LOGITS on the kernel path's last hidden state)
+# and its end-to-end distance is printed beside this limit, which is not
+# raised for it.
 TOL_LOGITS = 5e-2
 # Cross entropy and its lse are fp32 on both sides, sums over 151,936
 # columns in another order: 1e-4 of the value (lse is about 12 here).
 TOL_XENT = 1e-4
 # Train step 1, kernel path vs plain path (reference mode) on the same
 # parameters and batch; limits set from sound card runs (NVIDIA H100 80GB
-# HBM3, 700 W), each reading listed in PERF.md. Loss: a mean over 8192
-# tokens of fp32 losses whose bf16 logits were rounded at different
-# places; sound runs read 1.6e-5 and 2.5e-5 relative, the limit is 1e-3.
-# At random init the loss stays near log V whatever the layers compute, so
-# the gradients carry the check. Per leaf ||g_k - g_p|| / ||g_p||, each path
-# on its own: sound runs of qwen2_0_5b read a median of 7.9e-3 and at most
-# 1.56e-2 on every leaf but the k-projection biases, limit 3e-2. The k
-# bias's gradient is a sum over all positions of dk, most of which cancels
-# (a per-row shift of the scores leaves softmax unchanged; only RoPE keeps
-# the shift from being exact), so it is a small difference of large terms:
-# readings 1.55e-2 to 2.02e-2, limit 4e-2. A GQA group's q head left out
-# of dk/dv reads about 0.14. Run on their own, two bf16 computations part
-# at their first rounding that differs and the differences compound layer
-# after layer: the hybrid's Mamba step-size leaves (dt_proj, dt_bias,
-# x_proj) read up to 3.7e-2 apart, each path 2.6e-2 to 3.2e-2 from an fp32
-# computation of the step. So the gate holds the same limits layer by
-# layer, on equal inputs and output cotangents (gate_step1), and the
-# distances on their own are reported.
+# HBM3, 700 W), each reading listed in PERF.md. The gate is layer by layer,
+# with the loss end to end (gate_step1): the plain path runs each layer on
+# the kernel path's layer inputs and output cotangents (LayerTap), and every
+# gradient leaf, every cotangent a layer hands down and every layer's output
+# less its input is held to TOL_GRAD there. Run on their own, two bf16
+# computations part at their first rounding that differs and the
+# differences compound layer after layer (the hybrid's Mamba step-size
+# leaves read up to 3.7e-2 apart, each path 2.6e-2 to 3.2e-2 from an fp32
+# computation of the step), so those end-to-end distances, and each leaf
+# over TOL_GRAD there against fp32, are printed and not gated. Loss: a mean
+# over the step's tokens of fp32 losses whose bf16 logits were rounded at
+# different places; sound runs read 1.6e-5 and 2.5e-5 relative, limit
+# 1e-3. Per leaf ||g_k - g_p|| / ||g_p||: sound runs of qwen2_0_5b read a
+# median of 7.9e-3 and at most 1.56e-2 end to end on every leaf but the
+# k-projection biases, limit 3e-2. The k bias's gradient is a sum over all
+# positions of dk, most of which cancels (a per-row shift of the scores
+# leaves softmax unchanged; only RoPE keeps the shift from being exact), so
+# it is a small difference of large terms: readings 1.55e-2 to 2.02e-2,
+# limit 4e-2. A GQA group's q head left out of dk/dv reads about 0.14.
 TOL_LOSS = 1e-3
 TOL_GRAD = 3e-2
 TOL_GRAD_KBIAS = 4e-2
@@ -382,12 +440,19 @@ def phase_build():
     # tensor-core and decode routes (gemm_tc, gemm_decode: matmul's,
     # expert_gemm's and matmul_bias_act's) must run on the tensor cores:
     # each one's SASS holds wgmma, which disassembles as HGMMA.
-    for n, tags in (("flash_attention", ("_tc",)), ("flash_attention_bwd", ("_tc",)),
-                    ("matmul", ("gemm_tc", "gemm_decode")),
-                    ("expert_gemm", ("gemm_tc", "gemm_decode")),
-                    ("matmul_bias_act", ("gemm_tc", "gemm_decode")),
-                    ("rmsnorm_matmul", ("gemm_tc", "gemm_decode"))):
-        counts = hgmma_counts(_build.lib_path(n))
+    checks = (("flash_attention", ("_tc",)), ("flash_attention_bwd", ("_tc",)),
+              ("matmul", ("gemm_tc", "gemm_decode")),
+              ("expert_gemm", ("gemm_tc", "gemm_decode")),
+              ("matmul_bias_act", ("gemm_tc", "gemm_decode")),
+              ("rmsnorm_matmul", ("gemm_tc", "gemm_decode")))
+    t0 = time.perf_counter()
+    # one cuobjdump a library, all at once (each takes tens of seconds)
+    with concurrent.futures.ThreadPoolExecutor(len(checks)) as pool:
+        sass = dict(zip((n for n, _ in checks),
+                        pool.map(lambda c: hgmma_counts(_build.lib_path(c[0])), checks)))
+    log(f"[build] disassembled {len(checks)} libraries in {time.perf_counter() - t0:.1f} s")
+    for n, tags in checks:
+        counts = sass[n]
         tc = {f: c for f, c in counts.items() if any(t in f for t in tags)}
         if n.startswith("flash"):
             for f, c in sorted(counts.items()):
@@ -395,6 +460,16 @@ def phase_build():
         if not tc or min(tc.values()) == 0:
             raise AssertionError(f"{n}: a bf16 tensor-core kernel has no HGMMA in its SASS: "
                                  f"{ {f: c for f, c in tc.items() if c == 0} or tc}")
+        if n.startswith("flash"):
+            # head dim 256 (the first template argument): the tensor-core
+            # route exists and runs wgmma there too
+            d256 = {f: c for f, c in tc.items() if "_tcILi256E" in f}
+            want = 3 if n == "flash_attention" else 2       # fwd configs; dq and dk/dv
+            if len(d256) != want or min(d256.values()) == 0:
+                raise AssertionError(f"{n}: the d=256 tensor-core kernels and their HGMMA: "
+                                     f"{d256}")
+            log(f"[build] {n}: {len(d256)} d=256 tensor-core kernels, "
+                f"{', '.join(str(c) for c in d256.values())} HGMMA")
         by_tag = ", ".join(f"{sum(t in f for f in tc)} {t.strip('_')}" for t in tags)
         log(f"[build] {n}: {len(tc)} tensor-core kernels ({by_tag}), {min(tc.values())}..."
             f"{max(tc.values())} HGMMA each; {len(counts) - len(tc)} other kernels")
@@ -579,7 +654,7 @@ def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1, window=0, iter
     mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = mk(h), mk(kvh), mk(kvh)
     heur = fa.flash_attention.default_config(q, k, v)
-    other = other_config(heur)
+    other = other_config(heur, fa.flash_attention, (q, k, v))
     kw = dict(causal=True, window=window)
     p_out, p_lse = fa.flash_attention_plain(q, k, v, **kw)
     errs = []
@@ -622,13 +697,18 @@ def _flash_case(prof, rows, s, gen, path, h=14, kvh=2, d=64, b=1, window=0, iter
         f"err {row['max_abs_err']:.3g} (row rel {row['max_rel_err']:.2e} <= {TOL_BF16})")
 
 
-def other_config(heur) -> dict:
+def other_config(heur, tun=None, args=()) -> dict:
     """The flash kernels' other legal config: the other q tile (and the
-    other ring depth, where the space has one)."""
+    other ring depth, where the space has one); where that is not legal at
+    the call's head dim (``tun.why_illegal`` on ``args``: at d = 256), the
+    first legal config of the space other than ``heur``, else ``heur``."""
     other = dict(heur, block_q=192 - heur["block_q"])
     if "stages" in heur:
         other["stages"] = 5 - heur["stages"]
-    return other
+    if tun is None or tun.why_illegal(other, *args) is None:
+        return other
+    return next((c for c in tun.space.enumerate()
+                 if c != heur and tun.why_illegal(c, *args) is None), heur)
 
 
 def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
@@ -774,7 +854,7 @@ def device_ms(p, steps: int) -> dict:
     return by_name
 
 
-def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64, window=0):
+def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64, window=0, path="train"):
     from repro_torch.kernels import attention as fa
 
     mk = lambda n: torch.randn((b, n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -782,7 +862,7 @@ def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64, window=0):
     kw = dict(causal=True, window=window)
     o, lse = fa.flash_attention_plain(q, k, v, **kw)
     heur = fa.flash_attention_bwd.default_config(do, q, k, v, o, lse)
-    other = other_config(heur)
+    other = other_config(heur, fa.flash_attention_bwd, (do, q, k, v, o, lse))
     plain = fa.flash_attention_bwd_plain(do, q, k, v, o, lse, **kw)
     errs = []
     for cfg in (heur, other):
@@ -821,7 +901,7 @@ def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64, window=0):
     b_ms, b_by = bound(prof, nbytes, flops, prof.peak_flops_bf16)
     wname = f" w{window}" if window else ""
     row = dict(shape=f"q[{b},{h},{s},{d}] kv[{b},{kvh},{s},{d}] causal{wname} bf16",
-               path="train", config=heur, ms=ms, other_config=other, other_ms=ms_other,
+               path=path, config=heur, ms=ms, other_config=other, other_ms=ms_other,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                dq_pass_ms=passes["dq"], dkv_pass_ms=passes["dkv"],
                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
@@ -1340,6 +1420,28 @@ def phase_kernels(prof, seed: int):
             _matmul_case(prof, results["matmul"], m, k, n, gen, "moe")
         _rmsnorm_case(prof, results["rmsnorm"], m, dm, gen, "moe")
     _matmul_case(prof, results["matmul"], 8, dm, 32000, gen, "moe")
+    # PaliGemma-3B's attention, 8 q heads of 256 on one kv head (the first
+    # head dim above 128): its training step's b=2 x 2048 and a ragged
+    # exact-length 1000, forward and backward.
+    for b, s in ((2, 2048), (1, 1000)):
+        _flash_case(prof, results["flash_attention"], s, gen, "paligemma_train", h=8, kvh=1,
+                    d=256, b=b)
+        _flash_bwd_case(prof, results["flash_attention_bwd"], b, s, gen, h=8, kvh=1, d=256,
+                        path="paligemma_train")
+    # Gemma3-27B (d_model 5376, d_ff 21504, 32/16 heads of 128, window 1024,
+    # vocab 262,144): a 3000-token prefill's global and local attention, its
+    # FFN gemm at decode rows, its norm at the 4096 bucket, and the decode
+    # final norm -> unembed.
+    for window in (0, 1024):
+        _flash_case(prof, results["flash_attention"], 3000, gen, "gemma", h=32, kvh=16, d=128,
+                    window=window, iters=5)
+    _matmul_case(prof, results["matmul"], 8, 5376, 21504, gen, "gemma")
+    _rmsnorm_case(prof, results["rmsnorm"], 4096, 5376, gen, "gemma")
+    _rmm_case(prof, results["rmsnorm_matmul"], 8, 5376, 262144, gen, "gemma", want="decode")
+    # Arctic's 128 experts of width 4864 at d_model 7168: the capacities of
+    # the archs phase's 512-token prefill (10) and of a one-token decode (2).
+    for c in (10, 2):
+        _egemm_case(prof, results["expert_gemm"], 128, c, 7168, 4864, gen, "arctic", iters=5)
     gemm_host_cost(gen)
     return results
 
@@ -1685,35 +1787,52 @@ MOE_LENGTHS = (8, 16, 37, 300, 1024, 1500, 2048, 5000)
 class RouteTap:
     """Records the expert ids of every ``moe._route`` call while active
     (the router is plain torch, so recording changes nothing it computes),
-    each with its ``valid`` mask and the rows ``active()`` names live; also
-    each call's ids by its router weight (``by_router``, the last call's)
-    and each call's load-balancing loss (``auxes``).
+    each with its ``valid`` mask and the rows ``active()`` names live; each
+    router's calls in order (``queues``, keyed by the router weight; the
+    last one's ids in ``by_router``); and each call's load-balancing loss
+    (``auxes``).
 
-    With ``replay`` (the ``by_router`` of an earlier tap that saw one call a
-    router), each call takes the ids recorded for its router weight in place
-    of its own top-k, and ``_route`` weights them by its own router
-    probabilities and takes its aux loss on them: the plain path on the
-    kernel path's routes. A layer that runs again in a recompute takes its
-    routes again."""
+    With ``replay`` (an earlier tap of the same parameters), the one replay
+    mode: each call pops the next ids of its router's queue, copied from
+    the earlier tap's, in place of its own top-k, and ``_route`` weights
+    them by its own router probabilities and takes its aux loss on them:
+    the plain path on the kernel path's routes. A call that finds its
+    router's queue empty is a remat recompute of that router's last call
+    (the plain training path runs each layer again in the backward), and
+    re-reads the last entry. Serving (one entry a router a prefill or
+    decode step) and training (one a step) take the same mode."""
 
     def __init__(self, active=None, replay=None):
         self.calls = []
-        self.by_router = {}
+        self.queues = {}
         self.auxes = []
         self.active = active
         self.replay = replay
 
+    @property
+    def by_router(self):
+        return {k: q[-1] for k, q in self.queues.items()}
+
     def __enter__(self):
+        import collections
+
         from repro_torch.models import moe
 
         self._orig = orig = moe._route
         self._orig_top_k = orig_top_k = moe._top_k
         current = {}
+        pending = ({k: collections.deque(q) for k, q in self.replay.queues.items()}
+                   if self.replay is not None else None)
+        last = {}
 
         def top_k(probs, k):
-            if self.replay is None:
+            if pending is None:
                 return orig_top_k(probs, k)
-            ids = self.replay[current["router"]]
+            router = current["router"]
+            queue = pending[router]
+            if queue:
+                last[router] = queue.popleft()
+            ids = last[router]
             return probs.gather(1, ids), ids
 
         def tap(router_w, x2, top_k, valid=None):
@@ -1721,7 +1840,7 @@ class RouteTap:
             out = orig(router_w, x2, top_k, valid=valid)
             live = None if self.active is None else self.active()
             self.calls.append((out[1].detach(), valid, live))
-            self.by_router[current["router"]] = out[1].detach()
+            self.queues.setdefault(current["router"], []).append(out[1].detach())
             self.auxes.append(out[2].detach())
             return out
 
@@ -1897,7 +2016,7 @@ def phase_moe(seed: int):
     with torch.inference_mode():
         for mode, replay in (("kernel", None), ("reference", None),
                              ("pinned", "kernel")):
-            with RouteTap(replay=replay and taps[replay].by_router) as taps[mode], \
+            with RouteTap(replay=replay and taps[replay]) as taps[mode], \
                     runtime(mode="kernel" if mode == "kernel" else "reference"):
                 logits[mode], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
                                              cache_len=ecfg.max_seq, true_len=5000)
@@ -1922,6 +2041,408 @@ def phase_moe(seed: int):
                              f"{TOL_MOE_LOGITS_FREE})")
     log(f"[moe] phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+class PrefillTap:
+    """Wraps ``transformer.layer_apply`` while active, forward only: the
+    serving counterpart of LayerTap. Recording (no ``pin``): each prefill
+    layer call's output (``outs``, by call). Pinning (``pin``, a recording
+    tap of the same parameters and prompt): the i-th layer call computes
+    its own output from its input, which is the recorded path's previous
+    output, and returns the recorded output in its place; ``branch[i]``
+    holds ||d_own - d_rec|| / ||d_rec||, d a layer's output less its input.
+    The plain path then runs every layer on the kernel path's inputs, and
+    its head on the kernel path's last hidden state: each reading compares
+    one layer, not bf16 roundings compounded over the layers before it."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+        self.outs, self.branch = [], {}
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        self._orig = orig = tf.layer_apply
+
+        def layer(p, x, spec, cfg, run, mode, cache=None, pos=None, true_len=None):
+            out, aux, nc = orig(p, x, spec, cfg, run, mode, cache, pos, true_len=true_len)
+            if mode != "prefill":
+                return out, aux, nc
+            i = len(self.outs)
+            if self.pin is None:
+                self.outs.append(out)
+                return out, aux, nc
+            self.outs.append(None)
+            rec = self.pin.outs[i]
+            self.branch[i] = _rel(out.float() - x.float(), rec.float() - x.float())
+            return rec, aux, nc
+
+        tf.layer_apply = layer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+
+        tf.layer_apply = self._orig
+
+
+def tune_decode_unembed(cfg, params, seed: int, budget: int = 4):
+    """A database holding one record tuned on the card: the 8-slot decode
+    pool's final norm -> unembed (``rmsnorm_matmul`` on the model's own
+    scale and unembed weight, behind the correctness gate), what opts the
+    fused site in (``fusion_wins``), as a campaign's record would. Every
+    other site resolves at the heuristic tier."""
+    from repro_torch.core.database import TuningDatabase
+    from repro_torch.core.evaluate import WallClockEvaluator
+    from repro_torch.core.search import RandomSearch
+    from repro_torch.core.tuner import autotune
+    from repro_torch.kernels import fused
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((8, cfg.d_model), generator=gen, device="cuda").to(cfg.tdtype)
+    db = TuningDatabase(None)
+    res = autotune(fused.rmsnorm_matmul,
+                   (x, params["final_norm"]["scale"], params["lm_head"]["w"]),
+                   search=RandomSearch(budget=budget),
+                   evaluator=WallClockEvaluator(repeats=3, warmup=1), db=db, save=False,
+                   call_kwargs={"eps": cfg.norm_eps})
+    log(f"[{cfg.name}] tuned {db.records()[0].key}: {res.best_config}, "
+        f"{1e3 * res.best_objective:.4f} ms (heuristic {1e3 * res.default_objective:.4f})")
+    return db
+
+
+# Gemma3-27B's prompts: four pass the 1024 window (the ring caches wrap at
+# prefill and, for the rest, at decode) and the longest fills most of the
+# 4096 bucket.
+GEMMA_LENGTHS = (8, 3000, 40, 1500, 300, 2048, 1100, 700)
+
+
+def phase_gemma(seed: int):
+    """Serve Gemma3-27B at full depth: all 62 layers, bf16."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import runtime
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    cfg = get_config("gemma3_27b")
+    n_local = sum(seg.repeats for seg in cfg.segments() for sp in seg.pattern if sp.window)
+    n_global = cfg.num_layers - n_local
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = lm.param_count(params)
+    log(f"[gemma] {cfg.name} (hf:google/gemma-3): all {cfg.num_layers} layers ({n_local} local "
+        f"on a {cfg.window} window, {n_global} global), d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.hd}, GeGLU d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.3f} B params {cfg.dtype}, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ecfg = EngineConfig(max_batch=8, max_seq=4096)
+    run = RunConfig()
+    t0 = time.perf_counter()
+    db = tune_decode_unembed(cfg, params, seed)
+    log(f"[gemma] tuned its decode final norm -> unembed in {time.perf_counter() - t0:.1f} s")
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in GEMMA_LENGTHS]
+    rt = runtime(db=db, name="gemma")
+    engine = ServingEngine(cfg, run, params, ecfg, runtime=rt)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(prompt=p, max_new_tokens=32, temperature=0.0 if i % 2 == 0
+                              else 0.8, seed=seed + i, arrival_time=float(2 * i)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    snap = rt.telemetry.snapshot()
+    log(f"[gemma] launches during serving: {launches}")
+    log(f"[gemma] telemetry tiers: {snap['tiers']} over {snap['calls']} dispatches")
+    missing = [k for k in SERVE_KERNELS + ("rmsnorm_matmul",) if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"gemma: kernels never launched while serving: {missing}")
+    if snap["tiers"].get("reference", 0):
+        raise AssertionError(f"gemma: {snap['tiers']['reference']} dispatches fell to the "
+                             f"reference tier")
+    check_routes(launches, "gemma")
+    check_routes(launches, "gemma", want=("decode",), kernels=("rmsnorm_matmul",))
+    if launches["rmsnorm_matmul"] != launches.get("rmsnorm_matmul_decode", 0) or \
+            launches["rmsnorm_matmul"] != st["decode_steps"]:
+        raise AssertionError(f"gemma: rmsnorm_matmul should launch on the decode route once a "
+                             f"decode step ({st['decode_steps']}): {launches}")
+    flash = {}
+    for key, tiers in snap["by_key"].items():
+        if key.startswith("flash_attention|"):
+            w = key.rsplit("|", 1)[1]
+            flash[w] = flash.get(w, 0) + sum(tiers.values())
+    want = {f"cTruew{cfg.window}": n_local * st["prefill_calls"],
+            "cTruew0": n_global * st["prefill_calls"]}
+    if flash != want or launches["flash_attention"] != cfg.num_layers * st["prefill_calls"]:
+        raise AssertionError(f"gemma: flash launches windowed / full {flash}, expected {want}; "
+                             f"{launches['flash_attention']} launches")
+    for r in done:
+        out = r.output
+        if out is None or len(out) != 32 or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"gemma: bad output for a {len(r.prompt)}-token prompt: {out}")
+    tok_s = st["tokens_out"] / wall
+    log(f"[gemma] served {len(done)} requests, {st['tokens_out']} tokens in {wall:.2f} s: "
+        f"{tok_s:.1f} tokens/s; {st['decode_steps']} decode steps, {st['prefill_calls']} "
+        f"prefills of {st['prefill_tokens']} tokens (buckets); flash_attention launches: "
+        f"{flash[f'cTruew{cfg.window}']} windowed ({cfg.window}), {flash['cTruew0']} full; "
+        f"rmsnorm_matmul {launches['rmsnorm_matmul']} on the decode route")
+    for b in sorted(engine.timings["prefill_s"]):
+        ts = engine.timings["prefill_s"][b]
+        log(f"[gemma] prefill bucket {b}: {1e3 * float(np.median(ts)):.2f} ms median of "
+            f"{len(ts)}")
+    dec = engine.timings["decode_s"]
+    log(f"[gemma] decode step (8 slots): {1e3 * float(np.median(dec)):.2f} ms median of "
+        f"{len(dec)} (p90 {1e3 * float(np.percentile(dec, 90)):.2f} ms)")
+    w_bytes = (n_params - params["embed"]["table"].numel()) * 2
+    log(f"[gemma] computed floor of a decode step: {w_bytes / 1e9:.3f} GB of weights (all but "
+        f"the embedding table, of which a step gathers 8 rows) / 3.35 TB/s = "
+        f"{w_bytes / 3.35e12 * 1e3:.3f} ms (computed, not measured)")
+    log(f"[gemma] peak memory allocated: {peak / 2**30:.2f} GiB (limit 75)")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"gemma: peak {peak / 2**30:.2f} GiB passes 75 GiB")
+    del engine
+
+    probe = prompts[GEMMA_LENGTHS.index(3000)]
+    toks = torch.zeros((1, 4096), dtype=torch.long, device="cuda")
+    toks[0, :3000] = torch.from_numpy(probe.astype(np.int64))
+    caches = lm.init_cache(cfg, ecfg.max_batch, ecfg.max_seq, "cuda")
+    tokens = torch.zeros((ecfg.max_batch, 1), dtype=torch.long, device="cuda")
+    pos = torch.arange(ecfg.max_batch, device="cuda") * 500 + 50      # 50 .. 3550: rings wrapped
+
+    def decode():
+        with torch.inference_mode(), rt:
+            lm.decode_step(params, tokens, caches, pos, cfg, run)[0].float().cpu()
+
+    def prefill():
+        with torch.inference_mode(), rt:
+            lm.prefill(params, {"tokens": toks}, cfg, run, cache_len=ecfg.max_seq,
+                       true_len=3000)[0].float().cpu()
+
+    profile("gemma decode step (8 slots)", decode, 5)
+    profile("gemma prefill 3000 tokens (bucket 4096)", prefill, 1)
+    del caches
+
+    # The 3000-token prompt's prefill logits: end to end against the plain
+    # path (printed), and gated layer by layer (PrefillTap).
+    t0 = time.perf_counter()
+    logits = {}
+    with torch.inference_mode():
+        with runtime(mode="kernel", name="gemma-kernel"), PrefillTap() as rec:
+            logits["kernel"], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
+                                             cache_len=ecfg.max_seq, true_len=3000)
+        with runtime(mode="reference", name="gemma-plain"):
+            logits["plain"], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
+                                            cache_len=ecfg.max_seq, true_len=3000)
+        with runtime(mode="reference", name="gemma-pinned"), PrefillTap(pin=rec) as pin:
+            logits["pinned"], _ = lm.prefill(params, {"tokens": toks}, cfg, run,
+                                             cache_len=ecfg.max_seq, true_len=3000)
+    del rec
+    lk = logits["kernel"].float()
+    if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab_size)):
+        raise AssertionError(f"gemma: kernel-path logits not finite / shape {tuple(lk.shape)}")
+    abs_e, rel_e = rel_err(lk, logits["plain"].float())
+    abs_h, rel_h = rel_err(lk, logits["pinned"].float())
+    fwd = sorted(((r, i) for i, r in pin.branch.items()), reverse=True)
+    bad = [(round(r, 6), i) for r, i in fwd if r > TOL_GRAD]
+    log(f"[gemma] prefill logits (3000 tokens, bucket 4096), kernel vs plain path end to end "
+        f"through {cfg.num_layers} layers (report; TOL_LOGITS {TOL_LOGITS} covers 24): max abs "
+        f"{abs_e:.4g}, rel to max|plain| {rel_e:.3e}; argmax {int(lk.argmax())} vs "
+        f"{int(logits['plain'].argmax())}")
+    log(f"[gemma] prefill layer by layer (the plain path on the kernel path's layer inputs): "
+        f"{len(fwd)} layers' outputs less their inputs, ||d_k - d_p|| / ||d_p||: median "
+        f"{fwd[len(fwd) // 2][0]:.3e}, max {fwd[0][0]:.3e} (layer {fwd[0][1]}) (tol "
+        f"{TOL_GRAD}); the head on the kernel path's last hidden state: logits max abs "
+        f"{abs_h:.4g}, rel {rel_h:.3e} (tol {TOL_LOGITS}); the three prefills in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(fwd) != cfg.num_layers or bad or rel_h > TOL_LOGITS:
+        msg = (f"gemma: prefill gate: {len(bad)} of {len(fwd)} layers over {TOL_GRAD}, the "
+               f"worst: {bad[:4]}; head rel {rel_h:.3g} (tol {TOL_LOGITS})")
+        log(f"[gemma] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+    log(f"[gemma] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_paligemma_train(seed: int):
+    """Train PaliGemma-3B at full width and depth, its 256 patch
+    embeddings before the tokens and the loss masked off them."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("paligemma_3b")
+    steps = 4
+    log(f"[paligemma-train] {cfg.name} (arXiv:2407.07726) at full width and depth: "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} q heads of {cfg.hd} on "
+        f"{cfg.num_kv_heads} kv head, GeGLU d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{cfg.num_prefix} patch embeddings (a stub frontend) before 2048 - {cfg.num_prefix} "
+        f"tokens, loss_mask 0 on them")
+    t_phase = time.perf_counter()
+    by_step = []
+    trainer, batch, metrics, launches, snap, peak, _ = _train_run(
+        "paligemma-train", cfg, seed, (2, 1), steps, by_step=by_step)
+    # a step: one flash forward and one backward a layer, both at d = 256
+    # on the tensor-core kernels (bf16 has no other route); 37 norms
+    _train_checks("paligemma-train", snap, launches, {
+        "flash_attention": cfg.num_layers * steps, "flash_attention_bwd": cfg.num_layers * steps,
+        "rmsnorm_bwd": (2 * cfg.num_layers + 1) * steps, "matmul_wmma": 0})
+    per_step = [(s.get("flash_attention", 0), s.get("flash_attention_bwd", 0)) for s in by_step]
+    if per_step != [(cfg.num_layers, cfg.num_layers)] * steps:
+        raise AssertionError(f"paligemma-train: flash launches (fwd, bwd) by step {per_step}")
+    flash_keys = sorted({k for ph in ("fwd", "bwd") for k in snap["by_key_phase"].get(ph, {})
+                         if k.startswith("flash_attention")})
+    if not flash_keys or any(f"x{cfg.hd}/" not in k for k in flash_keys):
+        raise AssertionError(f"paligemma-train: flash keys not at d={cfg.hd}: {flash_keys}")
+    log(f"[paligemma-train] flash launches (forward, backward) by step: {per_step}, every one "
+        f"bf16 at d={cfg.hd} on the tensor-core kernels: {flash_keys}")
+    check_routes(launches, "paligemma-train", want=("tc",))
+    tokens = batch * 2048
+    step_ms = _step_report("paligemma-train", metrics, tokens)
+    by_name, busy = profile(f"paligemma train step ({tokens} tokens)", trainer.run_one_step, 1,
+                            wall_ms=step_ms)
+    kernel_share("paligemma train step", by_name, busy, "flash_attention (d=256)",
+                 ("flash_fwd_tc<256,",))
+    kernel_share("paligemma train step", by_name, busy, "flash_attention_bwd (d=256)",
+                 ("flash_bwd_dq_tc<256,", "flash_bwd_dkv_tc<256,"))
+    log(f"[paligemma-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    return launches, batch
+
+
+# (arch, layers, source): each at its published widths, its depth cut.
+ARCH_CUTS = (("qwen2_5_3b", 4, "hf:Qwen/Qwen2.5-3B"),
+             ("minitron_4b", 4, "arXiv:2407.14679"),
+             ("musicgen_large", 4, "arXiv:2306.05284"),
+             ("arctic_480b", 1, "hf:Snowflake/snowflake-arctic-base"))
+
+
+def phase_archs(seed: int):
+    """The other four new archs at full width, their depth cut: one prefill
+    and 4 greedy decode steps (MusicGen: one forward with its loss), the
+    kernel path held against the plain path at TOL_LOGITS (Arctic on the
+    kernel path's routes)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import runtime
+    from repro_torch.models import lm
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.transformer import RunConfig
+
+    run = RunConfig()
+    out = {}
+    t_phase = time.perf_counter()
+    for arch, layers, source in ARCH_CUTS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        tag = f"[archs] {arch}"
+        log(f"{tag} ({source}): {layers} of {get_config(arch).num_layers} layers at full width "
+            f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, "
+            f"{cfg.ffn_kind} d_ff {cfg.d_ff}" + (f", {cfg.num_experts} experts top-"
+                                                f"{cfg.experts_per_token} beside a dense FFN"
+                                                if cfg.num_experts else "")
+            + f", vocab {cfg.vocab_size}); {lm.param_count(params) / 1e9:.3f} B params, init "
+            f"{time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        kernels.reset_launch_counts()
+        if cfg.frontend == "audio_frames":
+            batch = {"embeds": 0.1 * torch.randn((2, 1024, cfg.d_model), generator=gen,
+                                                 device="cuda"),
+                     "labels": torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                                             device="cuda")}
+            res = {}
+            with torch.inference_mode():
+                for mode in ("kernel", "reference"):
+                    with runtime(mode=mode, name=f"{arch}-{mode}"):
+                        t0 = time.perf_counter()
+                        x, _, _ = lm.forward(params, batch, cfg, run, mode="train")
+                        loss, _ = lm.loss_fn(params, batch, cfg, run)
+                        torch.cuda.synchronize()
+                        res[mode] = (unembed(params["lm_head"], x[:, -1]).float(), float(loss),
+                                     time.perf_counter() - t0)
+                    if mode == "kernel":
+                        launches = kernels.launch_counts()
+            (lk, loss_k, t_k), (lp, loss_p, t_p) = res["kernel"], res["reference"]
+            abs_e, rel = rel_err(lk, lp)
+            loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+            log(f"{tag}: forward with the loss of 2 x 1024 audio frames: loss {loss_k:.6f} "
+                f"kernel path, {loss_p:.6f} plain path, rel {loss_rel:.3e} (tol {TOL_LOSS}); "
+                f"last position's logits rel {rel:.3e} (tol {TOL_LOGITS}); {1e3 * t_k:.1f} ms "
+                f"(plain {1e3 * t_p:.1f})")
+            if not np.isfinite(loss_k) or loss_rel > TOL_LOSS or rel > TOL_LOGITS:
+                raise AssertionError(f"{arch}: kernel path differs from the plain path: loss rel "
+                                     f"{loss_rel:.3g}, logits rel {rel:.3g}")
+        else:
+            prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen, device="cuda")
+            steps = {}
+            taps = {}
+            for mode in ("kernel", "reference"):
+                with torch.inference_mode(), runtime(mode=mode, name=f"{arch}-{mode}"), \
+                        RouteTap(replay=taps.get("kernel")) as taps[mode]:
+                    t0 = time.perf_counter()
+                    lg, caches = lm.prefill(params, {"tokens": prompt}, cfg, run, cache_len=520)
+                    seq = [lg.float()]
+                    tok = (steps["kernel"][0][0] if mode == "reference"
+                           else lg.argmax(-1, keepdim=True))
+                    for i in range(4):
+                        lg, caches = lm.decode_step(params, tok, caches, torch.tensor(512 + i),
+                                                    cfg, run)
+                        seq.append(lg.float())
+                        tok = (steps["kernel"][0][i + 1] if mode == "reference"
+                               else lg.argmax(-1, keepdim=True))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    if mode == "kernel":
+                        launches = kernels.launch_counts()
+                        toks = [seq[0].argmax(-1, keepdim=True)] + [
+                            g.argmax(-1, keepdim=True) for g in seq[1:]]
+                        steps["kernel"] = (toks, seq, wall)
+                    else:
+                        steps["reference"] = (None, seq, wall)
+                del caches
+            rels = [rel_err(a, b)[1] for a, b in zip(steps["kernel"][1], steps["reference"][1])]
+            log(f"{tag}: one 512-token prefill and 4 greedy decode steps in "
+                f"{1e3 * steps['kernel'][2]:.1f} ms (plain path {1e3 * steps['reference'][2]:.1f}"
+                f"); logits kernel vs plain path" + (" on the kernel path's routes"
+                                                    if cfg.num_experts else "")
+                + f", rel to max|plain| by step: {', '.join(f'{r:.3e}' for r in rels)} (tol "
+                f"{TOL_LOGITS})")
+            if not all(torch.isfinite(g).all() for g in steps["kernel"][1]) or \
+                    max(rels) > TOL_LOGITS:
+                raise AssertionError(f"{arch}: kernel path differs from the plain path: {rels}")
+            if cfg.num_experts:
+                per = 3 * layers * 5         # gate, up, down; a prefill and 4 decode steps
+                if launches.get("expert_gemm", 0) != per:
+                    raise AssertionError(f"{arch}: {launches.get('expert_gemm', 0)} expert_gemm "
+                                         f"launches, expected {per}")
+                caps = sorted({int(ids.shape[0]) for ids, _, _ in taps["kernel"].calls})
+                routes = {r: launches.get(f"expert_gemm_{r}", 0)
+                          for r in ("tc", "decode", "wmma", "simt")}
+                log(f"{tag}: expert_gemm {launches['expert_gemm']} launches at {cfg.num_experts} "
+                    f"experts (prefill capacity 10, decode 2; the kernels phase times both), "
+                    f"by route {routes}; tokens a routed call {caps}")
+        missing = [k for k in ("matmul", "rmsnorm") + (("flash_attention",) if not cfg.frontend
+                                                       else ()) if launches.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{arch}: never launched: {missing}")
+        log(f"{tag}: launches {launches}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out[arch] = launches
+        del params
+    log(f"[archs] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _fp32_copy(tree):
@@ -2036,7 +2557,7 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
     batch = batch_to_tensors(SyntheticPipeline(cfg, data).next_batch(), leaves[0].device)
     names = [n for n, _ in adamw.named_leaves(trainer.params)]
     tap = RouteTap() if replay_routes else contextlib.nullcontext()
-    routes = lambda: (RouteTap(replay=tap.by_router) if replay_routes
+    routes = lambda: (RouteTap(replay=tap) if replay_routes
                       else contextlib.nullcontext())
     with tap, LayerTap() as layers:
         loss_k, grads_k = trainer.loss_and_grads(batch)
@@ -2145,12 +2666,14 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
 TRAIN_PEAK_LIMIT = 75 * 2**30
 
 
-def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: bool = False):
+def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: bool = False,
+               by_step=None):
     """Train ``cfg`` through the Trainer at seq 2048 and the first batch of
     ``batches`` whose steps stay under TRAIN_PEAK_LIMIT: step 1 gated
     against the plain path, then ``steps`` steps with the launch counters
-    and the telemetry counting from 0. Returns (trainer, batch, metrics,
-    launches, telemetry snapshot, peak bytes, the step-1 aux loss)."""
+    and the telemetry counting from 0 (``by_step``, a list, gets each
+    step's launches). Returns (trainer, batch, metrics, launches, telemetry
+    snapshot, peak bytes, the step-1 aux loss)."""
     from repro_torch import kernels
     from repro_torch.core.runtime import runtime
     from repro_torch.data.pipeline import DataConfig
@@ -2179,7 +2702,13 @@ def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: boo
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        metrics = trainer.train()
+        metrics, seen = [], {}
+        for _ in range(steps):
+            metrics.append(trainer.run_one_step())
+            now = kernels.launch_counts()
+            if by_step is not None:
+                by_step.append({k: v - seen.get(k, 0) for k, v in now.items()})
+            seen = now
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -2189,6 +2718,8 @@ def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: boo
             log(f"[{tag}] the peak passes {TRAIN_PEAK_LIMIT / 2**30:.0f} GiB at batch {batch} x "
                 f"2048: dropping to {batches[i + 1]} x 2048")
             del trainer, metrics
+            if by_step is not None:
+                by_step.clear()
             continue
         log(f"[{tag}] batch {batch} x 2048 ran")
         return trainer, batch, metrics, launches, rt.telemetry.snapshot(), peak, aux
@@ -2635,7 +3166,13 @@ def main() -> int:
     hybrid_launches = phase_hybrid(args.seed)
     moe_launches = phase_moe(args.seed)
     torch.cuda.empty_cache()
+    gemma_launches = phase_gemma(args.seed)
+    torch.cuda.empty_cache()
+    archs_launches = phase_archs(args.seed)
+    torch.cuda.empty_cache()
     train_launches, heuristic_step_ms, heuristic_steps = phase_train(args.seed)
+    torch.cuda.empty_cache()
+    pali_launches, pali_batch = phase_paligemma_train(args.seed)
     torch.cuda.empty_cache()
     hybrid_train_launches, hybrid_batch = phase_hybrid_train(args.seed)
     torch.cuda.empty_cache()
@@ -2667,7 +3204,13 @@ def main() -> int:
     # launches with its scan at batch 2 x 2048, d_inner 8192, expert_gemm's
     # "moe_train" the MoE training run's with the gate projection at
     # capacity 2560 (batch 4 x 2048), each with the batch the phase ran;
-    # ssm_scan's "bwd_torch" holds the backward tunable's times.
+    # ssm_scan's "bwd_torch" holds the backward tunable's times. The new
+    # archs add three: "gemma" pairs the Gemma3-27B serving run's launches
+    # with its local attention, FFN gemm, norm and decode unembed (the
+    # serving kernels and rmsnorm_matmul), "paligemma_train" the PaliGemma
+    # training run's with the flash kernels at d = 256 (with its batch), and
+    # expert_gemm's "arctic" the archs phase's Arctic launches with its
+    # prefill's capacity at 128 experts.
     pick = {"train": {"matmul": "[2048,896]@[896,151936] bf16", "rmsnorm": "[8192,896] bf16",
                       "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
                       "softmax_xent_bwd": "[2048,151936] bf16",
@@ -2685,7 +3228,14 @@ def main() -> int:
                     "flash_attention": "q[1,32,8192,128] kv[1,8,8192,128] causal w4096 bf16",
                     "expert_gemm": "[8,2,4096]@[8,4096,14336] bf16"},
             "hybrid_train": {"ssm_scan": "b=2 s=2048 di=8192 ds=16 xc bf16"},
-            "moe_train": {"expert_gemm": "[8,2560,4096]@[8,4096,14336] bf16"}}
+            "moe_train": {"expert_gemm": "[8,2560,4096]@[8,4096,14336] bf16"},
+            "gemma": {"matmul": "[8,5376]@[5376,21504] bf16", "rmsnorm": "[4096,5376] bf16",
+                      "flash_attention": "q[1,32,3000,128] kv[1,16,3000,128] causal w1024 bf16",
+                      "rmsnorm_matmul": "[8,5376]x[5376,262144] bf16"},
+            "paligemma_train": {
+                "flash_attention": "q[2,8,2048,256] kv[2,1,2048,256] causal bf16",
+                "flash_attention_bwd": "q[2,8,2048,256] kv[2,1,2048,256] causal bf16"},
+            "arctic": {"expert_gemm": "[128,10,7168]@[128,7168,4864] bf16"}}
     main_path = {"matmul_bias_act": ("train", tuned_train),
                  "rmsnorm_matmul": ("serve", tuned_serve),
                  "ssm_scan": ("hybrid", hybrid_launches),
@@ -2727,6 +3277,13 @@ def main() -> int:
             entry["serve"] = at(name, "serve", serve_launches)
             entry["hybrid"] = at(name, "hybrid", hybrid_launches)
             entry["moe"] = at(name, "moe", moe_launches)
+        if name in SERVE_KERNELS + ("rmsnorm_matmul",):
+            entry["gemma"] = at(name, "gemma", gemma_launches)
+        if name in ("flash_attention", "flash_attention_bwd"):
+            entry["paligemma_train"] = dict(at(name, "paligemma_train", pali_launches),
+                                            batch=pali_batch)
+        if name == "expert_gemm":
+            entry["arctic"] = at(name, "arctic", archs_launches["arctic_480b"])
         entries.append(entry)
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)

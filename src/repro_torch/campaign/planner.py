@@ -2,8 +2,8 @@
 
 A tuning job is (kernel x argument shapes x dtype x key extra), the
 granularity of one database record. The port of ``repro.campaign.planner``
-for the dense decoders the port runs, with the same jobs, keys, weights and
-scenario names:
+for the archs the port runs, with the same jobs, keys, weights and
+scenario names (but for serving's windowed flash jobs, below):
 
 * :func:`plan_training_jobs` -- every dispatch site of the one-card
   training step, forward and backward: the projections and FFN gemms with
@@ -17,8 +17,8 @@ scenario names:
 * :func:`plan_serving_jobs` -- every slot-pool bucket a continuous
   :class:`~repro_torch.serving.engine.ServingEngine` runs: batch-1
   admission prefills at each power-of-two sequence bucket and the decode
-  pool at the full slot width, with the fused final-norm -> unembed site
-  and the ``attn_chunks`` sites (each prefill, and one decode-shaped
+  pool at the full slot width, with the fused final-norm -> unembed site,
+  flash attention at each distinct window, and the ``attn_chunks`` sites (each prefill, and one decode-shaped
   lookup at the pool's full depth); a hybrid arch adds its Mamba layers'
   projections with the ``ssm_scan`` site at each prefill bucket and the
   ``ssm_update`` site in the pool, and an MoE arch its ``expert_gemm``
@@ -368,7 +368,11 @@ def plan_serving_jobs(
     attention over [1, H, s, hd], the unembed of the last real position at
     one row); the decode pool runs every tick at ``max_batch`` rows, with
     the fused final-norm -> unembed candidate, weighted by the s ticks a
-    request spends at that depth.
+    request spends at that depth. Prefill's flash attention is planned once
+    for each distinct window of the layer pattern, as in training: the JAX
+    planner plans ``cTruew0`` alone, a key a windowed layer never looks up.
+    An arch with a frontend is not served (the engine refuses it), so it
+    plans nothing, as in JAX.
     """
     if cfg.frontend is not None:
         return []
@@ -397,7 +401,8 @@ def plan_serving_jobs(
             add("matmul", [(1, d), (d, cfg.vocab_size)], [f, f], 1.0, scen)
             add("rmsnorm", [(s, d), (d,)], [f, f], n_norm, scen)
             q, kv = (1, H, s, hd), (1, KV, s, hd)
-            add("flash_attention", [q, kv, kv], [f, f, f], n_attn, scen, extra="cTruew0")
+            for w, n in sorted(counts["windows"].items()):
+                add("flash_attention", [q, kv, kv], [f, f, f], n, scen, extra=f"cTruew{w}")
             add("attn_chunks", [q, kv, kv], [f, f, f], n_attn, scen)
             # Mamba at prefill: the projections over s rows, dt_proj and
             # out_proj in fp32, and the batch-1 scan

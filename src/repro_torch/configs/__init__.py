@@ -1,1 +1,2 @@
-from .base import SHAPES, ArchConfig, LayerSpec, Segment, ShapeSpec, get_config  # noqa: F401
+from .base import (ARCH_NAMES, SHAPES, ArchConfig, LayerSpec, Segment, ShapeSpec,  # noqa: F401
+                   all_configs, get_config)

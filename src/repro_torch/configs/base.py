@@ -4,9 +4,10 @@ Same :class:`ArchConfig` fields, ``segments()`` decomposition and
 ``reduced()`` smoke config, so one config means the same model in both
 packages; ``tdtype`` returns the torch dtype where the JAX package's
 ``jdtype`` returns a jnp dtype. Only the architectures the port runs are
-registered: ``qwen2_0_5b``, ``jamba_1_5_large`` (with its MoE layers; its
-dense variant, ``dataclasses.replace(cfg, num_experts=0,
-experts_per_token=0)``, is what fits one card) and ``mixtral_8x7b``.
+registered: nine of the JAX package's ten (``xlstm_1_3b`` needs the mLSTM
+and sLSTM mixers, which the port does not have yet). Jamba's dense
+variant, ``dataclasses.replace(cfg, num_experts=0, experts_per_token=0)``,
+is what fits one card.
 ``SHAPES`` holds the training shapes a campaign plans: the JAX package's
 ``train_4k`` and ``train_smoke``, and ``train_2k``, the one-card step
 (batch 4 x 2048) the port's launcher and smoke run take.
@@ -183,14 +184,41 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
-ARCH_NAMES = ("qwen2_0_5b", "jamba_1_5_large", "mixtral_8x7b")
+# The JAX package's registry, in its order, less xlstm_1_3b.
+ARCH_NAMES = (
+    "minitron_4b",
+    "qwen2_5_3b",
+    "qwen2_0_5b",
+    "gemma3_27b",
+    "musicgen_large",
+    "arctic_480b",
+    "mixtral_8x7b",
+    "paligemma_3b",
+    "jamba_1_5_large",
+)
 
-_ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "jamba-1.5-large-398b": "jamba_1_5_large",
-            "mixtral-8x7b": "mixtral_8x7b"}
-
+_ALIASES = {
+    "minitron-4b": "minitron_4b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "gemma3-27b": "gemma3_27b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "musicgen-large": "musicgen_large",
+    "arctic-480b": "arctic_480b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "paligemma-3b": "paligemma_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
+}
 
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod_name == "xlstm_1_3b":
+        raise KeyError("xlstm_1_3b needs the mLSTM and sLSTM mixers, which the port does not "
+                       "have yet (ROADMAP.md, Queue 1 item 3)")
     if mod_name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; the port has {list(ARCH_NAMES)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}

@@ -89,6 +89,7 @@ class Tunable:
         default: Optional[Config] = None,
         heuristic: Optional[Callable[..., Config]] = None,
         dispatch: Optional[DispatchSpec] = None,
+        legal: Optional[Callable[..., Optional[str]]] = None,
     ):
         self.name = name
         self.fn = fn
@@ -97,15 +98,30 @@ class Tunable:
         self._default = default
         self.heuristic = heuristic
         self.dispatch = dispatch
+        self.legal = legal
         functools.update_wrapper(self, fn)
+
+    def why_illegal(self, config: Config, *args) -> Optional[str]:
+        """Why ``config`` cannot run the call on ``args``, or None: outside
+        the space, or (``legal(config, *args)``, where the tunable has one)
+        past what the card gives one block at these shapes, e.g. a tile's
+        shared memory at the call's head dim. The tuner prunes such a config
+        before a trial and the runtime's tiers pass over it."""
+        why = self.space.why_invalid(config)
+        if why is None and self.legal is not None and args:
+            why = self.legal(config, *args)
+        return why
 
     def default_config(self, *args) -> Config:
         if self.heuristic is not None and args:
             cfg = self.heuristic(*args)
-            if self.space.is_valid(cfg):
+            if self.why_illegal(cfg, *args) is None:
                 return cfg
-        if self._default is not None:
+        if self._default is not None and self.why_illegal(self._default, *args) is None:
             return dict(self._default)
+        for cfg in self.space.enumerate():
+            if self.why_illegal(cfg, *args) is None:
+                return cfg
         return self.space.default()
 
     def variant(self, **config) -> Callable:
@@ -138,9 +154,10 @@ def tunable(
     default: Optional[Config] = None,
     heuristic: Optional[Callable[..., Config]] = None,
     dispatch: Optional[DispatchSpec] = None,
+    legal: Optional[Callable[..., Optional[str]]] = None,
 ) -> Callable[[Callable], Tunable]:
     def deco(fn: Callable) -> Tunable:
-        t = Tunable(name, fn, space, reference, default, heuristic, dispatch)
+        t = Tunable(name, fn, space, reference, default, heuristic, dispatch, legal)
         _REGISTRY[name] = t
         return t
 

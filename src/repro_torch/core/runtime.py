@@ -114,13 +114,13 @@ class ResolutionPolicy:
 
 
 class ExactHit(ResolutionPolicy):
-    """A stored record with a valid config for this exact key."""
+    """A stored record with a config legal for this exact key."""
 
     name = "exact"
 
     def resolve(self, req: ResolutionRequest) -> Optional[Resolution]:
         rec = req.db.lookup(req.key)
-        if rec is not None and req.tunable.space.is_valid(rec.config):
+        if rec is not None and req.tunable.why_illegal(rec.config, *req.args) is None:
             return Resolution(dict(rec.config), self.name)
         return None
 
@@ -142,7 +142,8 @@ class TuneNow(ResolutionPolicy):
 
 
 class CoverSet(ResolutionPolicy):
-    """The nearest cover-set entry: a measured config for an unseen bucket."""
+    """The nearest cover-set entry whose config is legal for the call: a
+    measured config for an unseen bucket."""
 
     name = "cover"
 
@@ -150,7 +151,7 @@ class CoverSet(ResolutionPolicy):
         shapes = split_key(req.key)[2]
         for entry in req.db.lookup_cover(req.tunable.name, req.platform, shapes):
             cfg = entry.get("config")
-            if cfg is not None and req.tunable.space.is_valid(cfg):
+            if cfg is not None and req.tunable.why_illegal(cfg, *req.args) is None:
                 return Resolution(dict(cfg), self.name)
         return None
 

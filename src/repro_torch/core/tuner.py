@@ -14,8 +14,10 @@ The loop of ``repro.core.tuner.autotune``:
 
 All of it runs under ``torch.no_grad()`` and calls the bound variants
 directly, never through the dispatch runtime's autograd plane. The JAX
-package's TPU legality pre-pass (its grid models) has no counterpart: each
-Hopper space's constraints keep illegal tiles out of the search.
+package's TPU legality pre-pass (its grid models) becomes each Hopper
+space's constraints and, where legality depends on the call's shapes (the
+flash kernels' tiles at head dim 256), the tunable's ``legal`` check: a
+config it refuses is pruned before any trial.
 
 Keys must read exactly as the JAX package writes them, so dtypes are
 spelled the JAX way (``bfloat16``, never ``torch.bfloat16``) and the key
@@ -148,6 +150,12 @@ def autotune(
             return evaluator.evaluate(lambda *a: variant(*a, **kw), args, reference=reference)
 
         def objective(config: Config) -> Trial:
+            illegal = tunable.why_illegal(config, *args)
+            if illegal is not None:
+                # the card cannot run it at these shapes: pruned, never launched
+                log.debug("variant %s statically pruned: %s", config, illegal)
+                return Trial(config=config, objective=INVALID, ok=False,
+                             meta={"pruned": illegal})
             m = measure(config)
             meta = dict(m.meta)
             if not m.ok:
@@ -167,7 +175,8 @@ def autotune(
         base = measure(default_cfg)
     default_obj = base.objective if base.ok else INVALID
     best_config, best_objective = result.best_config, result.best_objective
-    if base.ok and tunable.space.is_valid(default_cfg) and default_obj < best_objective:
+    if base.ok and tunable.why_illegal(default_cfg, *args) is None and \
+            default_obj < best_objective:
         best_config, best_objective = dict(default_cfg), default_obj
 
     key = _args_key(tunable, args, platform, key_extra)
@@ -201,7 +210,7 @@ def tune_or_lookup(
     platform = platform_key(first_device(args))
     key = _args_key(tunable, args, platform, key_extra)
     rec = db.lookup(key)
-    if rec is not None and tunable.space.is_valid(rec.config):
+    if rec is not None and tunable.why_illegal(rec.config, *args) is None:
         return dict(rec.config)
     if allow_tune:
         return autotune(tunable, args, db=db, key_extra=key_extra, platform=platform,
@@ -210,6 +219,6 @@ def tune_or_lookup(
         shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         for entry in db.lookup_cover(tunable.name, platform, shapes):
             cfg = entry.get("config")
-            if cfg is not None and tunable.space.is_valid(cfg):
+            if cfg is not None and tunable.why_illegal(cfg, *args) is None:
                 return dict(cfg)
     return tunable.default_config(*args)

@@ -17,11 +17,14 @@ fp32 card tests and gradient checks.
 The knobs are the bf16 kernels' launch parameters. Forward: ``block_q``,
 the q rows of one CTA (64 per consumer warpgroup), ``block_k``, the keys
 of a streamed k/v tile, and ``stages``, the depth of the ring. Every
-config fits the H100's 227 KB of shared memory a block at the widest head
-the kernels take (d = 128). Unlike the TPU kernel, s_q and s_k need not
-divide into blocks: the tensor maps read zeros past the edge and the
-kernel masks it. The fp32 SIMT route runs 64 x 64 tiles whatever the
-config (:data:`SIMT_TILES`).
+config of the space fits the H100's 227 KB of shared memory a block up to
+d = 128 (:data:`SPACE_HEAD_DIM`); at d = 256 (PaliGemma's heads) only the
+64-key tiles do, and the tunable's ``legal`` check (:func:`fwd_illegal`)
+refuses the others for such a call, so the tuner prunes them before a
+trial and no tier resolves to one. Unlike the TPU kernel, s_q and s_k need
+not divide into blocks: the tensor maps read zeros past the edge and the
+kernel masks it. The fp32 SIMT route runs its own tiles whatever the
+config (:func:`simt_tiles`: 64 x 64, 32 x 32 at d = 256).
 
 Its backward plan dispatches ``flash_attention_bwd`` (``csrc/
 flash_attention_bwd.cu``, replacing ``repro/kernels/attention.py:
@@ -44,17 +47,23 @@ from . import _build, ref
 
 _NEG_INF = -1e30        # as the TPU kernel: no nan from (-inf) - (-inf)
 FLASH_WARPS = 4         # warps of a SIMT CTA
-MAX_HEAD_DIM = 128
-HEAD_DIMS = (16, 32, 64, 128)
-
-# The fp32 SIMT kernels' tiles, whatever the config: the tensor-core tiles
-# of the spaces (up to 128 x 128) exceed their fp32 shared memory at d =
-# 128, and 64 x 64 is legal for the forward and both backward passes at
-# every head dim (tests/test_torch_flash_space.py).
-SIMT_TILES = {"block_q": 64, "block_k": 64}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+# The widest head at which every config of the two spaces fits one block;
+# above it the legality checks prune the configs that do not.
+SPACE_HEAD_DIM = 128
+SMEM = H100_SXM.smem_per_block
 
 
-def smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
+def simt_tiles(d: int) -> dict:
+    """The fp32 SIMT kernels' tiles at head dim ``d``, whatever the config:
+    the largest square tile whose forward and both backward CTAs fit one
+    block (tests/test_torch_flash_space.py): 64 x 64 up to d = 128, 32 x 32
+    at d = 256 (64 x 64 would need 258 KB)."""
+    t = 64 if d <= SPACE_HEAD_DIM else 32
+    return {"block_q": t, "block_k": t}
+
+
+def smem_bytes(c, d: int) -> int:
     """Shared memory of one bf16 forward CTA (mirrors ``Fwd::SMEM`` in
     csrc/flash_attention.cu): the q tile, ``stages`` k and v tiles, 2 *
     stages + 1 barriers and 1024 bytes to align the tiles for the 128-byte
@@ -63,7 +72,7 @@ def smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
     return 1024 + bq * d * 2 + 2 * st * bk * d * 2 + 8 * (2 * st + 1)
 
 
-def simt_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
+def simt_smem_bytes(c, d: int) -> int:
     """Shared memory of one fp32 SIMT forward CTA (mirrors
     repro_flash_simt_smem_bytes)."""
     bq, bk = c["block_q"], c["block_k"]
@@ -77,10 +86,21 @@ ATTENTION_SPACE = ParamSpace(
         EnumParam("stages", (2, 3)),
     ],
     [
-        Constraint(lambda c: smem_bytes(c) <= H100_SXM.smem_per_block,
+        Constraint(lambda c: smem_bytes(c, SPACE_HEAD_DIM) <= SMEM,
                    "bf16 q tile, k/v ring and barriers exceed 227 KB of shared memory at d=128"),
     ],
 )
+
+
+def fwd_illegal(c, q, k, v) -> Optional[str]:
+    """Why the bf16 forward cannot run config ``c`` at this call's head dim
+    (its CTA past 227 KB: at d = 256 every 128-key tile, and 128 x 64 with
+    three stages), or None. fp32 runs :func:`simt_tiles`, so every config
+    is legal there."""
+    d = q.shape[-1]
+    if q.dtype != torch.float32 and smem_bytes(c, d) > SMEM:
+        return f"bf16 forward tiles {c} need {smem_bytes(c, d)} B of shared memory at d={d}"
+    return None
 
 
 def _attn_heuristic(q, k, v):
@@ -148,28 +168,30 @@ def _check_head_dim(d: int) -> None:
 def flash_attention_cuda(q, k, v, *, block_q: int, block_k: int, stages: int = 2,
                          causal: bool = True, window: int = 0, scale: Optional[float] = None):
     """Launch csrc/flash_attention.cu on CUDA tensors: (out, lse). bf16 runs
-    the tensor-core kernel at the config's tiles; fp32 the SIMT kernel at
-    :data:`SIMT_TILES`, chosen by dtype (never on a failure)."""
+    the tensor-core kernel at the config's tiles (a config not legal at the
+    head dim raises); fp32 the SIMT kernel at :func:`simt_tiles`, chosen by
+    dtype (never on a failure)."""
     _check(q, k, v)
     _check_cuda((q, k, v), "flash")
     b, h, s_q, d = q.shape
     kvh, s_k = k.shape[1], k.shape[2]
     _check_head_dim(d)
     scale = scale if scale is not None else d ** -0.5
+    cfg = {"block_q": block_q, "block_k": block_k, "stages": stages}
+    why = ATTENTION_SPACE.why_invalid(cfg) or fwd_illegal(cfg, q, k, v)
+    if why:
+        raise ValueError(f"flash config {cfg} is not legal at d={d}: {why}")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     dims = (b, h, kvh, s_q, s_k, d, float(scale), int(bool(causal)), int(window))
     head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
     if q.dtype == torch.bfloat16:
-        cfg = {"block_q": block_q, "block_k": block_k, "stages": stages}
-        if not ATTENTION_SPACE.is_valid(cfg):
-            raise ValueError(f"flash config {cfg} is not in the kernel's space")
         fn = _build.entry("flash_attention", "repro_flash_attention",
                           head + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         err = fn(*ptrs, *dims, block_q, block_k, stages, _build.stream_ptr(q.device))
     else:
-        cfg = dict(SIMT_TILES)
+        cfg = simt_tiles(d)
         fn = _build.entry("flash_attention", "repro_flash_attention_f32",
                           head + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         err = fn(*ptrs, *dims, cfg["block_q"], cfg["block_k"], _build.stream_ptr(q.device))
@@ -197,6 +219,7 @@ def _flash_bwd_plan(ct, q, k, v, o, lse, **kwargs):
     space=ATTENTION_SPACE,
     reference=functools.partial(ref.attention_res, causal=True),
     heuristic=_attn_heuristic,
+    legal=fwd_illegal,
     dispatch=DispatchSpec(
         reference=ref.attention,
         key_extra=_attn_key_extra,
@@ -226,7 +249,7 @@ BWD_TILE = 64        # rows of a streamed tile: k in the dq pass, q in the dk/dv
 BWD_STAGES = 2       # depth of the backward's ring
 
 
-def bwd_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
+def bwd_smem_bytes(c, d: int) -> int:
     """Shared memory of the larger of the two bf16 backward CTAs (mirrors
     ``BwdDq::SMEM`` and ``BwdDkv::SMEM`` in csrc/flash_attention_bwd.cu):
     the dq pass holds q and do tiles of ``block_q`` rows and a ring of
@@ -238,7 +261,7 @@ def bwd_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
     return max(dq, dkv)
 
 
-def simt_bwd_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
+def simt_bwd_smem_bytes(c, d: int) -> int:
     """Shared memory of the larger of the two fp32 SIMT backward CTAs
     (mirrors repro_flash_bwd_dq_simt_smem_bytes and
     repro_flash_bwd_dkv_simt_smem_bytes)."""
@@ -251,18 +274,29 @@ def simt_bwd_smem_bytes(c, d: int = MAX_HEAD_DIM) -> int:
 # block_q is the dq pass's q tile (64 rows per consumer warpgroup), block_k
 # the dk/dv pass's k tile (64 keys per consumer warpgroup); each pass
 # streams the other operand in 64-row tiles, which bounds the registers of
-# its accumulators (dq, or dk and dv) at d = 128.
+# its accumulators (dq, or dk and dv) at d = 128; at d = 256 the dk/dv pass
+# takes half of the columns a CTA (csrc/flash_attention_bwd.cu).
 ATTENTION_BWD_SPACE = ParamSpace(
     [
         PowerOfTwoParam("block_q", 64, 128),
         PowerOfTwoParam("block_k", 64, 128),
     ],
     [
-        Constraint(lambda c: bwd_smem_bytes(c) <= H100_SXM.smem_per_block,
+        Constraint(lambda c: bwd_smem_bytes(c, SPACE_HEAD_DIM) <= SMEM,
                    "bf16 backward tiles, rings and barriers exceed 227 KB of shared memory "
                    "at d=128"),
     ],
 )
+
+
+def bwd_illegal(c, ct, q, k, v, o, lse) -> Optional[str]:
+    """Why the bf16 backward cannot run config ``c`` at this call's head
+    dim (either pass's CTA past 227 KB: at d = 256 all but 64 x 64), or
+    None; fp32 runs :func:`simt_tiles`."""
+    d = q.shape[-1]
+    if q.dtype != torch.float32 and bwd_smem_bytes(c, d) > SMEM:
+        return f"bf16 backward tiles {c} need {bwd_smem_bytes(c, d)} B of shared memory at d={d}"
+    return None
 
 
 def _attn_bwd_heuristic(ct, q, k, v, o, lse):
@@ -271,7 +305,7 @@ def _attn_bwd_heuristic(ct, q, k, v, o, lse):
     up to d = 64 and 64-key tiles above, where the dk and dv accumulators of
     two warpgroups exceed the registers of a 288-thread CTA (168 a thread):
     ptxas spills them and serializes the wgmmas (chip_smoke.py's build
-    report)."""
+    report). At d = 256, 64 x 64 is the one config that fits."""
     return {"block_q": 64, "block_k": 128 if q.shape[-1] <= 64 else 64}
 
 
@@ -312,8 +346,9 @@ def flash_attention_bwd_cuda(ct, q, k, v, o, lse, *, block_q: int, block_k: int,
                              causal: bool = True, window: int = 0,
                              scale: Optional[float] = None):
     """Launch csrc/flash_attention_bwd.cu on CUDA tensors: (dq, dk, dv). bf16
-    runs the tensor-core passes at the config's tiles; fp32 the SIMT passes
-    at :data:`SIMT_TILES`, chosen by dtype. delta = rowsum(do * o) is one
+    runs the tensor-core passes at the config's tiles (a config not legal at
+    the head dim raises); fp32 the SIMT passes at :func:`simt_tiles`,
+    chosen by dtype. delta = rowsum(do * o) is one
     fp32 torch reduction here, as it is a jnp reduction outside the Pallas
     kernels."""
     _check(q, k, v)
@@ -329,17 +364,18 @@ def flash_attention_bwd_cuda(ct, q, k, v, o, lse, *, block_q: int, block_k: int,
         raise ValueError("flash bwd tensors on different devices")
     _check_head_dim(d)
     scale = scale if scale is not None else d ** -0.5
+    cfg = {"block_q": block_q, "block_k": block_k}
+    why = ATTENTION_BWD_SPACE.why_invalid(cfg) or bwd_illegal(cfg, ct, q, k, v, o, lse)
+    if why:
+        raise ValueError(f"flash bwd config {cfg} is not legal at d={d}: {why}")
     delta = (ct.float() * o.float()).sum(-1)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.dtype == torch.bfloat16:
-        cfg = {"block_q": block_q, "block_k": block_k}
-        if not ATTENTION_BWD_SPACE.is_valid(cfg):
-            raise ValueError(f"flash bwd config {cfg} is not in the kernel's space")
         symbol = "repro_flash_attention_bwd"
     else:
-        cfg = dict(SIMT_TILES)
+        cfg = simt_tiles(d)
         symbol = "repro_flash_attention_bwd_f32"
     fn = _build.entry("flash_attention_bwd", symbol,
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -359,6 +395,7 @@ def flash_attention_bwd_cuda(ct, q, k, v, o, lse, *, block_q: int, block_k: int,
     space=ATTENTION_BWD_SPACE,
     reference=ref.attention_bwd,
     heuristic=_attn_bwd_heuristic,
+    legal=bwd_illegal,
     dispatch=DispatchSpec(
         key_extra=_attn_key_extra,
         # ct, q, k, v, o, lse all lead with the batch dim.

@@ -24,7 +24,12 @@
 // before the window are never loaded; the mask is computed only on tiles
 // that hold a masked pair or the ragged edge. The longest q tiles (the
 // last, under causality) launch first. O is scaled by 1/l and stored as
-// bf16 from registers with the fp32 lse. d is 16, 32, 64 or 128. Inside a
+// bf16 from registers with the fp32 lse. d is 16, 32, 64, 128 or 256. At
+// d = 256 (PaliGemma's heads) a 64-row warpgroup's O accumulator is 128
+// fp32 registers a thread, and the P V product one m64n256k16 wgmma a k16
+// step; a q tile, two or three 64-key k and v stages fit 227 KB only at
+// 64-key tiles (64 x 64 x 2: 161 KB, x 3: 225 KB; 128 x 64 x 2: 193 KB),
+// and the configs that do not fit are not instantiated. Inside a
 // warpgroup S, the softmax and P V run in turn, so the tensor cores idle
 // through the softmax; the CTAs that share an SM overlap them only in part
 // (PERF.md §6 measures this).
@@ -230,9 +235,10 @@ static cudaError_t launch_tc_d(int bq, int bk, int st, const void* q, const void
                                int s_q, int s_k, float scale, int causal, int window,
                                cudaStream_t s) {
 #define REPRO_FWD_CASE(BQ, BK, ST)                                                            \
-  if (bq == BQ && bk == BK && st == ST)                                                       \
-    return launch_tc<D, BQ, BK, ST>(q, k, v, o, lse, b, h, kvh, s_q, s_k, scale, causal,      \
-                                    window, s);
+  if constexpr (Fwd<D, BQ, BK, ST>::SMEM <= SMEM_MAX)                                         \
+    if (bq == BQ && bk == BK && st == ST)                                                     \
+      return launch_tc<D, BQ, BK, ST>(q, k, v, o, lse, b, h, kvh, s_q, s_k, scale, causal,    \
+                                      window, s);
   REPRO_FWD_CASE(64, 64, 2)
   REPRO_FWD_CASE(64, 64, 3)
   REPRO_FWD_CASE(64, 128, 2)
@@ -246,7 +252,8 @@ static cudaError_t launch_tc_d(int bq, int bk, int st, const void* q, const void
 }
 
 // bf16 q, k, v (16-byte aligned, contiguous), o; block_q and block_k in
-// {64, 128}, stages in {2, 3}.
+// {64, 128}, stages in {2, 3}, of those whose CTA fits SMEM_MAX at d (at
+// d = 256: 64 x 64 with 2 or 3 stages and 128 x 64 with 2).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      float* lse, int b, int h, int kvh, int s_q, int s_k, int d,
                                      float scale, int causal, int window, int block_q,
@@ -263,6 +270,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     REPRO_FWD_D(32)
     REPRO_FWD_D(64)
     REPRO_FWD_D(128)
+    REPRO_FWD_D(256)
 #undef REPRO_FWD_D
     default: return cudaErrorInvalidValue;
   }
@@ -385,19 +393,19 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
-// Shared-memory bytes of one CTA; kernels/attention.py mirrors this formula.
 // Shared-memory bytes of one fp32 CTA; kernels/attention.py mirrors this formula.
 extern "C" int repro_flash_simt_smem_bytes(int d, int block_q, int block_k) {
   return (2 * block_q * d + 2 * block_k * (d + 1) + FLASH_WARPS * block_k + 2 * block_q) * 4;
 }
 
 // fp32 q, k, v, o; any tiles whose shared memory fits (attention.py maps
-// every config to 64 x 64).
+// every config to its SIMT tiles at the head dim: 64 x 64, 32 x 32 at
+// d = 256).
 extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                          float* lse, int b, int h, int kvh, int s_q, int s_k,
                                          int d, float scale, int causal, int window,
                                          int block_q, int block_k, void* stream) {
-  if (kvh <= 0 || h % kvh != 0 || d < 16 || d > 128 || (d & (d - 1)) != 0 ||
+  if (kvh <= 0 || h % kvh != 0 || d < 16 || d > 256 || (d & (d - 1)) != 0 ||
       block_q < 1 || block_k < 1 || b * h > 65535)
     return cudaErrorInvalidValue;
   if (b <= 0 || s_q <= 0) return cudaSuccess;

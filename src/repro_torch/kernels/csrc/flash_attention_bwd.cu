@@ -35,6 +35,12 @@
 //   writes fp32 per q head and sums outside). Scores are computed
 //   transposed so that rows index keys: S^T = K Q^T, P^T = exp(S^T - lse),
 //   dV += P^T dO; dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+// At d = 256 (PaliGemma's heads) the dq pass keeps its 128-register dq
+// accumulator a thread, and the dk/dv pass splits d in two: each CTA
+// computes S^T and dP^T over all of d and accumulates dk and dv for one
+// half of the columns (dkv_cols), on a grid of twice the CTAs. Only the
+// 64 x 64 config fits 227 KB there; the configs that do not fit are not
+// instantiated.
 // Tiles wholly in the causal future or before the window are skipped (the
 // dk/dv pass by the mirror bound on q tiles); the mask is computed only on
 // tiles that hold a masked pair or a ragged edge.
@@ -70,9 +76,17 @@ struct BwdDq {
                               8 * (1 + 2 * BWD_STAGES);
 };
 
+// The dk/dv columns one CTA of the dk/dv pass accumulates: every column up
+// to d = 128; at d = 256 a half, so that its dk and dv accumulators stay at
+// 2 x 64 fp32 registers a thread (the whole row would be 256, past the 255
+// a thread may hold). The two halves' CTAs each recompute S^T and dP^T
+// over all of d: the pass does 6 products' work for 4, on twice the CTAs.
+constexpr int dkv_cols(int d) { return d < 128 ? d : 128; }
+
 template <int D, int BK>
 struct BwdDkv {
   static constexpr int NWG = BK / 64, THREADS = NWG * 128 + 32;
+  static constexpr int DC = dkv_cols(D);                 // columns of this CTA's dk, dv
   static constexpr int K_BYTES = BK * D * 2, Q_BYTES = BWD_TILE * D * 2;
   // k and v tiles, the q and do ring, each stage's lse * log2(e) and
   // delta (2 x 64 fp32), the barriers, and 1024 bytes to align the tiles.
@@ -261,6 +275,9 @@ flash_bwd_dkv_tc(__grid_constant__ const CUtensorMap tm_q,
   const int bkv = blockIdx.y;                            // b * kvh + kv head
   const int group = h / kvh, bb = bkv / kvh, kv_head = bkv % kvh;
   const int k0 = blockIdx.x * BK;
+  const int c0 = blockIdx.z * C::DC;                     // this CTA's dk, dv columns
+  // the q and do panels that hold columns [c0, c0 + DC): B of dV and dK
+  const uint32_t col_off = (c0 / Panel<D>::PW) * BWD_TILE * Panel<D>::R;
   const int k_hi = min(k0 + BK, s_k) - 1;
   const int q_off = s_k - s_q;
   int qt0, qt1;
@@ -310,9 +327,9 @@ flash_bwd_dkv_tc(__grid_constant__ const CUtensorMap tm_q,
   // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64)
   const int wg = warp / 4;
   const float sl2 = scale * LOG2E;
-  float gk[D / 2], gv[D / 2];
+  float gk[C::DC / 2], gv[C::DC / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) gk[j] = gv[j] = 0.f;
+  for (int j = 0; j < C::DC / 2; ++j) gk[j] = gv[j] = 0.f;
 
   mbar_wait(bar_k, 0);
   int it = 0;
@@ -345,7 +362,8 @@ flash_bwd_dkv_tc(__grid_constant__ const CUtensorMap tm_q,
       float dpt[BQ / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(gv, pa[kk], desc_mn<D, BQ>(tDO, kk), 1);
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(gv, pa[kk], desc_mn<D, BQ>(tDO + col_off, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss(dpt, desc_k<D, BK>(sV, 64 * wg, kk), desc_k<D, BQ>(tDO, 0, kk), kk > 0);
@@ -360,7 +378,8 @@ flash_bwd_dkv_tc(__grid_constant__ const CUtensorMap tm_q,
       for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(pa[kk], st, kk);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(gk, pa[kk], desc_mn<D, BQ>(tQ, kk), 1);
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(gk, pa[kk], desc_mn<D, BQ>(tQ + col_off, kk), 1);
       wgmma_commit();
       wgmma_wait();
       reg_fence(gk);
@@ -372,9 +391,9 @@ flash_bwd_dkv_tc(__grid_constant__ const CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int ki = k0 + 64 * wg + acc_row(2 * r);
     if (ki >= s_k) continue;
-    const size_t at = ((size_t)bkv * s_k + ki) * D;
+    const size_t at = ((size_t)bkv * s_k + ki) * D + c0;
 #pragma unroll
-    for (int j = 2 * r; j < D / 2; j += 4) {
+    for (int j = 2 * r; j < C::DC / 2; j += 4) {
       store_bf16x2(dk + at + acc_col(j), gk[j] * scale, gk[j + 1] * scale);
       store_bf16x2(dv + at + acc_col(j), gv[j], gv[j + 1]);
     }
@@ -405,7 +424,7 @@ static cudaError_t launch_tc(const void* q, const void* k, const void* v, const 
   if ((err = make_map(&mk, k, D, s_k, b * kvh, BK)) != cudaSuccess) return err;
   if ((err = make_map(&mv, v, D, s_k, b * kvh, BK)) != cudaSuccess) return err;
   if ((err = allow_smem(flash_bwd_dkv_tc<D, BK>, K::SMEM)) != cudaSuccess) return err;
-  const dim3 grid_kv((s_k + BK - 1) / BK, b * kvh);
+  const dim3 grid_kv((s_k + BK - 1) / BK, b * kvh, D / K::DC);
   flash_bwd_dkv_tc<D, BK><<<grid_kv, K::THREADS, K::SMEM, stream>>>(
       mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, kvh, s_q,
       s_k, scale, causal, window);
@@ -418,9 +437,10 @@ static cudaError_t launch_tc_d(int bq, int bk, const void* q, const void* k, con
                                void* dk, void* dv, int b, int h, int kvh, int s_q, int s_k,
                                float scale, int causal, int window, cudaStream_t s) {
 #define REPRO_BWD_CASE(BQ, BK)                                                                \
-  if (bq == BQ && bk == BK)                                                                   \
-    return launch_tc<D, BQ, BK>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s_q, s_k,   \
-                                scale, causal, window, s);
+  if constexpr (BwdDq<D, BQ>::SMEM <= SMEM_MAX && BwdDkv<D, BK>::SMEM <= SMEM_MAX)            \
+    if (bq == BQ && bk == BK)                                                                 \
+      return launch_tc<D, BQ, BK>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s_q, s_k, \
+                                  scale, causal, window, s);
   REPRO_BWD_CASE(64, 64)
   REPRO_BWD_CASE(64, 128)
   REPRO_BWD_CASE(128, 64)
@@ -431,7 +451,8 @@ static cudaError_t launch_tc_d(int bq, int bk, const void* q, const void* k, con
 
 // bf16 q, k, v, dout (16-byte aligned, contiguous), dq, dk, dv; fp32 lse and
 // delta; block_q (the dq pass's q tile) and block_k (the dk/dv pass's k
-// tile) in {64, 128}.
+// tile) in {64, 128}, of those whose two CTAs fit SMEM_MAX at d (at d = 256:
+// 64 and 64).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, const float* lse,
                                          const float* delta, void* dq, void* dk, void* dv,
@@ -450,6 +471,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
     REPRO_BWD_D(32)
     REPRO_BWD_D(64)
     REPRO_BWD_D(128)
+    REPRO_BWD_D(256)
 #undef REPRO_BWD_D
     default: return cudaErrorInvalidValue;
   }
@@ -689,7 +711,8 @@ static cudaError_t launch_simt(const void* q, const void* k, const void* v, cons
 }
 
 // fp32 q, k, v, dout, dq, dk, dv; any tiles whose shared memory fits
-// (attention.py maps every config to 64 x 64).
+// (attention.py maps every config to its SIMT tiles at the head dim: 64 x
+// 64, 32 x 32 at d = 256).
 extern "C" int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              const float* delta, void* dq, void* dk, void* dv,

@@ -1,5 +1,8 @@
 """Serving launcher: the continuous-batching engine on one card.
 
+Takes every registered arch but the two with a frontend (``musicgen_large``,
+``paligemma_3b``), which the engine refuses, as the JAX package's does.
+
 The engine gets its own scoped dispatch runtime: pass a tuning database
 with ``--db`` and every kernel the model calls resolves against it;
 ``--warmup`` resolves every slot-pool bucket before the first request, and
@@ -7,8 +10,10 @@ with ``--db`` and every kernel the model calls resolves against it;
 ends with the runtime's telemetry report (which tier served each kernel x
 bucket) and each kernel's launch count.
 
-    # full width on the card, random weights from --seed:
+    # full width on the card, random weights from --seed (Gemma3-27B, all
+    # 62 layers, is the largest arch that fits one card whole):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_27b --max-seq 4096
     # reduced config on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --smoke --device cpu
     # a campaign's database, every bucket resolved up front:
@@ -55,6 +60,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)
+    if cfg.frontend is not None:
+        ap.error(f"--arch {args.arch} takes {cfg.frontend} through a frontend, and the engine "
+                 f"serves token-in/token-out archs only: train it with repro_torch.launch.train")
     if args.smoke:
         cfg = cfg.reduced()
     params = lm.init_params(cfg, seed=args.seed, device=device)

@@ -10,6 +10,9 @@ and each kernel's launch count.
 
     # full width on the card, random weights from --seed, batch 4 x 2048:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 6
+    # PaliGemma-3B (256 patch embeddings before the tokens, the loss masked
+    # off them) at full width, batch 2 x 2048:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma_3b --steps 4 --batch 2
     # reduced config on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \\
         --steps 2 --device cpu

@@ -3,6 +3,7 @@
 Public surface, plain functions over dicts of tensors, as in
 ``repro.models.lm``:
     init_params(cfg, seed, device)                -> params
+    abstract_params(cfg)                          -> the tree on the meta device
     forward(params, batch, cfg, run, ...)         -> (hidden, aux, caches)
     loss_fn(params, batch, cfg, run)              -> (loss, {"xent", "aux"})
     prefill(params, batch, cfg, run, ...)         -> (last_logits, caches)
@@ -37,7 +38,10 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     init scales. The numbers differ from JAX's for the same seed: tests carry
     JAX parameters across with :func:`repro_torch.convert.from_jax_params`."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _init_tree(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+def _init_tree(cfg: ArchConfig, gen, dev) -> Dict[str, Any]:
     dt = cfg.tdtype
     return {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
@@ -47,7 +51,17 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     }
 
 
+def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, and no memory, as the JAX package's ``abstract_params``."""
+    return _init_tree(cfg, torch.Generator(), torch.device("meta"))
+
+
 def param_count(params) -> int:
+    """Parameters of a tree, or of an :class:`ArchConfig` (counted on its
+    abstract tree, so a full-size model is never allocated)."""
+    if isinstance(params, ArchConfig):
+        params = abstract_params(params)
     if isinstance(params, torch.Tensor):
         return params.numel()
     if isinstance(params, dict):
@@ -55,14 +69,28 @@ def param_count(params) -> int:
     return sum(param_count(v) for v in params)
 
 
+def _embed_inputs(params, batch: Batch, cfg: ArchConfig) -> torch.Tensor:
+    """The layer stack's input, as ``repro.models.lm._embed_inputs``: the
+    audio frontend's frame embeddings (``embeds`` [b, s, d]) cast to the
+    model dtype; the vision frontend's patch embeddings (``embeds`` [b, P,
+    d]) cast to the token embeddings' dtype and put before them; else the
+    token embeddings."""
+    if cfg.frontend == "audio_frames":
+        return batch["embeds"].to(cfg.tdtype)
+    if cfg.frontend == "vision_patches":
+        tok = embed(params["embed"], batch["tokens"])
+        return torch.cat([batch["embeds"].to(tok.dtype), tok], dim=1)
+    if cfg.frontend is not None:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+    return embed(params["embed"], batch["tokens"])
+
+
 def forward(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
             mode: str = "train", cache_len: Optional[int] = None, true_len=None):
-    """Embed, the layer stack and the final norm: (hidden, aux, caches),
-    ``aux`` the MoE layers' load-balancing loss summed (0 without
-    experts)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError("the port has token-in/token-out archs only")
-    x = embed(params["embed"], batch["tokens"])
+    """Embed (a frontend's embeddings where the arch has one), the layer
+    stack and the final norm: (hidden, aux, caches), ``aux`` the MoE layers'
+    load-balancing loss summed (0 without experts)."""
+    x = _embed_inputs(params, batch, cfg)
     x, aux, caches = tf.stack_apply(params["segments"], x, cfg, run, mode,
                                     cache_len=cache_len, true_len=true_len)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caches
@@ -106,7 +134,9 @@ def loss_fn(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
 
 def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
             cache_len: Optional[int] = None, true_len=None):
-    """Full-sequence forward emitting caches and the last position's logits.
+    """Full-sequence forward emitting caches and the last position's logits;
+    a frontend's prefix counts in the sequence (the patches and the tokens
+    after them).
 
     ``true_len`` enables bucketed prefill: the batch is right-padded, logits
     are read at position ``true_len - 1`` and window caches ring-align to
@@ -115,7 +145,9 @@ def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
     Mamba layer's state would integrate the pads, so an arch with one is
     prefilled at exact length (the engine does so).
     """
-    seq = batch["tokens"].shape[1]
+    seq = batch["tokens"].shape[1] if "tokens" in batch else batch["embeds"].shape[1]
+    if cfg.frontend == "vision_patches":
+        seq = batch["embeds"].shape[1] + batch["tokens"].shape[1]
     tl = None if true_len is None else int(true_len)
     x, _, caches = forward(params, batch, cfg, run, mode="prefill",
                            cache_len=cache_len or seq, true_len=tl)

@@ -69,6 +69,13 @@ class Trainer:
     def _scope(self):
         return self.runtime if self.runtime is not None else contextlib.nullcontext()
 
+    def _grads(self, loss) -> List[torch.Tensor]:
+        """d loss / d leaves; zeros for a leaf the loss does not read (the
+        token embedding of an arch whose frontend feeds embeddings), as
+        ``jax.grad`` gives."""
+        grads = torch.autograd.grad(loss, self._leaves, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(self._leaves, grads)]
+
     def loss_and_grads(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List]:
         """The loss of one batch and its gradients in :func:`adamw.leaves`
         order: ``jax.value_and_grad(lm.loss_fn)`` over the microbatches."""
@@ -76,14 +83,14 @@ class Trainer:
         with self._scope():
             if k == 1:
                 loss, _ = lm.loss_fn(self.params, batch, self.cfg, self.run)
-                return loss.detach(), list(torch.autograd.grad(loss, self._leaves))
+                return loss.detach(), self._grads(loss)
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in self._leaves]
             total = torch.zeros((), dtype=torch.float32, device=self.device)
             for mb in range(k):
                 part = {n: t.chunk(k, dim=0)[mb] for n, t in batch.items()}
                 loss, _ = lm.loss_fn(self.params, part, self.cfg, self.run)
-                for a, g in zip(acc, torch.autograd.grad(loss, self._leaves)):
+                for a, g in zip(acc, self._grads(loss)):
                     a.add_(g.float())
                 total = total + loss.detach()
             return total / k, [a / k for a in acc]

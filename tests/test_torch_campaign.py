@@ -48,6 +48,15 @@ def _rows(jobs):
     return [tuple(getattr(j, f) for f in FIELDS) for j in jobs]
 
 
+def _windowed(jobs, window):
+    """JAX's jobs with serving's prefill flash jobs keyed at ``window``: the
+    port plans them at each window of the layer pattern, where the JAX
+    planner plans ``cTruew0`` alone."""
+    return [dataclasses.replace(j, key_extra=f"cTruew{window}")
+            if j.kernel == "flash_attention" and any("serve_prefill" in x for x in j.scenarios)
+            else j for j in jobs]
+
+
 def _cfgs(reduced):
     j, t = jconfigs.get_config("qwen2_0_5b"), get_config("qwen2_0_5b")
     return (j.reduced(), t.reduced()) if reduced else (j, t)
@@ -141,7 +150,8 @@ def test_dedupe_priorities_and_budgets_equal_jax():
 @pytest.mark.parametrize("arch", ["jamba_1_5_large", "mixtral_8x7b"])
 def test_hybrid_and_moe_priorities_equal_jax(arch):
     """The scheduler prices the selective scan's, its backward's, the update's
-    and the expert gemm's sites as the JAX package's analytic model does."""
+    and the expert gemm's sites as the JAX package's analytic model does
+    (serving's prefill flash jobs keyed at the arch's window)."""
     jcfg, tcfg = jconfigs.get_config(arch), get_config(arch)
     tshape, jshape = _shape(False)
     t = (planner.plan_training_jobs(tcfg, tshape, run=RunConfig(loss_chunk=512))
@@ -150,6 +160,7 @@ def test_hybrid_and_moe_priorities_equal_jax(arch):
                                                             microbatches=1),
                                      kernels=KERNELS, max_tokens=8192)
          + jplanner.plan_serving_jobs(jcfg, 8, 2048, kernels=KERNELS, max_tokens=8192))
+    j = _windowed(j, tcfg.window)
     td, jd = scheduler.dedupe_jobs(t, "h100-sxm"), jsched.dedupe_jobs(j, "h100-sxm")
     tp, jp = scheduler.prioritize_jobs(td, H100_SXM), jsched.prioritize_jobs(jd, H100_SXM)
     assert _rows(tp) == _rows(jp)
@@ -332,7 +343,8 @@ def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
 @pytest.mark.parametrize("max_tokens", [4096, 8192])
 def test_mixtral_plans_equal_jax(reduced, max_tokens):
     """Training (with the expert gemms' transposed gradients), shape-level
-    and serving plans of Mixtral-8x7B equal the JAX planner's."""
+    and serving plans of Mixtral-8x7B equal the JAX planner's, serving's
+    prefill flash jobs keyed at Mixtral's window."""
     jcfg, tcfg = jconfigs.get_config("mixtral_8x7b"), get_config("mixtral_8x7b")
     if reduced:
         jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
@@ -348,7 +360,7 @@ def test_mixtral_plans_equal_jax(reduced, max_tokens):
                                      kernels=KERNELS, max_tokens=max_tokens)
          + jplanner.plan_train_jobs(jcfg, jshape, kernels=KERNELS, max_tokens=max_tokens)
          + jplanner.plan_serving_jobs(jcfg, *serving, kernels=KERNELS, max_tokens=max_tokens))
-    assert _rows(t) == _rows(j)
+    assert _rows(t) == _rows(_windowed(j, tcfg.window))
     egemm = [x.arg_shapes for x in t if x.kernel == "expert_gemm"]
     if not reduced:
         # the step's 8192 tokens: capacity 2560, forward and both gradients

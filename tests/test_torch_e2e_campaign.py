@@ -4,7 +4,10 @@ the port's training step and serving engine at the exact tier.
 The port of ``tests/test_train_e2e_campaign.py`` on one device (the reduced
 configs, the kernels' plain versions), training reduced qwen2_0_5b, Jamba
 with its experts (``ssm_scan_bwd`` and ``expert_gemm`` in the backward
-plane) and Mixtral (``expert_gemm``), serving qwen2_0_5b:
+plane), Mixtral (``expert_gemm``), Gemma3-27B (local layers on a window,
+GeGLU) and PaliGemma-3B (heads of 256 on one kv head, the vision prefix
+and its loss mask), serving qwen2_0_5b and Gemma3-27B (its windowed flash
+keys at prefill, ring caches that wrap):
 
   1. plan: the train step's dispatch sites, forward and backward
      (``plan_training_jobs``), and the serving engine's buckets;
@@ -43,20 +46,23 @@ MAX_BATCH, MAX_SEQ = 4, 64
 # backward plane must dispatch besides the dense ones (matmul gradients reuse
 # matmul, expert_gemm's reuse expert_gemm).
 TRAIN_ARCHS = {"qwen2_0_5b": set(), "jamba_1_5_large": {"ssm_scan_bwd", "expert_gemm"},
-               "mixtral_8x7b": {"expert_gemm"}}
+               "mixtral_8x7b": {"expert_gemm"}, "gemma3_27b": set(),
+               "paligemma_3b": {"flash_attention_bwd"}}
+# The archs whose serving buckets the campaign tunes too.
+SERVE_ARCHS = ("qwen2_0_5b", "gemma3_27b")
 _CAMPAIGNS = {}
 
 
 def _campaign(arch, tmp_path_factory):
-    """Plan, tune and export one arch's training step (and, for qwen2_0_5b,
-    the serving buckets), once a module."""
+    """Plan, tune and export one arch's training step (and, for the
+    SERVE_ARCHS, the serving buckets), once a module."""
     if arch not in _CAMPAIGNS:
         tmp = tmp_path_factory.mktemp(f"e2e-{arch}")
         cfg = get_config(arch).reduced()
         shape = SHAPES["train_smoke"]
         run = planner.default_run(cfg, shape)
         jobs = planner.plan_training_jobs(cfg, shape, run=run)
-        if arch == "qwen2_0_5b":
+        if arch in SERVE_ARCHS:
             jobs += planner.plan_serving_jobs(cfg, MAX_BATCH, MAX_SEQ)
         manifest = scheduler.build_manifest(jobs, total_budget=3 * len(jobs),
                                             path=str(tmp / "campaign.json"), profile=TORCH_CPU,
@@ -76,9 +82,9 @@ def campaign(request, tmp_path_factory):
     return request.param, _campaign(request.param, tmp_path_factory)
 
 
-@pytest.fixture(scope="module")
-def qwen_campaign(tmp_path_factory):
-    return _campaign("qwen2_0_5b", tmp_path_factory)
+@pytest.fixture(scope="module", params=SERVE_ARCHS)
+def serve_campaign(request, tmp_path_factory):
+    return _campaign(request.param, tmp_path_factory)
 
 
 def _only_exact(snap, phases):
@@ -118,8 +124,8 @@ def test_tuned_training_is_all_exact_hits(campaign):
     assert snap["cache_hits"] > 0                         # the second step hit the cache
 
 
-def test_warmed_engine_serves_at_the_exact_tier(qwen_campaign):
-    cfg, _, _, _, db, planned = qwen_campaign
+def test_warmed_engine_serves_at_the_exact_tier(serve_campaign):
+    cfg, _, _, _, db, planned = serve_campaign
     params = lm.init_params(cfg, seed=0, device="cpu")
     engine = ServingEngine(cfg, RunConfig(), params,
                            EngineConfig(max_batch=MAX_BATCH, max_seq=MAX_SEQ))
@@ -138,3 +144,7 @@ def test_warmed_engine_serves_at_the_exact_tier(qwen_campaign):
     assert set(snap["by_key"]) <= planned
     kernels = {k.split("|")[0] for k in snap["by_key"]}
     assert {"rmsnorm_matmul", "matmul", "rmsnorm", "flash_attention"} <= kernels
+    # every window of the layer pattern dispatched its own flash key
+    windows = {spec.window for seg in cfg.segments() for spec in seg.pattern}
+    flash = {k.rsplit("|", 1)[1] for k in snap["by_key"] if k.startswith("flash_attention|")}
+    assert flash == {f"cTruew{w}" for w in windows}

@@ -138,7 +138,7 @@ def test_rmsnorm_kernel_rows_too_wide_for_registers(cuda, dtype, d):
 
 # (s_q, s_k, window, d, h, kv): the first five at 4/2 heads; then head dim
 # 128 at ragged lengths (the hybrid's exact-length prefills) in groups of 8,
-# and a window with s_q < s_k. fp32 runs the SIMT kernels at SIMT_TILES
+# and a window with s_q < s_k. fp32 runs the SIMT kernels at simt_tiles(d)
 # whatever the config; bf16 the tensor-core kernels at the config's tiles.
 FLASH_SHAPES = [(16, 16, 0, 64, 4, 2), (100, 100, 0, 64, 4, 2), (64, 128, 0, 16, 4, 2),
                 (128, 128, 24, 128, 4, 2), (1, 77, 0, 32, 4, 2), (300, 300, 0, 128, 16, 2),
@@ -530,6 +530,63 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, s_q, s_k, window, d, h, kv,
     o, lse = fa.flash_attention_plain(q, k, v, causal=True, window=window)
     cfg = config or fa.flash_attention_bwd.default_config(do, q, k, v, o, lse)
     grads = fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, window=window, **cfg)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=True, window=window)
+    for g, p in zip(grads, plain):
+        _close(g, p, dtype)
+
+
+# Head dim 256 (PaliGemma's heads): (b, h, kv, s_q, s_k, window), the MQA
+# group of 8 at a ragged length and windowed, s_q < s_k, and MHA.
+D256_SHAPES = [(2, 8, 1, 300, 300, 0), (1, 8, 1, 200, 200, 64), (1, 8, 1, 77, 333, 0),
+               (2, 4, 4, 129, 129, 0)]
+
+
+def _d256(rs, b, h, kv, s_q, s_k, dtype, cuda):
+    q = _t(rs, (b, h, s_q, 256), dtype, cuda)
+    k, v = _t(rs, (b, kv, s_k, 256), dtype, cuda), _t(rs, (b, kv, s_k, 256), dtype, cuda)
+    return q, k, v, _t(rs, (b, h, s_q, 256), dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s_q,s_k,window", D256_SHAPES)
+@pytest.mark.parametrize("config", list(fa.ATTENTION_SPACE.enumerate()), ids=str)
+def test_flash_d256_every_forward_config(cuda, dtype, b, h, kv, s_q, s_k, window, config):
+    """Every config of the forward space at d = 256: a legal one launches
+    and matches the plain version; one the legality check refuses raises
+    before any launch (no fallback)."""
+    rs = np.random.RandomState(s_q + s_k + h)
+    q, k, v, _ = _d256(rs, b, h, kv, s_q, s_k, dtype, cuda)
+    kernels.reset_launch_counts()
+    if fa.flash_attention.why_illegal(config, q, k, v) is not None:
+        with pytest.raises(ValueError, match="not legal at d=256"):
+            fa.flash_attention_cuda(q, k, v, causal=True, window=window, **config)
+        assert kernels.launch_counts().get("flash_attention", 0) == 0
+        return
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=window, **config)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    _close(out, p_out, dtype)
+    assert (lse - p_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s_q,s_k,window", D256_SHAPES)
+@pytest.mark.parametrize("config", list(fa.ATTENTION_BWD_SPACE.enumerate()), ids=str)
+def test_flash_d256_every_backward_config(cuda, dtype, b, h, kv, s_q, s_k, window, config):
+    rs = np.random.RandomState(s_q + s_k + h + 1)
+    q, k, v, do = _d256(rs, b, h, kv, s_q, s_k, dtype, cuda)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    kernels.reset_launch_counts()
+    if fa.flash_attention_bwd.why_illegal(config, do, q, k, v, o, lse) is not None:
+        with pytest.raises(ValueError, match="not legal at d=256"):
+            fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, window=window,
+                                        **config)
+        assert kernels.launch_counts().get("flash_attention_bwd", 0) == 0
+        return
+    grads = fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, causal=True, window=window,
+                                        **config)
     torch.cuda.synchronize()
     plain = fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=True, window=window)
     for g, p in zip(grads, plain):

@@ -49,6 +49,17 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_scan_sees_the_whole_package():
     names = {p.name for p in SOURCES}
     assert {"runtime.py", "matmul.py", "engine.py", "serve.py", "chip_smoke.py"} <= names
+    # every arch config the port registers
+    assert {"qwen2_5_3b.py", "minitron_4b.py", "gemma3_27b.py", "arctic_480b.py",
+            "musicgen_large.py", "paligemma_3b.py"} <= names
+
+
+@pytest.mark.parametrize("arch", ["gemma3_27b", "paligemma_3b"])
+def test_the_new_archs_raise_without_a_card(no_card, arch):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(get_config(arch).reduced(), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", arch, "--smoke", "--steps", "1"])
 
 
 @pytest.fixture
