@@ -83,6 +83,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              norm at the 4096 bucket and its decode final norm -> unembed
              (d 5376 x 262,144); expert_gemm at Arctic's 128 experts
              (d_model 7168, width 4864) at capacities 10 and 2;
+   And xLSTM-1.3B's: the sLSTM MLP's gemms at n = 2752 (up_g at 2048 and
+             8 rows) and k = 2752 (down at 2048 rows), the first main-path
+             bf16 widths that are not a multiple of 128, with up_g's two
+             gradients at the training step's 2048 rows; the mLSTM's fp32
+             out_proj [*, 4096] @ [4096, 2048] at 2048 rows (gemm_simt) and
+             8 (gemm_simt_rows); rmsnorm at d 2048 (8 and 2048 rows),
+             rmsnorm_bwd at [2048, 2048] and softmax_xent and its backward
+             at [2048, 50304];
 4. serve   — full-width qwen2_0_5b in bf16 from a seeded random init,
              ServingEngine(max_batch=8, max_seq=2048), 16 staggered
              requests with prompts of 16..1500 tokens and 32 new tokens
@@ -157,14 +165,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the plain path's at each step at TOL_LOGITS (Arctic on the
              kernel path's routes, RouteTap); Arctic's expert_gemm launches
              counted (15);
-9. train   — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
+9. xlstm   — xLSTM-1.3B (arXiv:2405.04517) whole: all 48 layers (24
+             mLSTM, 24 sLSTM, no FFN) at d_model 2048, bf16 from a seeded
+             random init (2.928 B parameters), ServingEngine(max_batch=8,
+             max_seq=2048), 8 staggered requests of 8..1500 tokens prefilled
+             at exact length, 32 new tokens each, half greedy; matmul and
+             rmsnorm launch, no dispatch at the reference tier, no bf16
+             gemm on the WMMA route, and each mLSTM layer's fp32 out_proj
+             on gemm_simt at every prefill of more than 16 tokens and on
+             gemm_simt_rows at the others and every decode step; prints
+             each prefill's time with the sLSTM token loop's host share
+             (ScanClock), the decode step's median beside its computed
+             floor, peak memory and launches by kernel and route, and by
+             torch.profiler a decode step's and a 300-token prefill's
+             device idle share; gates each matmul launch against the plain
+             version on its own operands (DispatchTap) and, layer by layer
+             through PrefillTap, each layer's contribution (its mixer's
+             output, read before the bf16 residual add) and each state leaf
+             at TOL_GRAD and the head at TOL_LOGITS (48 layers are past
+             TOL_LOGITS's argument, so the end-to-end distances are
+             printed): the 1500-token prefill; 8 greedy decode steps of the
+             served pool, the plain pass on a copy of the pool's state from
+             before each step; and
+             continuity, a 129-token prefill and one decode step on the
+             kernel path against the plain path's prefill of the 130
+             tokens, at the last position;
+10. train  — full-width qwen2_0_5b, bf16 parameters with the fp32 AdamW
              master copy, batch 4 x seq 2048 from SyntheticPipeline(seed),
              RunConfig(remat="none", loss_chunk=512), AdamWConfig(
              warmup_steps=2), 6 steps through the Trainer; step 1's loss is
              held against the plain path (reference mode on the card, same
              parameters and batch), and every gradient leaf and every
              layer's input cotangent against the plain path fed the kernel
-             path's layer outputs and cotangents, one layer at a time (each
+             path's layer outputs and cotangents, one layer at a time, and
+             every matmul launch of its forward and backward against the
+             plain version on its own operands (DispatchTap) (each
              leaf's distance with the two paths on their own is printed,
              and for a leaf over its limit there, each path's distance from
              an fp32 computation of the step); every
@@ -173,7 +208,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              a step (one a norm: 2 a layer and the final one), and no fwd
              or bwd dispatch may fall to the reference tier; torch.profiler
              splits one more step by kernel, with rmsnorm_bwd's device time;
-10. paligemma-train — PaliGemma-3B (arXiv:2407.07726) at full width and
+11. paligemma-train — PaliGemma-3B (arXiv:2407.07726) at full width and
              depth (18 layers, 8 q heads of 256 on one kv head, vocab
              257,216, 3.04 B parameters), its 256 patch embeddings (a stub
              frontend) before the tokens and loss_mask 0 on them, batch 2 x
@@ -182,7 +217,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              as in the train phase; 18 flash forward and 18 backward launches
              in each step (counted step by step), every flash key at d = 256,
              37 rmsnorm_bwd a step; the d = 256 kernels' device share;
-11. hybrid-train — Jamba-1.5-Large without experts, one super-block (1
+12. hybrid-train — Jamba-1.5-Large without experts, one super-block (1
              attention + 7 Mamba layers), its width cut to the original
              Jamba's published widths (arXiv:2403.19887: d_model 4096,
              d_ff 14336, 32/8 heads of 128; d_inner 8192, 2.73 B
@@ -197,14 +232,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dispatch at the reference tier; prints the step time, tokens/s,
              peak memory, the device's busy time and idle share, and
              ssm_scan_bwd's share of a step by host clock and device time;
-12. moe-train — Mixtral-8x7B at its published widths, 2 of 32 layers (3.2 B
+13. moe-train — Mixtral-8x7B at its published widths, 2 of 32 layers (3.2 B
              parameters), batch 4 x 2048 (2 x 2048 past 75 GiB), the same
              way, step 1's gradients gated on the kernel path's routes
              replayed into the plain path (routing on its own is reported
              only); expert_gemm's forward and transposed-gradient launches
              (9 a layer a step, all on tc), a finite aux loss above 0; prints
              as the hybrid phase, with expert_gemm's device share;
-13. campaign — plans full-width qwen2_0_5b (the train phase's step, every
+14. xlstm-train — xLSTM-1.3B at full width and depth (2.928 B), bf16 with
+             the fp32 AdamW master and moments, batch 4 x 512 (2048 tokens
+             a step; the sLSTM loop runs 512 steps a layer) under
+             RunConfig(remat="none", loss_chunk=512) (peak 72.3 GiB on an
+             NVIDIA H100 80GB HBM3), 2 steps; step 1
+             gated as in the train phase, each mLSTM layer's recurrence
+             pinned inside the layer too (LayerTap); 49
+             rmsnorm_bwd a step, each mLSTM layer's fp32 out_proj 3 times a
+             step on gemm_simt, one softmax_xent and one
+             softmax_xent_bwd a step, no dispatch at the reference tier,
+             peak under 75 GiB; prints the step time, tokens/s, the
+             device's idle share and the launches of matmul (by route,
+             transposed, split-k), rmsnorm, rmsnorm_bwd, softmax_xent and
+             softmax_xent_bwd;
+15. campaign — plans full-width qwen2_0_5b (the train phase's step, every
              dispatch site forward and backward, and serving at the token
              cap of the engine's warmup, 65536, at
              max_batch=8, max_seq=2048), tunes every job on the card with
@@ -215,7 +264,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              trials, pruned trials by reason, seconds, and per kernel the
              tuned configs' time beside the heuristic configs' from the
              same calls;
-14. tuned  — on that database: ServingEngine.warmup and a few staggered
+16. tuned  — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode, on the tensor-core routes
@@ -226,7 +275,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              times are printed beside the train phase's heuristic step
              times (reported, not claimed), and torch.profiler splits one
              more tuned step by kernel;
-15. summary — one ``{"kernels": [...]}`` line, then the last line
+17. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -268,7 +317,8 @@ TOL_LSE = 1e-3
 # layer by layer (PrefillTap, each layer's output less its input at
 # TOL_GRAD, the head at TOL_LOGITS on the kernel path's last hidden state)
 # and its end-to-end distance is printed beside this limit, which is not
-# raised for it.
+# raised for it. xLSTM-1.3B's 48 layers are past it too: its prefill, its
+# decode steps and its prefill-to-decode continuity are gated the same way.
 TOL_LOGITS = 5e-2
 # Cross entropy and its lse are fp32 on both sides, sums over 151,936
 # columns in another order: 1e-4 of the value (lse is about 12 here).
@@ -711,7 +761,7 @@ def other_config(heur, tun=None, args=()) -> dict:
                  if c != heur and tun.why_illegal(c, *args) is None), heur)
 
 
-def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
+def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen, path="train"):
     from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as rn
 
@@ -759,7 +809,7 @@ def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
         del y
     nbytes = rows * d * 2 * 3 + d * 2 * 2 + rows * 4          # ct, x, dx; w, dw; invrms
     b_ms, b_by = bound(prof, nbytes, 8.0 * rows * d, prof.peak_flops_fp32)
-    row = dict(shape=f"[{rows},{d}] bf16", path="train", config=heur, ms=ms,
+    row = dict(shape=f"[{rows},{d}] bf16", path=path, config=heur, ms=ms,
                other_config=other, other_ms=ms_other, launch_ms=launch_ms, ctas=ctas,
                other_launch_ms=other_launch_ms, other_ctas=other_ctas, host_us=host,
                library_host_us=lib_host, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e[0] for e in errs),
@@ -774,7 +824,7 @@ def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen):
         f"{host:.1f}, F.rms_norm backward {lib_host if lib_host is None else round(lib_host, 1)}")
 
 
-def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
+def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen, path="train"):
     from repro_torch.kernels import xent as xe
 
     logits = (2 * torch.randn((rows, vocab), generator=gen, device="cuda")).to(torch.bfloat16)
@@ -817,7 +867,7 @@ def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen):
         plain_ms = time_ms(plain)
         lib_ms = time_ms(lib)
         b_ms, b_by = bound(prof, nbytes, 4.0 * n, prof.peak_flops_fp32)
-        row = dict(shape=f"[{rows},{vocab}] bf16", path="train", config=heur, ms=ms,
+        row = dict(shape=f"[{rows},{vocab}] bf16", path=path, config=heur, ms=ms,
                    other_config=other,
                    other_ms=ms_other, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by, max_abs_err=max(e[0] for e in errs),
@@ -842,16 +892,36 @@ def device_split(fn, iters: int = 3) -> dict:
 
 
 def device_ms(p, steps: int) -> dict:
-    """Device ms a step of each kernel (or copy) a torch.profiler window saw."""
+    """Device ms a step of each kernel (or copy) a torch.profiler window saw,
+    summed over the profiler's raw events (building its event tree for a
+    window of a million kernels, as an xLSTM prefill or train step launches,
+    takes minutes)."""
     by_name = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in p.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            name = ev.name()
+            by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e6 / steps
+    return by_name
+
+
+# A profiler window of at most this many events also reads its device time
+# through key_averages() (the event tree: quick at this size), printed
+# beside the raw events' sum.
+TREE_EVENTS = 200_000
+
+
+def tree_device_ms(p, steps: int) -> float:
+    """Device ms a step a torch.profiler window saw, through key_averages()."""
+    total = 0.0
     for ev in p.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / steps
-    return by_name
+        total += dev_us / 1e3 / steps
+    return total
 
 
 def _flash_bwd_case(prof, rows, b, s, gen, h=14, kvh=2, d=64, window=0, path="train"):
@@ -1442,8 +1512,30 @@ def phase_kernels(prof, seed: int):
     # the archs phase's 512-token prefill (10) and of a one-token decode (2).
     for c in (10, 2):
         _egemm_case(prof, results["expert_gemm"], 128, c, 7168, 4864, gen, "arctic", iters=5)
+    xlstm_kernel_rows(prof, results, gen)
     gemm_host_cost(gen)
     return results
+
+
+def xlstm_kernel_rows(prof, results, gen) -> None:
+    """xLSTM-1.3B's rows (d_model 2048; mLSTM d_inner 4096, sLSTM GeGLU
+    width 2752, 21.5 tiles of 128; vocab 50,304): the sLSTM MLP's up_g /
+    up_u (n = 2752) at the longest prefill's 2048 rows and the pool's 8, its
+    down projection (k = 2752), the mLSTM's fp32 out_proj at prefill rows
+    (gemm_simt) and at the pool's (gemm_simt_rows); the training step's
+    (4 x 512 tokens) up_g gradients, norm, norm backward and loss chunk."""
+    for m in (2048, 8):
+        _matmul_case(prof, results["matmul"], m, 2048, 2752, gen, "xlstm")
+    _matmul_case(prof, results["matmul"], 2048, 2752, 2048, gen, "xlstm")
+    for m in (2048, 8):
+        _matmul_case(prof, results["matmul"], m, 4096, 2048, gen, "xlstm", dtype=torch.float32)
+    _matmul_case(prof, results["matmul"], 2048, 2752, 2048, gen, "xlstm", tb=True)
+    _matmul_case(prof, results["matmul"], 2048, 2048, 2752, gen, "xlstm", ta=True)
+    for r in (8, 2048):
+        _rmsnorm_case(prof, results["rmsnorm"], r, 2048, gen, "xlstm")
+    _rmsnorm_bwd_case(prof, results["rmsnorm_bwd"], 2048, 2048, gen, path="xlstm")
+    _xent_cases(prof, results["softmax_xent"], results["softmax_xent_bwd"], 2048, 50304, gen,
+                path="xlstm")
 
 
 def profile(label: str, step, steps: int, wall_ms=None):
@@ -1469,9 +1561,13 @@ def profile(label: str, step, steps: int, wall_ms=None):
     if not by_name:
         raise AssertionError(f"torch.profiler saw no device time in the {label} window")
     busy = sum(by_name.values())
+    n_events = len(prof.profiler.kineto_results.events())
+    tree = (f"; key_averages() {tree_device_ms(prof, steps):.2f}" if n_events <= TREE_EVENTS
+            else "")
     log(f"[profile] {label}: {wall_ms:.2f} ms host clock ({prof_wall_ms:.2f} ms under the "
         f"profiler), {busy:.2f} ms device busy, device idle {100 * (1 - busy / wall_ms):.1f}% "
-        f"(torch.profiler, {steps} steps)")
+        f"(torch.profiler, {steps} steps; {n_events} events, device ms a step by their sum "
+        f"{busy:.2f}{tree})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile]   {ms:8.3f} ms/step {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
     return by_name, busy
@@ -2043,38 +2139,99 @@ def phase_moe(seed: int):
     return launches
 
 
-class PrefillTap:
-    """Wraps ``transformer.layer_apply`` while active, forward only: the
-    serving counterpart of LayerTap. Recording (no ``pin``): each prefill
-    layer call's output (``outs``, by call). Pinning (``pin``, a recording
-    tap of the same parameters and prompt): the i-th layer call computes
-    its own output from its input, which is the recorded path's previous
-    output, and returns the recorded output in its place; ``branch[i]``
-    holds ||d_own - d_rec|| / ||d_rec||, d a layer's output less its input.
-    The plain path then runs every layer on the kernel path's inputs, and
-    its head on the kernel path's last hidden state: each reading compares
-    one layer, not bf16 roundings compounded over the layers before it."""
+def _mixer_only(spec) -> bool:
+    """A layer whose only branch is a recurrent mixer (the xLSTM's: no
+    FFN). It adds the mixer's output y to its input in the model dtype, and
+    where |y| is a small part of |x| the bf16 sum's rounding, a unit in the
+    last place of x, is most of ``round(x + y) - x``: the layer gates read
+    such a layer's y (MixerTap) in place of its output less its input."""
+    return spec.ffn == "none" and spec.mixer in ("mamba", "mlstm", "slstm")
 
-    def __init__(self, pin=None):
-        self.pin = pin
-        self.outs, self.branch = [], {}
+
+class MixerTap:
+    """Wraps ``transformer._recurrent_apply`` while active: ``y``, the
+    output of the last recurrent mixer call, cut from the graph (a tap that
+    held the graph would keep a training step's tensors alive through the
+    hooks that point back at it), and ``cur``, its layer call's index
+    (``index``, by the mixer's parameters, filled by the layer tap; a
+    recompute under remat="full" finds its layer by the same key)."""
+
+    def __init__(self):
+        self.y, self.cur, self.index = None, None, {}
 
     def __enter__(self):
         from repro_torch.models import transformer as tf
 
+        self._rec = orig = tf._recurrent_apply
+
+        def mixer(p, h, spec, cfg, run, mode, cache):
+            self.cur = self.index.get(id(p))
+            y, nc = orig(p, h, spec, cfg, run, mode, cache)
+            self.y = y.detach()
+            return y, nc
+
+        tf._recurrent_apply = mixer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+
+        tf._recurrent_apply = self._rec
+
+    def contribution(self, spec, x, out, pos=slice(None)):
+        """What the layer adds to its input at positions ``pos``, in fp32:
+        the mixer's y where that is the layer's only branch, else its output
+        less its input."""
+        if _mixer_only(spec):
+            return self.y[:, pos].float()
+        return out[:, pos].float() - x[:, pos].float()
+
+
+class PrefillTap(MixerTap):
+    """Wraps ``transformer.layer_apply`` while active, for its calls in
+    ``mode`` (prefill or decode), forward only: the serving counterpart of
+    LayerTap. Recording (no ``pin``): each such layer call's output and its
+    contribution (``outs``, ``adds``, by call). Pinning (``pin``, a
+    recording tap of the same parameters; ``outs``, the outputs to pin, by
+    default its own): the i-th call computes its own output from its input,
+    which is the previous call's pinned output, and returns ``outs[i]`` in
+    place of its own; ``branch[i]`` holds ||a_own - a_rec|| / ||a_rec||, a
+    the layer's contribution (MixerTap.contribution), over the positions
+    ``pos`` selects (all, or the last one of a prefill one token longer
+    than the recording). The plain path then runs every layer on the kernel
+    path's inputs, and its head on the kernel path's last hidden state:
+    each reading compares one layer, not bf16 roundings compounded over the
+    layers before it. With ``states``, each call's new cache is kept too
+    (``states``, by call): a recurrent layer's state after the call."""
+
+    def __init__(self, pin=None, outs=None, mode="prefill", pos=slice(None), states=False):
+        super().__init__()
+        self.pin, self.mode, self.pos, self.keep_states = pin, mode, pos, states
+        self.pin_outs = outs if outs is not None or pin is None else pin.outs
+        self.outs, self.adds, self.states, self.branch = [], [], [], {}
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        super().__enter__()
         self._orig = orig = tf.layer_apply
 
         def layer(p, x, spec, cfg, run, mode, cache=None, pos=None, true_len=None):
             out, aux, nc = orig(p, x, spec, cfg, run, mode, cache, pos, true_len=true_len)
-            if mode != "prefill":
+            if mode != self.mode:
                 return out, aux, nc
             i = len(self.outs)
+            if self.keep_states:
+                self.states.append(nc)
             if self.pin is None:
                 self.outs.append(out)
+                self.adds.append(self.y if _mixer_only(spec) else None)
                 return out, aux, nc
             self.outs.append(None)
-            rec = self.pin.outs[i]
-            self.branch[i] = _rel(out.float() - x.float(), rec.float() - x.float())
+            rec = self.pin_outs[i]
+            rec_add = (self.pin.adds[i][:, self.pos].float() if _mixer_only(spec)
+                       else rec[:, self.pos].float() - x[:, self.pos].float())
+            self.branch[i] = _rel(self.contribution(spec, x, out, self.pos), rec_add)
             return rec, aux, nc
 
         tf.layer_apply = layer
@@ -2084,6 +2241,7 @@ class PrefillTap:
         from repro_torch.models import transformer as tf
 
         tf.layer_apply = self._orig
+        super().__exit__(*exc)
 
 
 def tune_decode_unembed(cfg, params, seed: int, budget: int = 4):
@@ -2471,49 +2629,179 @@ class _Pinned(torch.autograd.Function):
         return ctx.ct, None, None, None, None
 
 
-class LayerTap:
+class _Grab(torch.autograd.Function):
+    """The identity on ``ts``, whose backward keeps the cotangents that
+    reach them in ``store[i]``."""
+
+    @staticmethod
+    def forward(ctx, store, i, *ts):
+        ctx.store, ctx.i = store, i
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.store[ctx.i] = gs
+        return (None, None) + gs
+
+
+class _PinnedCell(torch.autograd.Function):
+    """An mLSTM recurrence's output carrying another computation's value and
+    input cotangents: the forward gives ``h`` whatever its inputs ``ins``
+    hold, and the backward keeps the cotangent that arrives (``arrived[i]``)
+    and sends ``cts`` to the inputs."""
+
+    @staticmethod
+    def forward(ctx, h, cts, arrived, i, *ins):
+        ctx.cts, ctx.arrived, ctx.i = cts, arrived, i
+        return h.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.arrived[ctx.i] = g
+        return (None, None, None, None) + tuple(ctx.cts)
+
+
+class LayerTap(MixerTap):
     """Wraps ``transformer._train_layer`` while active. Recording (no
-    ``pin``): each train-mode layer call's output and, once the backward has
-    run, the cotangent that reached it (``outs``, ``cts``, by call). Pinning
-    (``pin``, a recording tap of the same parameters and batch): the i-th
-    layer call returns the recorded i-th output in place of its own, and its
-    backward takes the recorded cotangent in place of the one that arrives,
-    which is kept (``arrived``); ``branch[i]`` holds how far its own output
-    less its input sits from the recorded one's, ||d_own - d_rec|| /
-    ||d_rec||. The plain path then computes every layer,
-    and the embedding and the head, on the recorded path's inputs and
-    output cotangents: a layer's gradients differ by what that layer
-    computes, not by bf16 roundings compounded over the layers around it."""
+    ``pin``): each train-mode layer call's output and contribution
+    (MixerTap.contribution) and, once the backward has run, the cotangent
+    that reached it (``outs``, ``adds``, ``cts``, by call). Pinning (``pin``,
+    a recording tap of the same parameters and batch): the i-th layer call
+    returns the recorded i-th output in place of its own, and its backward
+    takes the recorded cotangent in place of the one that arrives, which is
+    kept (``arrived``); ``branch[i]`` holds how far its own contribution sits
+    from the recorded one, ||a_own - a_rec|| / ||a_rec||. The plain path
+    then computes every layer, and the embedding and the head, on the
+    recorded path's inputs and output cotangents: a layer's gradients differ
+    by what that layer computes, not by bf16 roundings compounded over the
+    layers around it.
+
+    An mLSTM layer's chunkwise recurrence (``ssm._mlstm_scan``, plain torch
+    on both paths) is pinned the same way inside the layer: recording keeps
+    its output and the cotangents that reach its inputs (q, k, v and the
+    log gates) and its output (``cell_h``, ``cell_in``, ``cell_out``);
+    pinning gives the recorded output in its place, sends the recorded
+    input cotangents back, and keeps the cotangent arriving at its output
+    (``cell_out``). The reference's own backward through that recurrence
+    is where its bf16 gradients leave fp32 (the JAX package's bf16
+    gradients of wq, wk, in_proj and the gates sit 5.8e-2 to 9.0e-2 from
+    its fp32 ones, tests/test_torch_xlstm_bf16.py), so the plain path's
+    leaves are then computed by its gemms and glue on the kernel path's
+    cotangents, and each reading compares what the kernels computed."""
 
     def __init__(self, pin=None):
+        super().__init__()
         self.pin = pin
-        self.outs, self.cts, self.arrived, self.branch = [], {}, {}, {}
+        self.outs, self.adds, self.cts, self.arrived, self.branch = [], [], {}, {}, {}
+        self.cell_h, self.cell_in, self.cell_out = {}, {}, {}
 
     def __enter__(self):
+        from repro_torch.models import ssm
         from repro_torch.models import transformer as tf
 
+        super().__enter__()
         self._orig = orig = tf._train_layer
+        self._cell = cell_orig = ssm._mlstm_scan
 
         def layer(block, x, spec, cfg, run):
-            out, aux = orig(block, x, spec, cfg, run)
             i = len(self.outs)
+            self.index[id(block["mixer"])] = i
+            self.y = None
+            out, aux = orig(block, x, spec, cfg, run)
+            xd = x.detach()
             if self.pin is None:
                 self.outs.append(out.detach())
+                self.adds.append(self.y if _mixer_only(spec) else None)
                 out.register_hook(lambda g, i=i: self.cts.__setitem__(i, g))
                 return out, aux
             self.outs.append(None)
             rec = self.pin.outs[i]
-            self.branch[i] = _rel(out.detach().float() - x.detach().float(),
-                                  rec.float() - x.detach().float())
-            return _Pinned.apply(out, self.pin.outs[i], self.pin.cts[i], self.arrived, i), aux
+            rec_add = (self.pin.adds[i].float() if _mixer_only(spec)
+                       else rec.float() - xd.float())
+            self.branch[i] = _rel(self.contribution(spec, xd, out.detach()), rec_add)
+            return _Pinned.apply(out, rec, self.pin.cts[i], self.arrived, i), aux
+
+        def cell(q, k, v, log_i, log_f, chunk):
+            i = self.cur
+            if self.pin is None:
+                ins = _Grab.apply(self.cell_in, i, q, k, v, log_i, log_f)
+                h, C, n, m = cell_orig(*ins, chunk)
+                self.cell_h[i] = h.detach()
+                h.register_hook(lambda g, i=i: self.cell_out.__setitem__(i, g))
+                return h, C, n, m
+            h = _PinnedCell.apply(self.pin.cell_h[i], self.pin.cell_in[i], self.cell_out, i,
+                                  q, k, v, log_i, log_f)
+            return h, None, None, None
 
         tf._train_layer = layer
+        ssm._mlstm_scan = cell
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.models import ssm
         from repro_torch.models import transformer as tf
 
         tf._train_layer = self._orig
+        ssm._mlstm_scan = self._cell
+        super().__exit__(*exc)
+
+
+class DispatchTap:
+    """Wraps the ``matmul`` tunable's kernel body while active: each launch
+    on the kernel path, forward or backward (a gradient is a ``matmul``
+    launch on transposed operands), is held against the kernel's plain
+    version (``kernels/ref.py``) on the very operands the path gave it, as
+    the kernels phase holds its rows: rel_err at TOL_BF16 (bf16) or
+    TOL_F32_GEMM (fp32). It reads what the kernel computed, whatever the
+    model around it does with the result. ``n`` counts the launches held,
+    ``worst`` keeps the largest reading by dtype, ``bad`` those over."""
+
+    def __enter__(self):
+        from repro_torch.core.annotate import get_tunable
+        from repro_torch.core.runtime import ensure_registered
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.matmul import layout
+
+        ensure_registered()
+        self._t = t = get_tunable("matmul")
+        self._fn = fn = t.fn
+        self.n, self.worst, self.bad = 0, {}, []
+
+        def held(x, w, **kw):
+            out = fn(x, w, **kw)
+            with torch.no_grad():
+                _, rel = rel_err(out, ref.matmul(x, w))
+            bf16 = x.dtype == torch.bfloat16
+            what = (f"[{x.shape[0]},{x.shape[1]}]@[{w.shape[0]},{w.shape[1]}] "
+                    f"{'bf16' if bf16 else 'f32'}"
+                    + (" transposed" if layout(x)[0] or layout(w)[0] else ""))
+            self.n += 1
+            key = "bf16" if bf16 else "f32"
+            if rel >= self.worst.get(key, (0.0, ""))[0]:
+                self.worst[key] = (rel, what)
+            if rel > (TOL_BF16 if bf16 else TOL_F32_GEMM):
+                self.bad.append((round(rel, 6), what))
+            return out
+
+        t.fn = held
+        return self
+
+    def __exit__(self, *exc):
+        self._t.fn = self._fn
+
+    def gate(self, tag: str, what: str) -> None:
+        """Print the readings; a launch over its limit goes to GATE_FAILURES."""
+        log(f"[{tag}] {what}: {self.n} matmul launches each against the plain version on its "
+            f"own operands, rel_err max " + ", ".join(
+                f"{k} {r:.3e} ({shape})" for k, (r, shape) in sorted(self.worst.items()))
+            + f" (tol bf16 {TOL_BF16}, f32 {TOL_F32_GEMM}); {len(self.bad)} over")
+        if self.n == 0:
+            raise AssertionError(f"{tag}: {what}: no matmul launch was held")
+        if self.bad:
+            msg = (f"{tag}: {what}: {len(self.bad)} matmul launches differ from the plain "
+                   f"version on their own operands, the worst: {sorted(self.bad, reverse=True)[:4]}")
+            log(f"[{tag}] FAILED {msg}")
+            GATE_FAILURES.append(msg)
 
 
 def _rel(a, b) -> float:
@@ -2533,7 +2821,11 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
     (TOL_GRAD; TOL_GRAD_KBIAS for the k biases), the cotangent each layer's
     plain backward hands down and each layer's output less its input
     (TOL_GRAD), so each reading compares one layer, or the embedding or the
-    head, on equal inputs. Reported, not
+    head, on equal inputs; an mLSTM layer with its recurrence pinned too,
+    where the cotangent arriving at the recurrence's output is held to
+    TOL_GRAD as well (LayerTap). Each matmul launch of the kernel path's
+    forward and backward is held against the plain version on its own
+    operands (DispatchTap). Reported, not
     gated: each leaf's distance when the two paths run on their own, where
     the bf16 roundings that differ in the first layer compound through the
     rest, and for each leaf over TOL_GRAD there each path's distance from
@@ -2559,8 +2851,9 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
     tap = RouteTap() if replay_routes else contextlib.nullcontext()
     routes = lambda: (RouteTap(replay=tap) if replay_routes
                       else contextlib.nullcontext())
-    with tap, LayerTap() as layers:
+    with tap, LayerTap() as layers, DispatchTap() as held:
         loss_k, grads_k = trainer.loss_and_grads(batch)
+    held.gate(tag, "step 1, forward and backward")
     plain_run = RunConfig(remat="full", loss_chunk=run.loss_chunk)
     kbias = lambda name: name.endswith("/mixer/k/b")
     limit = lambda name: TOL_GRAD_KBIAS if kbias(name) else TOL_GRAD
@@ -2619,6 +2912,9 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
     bad_ct = sorted(((round(r, 6), i) for r, i in cts if r > TOL_GRAD), reverse=True)
     fwd = sorted(((r, i) for i, r in pin.branch.items()), reverse=True)
     bad_fwd = [(round(r, 6), i) for r, i in fwd if r > TOL_GRAD]
+    cell = sorted(((_rel(layers.cell_out[i], pin.cell_out[i]), i) for i in layers.cell_out),
+                  reverse=True)
+    bad_cell = [(round(r, 6), i) for r, i in cell if r > TOL_GRAD]
     del grads_k, grads_q, layers, pin
     rels.sort(reverse=True)
     cts.sort(reverse=True)
@@ -2631,8 +2927,11 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
             f"; {len(rk)} k biases: max {rk[0][0]:.3e} ({rk[0][1]}) (tol {TOL_GRAD_KBIAS})"
             if rk else "") + f"; {len(cts)} layer outputs' cotangents handed down: max "
         f"{cts[0][0]:.3e} (layer call {cts[0][1]}) (tol {TOL_GRAD}); layer outputs less "
-        f"their inputs: max {fwd[0][0]:.3e} (layer call {fwd[0][1]}) (tol {TOL_GRAD}); loss "
-        f"{float(loss_q.detach()):.6f}")
+        f"their inputs (a recurrent mixer with no other branch: its output): max {fwd[0][0]:.3e} "
+        f"(layer call {fwd[0][1]}) (tol {TOL_GRAD})" + (
+            f"; {len(cell)} cotangents at an mLSTM recurrence's pinned output: max "
+            f"{cell[0][0]:.3e} (layer call {cell[0][1]}) (tol {TOL_GRAD})" if cell else "")
+        + f"; loss {float(loss_q.detach()):.6f}")
     for rel, name in rels[:4]:
         log(f"[{tag}]   {rel:.3e}  {name}")
     aux = None
@@ -2650,12 +2949,13 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
         log(f"[{tag}] step-1 MoE load-balancing loss (kernel path, summed over layers): {aux:.6f}")
     del batch
     bad.sort(reverse=True)
-    if loss_rel > TOL_LOSS or bad or bad_ct or bad_fwd:
+    if loss_rel > TOL_LOSS or bad or bad_ct or bad_fwd or bad_cell:
         msg = (f"{tag}: step-1 gate: kernel path differs from the plain path: loss rel "
                f"{loss_rel:.3g} (tol {TOL_LOSS}); layer by layer, {len(bad)} leaves over their "
                f"limit, the worst: {bad[:8]}; {len(bad_ct)} cotangents handed down over "
                f"{TOL_GRAD}, the worst (rel, layer call): {bad_ct[:4]}; {len(bad_fwd)} layer "
-               f"outputs less their inputs over {TOL_GRAD}, the worst: {bad_fwd[:4]}")
+               f"outputs less their inputs over {TOL_GRAD}, the worst: {bad_fwd[:4]}; {len(bad_cell)} "
+               f"mLSTM recurrences' output cotangents over {TOL_GRAD}, the worst: {bad_cell[:4]}")
         log(f"[{tag}] FAILED {msg}")
         GATE_FAILURES.append(msg)
     return aux
@@ -2667,11 +2967,11 @@ TRAIN_PEAK_LIMIT = 75 * 2**30
 
 
 def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: bool = False,
-               by_step=None):
-    """Train ``cfg`` through the Trainer at seq 2048 and the first batch of
-    ``batches`` whose steps stay under TRAIN_PEAK_LIMIT: step 1 gated
-    against the plain path, then ``steps`` steps with the launch counters
-    and the telemetry counting from 0 (``by_step``, a list, gets each
+               by_step=None, seq: int = 2048):
+    """Train ``cfg`` through the Trainer at ``seq`` (default 2048) and the
+    first batch of ``batches`` whose steps stay under TRAIN_PEAK_LIMIT:
+    step 1 gated against the plain path, then ``steps`` steps with the
+    launch counters and the telemetry counting from 0 (``by_step``, a list, gets each
     step's launches). Returns (trainer, batch, metrics, launches, telemetry
     snapshot, peak bytes, the step-1 aux loss)."""
     from repro_torch import kernels
@@ -2686,7 +2986,7 @@ def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: boo
     for i, batch in enumerate(batches):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        data = DataConfig(seed=seed, batch_size=batch, seq_len=2048)
+        data = DataConfig(seed=seed, batch_size=batch, seq_len=seq)
         rt = runtime(name=tag)
         t0 = time.perf_counter()
         trainer = Trainer(cfg, run, data, adamw.AdamWConfig(warmup_steps=2, total_steps=steps),
@@ -2695,7 +2995,7 @@ def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: boo
         torch.cuda.synchronize()
         log(f"[{tag}] {lm.param_count(trainer.params) / 1e9:.3f} B params {cfg.dtype} + fp32 "
             f"AdamW master and moments: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-            f"allocated; batch {batch} x 2048; init {time.perf_counter() - t0:.1f} s")
+            f"allocated; batch {batch} x {seq}; init {time.perf_counter() - t0:.1f} s")
         aux = gate_step1(trainer, cfg, run, data, tag, replay_routes=replay_routes)
         gate_peak = torch.cuda.max_memory_allocated()
         rt.telemetry.reset()
@@ -2716,12 +3016,12 @@ def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: boo
             f"({gate_peak / 2**30:.2f} GiB in the step-1 gate, the plain path's included)")
         if peak > TRAIN_PEAK_LIMIT and i + 1 < len(batches):
             log(f"[{tag}] the peak passes {TRAIN_PEAK_LIMIT / 2**30:.0f} GiB at batch {batch} x "
-                f"2048: dropping to {batches[i + 1]} x 2048")
+                f"{seq}: dropping to {batches[i + 1]} x {seq}")
             del trainer, metrics
             if by_step is not None:
                 by_step.clear()
             continue
-        log(f"[{tag}] batch {batch} x 2048 ran")
+        log(f"[{tag}] batch {batch} x {seq} ran")
         return trainer, batch, metrics, launches, rt.telemetry.snapshot(), peak, aux
     raise AssertionError(f"{tag}: no batch ran")
 
@@ -2943,6 +3243,333 @@ def phase_moe_train(seed: int):
     return launches, batch
 
 
+# xLSTM-1.3B's prompts, served at exact length (an sLSTM layer's loop runs
+# one step a token, so the host time of a prefill grows with its length).
+XLSTM_LENGTHS = (16, 1500, 37, 300, 64, 8, 129, 24)
+# Decode steps held layer by layer against the plain path.
+XLSTM_GATE_STEPS = 8
+
+
+class ScanClock:
+    """Wraps ``ssm._slstm_scan`` (the sLSTM's token loop) while active: each
+    call's (tokens, host seconds), the device synchronised before and after
+    it, so the time is the loop's own and not the gemms' around it."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self._orig = orig = ssm._slstm_scan
+        self.calls = []
+
+        def timed(p, xw, n_heads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(p, xw, n_heads)
+            torch.cuda.synchronize()
+            self.calls.append((xw.shape[1], time.perf_counter() - t0))
+            return out
+
+        ssm._slstm_scan = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+
+        ssm._slstm_scan = self._orig
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _gate_serving(tag: str, what: str, n_layers: int, rec, pin, held, logits) -> dict:
+    """Gate one computation: ``held`` (DispatchTap) the kernel path's matmul
+    launches against the plain version on their own operands; layer by
+    layer, ``rec`` the kernel path's tap (outputs, contributions, states)
+    and ``pin`` the plain path's pinned to it: each layer's contribution
+    (PrefillTap.branch) and each state leaf at TOL_GRAD; ``logits`` (kernel,
+    plain) the head of each on the kernel path's last hidden state at
+    TOL_LOGITS. A failure goes to GATE_FAILURES. Returns the worst
+    readings."""
+    held.gate(tag, what)
+    layers = sorted(((r, f"layer {i}") for i, r in pin.branch.items()), reverse=True)
+    states = sorted(((_rel(t, pin.states[i][leaf]), f"layer {i} state {leaf}")
+                     for i in range(n_layers) if rec.states and rec.states[i]
+                     for leaf, t in rec.states[i].items()), reverse=True)
+    head = rel_err(logits[0].float(), logits[1].float())[1]
+    worst = {"layer": layers[0][0], "state": states[0][0] if states else 0.0, "head": head}
+    failed = [(round(r, 6), n) for r, n in layers + states if r > TOL_GRAD]
+    if head > TOL_LOGITS:
+        failed.append((round(head, 6), "head"))
+    log(f"[{tag}] {what}, layer by layer (the plain path on the kernel path's layer inputs): "
+        f"{len(layers)} layers' contributions (a recurrent mixer with no other branch: its "
+        f"output; else the output less the input), ||a_k - a_p|| / ||a_p||: median "
+        f"{layers[len(layers) // 2][0]:.3e}, max {layers[0][0]:.3e} ({layers[0][1]}); "
+        f"{len(states)} state leaves max {worst['state']:.3e}"
+        + (f" ({states[0][1]})" if states else "") + f" (tol {TOL_GRAD}); the head on the "
+        f"kernel path's last hidden state: logits rel {head:.3e} (tol {TOL_LOGITS})")
+    if failed:
+        msg = (f"{tag}: {what}: {len(failed)} items over their limits, the worst (rel, item): "
+               f"{sorted(failed, reverse=True)[:4]}")
+        log(f"[{tag}] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+    return worst
+
+
+def phase_xlstm(seed: int):
+    """Serve xLSTM-1.3B whole: all 48 layers at d_model 2048, bf16."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import runtime
+    from repro_torch.kernels.matmul import DECODE_ROWS
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    tag = "xlstm"
+    cfg = get_config("xlstm_1_3b")
+    n_m = sum(seg.repeats for seg in cfg.segments() for sp in seg.pattern if sp.mixer == "mlstm")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = lm.param_count(params)
+    log(f"[{tag}] {cfg.name} (arXiv:2405.04517): all {cfg.num_layers} layers ({n_m} mLSTM, "
+        f"{cfg.num_layers - n_m} sLSTM, no FFN), d_model {cfg.d_model}, {cfg.num_heads} heads, "
+        f"mLSTM d_inner {2 * cfg.d_model}, sLSTM GeGLU width "
+        f"{params['segments'][0][0]['l1']['mixer']['up_g'].shape[1]}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.3f} B params {cfg.dtype}, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+    run = RunConfig()
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in XLSTM_LENGTHS]
+    rt = runtime(name=tag)
+    engine = ServingEngine(cfg, run, params, ecfg, runtime=rt)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(prompt=p, max_new_tokens=32, temperature=0.0 if i % 2 == 0
+                              else 0.8, seed=seed + i, arrival_time=float(2 * i)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ScanClock() as clock:
+        done = engine.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    snap = rt.telemetry.snapshot()
+    log(f"[{tag}] launches during serving: {launches}")
+    log(f"[{tag}] telemetry tiers: {snap['tiers']} over {snap['calls']} dispatches")
+    missing = [k for k in ("matmul", "rmsnorm") if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched while serving: {missing}")
+    if snap["tiers"].get("reference", 0):
+        raise AssertionError(f"{tag}: {snap['tiers']['reference']} dispatches fell to the "
+                             f"reference tier")
+    check_routes(launches, tag, want=("tc", "decode", "simt"))
+    if st["prefill_tokens"] != sum(XLSTM_LENGTHS):
+        raise AssertionError(f"{tag}: prefill tokens {st['prefill_tokens']}: not at exact length")
+    # each mLSTM layer's fp32 out_proj: the register-tiled kernel at a
+    # prefill of more than 16 tokens, the row kernel at the others and at
+    # every decode step, never the first port's loop
+    n_long = sum(n > DECODE_ROWS for n in XLSTM_LENGTHS)
+    want = {"tile": n_m * n_long, "rows": n_m * (st["decode_steps"] + len(XLSTM_LENGTHS) - n_long),
+            "loop": 0}
+    f32 = {k: launches.get(f"matmul_simt_{k}", 0) for k in want}
+    if f32 != want:
+        raise AssertionError(f"{tag}: fp32 gemms by kernel {f32}, expected {want}")
+    for r in done:
+        out = r.output
+        if out is None or len(out) != 32 or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{tag}: bad output for a {len(r.prompt)}-token prompt: {out}")
+    routes = {r: launches.get(f"matmul_{r}", 0) for r in ("tc", "decode", "simt", "wmma",
+                                                          "splitk", "transposed")}
+    log(f"[{tag}] served {len(done)} requests, {st['tokens_out']} tokens in {wall:.2f} s: "
+        f"{st['tokens_out'] / wall:.1f} tokens/s; {st['decode_steps']} decode steps, "
+        f"{st['prefill_calls']} prefills of {st['prefill_tokens']} tokens (exact length); "
+        f"launches by kernel: matmul {launches['matmul']} (by route {routes}; fp32 {f32}), "
+        f"rmsnorm {launches['rmsnorm']}, rmsnorm_matmul {launches.get('rmsnorm_matmul', 0)}")
+    for L in sorted(engine.timings["prefill_s"]):
+        ts = engine.timings["prefill_s"][L]
+        loop = sum(sec for n, sec in clock.calls if n == L) / len(ts)
+        log(f"[{tag}] prefill {L} tokens: {1e3 * float(np.median(ts)):.2f} ms, of which the "
+            f"sLSTM token loop {1e3 * loop:.2f} ms ({100 * loop / float(np.mean(ts)):.1f}%, "
+            f"{1e6 * loop / (L * (cfg.num_layers - n_m)):.1f} us a token a layer; host clock, "
+            f"the device synchronised around each loop)")
+    dec = engine.timings["decode_s"]
+    w_bytes = (n_params - params["embed"]["table"].numel()) * 2
+    s_bytes = sum(int(np.prod(shape)) * torch.tensor([], dtype=dt).element_size()
+                  for seg in tf.cache_shapes(cfg, ecfg.max_batch, ecfg.max_seq)
+                  for leaves in seg.values() for shape, dt in leaves.values())
+    floor_ms = (w_bytes + 2 * s_bytes) / 3.35e12 * 1e3
+    log(f"[{tag}] decode step (8 slots): {1e3 * float(np.median(dec)):.2f} ms median of "
+        f"{len(dec)} (p90 {1e3 * float(np.percentile(dec, 90)):.2f} ms); computed floor "
+        f"{floor_ms:.3f} ms = ({w_bytes / 1e9:.3f} GB of weights but the embedding table + 2 x "
+        f"{s_bytes / 1e9:.3f} GB of pool state, read and written) / 3.35 TB/s (computed, not "
+        f"measured)")
+    log(f"[{tag}] peak memory allocated: {peak / 2**30:.2f} GiB (limit 75)")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"{tag}: peak {peak / 2**30:.2f} GiB passes 75 GiB")
+
+    # the engine's pool holds each slot's state after its last request
+    pool = engine._caches
+    tok = torch.zeros((ecfg.max_batch, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((ecfg.max_batch,), 1024, dtype=torch.long, device="cuda")
+
+    def decode():
+        with torch.inference_mode(), rt:
+            lm.decode_step(params, tok, pool, pos, cfg, run)[0].float().cpu()
+
+    profile(f"{tag} decode step (8 slots)", decode, 5)
+    probe = torch.from_numpy(prompts[XLSTM_LENGTHS.index(300)].astype(np.int64))[None].cuda()
+
+    def prefill():
+        with torch.inference_mode(), rt:
+            lm.prefill(params, {"tokens": probe}, cfg, run, cache_len=ecfg.max_seq)[0].float().cpu()
+
+    profile(f"{tag} prefill 300 tokens", prefill, 1,
+            wall_ms=1e3 * float(np.median(engine.timings["prefill_s"][300])))
+
+    # The gates: each computation on the kernel path (recorded, its matmul
+    # launches held) and on the plain path pinned to the kernel path's
+    # layer outputs, layer by layer with every state.
+    kern = lambda: runtime(mode="kernel", name=f"{tag}-kernel")
+    plain = lambda: runtime(mode="reference", name=f"{tag}-plain")
+
+    # The 1500-token prefill: end to end (printed) and layer by layer.
+    L = 1500
+    toks = torch.from_numpy(prompts[XLSTM_LENGTHS.index(L)].astype(np.int64))[None].cuda()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pre = lambda: lm.prefill(params, {"tokens": toks}, cfg, run, cache_len=ecfg.max_seq)[0]
+        with kern(), PrefillTap(states=True) as rec, DispatchTap() as held:
+            lk = pre()
+        with plain():
+            lp = pre()
+            with PrefillTap(pin=rec, states=True) as pin:
+                lq = pre()
+    if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab_size)):
+        raise AssertionError(f"{tag}: kernel-path logits not finite / shape {tuple(lk.shape)}")
+    abs_e, rel_e = rel_err(lk.float(), lp.float())
+    log(f"[{tag}] prefill logits ({L} tokens), kernel vs plain path end to end through "
+        f"{cfg.num_layers} layers (report; TOL_LOGITS {TOL_LOGITS} covers 24): max abs "
+        f"{abs_e:.4g}, rel to max|plain| {rel_e:.3e}; argmax {int(lk.argmax())} vs "
+        f"{int(lp.argmax())}; the three prefills in {time.perf_counter() - t0:.1f} s")
+    _gate_serving(tag, f"prefill {L} tokens", cfg.num_layers, rec, pin, held, (lk, lq))
+    del rec, pin
+
+    # Decode: XLSTM_GATE_STEPS greedy steps of the 8-slot pool, the plain
+    # pass on a copy of the pool's state from before the step.
+    t0 = time.perf_counter()
+    worst = {"layer": 0.0, "state": 0.0, "head": 0.0}
+    for step in range(XLSTM_GATE_STEPS):
+        before = _clone_tree(pool)
+        dec = lambda caches: lm.decode_step(params, tok, caches, pos + step, cfg, run)[0]
+        with torch.inference_mode():
+            with kern(), PrefillTap(mode="decode", states=True) as rec, DispatchTap() as held:
+                lk = dec(pool)
+            with plain(), PrefillTap(pin=rec, mode="decode", states=True) as pin:
+                lq = dec(before)
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"{tag}: decode step {step}: kernel-path logits not finite")
+        w = _gate_serving(tag, f"decode step {step + 1} (8 slots)", cfg.num_layers, rec, pin,
+                          held, (lk, lq))
+        worst = {k: max(worst[k], w[k]) for k in worst}
+        tok = lk.argmax(-1, keepdim=True)
+        del before, rec, pin
+    log(f"[{tag}] {XLSTM_GATE_STEPS} decode steps gated layer by layer in "
+        f"{time.perf_counter() - t0:.1f} s; worst over them, kernel vs plain: layer "
+        f"{worst['layer']:.3e}, state {worst['state']:.3e} (tol {TOL_GRAD}), head "
+        f"{worst['head']:.3e} (tol {TOL_LOGITS})")
+
+    # Continuity: a prefill of L tokens and one decode step on the kernel
+    # path against the plain path's prefill of L + 1 (the prompt and the
+    # kernel path's token), layer by layer at the last position (the plain
+    # pass on the kernel path's layer outputs: the prefill's for the first
+    # L positions, the decode step's for the last) with the state after it,
+    # and end to end (printed).
+    L = 129
+    toks = torch.from_numpy(prompts[XLSTM_LENGTHS.index(L)].astype(np.int64))[None].cuda()
+    with torch.inference_mode():
+        with kern(), DispatchTap() as held:
+            with PrefillTap() as rec_pre:
+                lg, cache = lm.prefill(params, {"tokens": toks}, cfg, run,
+                                       cache_len=ecfg.max_seq)
+            one = lm.insert_cache(lm.init_cache(cfg, 1, ecfg.max_seq, "cuda"), cache, 0)
+            nxt = lg.argmax(-1, keepdim=True)
+            with PrefillTap(mode="decode", states=True) as rec:
+                lk, _ = lm.decode_step(params, nxt, one, torch.tensor([L], device="cuda"), cfg,
+                                       run)
+        toks1 = torch.cat([toks, nxt], dim=1)
+        pinned = [torch.cat([a, b], dim=1) for a, b in zip(rec_pre.outs, rec.outs)]
+        pre = lambda: lm.prefill(params, {"tokens": toks1}, cfg, run, cache_len=ecfg.max_seq)[0]
+        with plain():
+            lp = pre()
+            with PrefillTap(pin=rec, outs=pinned, pos=slice(-1, None), states=True) as pin:
+                lq = pre()
+    abs_e, rel_e = rel_err(lk.float(), lp.float())
+    log(f"[{tag}] continuity: decode after a {L}-token prefill (kernel path) against the plain "
+        f"path's prefill of {L + 1} tokens, end to end (report): max abs {abs_e:.4g}, rel "
+        f"{rel_e:.3e}; argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+    _gate_serving(tag, f"continuity, prefill {L} + decode 1 against prefill {L + 1}",
+                  cfg.num_layers, rec, pin, held, (lk, lq))
+    del rec_pre, rec, pin, pinned, one, cache, engine, pool
+    log(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_xlstm_train(seed: int):
+    """Train xLSTM-1.3B whole, batch 4 x 512."""
+    from repro_torch.configs import get_config
+
+    tag = "xlstm-train"
+    cfg = get_config("xlstm_1_3b")
+    n_m = sum(seg.repeats for seg in cfg.segments() for sp in seg.pattern if sp.mixer == "mlstm")
+    steps, seq = 2, 512
+    log(f"[{tag}] {cfg.name} at full width and depth ({cfg.num_layers} layers), batch 4 x {seq} "
+        f"(2048 tokens a step; the sLSTM loop runs 512 steps a layer, the fewest the phase "
+        f"allows), remat 'none': a step's activations, about 27 GiB, fit beside the 43.6 GiB of "
+        f"parameters, fp32 master, moments and gradients, and recomputing each layer would "
+        f"run its loop again")
+    t_phase = time.perf_counter()
+    trainer, batch, metrics, launches, snap, peak, _ = _train_run(
+        tag, cfg, seed, (4,), steps, seq=seq)
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"{tag}: peak {peak / 2**30:.2f} GiB passes 75 GiB")
+    # a step: one rmsnorm_bwd a norm (48 and the final one); each mLSTM
+    # layer's fp32 out_proj forward and its two gradients
+    f32 = 3 * n_m * steps
+    _train_checks(tag, snap, launches, {
+        "rmsnorm_bwd": (cfg.num_layers + 1) * steps, "matmul_simt": f32,
+        "matmul_simt_tile": f32, "matmul_simt_loop": 0, "matmul_wmma": 0,
+        "softmax_xent": steps, "softmax_xent_bwd": steps})
+    missing = [k for k in ("rmsnorm", "matmul_transposed") if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: never launched: {missing}")
+    check_routes(launches, tag, want=("tc", "simt"))
+    log(f"[{tag}] launches in {steps} steps: matmul {launches['matmul']} (by route "
+        f"{ {r: launches.get(f'matmul_{r}', 0) for r in ('tc', 'decode', 'simt', 'wmma')} }, "
+        f"transposed {launches.get('matmul_transposed', 0)}, split-k "
+        f"{launches.get('matmul_splitk', 0)}), rmsnorm {launches['rmsnorm']}, rmsnorm_bwd "
+        f"{launches['rmsnorm_bwd']}, softmax_xent {launches['softmax_xent']}, softmax_xent_bwd "
+        f"{launches['softmax_xent_bwd']}")
+    tokens = batch * seq
+    step_ms = _step_report(tag, metrics, tokens)
+    profile(f"{tag} step ({tokens} tokens)", trainer.run_one_step, 1, wall_ms=step_ms)
+    log(f"[{tag}] peak memory allocated: {peak / 2**30:.2f} GiB (limit 75)")
+    log(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    return launches, batch
+
+
 ALL_KERNELS = TRAIN_KERNELS + ("matmul_bias_act", "rmsnorm_matmul")
 
 
@@ -3160,28 +3787,32 @@ def main() -> int:
     log(f"[device] profile {prof.name}: {prof.sm_count} SMs, {prof.smem_per_block} B smem/block, "
         f"peaks {prof.peak_flops_bf16 / 1e12:.0f} TFLOP/s bf16, {prof.hbm_bandwidth / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    phase_build()
-    results = phase_kernels(prof, args.seed)
-    serve_launches = phase_serve(args.seed)
-    hybrid_launches = phase_hybrid(args.seed)
-    moe_launches = phase_moe(args.seed)
-    torch.cuda.empty_cache()
-    gemma_launches = phase_gemma(args.seed)
-    torch.cuda.empty_cache()
-    archs_launches = phase_archs(args.seed)
-    torch.cuda.empty_cache()
-    train_launches, heuristic_step_ms, heuristic_steps = phase_train(args.seed)
-    torch.cuda.empty_cache()
-    pali_launches, pali_batch = phase_paligemma_train(args.seed)
-    torch.cuda.empty_cache()
-    hybrid_train_launches, hybrid_batch = phase_hybrid_train(args.seed)
-    torch.cuda.empty_cache()
-    moe_train_launches, moe_batch = phase_moe_train(args.seed)
-    torch.cuda.empty_cache()
+
+    def timed(name, fn, *fargs):
+        """Run one phase, its seconds logged; the card's cache emptied after."""
+        t = time.perf_counter()
+        out = fn(*fargs)
+        torch.cuda.empty_cache()
+        log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    results = timed("kernels", phase_kernels, prof, args.seed)
+    serve_launches = timed("serve", phase_serve, args.seed)
+    hybrid_launches = timed("hybrid", phase_hybrid, args.seed)
+    moe_launches = timed("moe", phase_moe, args.seed)
+    gemma_launches = timed("gemma", phase_gemma, args.seed)
+    archs_launches = timed("archs", phase_archs, args.seed)
+    xlstm_launches = timed("xlstm", phase_xlstm, args.seed)
+    train_launches, heuristic_step_ms, heuristic_steps = timed("train", phase_train, args.seed)
+    pali_launches, pali_batch = timed("paligemma-train", phase_paligemma_train, args.seed)
+    hybrid_train_launches, hybrid_batch = timed("hybrid-train", phase_hybrid_train, args.seed)
+    moe_train_launches, moe_batch = timed("moe-train", phase_moe_train, args.seed)
+    xlstm_train_launches, xlstm_batch = timed("xlstm-train", phase_xlstm_train, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
-        db_path, _ = phase_campaign(args.seed, args.campaign_budget, workdir)
-        tuned_serve, tuned_train = phase_tuned(args.seed, db_path, heuristic_step_ms,
-                                               heuristic_steps)
+        db_path, _ = timed("campaign", phase_campaign, args.seed, args.campaign_budget, workdir)
+        tuned_serve, tuned_train = timed("tuned", phase_tuned, args.seed, db_path,
+                                         heuristic_step_ms, heuristic_steps)
 
     # Each entry pairs the training run's launches with a training shape;
     # the three kernels that serving also launches carry a "serve" object
@@ -3210,7 +3841,12 @@ def main() -> int:
     # serving kernels and rmsnorm_matmul), "paligemma_train" the PaliGemma
     # training run's with the flash kernels at d = 256 (with its batch), and
     # expert_gemm's "arctic" the archs phase's Arctic launches with its
-    # prefill's capacity at 128 experts.
+    # prefill's capacity at 128 experts. xLSTM adds two: "xlstm" pairs the
+    # xLSTM serving run's launches with the sLSTM MLP's up_g at 2048 rows
+    # (n = 2752) and the norm at d 2048 (matmul and rmsnorm), "xlstm_train"
+    # the xLSTM training run's with the same gemm, the norm and its
+    # backward and the loss chunk at vocab 50,304 (with its batch); matmul's
+    # two carry their launches by route.
     pick = {"train": {"matmul": "[2048,896]@[896,151936] bf16", "rmsnorm": "[8192,896] bf16",
                       "rmsnorm_bwd": "[8192,896] bf16", "softmax_xent": "[2048,151936] bf16",
                       "softmax_xent_bwd": "[2048,151936] bf16",
@@ -3235,7 +3871,12 @@ def main() -> int:
             "paligemma_train": {
                 "flash_attention": "q[2,8,2048,256] kv[2,1,2048,256] causal bf16",
                 "flash_attention_bwd": "q[2,8,2048,256] kv[2,1,2048,256] causal bf16"},
-            "arctic": {"expert_gemm": "[128,10,7168]@[128,7168,4864] bf16"}}
+            "arctic": {"expert_gemm": "[128,10,7168]@[128,7168,4864] bf16"},
+            "xlstm": {"matmul": "[2048,2048]@[2048,2752] bf16", "rmsnorm": "[2048,2048] bf16"},
+            "xlstm_train": {"matmul": "[2048,2048]@[2048,2752] bf16",
+                            "rmsnorm": "[2048,2048] bf16", "rmsnorm_bwd": "[2048,2048] bf16",
+                            "softmax_xent": "[2048,50304] bf16",
+                            "softmax_xent_bwd": "[2048,50304] bf16"}}
     main_path = {"matmul_bias_act": ("train", tuned_train),
                  "rmsnorm_matmul": ("serve", tuned_serve),
                  "ssm_scan": ("hybrid", hybrid_launches),
@@ -3284,6 +3925,16 @@ def main() -> int:
                                             batch=pali_batch)
         if name == "expert_gemm":
             entry["arctic"] = at(name, "arctic", archs_launches["arctic_480b"])
+        if name in pick["xlstm"]:
+            entry["xlstm"] = at(name, "xlstm", xlstm_launches)
+        if name in pick["xlstm_train"]:
+            entry["xlstm_train"] = dict(at(name, "xlstm_train", xlstm_train_launches),
+                                        batch=xlstm_batch)
+        if name == "matmul":
+            for key, by in (("xlstm", xlstm_launches), ("xlstm_train", xlstm_train_launches)):
+                entry[key]["launches_by_route"] = {
+                    r: by.get(f"matmul_{r}", 0)
+                    for r in ("tc", "decode", "simt", "wmma", "splitk", "transposed")}
         entries.append(entry)
     log(f"[summary] {time.perf_counter() - t0:.1f} s after the device check")
     log(smi)

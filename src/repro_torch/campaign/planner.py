@@ -11,7 +11,9 @@ scenario names (but for serving's windowed flash jobs, below):
   the norms and their ``rmsnorm_bwd``, the chunked loss's unembed gemms,
   ``softmax_xent`` and ``softmax_xent_bwd``, causal flash attention and its
   backward; a hybrid arch adds its Mamba layers' projections (``dt_proj``
-  and ``out_proj`` in fp32) with ``ssm_scan`` and ``ssm_scan_bwd``;
+  and ``out_proj`` in fp32) with ``ssm_scan`` and ``ssm_scan_bwd``, and
+  xLSTM its mLSTM projections (``out_proj`` in fp32) and its sLSTM gate
+  stack and GeGLU MLP gemms, all ``matmul`` sites;
 * :func:`plan_train_jobs` -- the shorter shape-level roster (forward sites
   only, with the model-level ``attn_chunks`` site);
 * :func:`plan_serving_jobs` -- every slot-pool bucket a continuous
@@ -21,16 +23,16 @@ scenario names (but for serving's windowed flash jobs, below):
   flash attention at each distinct window, and the ``attn_chunks`` sites (each prefill, and one decode-shaped
   lookup at the pool's full depth); a hybrid arch adds its Mamba layers'
   projections with the ``ssm_scan`` site at each prefill bucket and the
-  ``ssm_update`` site in the pool, and an MoE arch its ``expert_gemm``
-  sites at each bucket's capacity.
+  ``ssm_update`` site in the pool, xLSTM its mLSTM and sLSTM gemms at each
+  bucket and in the pool, and an MoE arch its ``expert_gemm`` sites at
+  each bucket's capacity.
 
 MoE layers add their grouped ``expert_gemm`` sites keyed on (experts x
 capacity x hidden), with the two transposed-operand gradients in training,
 as the JAX planner does. The planner evaluates nothing. Leading (token)
 dims are capped by ``max_tokens``; its default admits the 8,192-token step
 of the one-card trainer (batch 4 x 2048), whose sites the JAX default of
-4,096 would cap into keys the step never looks up. The xLSTM mixers are
-not ported: a config that has one raises.
+4,096 would cap into keys the step never looks up.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ from ..configs.base import SHAPES, ArchConfig, ShapeSpec, get_config
 from ..core.database import make_key, shape_bucket
 from ..core.tuner import promoted_dtype
 from ..models.moe import expert_capacity
-from ..models.transformer import RunConfig
+from ..models.ssm import slstm_ff
+from ..models.transformer import MIXERS, RunConfig
 
 # The tunables a campaign tunes by default, as in the JAX planner: the
 # dispatch sites (``attn_chunks`` being the model-level chunked attention),
@@ -136,23 +139,18 @@ def _adder(jobs: List[TuningJob], kernels: Sequence[str]):
 
 
 def _site_counts(cfg: ArchConfig) -> Dict[str, float]:
-    """Per-step executions of each site family: attention and Mamba mixers,
-    dense FFNs, MoE FFNs, layers, and norms (pre-mixer, and pre-FFN where
-    the layer has one), plus each distinct attention window. Raises for the
-    mixers the port has not ported."""
-    n_attn = n_mamba = n_ffn = n_moe = n_norm = 0.0
+    """Per-step executions of each site family: attention, Mamba, mLSTM and
+    sLSTM mixers, dense FFNs, MoE FFNs, layers, and norms (pre-mixer, and
+    pre-FFN where the layer has one), plus each distinct attention
+    window."""
+    n = {m: 0.0 for m in MIXERS}
+    n_ffn = n_moe = n_norm = 0.0
     windows: Dict[int, float] = {}
     for seg in cfg.segments():
         for spec in seg.pattern:
-            if spec.mixer not in ("attn", "mamba"):
-                raise NotImplementedError(
-                    f"{cfg.name}: the port plans attention mixers and Mamba mixers, not "
-                    f"mixer {spec.mixer!r}")
+            n[spec.mixer] += seg.repeats
             if spec.mixer == "attn":
-                n_attn += seg.repeats
                 windows[spec.window] = windows.get(spec.window, 0.0) + seg.repeats
-            else:
-                n_mamba += seg.repeats
             n_norm += seg.repeats
             if spec.ffn != "none":
                 n_norm += seg.repeats
@@ -160,8 +158,8 @@ def _site_counts(cfg: ArchConfig) -> Dict[str, float]:
                 n_ffn += seg.repeats
             if "moe" in spec.ffn:
                 n_moe += seg.repeats
-    return {"attn": n_attn, "mamba": n_mamba, "ffn": n_ffn, "moe": n_moe, "norm": n_norm,
-            "layers": n_attn + n_mamba, "windows": windows}
+    return {**n, "ffn": n_ffn, "moe": n_moe, "norm": n_norm, "layers": sum(n.values()),
+            "windows": windows}
 
 
 def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -225,6 +223,18 @@ def plan_train_jobs(
         add("ssm_scan", [(b_att, s_att, di), (b_att, s_att, di), (b_att, s_att, ds),
                          (b_att, s_att, ds), (di, ds), (b_att, di, ds)],
             [f, F32, F32, F32, F32, F32], n_mamba, scen)
+    # xLSTM: the mLSTM's projections (out_proj in fp32) and the sLSTM's gate
+    # stack and MLP, at token rows
+    if counts["mlstm"] > 0:
+        di = 2 * d
+        add("matmul", [(T, d), (d, 2 * di)], [f, f], counts["mlstm"], scen)
+        add("matmul", [(T, di), (di, di)], [f, f], 3 * counts["mlstm"], scen)
+        add("matmul", [(T, di), (di, d)], [F32, F32], counts["mlstm"], scen)
+    if counts["slstm"] > 0:
+        ffs = slstm_ff(d)
+        add("matmul", [(T, d), (d, 4 * d)], [f, f], counts["slstm"], scen)
+        add("matmul", [(T, d), (d, ffs)], [f, f], 2 * counts["slstm"], scen)
+        add("matmul", [(T, ffs), (ffs, d)], [f, f], counts["slstm"], scen)
     # MoE expert FFN: capacity from the step's whole token count, capped
     if counts["moe"] > 0:
         e, cap = cfg.num_experts, min(max_tokens, _capacity(cfg, B * S))
@@ -328,6 +338,18 @@ def plan_training_jobs(
             n_mamba, scen)
         add("ssm_scan_bwd", [xc_s, h_s, xc_s, xc_s, bc_s, bc_s, a_s, h_s],
             [F32, F32, f, F32, F32, F32, F32, F32], n_mamba, scen)
+    # xLSTM: the mLSTM's and sLSTM's gemms with their gradients (the
+    # recurrences and the mLSTM's gate projection are plain torch)
+    if counts["mlstm"] > 0:
+        di = 2 * d
+        add_gemm(T, d, 2 * di, counts["mlstm"])                       # in_proj
+        add_gemm(T, di, di, 3 * counts["mlstm"])                      # wq/wk/wv
+        add_gemm(T, di, d, counts["mlstm"], dtype=F32)                # out_proj
+    if counts["slstm"] > 0:
+        ffs = slstm_ff(d)
+        add_gemm(T, d, 4 * d, counts["slstm"])                        # gate stack
+        add_gemm(T, d, ffs, 2 * counts["slstm"])                      # up_g/up_u
+        add_gemm(T, ffs, d, counts["slstm"])                          # down
     # MoE expert FFN: capacity from the microbatch's whole token count
     # (expert_gemm args are not batch-sharded), capped like every leading dim
     if counts["moe"] > 0:
@@ -382,6 +404,7 @@ def plan_serving_jobs(
     f = cfg.dtype
     counts = _site_counts(cfg)
     n_attn, n_ffn, n_mamba, n_moe = counts["attn"], counts["ffn"], counts["mamba"], counts["moe"]
+    n_mlstm, n_slstm, ffs = counts["mlstm"], counts["slstm"], slstm_ff(d)
     n_norm = 2 * counts["layers"]         # JAX's serving roster: two norms a layer
     di, ds, dtr = _mamba_dims(cfg)
     e = cfg.num_experts
@@ -412,6 +435,13 @@ def plan_serving_jobs(
             add("matmul", [(s, di), (di, d)], [F32, F32], n_mamba, scen)
             add("ssm_scan", [(1, s, di), (1, s, di), (1, s, ds), (1, s, ds), (di, ds),
                              (1, di, ds)], [f, F32, F32, F32, F32, F32], n_mamba, scen)
+            # xLSTM at prefill: the projections over s rows
+            add("matmul", [(s, d), (d, 4 * d)], [f, f], n_mlstm, scen)
+            add("matmul", [(s, 2 * d), (2 * d, 2 * d)], [f, f], 3 * n_mlstm, scen)
+            add("matmul", [(s, 2 * d), (2 * d, d)], [F32, F32], n_mlstm, scen)
+            add("matmul", [(s, d), (d, 4 * d)], [f, f], n_slstm, scen)
+            add("matmul", [(s, d), (d, ffs)], [f, f], 2 * n_slstm, scen)
+            add("matmul", [(s, ffs), (ffs, d)], [f, f], n_slstm, scen)
             # MoE at prefill: the bucket's s tokens set the capacity
             cap = _capacity(cfg, s) if n_moe else 0
             add("expert_gemm", [(e, cap, d), (e, d, cfg.d_ff)], [f, f], n_up * n_moe, scen)
@@ -435,6 +465,13 @@ def plan_serving_jobs(
         add("matmul", [(B, di), (di, d)], [F32, F32], n_mamba * s, scen)
         add("ssm_update", [(B, di), (B, di), (B, ds), (B, ds), (di, ds), (B, di, ds)],
             [f, F32, F32, F32, F32, F32], n_mamba * s, scen)
+        # xLSTM in the pool: the projections at B rows
+        add("matmul", [(B, d), (d, 4 * d)], [f, f], n_mlstm * s, scen)
+        add("matmul", [(B, 2 * d), (2 * d, 2 * d)], [f, f], 3 * n_mlstm * s, scen)
+        add("matmul", [(B, 2 * d), (2 * d, d)], [F32, F32], n_mlstm * s, scen)
+        add("matmul", [(B, d), (d, 4 * d)], [f, f], n_slstm * s, scen)
+        add("matmul", [(B, d), (d, ffs)], [f, f], 2 * n_slstm * s, scen)
+        add("matmul", [(B, ffs), (ffs, d)], [f, f], n_slstm * s, scen)
         # MoE in the pool: the B slots (free ones included) set the capacity
         cap = _capacity(cfg, B) if n_moe else 0
         add("expert_gemm", [(e, cap, d), (e, d, cfg.d_ff)], [f, f], n_up * n_moe * s, scen)

@@ -3,9 +3,8 @@
 Same :class:`ArchConfig` fields, ``segments()`` decomposition and
 ``reduced()`` smoke config, so one config means the same model in both
 packages; ``tdtype`` returns the torch dtype where the JAX package's
-``jdtype`` returns a jnp dtype. Only the architectures the port runs are
-registered: nine of the JAX package's ten (``xlstm_1_3b`` needs the mLSTM
-and sLSTM mixers, which the port does not have yet). Jamba's dense
+``jdtype`` returns a jnp dtype. All ten of the JAX package's architectures
+are registered, in its order. Jamba's dense
 variant, ``dataclasses.replace(cfg, num_experts=0, experts_per_token=0)``,
 is what fits one card.
 ``SHAPES`` holds the training shapes a campaign plans: the JAX package's
@@ -184,12 +183,13 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
-# The JAX package's registry, in its order, less xlstm_1_3b.
+# The JAX package's registry, in its order.
 ARCH_NAMES = (
     "minitron_4b",
     "qwen2_5_3b",
     "qwen2_0_5b",
     "gemma3_27b",
+    "xlstm_1_3b",
     "musicgen_large",
     "arctic_480b",
     "mixtral_8x7b",
@@ -212,9 +212,6 @@ _ALIASES = {
 
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod_name == "xlstm_1_3b":
-        raise KeyError("xlstm_1_3b needs the mLSTM and sLSTM mixers, which the port does not "
-                       "have yet (ROADMAP.md, Queue 1 item 3)")
     if mod_name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; the port has {list(ARCH_NAMES)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

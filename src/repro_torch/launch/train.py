@@ -13,6 +13,9 @@ and each kernel's launch count.
     # PaliGemma-3B (256 patch embeddings before the tokens, the loss masked
     # off them) at full width, batch 2 x 2048:
     PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma_3b --steps 4 --batch 2
+    # xLSTM-1.3B whole (2.93 B) at batch 4 x 512, the sLSTM loop's 512 steps
+    # a layer (batch 4 x 2048 would not fit beside its AdamW state):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_1_3b --steps 4 --seq 512
     # reduced config on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \\
         --steps 2 --device cpu

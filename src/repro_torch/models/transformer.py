@@ -1,24 +1,26 @@
-"""Block assembly for decoders of attention and Mamba mixers with dense,
-MoE or MoE-plus-dense FFNs.
+"""Block assembly for decoders of attention, Mamba, mLSTM and sLSTM mixers
+with dense, MoE, MoE-plus-dense or no FFNs.
 
 Where the JAX package scans over stacked super-block params, the port
 loops over layers in Python: ``params["segments"][si]`` is a list of
 super-blocks (one per repeat), each ``{"l{i}": layer params}``. Caches keep
 the JAX layout: per segment ``{"l{i}": leaves}``, each leaf stacked over
 the repeats, ``{"k": [repeats, b, clen, kv, hd], "v": ...}`` for an
-attention layer and ``{"h": [repeats, b, di, ds] (fp32), "conv": [repeats,
-b, d_conv - 1, di]}`` for a Mamba layer.
+attention layer, ``{"h": [repeats, b, di, ds] (fp32), "conv": [repeats,
+b, d_conv - 1, di]}`` for a Mamba layer, ``{"C", "n", "m"}`` for an mLSTM
+layer and ``{"c", "n", "h", "m"}`` for an sLSTM layer (fp32).
 
 Three modes share one code path: ``train`` (full sequence, no caches),
 ``prefill`` (full sequence, emits caches) and ``decode`` (one token,
 updates caches in place: attention writes its new row into the pool, and
-the Mamba state, which ``mamba_decode`` returns as new tensors, is copied
-back into the pool's slices). In ``train`` mode ``RunConfig.remat="full"``
-wraps each layer in ``torch.utils.checkpoint`` (non-reentrant): only the
-layer's input is kept and the layer runs again in the backward. Every
-layer returns its MoE load-balancing loss (0 without experts), and
-``stack_apply`` sums them; prefill passes ``true_len`` to the MoE layers
-too, so bucket pads take no expert capacity, and decode passes none.
+a recurrent mixer's state, which its ``*_decode`` returns as new tensors,
+is copied back into the pool's slices). In ``train`` mode
+``RunConfig.remat="full"`` wraps each layer in ``torch.utils.checkpoint``
+(non-reentrant): only the layer's input is kept and the layer runs again
+in the backward. Every layer returns its MoE load-balancing loss (0
+without experts), and ``stack_apply`` sums them; prefill passes
+``true_len`` to the MoE layers too, so bucket pads take no expert capacity,
+and decode passes none.
 """
 from __future__ import annotations
 
@@ -35,21 +37,26 @@ from . import ssm
 from .layers import ffn_apply, ffn_init, norm_init, rmsnorm
 
 REMAT = ("none", "full")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Runtime knobs that change no math: attention chunking of the plain
-    path, rematerialization, the sequence chunk of the loss, the MoE
-    dispatch formulation and gradient accumulation steps (``repro``'s names
-    and defaults, except ``remat``: the port has ``"none"`` and ``"full"``;
-    the JAX default ``"dots"``, which keeps matmul outputs, is not ported
-    yet and raises)."""
+    path, rematerialization, the mLSTM's chunk, the sequence chunk of the
+    loss, the MoE dispatch formulation and gradient accumulation steps
+    (``repro``'s names and defaults, except ``remat``: the port has
+    ``"none"`` and ``"full"``; the JAX default ``"dots"``, which keeps
+    matmul outputs, is not ported yet and raises). ``slstm_unroll`` is the
+    JAX scan's unroll factor, a schedule knob: it is accepted and changes
+    nothing in eager mode, where the sLSTM's loop runs one token a step."""
 
     remat: str = "none"
     q_chunk: int = 512
     k_chunk: int = 1024
+    mlstm_chunk: int = 64
     loss_chunk: int = 512
+    slstm_unroll: int = 1
     moe_dispatch: str = "scatter"   # scatter | dense
     microbatches: int = 1
 
@@ -61,9 +68,8 @@ class RunConfig:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mamba"):
-        raise NotImplementedError(f"the port has attention and Mamba mixers, not "
-                                  f"{spec.mixer!r} (the xLSTM mixers are a later slice)")
+    if spec.mixer not in MIXERS:
+        raise ValueError(f"mixer {spec.mixer!r} not in {MIXERS}")
 
 
 def layer_init(gen, cfg: ArchConfig, spec: LayerSpec, device):
@@ -72,9 +78,13 @@ def layer_init(gen, cfg: ArchConfig, spec: LayerSpec, device):
     if spec.mixer == "attn":
         mixer = attn.attention_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                                     cfg.hd, dt, device, qkv_bias=cfg.qkv_bias)
-    else:
+    elif spec.mixer == "mamba":
         mixer = ssm.mamba_init(gen, cfg.d_model, dt, device, expand=cfg.mamba_expand,
                                d_state=cfg.mamba_d_state)
+    elif spec.mixer == "mlstm":
+        mixer = ssm.mlstm_init(gen, cfg.d_model, cfg.num_heads, dt, device)
+    else:
+        mixer = ssm.slstm_init(gen, cfg.d_model, cfg.num_heads, dt, device)
     p = {"norm1": norm_init(cfg.d_model, dt, device), "mixer": mixer}
     if spec.ffn != "none":
         p["norm2"] = norm_init(cfg.d_model, dt, device)
@@ -104,13 +114,8 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
-    if spec.mixer == "mamba":
-        if mode == "train":
-            y, new_cache = ssm.mamba_forward(p["mixer"], h), None
-        elif mode == "prefill":
-            y, new_cache = ssm.mamba_forward(p["mixer"], h, return_state=True)
-        else:
-            y, new_cache = ssm.mamba_decode(p["mixer"], h, cache)
+    if spec.mixer != "attn":
+        y, new_cache = _recurrent_apply(p["mixer"], h, spec, cfg, run, mode, cache)
     elif mode == "train":
         y = attn.attention_forward(p["mixer"], h, q_chunk=run.q_chunk, k_chunk=run.k_chunk,
                                    **common)
@@ -137,6 +142,26 @@ def layer_apply(p, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: st
             y2 = yd if y2 is None else y2 + yd
         x = x + y2
     return x, aux, new_cache
+
+
+def _recurrent_apply(p, h, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mode: str,
+                     cache):
+    """A Mamba, mLSTM or sLSTM mixer: (y, state), the state None in train
+    mode, the prefill's final state in prefill mode, the new state in
+    decode mode."""
+    if spec.mixer == "mamba":
+        fwd, dec, kw, fkw = ssm.mamba_forward, ssm.mamba_decode, {}, {}
+    elif spec.mixer == "mlstm":
+        fwd, dec = ssm.mlstm_forward, ssm.mlstm_decode
+        kw, fkw = {"n_heads": cfg.num_heads}, {"chunk": run.mlstm_chunk}
+    else:
+        fwd, dec = ssm.slstm_forward, ssm.slstm_decode
+        kw, fkw = {"n_heads": cfg.num_heads}, {"unroll": run.slstm_unroll}
+    if mode == "train":
+        return fwd(p, h, **kw, **fkw), None
+    if mode == "prefill":
+        return fwd(p, h, return_state=True, **kw, **fkw)
+    return dec(p, h, cache, **kw)
 
 
 def _train_layer(block, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig):
@@ -194,7 +219,7 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                 x, aux, nc = layer_apply(block[name], x, spec, cfg, run, mode, c, pos,
                                          true_len=true_len)
                 add_aux(aux)
-                if mode == "decode" and spec.mixer == "mamba":
+                if mode == "decode" and spec.mixer != "attn":
                     for kk, t in nc.items():      # the new state into the pool's slice
                         c[kk].copy_(t)
                 if mode == "prefill":
@@ -210,7 +235,7 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):
     """Per segment ``{"l{i}": {leaf: (stacked shape, dtype)}}``: ``k`` and
     ``v`` in the model dtype for attention, ``h`` (fp32) and ``conv`` for
-    Mamba."""
+    Mamba, the fp32 state leaves for mLSTM and sLSTM."""
     out = []
     for seg in cfg.segments():
         sb = {}
@@ -220,10 +245,14 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):
                 shape = attn.attention_cache_shape(batch, cache_len, cfg.num_kv_heads, cfg.hd,
                                                    spec.window)
                 leaves = {"k": (shape, cfg.tdtype), "v": (shape, cfg.tdtype)}
-            else:
+            elif spec.mixer == "mamba":
                 leaves = ssm.mamba_state_shapes(batch, cfg.d_model, cfg.tdtype,
                                                 expand=cfg.mamba_expand,
                                                 d_state=cfg.mamba_d_state)
+            elif spec.mixer == "mlstm":
+                leaves = ssm.mlstm_state_shapes(batch, cfg.d_model, cfg.num_heads)
+            else:
+                leaves = ssm.slstm_state_shapes(batch, cfg.d_model)
             sb[f"l{i}"] = {kk: ((seg.repeats,) + shape, dt)
                            for kk, (shape, dt) in leaves.items()}
         out.append(sb)

@@ -1,6 +1,5 @@
 """Every arch the port registers against the JAX package, on the CPU: the
-port of ``tests/test_arch_smoke.py`` for the nine archs (``xlstm_1_3b``,
-the tenth, needs mixers the port does not have and raises, naming why).
+port of ``tests/test_arch_smoke.py`` for all ten archs.
 
 Each arch at its reduced, family-preserving config in f32, with the JAX
 ``init_params`` output carried across through numpy:
@@ -13,10 +12,11 @@ Each arch at its reduced, family-preserving config in f32, with the JAX
   geometry, heads of 256 on one kv head with its vision prefix, so the
   head dim the flash kernels gained is held end to end;
 * decode after prefill against the full forward's next-token logits
-  (qwen2_5_3b, gemma3_27b, Mixtral, Jamba; the MoE archs with a capacity
-  that drops nothing), Gemma3's windowed cache shapes, Arctic's MoE-plus-
-  dense pattern, and parameter counts in the JAX test's ranges, counted on
-  the meta device.
+  (qwen2_5_3b, gemma3_27b, Mixtral, xLSTM, Jamba: the JAX test's archs;
+  the MoE archs with a capacity that drops nothing), Gemma3's windowed
+  cache shapes, Arctic's MoE-plus-dense pattern, and parameter counts in
+  the JAX test's ranges, counted on the meta device (xLSTM's 2.928 B
+  exactly, its parts as the two mixers' inits give them).
 
 Tolerances: loss 1e-5 relative and the hidden state 1e-5 of its max|JAX|
 (the same fp32 math through 4 to 16 layers, sums in another order); each
@@ -150,13 +150,7 @@ def test_kernel_mode_at_paligemma_attention_geometry(rs):
     assert "reference" not in snap["tiers"]
 
 
-def test_xlstm_raises_naming_its_slice():
-    with pytest.raises(KeyError, match="mLSTM and sLSTM mixers.*Queue 1 item 3"):
-        get_config("xlstm_1_3b")
-    assert "xlstm_1_3b" not in ARCH_NAMES and len(ARCH_NAMES) == 9
-
-
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "gemma3_27b", "mixtral_8x7b",
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "gemma3_27b", "mixtral_8x7b", "xlstm_1_3b",
                                   "jamba_1_5_large"])
 def test_decode_matches_full_forward(arch, rs):
     """prefill + one decode step reproduce the full forward's next-token
@@ -209,3 +203,21 @@ def test_param_counts_plausible():
         assert n == jlm.param_count(j_get_config(arch)), arch
         lo, hi = expect.get(arch, (0, float("inf")))
         assert lo <= n <= hi, f"{arch}: {n / 1e9:.1f}B not in [{lo / 1e9},{hi / 1e9}]"
+
+
+def test_xlstm_is_registered_with_its_2_9b_parameters():
+    """The tenth arch, in the JAX registry's place, at 2.928 B parameters:
+    24 mLSTM layers of 75.5 M, 24 sLSTM layers of 37.9 M, the embedding
+    table and the untied unembed of 50,304 x 2,048 each."""
+    from repro.configs.base import ARCH_NAMES as J_ARCH_NAMES
+
+    assert ARCH_NAMES == J_ARCH_NAMES and len(ARCH_NAMES) == 10
+    cfg = get_config("xlstm_1_3b")
+    assert get_config("xlstm-1.3b") is cfg
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_get_config("xlstm_1_3b"))
+    assert [(s.mixer, s.ffn) for s in cfg.segments()[0].pattern] == [("mlstm", "none"),
+                                                                      ("slstm", "none")]
+    block = lm.abstract_params(cfg)["segments"][0][0]
+    per = {name: lm.param_count(block[name]) for name in ("l0", "l1")}
+    assert per == {"l0": 75_536_392, "l1": 37_890_048}          # each with its norm
+    assert lm.param_count(cfg) == 24 * (per["l0"] + per["l1"]) + 2 * 50_304 * 2_048 + 2_048

@@ -2,9 +2,9 @@
 
 * Planner parity: ``plan_serving_jobs`` and the one-device
   ``plan_training_jobs`` (and the shape-level ``plan_train_jobs``) for the
-  reduced and the full-width ``qwen2_0_5b`` give the JAX planner's jobs --
-  kernel, shapes, dtypes, key extra, weight and scenarios -- over the
-  kernels the port registers.
+  reduced and the full-width ``qwen2_0_5b``, Mixtral-8x7B and xLSTM-1.3B
+  give the JAX planner's jobs -- kernel, shapes, dtypes, key extra, weight
+  and scenarios -- over the kernels the port registers.
 * Dedupe, priorities (on one hardware profile) and budget allocation equal
   the JAX scheduler's; transfer seeds and cover sets equal its transfer
   layer's.
@@ -371,7 +371,41 @@ def test_mixtral_plans_equal_jax(reduced, max_tokens):
         assert ((8, 2, 14336), (8, 14336, 4096)) in egemm           # the 8-slot pool
 
 
-def test_unported_mixers_raise():
-    cfg = dataclasses.replace(get_config("qwen2_0_5b").reduced(), ssm_pattern=("mlstm",))
-    with pytest.raises(NotImplementedError, match="attention mixers"):
-        planner.plan_serving_jobs(cfg, 2, 32)
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+@pytest.mark.parametrize("max_tokens", [4096, 8192])
+def test_xlstm_plans_equal_jax(reduced, max_tokens):
+    """Training (every mLSTM and sLSTM gemm with its two transposed-operand
+    gradients, the mLSTM's out_proj in fp32), shape-level and serving plans
+    of xLSTM-1.3B equal the JAX planner's: all matmul and norm jobs, no
+    attention site."""
+    jcfg, tcfg = jconfigs.get_config("xlstm_1_3b"), get_config("xlstm_1_3b")
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
+    tshape, jshape = _shape(reduced)
+    chunk = 32 if reduced else 512
+    serving = (2, 32) if reduced else (8, 2048)
+    t = (planner.plan_training_jobs(tcfg, tshape, run=RunConfig(loss_chunk=chunk),
+                                    max_tokens=max_tokens)
+         + planner.plan_train_jobs(tcfg, tshape, max_tokens=max_tokens)
+         + planner.plan_serving_jobs(tcfg, *serving, max_tokens=max_tokens))
+    j = (jplanner.plan_training_jobs(jcfg, jshape, run=JRun(remat="none", loss_chunk=chunk,
+                                                            microbatches=1),
+                                     kernels=KERNELS, max_tokens=max_tokens)
+         + jplanner.plan_train_jobs(jcfg, jshape, kernels=KERNELS, max_tokens=max_tokens)
+         + jplanner.plan_serving_jobs(jcfg, *serving, kernels=KERNELS, max_tokens=max_tokens))
+    assert _rows(t) == _rows(j) and t
+    assert {x.kernel for x in t} == {"matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent",
+                                     "softmax_xent_bwd", "rmsnorm_matmul"}
+    if not reduced and max_tokens == 8192:
+        T = 8192
+        step = [x for x in t if x.kernel == "matmul" and x.scenarios[0].endswith("@dp1")]
+        weight = lambda shapes, dt="bfloat16": sum(x.weight for x in step if x.arg_shapes ==
+                                                   shapes and x.arg_dtypes[0] == dt)
+        # the sLSTM's MLP at n = 2752 (up_g and up_u forward, down's dL/dx)
+        # and k = 2752 (down forward, up_g and up_u's dL/dx), and the
+        # mLSTM's fp32 out_proj
+        assert weight(((T, 2048), (2048, 2752))) == 48 + 24
+        assert weight(((T, 2752), (2752, 2048))) == 24 + 48
+        assert weight(((T, 4096), (4096, 2048)), "float32") == 24
+        decode = [x for x in t if x.scenarios[0].endswith("serve_decode_b8s16")]
+        assert ((8, 2048), (2048, 2752)) in [x.arg_shapes for x in decode]

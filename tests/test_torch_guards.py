@@ -54,7 +54,17 @@ def test_scan_sees_the_whole_package():
             "musicgen_large.py", "paligemma_3b.py"} <= names
 
 
-@pytest.mark.parametrize("arch", ["gemma3_27b", "paligemma_3b"])
+def test_scan_sees_the_xlstm_modules():
+    """The xLSTM mixers live in models/ssm.py beside Mamba; the scan holds
+    it, the xLSTM config and chip_smoke.py, which drives them on the card."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"src/repro_torch/models/ssm.py", "src/repro_torch/configs/xlstm_1_3b.py",
+            "chip_smoke.py"} <= names
+    text = (ROOT / "src" / "repro_torch" / "models" / "ssm.py").read_text()
+    assert "def mlstm_forward(" in text and "def slstm_forward(" in text
+
+
+@pytest.mark.parametrize("arch", ["gemma3_27b", "paligemma_3b", "xlstm_1_3b"])
 def test_the_new_archs_raise_without_a_card(no_card, arch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_params(get_config(arch).reduced(), seed=0)

@@ -16,6 +16,16 @@ the skip term and ``x_proj`` carry the rest of xc's gradient), or the
 forward's ``y`` half again too large: the backward recomputes from the
 inputs, so it shows in the layer's output and in ``out_proj``'s gradient
 (``y`` 5% off moves them by 2.2e-2 and 2.6e-2 here, under TOL_GRAD).
+
+Reduced xLSTM in bf16 (alternating mLSTM and sLSTM, no FFN: each layer's
+contribution is its mixer's output, and each mLSTM recurrence is pinned
+inside its layer) passes on equal paths, with every cotangent at a pinned
+recurrence's output equal. Every ``matmul`` launch of the kernel path is
+also held against the plain version on its own operands (``DispatchTap``),
+so a kernel that is wrong fails the gate twice, at the launch and in the
+layers, when its forward launches or its backward ones (those with a
+transposed operand) return 5% too much; an fp32 launch 0.1% off (the mLSTM's ``out_proj``, above
+TOL_F32_GEMM but far under TOL_GRAD) fails it at the launch.
 """
 import dataclasses
 import importlib.util
@@ -31,6 +41,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.annotate import get_tunable  # noqa: E402
 from repro_torch.core.runtime import ensure_registered  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
+from repro_torch.kernels.matmul import layout  # noqa: E402
 from repro_torch.models.transformer import RunConfig  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
@@ -93,3 +104,35 @@ def test_gate_fails_a_wrong_scan(smoke, monkeypatch, site, arg, scale, names, co
     if count is not None:
         n = int(re.search(rf"; (\d+) {count}", failures[0]).group(1))
         assert n > 0, failures[0]
+
+
+XLSTM = dict(dtype="bfloat16")
+
+
+def test_xlstm_gate_passes_equal_paths(smoke):
+    _, failures = _gate(smoke, "xlstm_1_3b", **XLSTM)
+    assert failures == []
+
+
+@pytest.mark.parametrize("when, dtype, scale, layers", [
+    ("forward", torch.bfloat16, 1.05, True),
+    ("backward", torch.bfloat16, 1.05, True),
+    ("forward", torch.float32, 1.001, False),
+], ids=["bf16-fwd", "bf16-bwd", "f32-fwd"])
+def test_xlstm_gate_fails_a_wrong_matmul(smoke, monkeypatch, when, dtype, scale, layers):
+    ensure_registered()
+    t = get_tunable("matmul")
+    fn = t.fn
+
+    def wrong(x, w, **kw):
+        out = fn(x, w, **kw)
+        bwd = layout(x)[0] or layout(w)[0]
+        hit = x.dtype == dtype and bwd == (when == "backward")
+        return out * scale if hit else out
+
+    monkeypatch.setattr(t, "fn", wrong)
+    _, failures = _gate(smoke, "xlstm_1_3b", **XLSTM)
+    launch = [f for f in failures if "matmul launches differ" in f]
+    assert len(launch) == 1, failures
+    assert ("bf16" if dtype == torch.bfloat16 else "f32") in launch[0]
+    assert (len(failures) == 2) == layers, failures
