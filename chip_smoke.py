@@ -102,6 +102,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
              path, and
              torch.profiler splits a decode step and the largest prefill by
              kernel;
+   faults  — the fault plane on full-width qwen2_0_5b (random weights
+             from --seed, an 8-slot pool at max_seq=2048, 8 requests of
+             16..512 tokens, 16 new each, greedy), each run under its own
+             obs collector: (a) a fault-free guarded kernel engine's tokens
+             T_k and a reference engine's T_r; (b) every serving tunable
+             faulted under the guard gives T_r bit for bit, each
+             quarantined at level kernel, the warning naming InjectedFault
+             and the counter in the Prometheus export; (c) one database
+             record faulted once: its key at level record, its bucket on
+             the heuristic, every other bucket on kernel tiers, a decode
+             step's logits within TOL_LOGITS of (a)'s; (d) a NaN probe on
+             rmsnorm quarantines its bucket, the logits finite and within
+             TOL_LOGITS; (e) an unguarded engine faulted at its first
+             dispatch degrades and gives T_r bit for bit, then, re-armed,
+             T_k; (f) LockStepEngine on 8 prompts of one length, its
+             decode steps beside the pool's, its first-token logits within
+             TOL_LOGITS of the pool's; (g) the obs plane inside a
+             torch.profiler window (latency percentiles, dispatch calls by
+             tier, spans, ``serve.admit`` among the named ranges, the
+             snapshot's JSON round trip), and a decode step's host time
+             with the guard on and off and with no collector, a disabled
+             one and an enabled one (printed, not gated);
 5. hybrid  — full-width Jamba-1.5-Large without experts (num_experts=0:
              a dense SwiGLU FFN on every layer) cut to one super-block of
              8 layers (1 attention + 7 Mamba), bf16 from a seeded random
@@ -278,6 +300,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
 17. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
+After every phase a health check fails the run if the process-default obs
+collector holds a ``dispatch.quarantine`` or ``serve.degraded`` warning, or
+a live runtime's health book is not empty, or a live engine is degraded
+(the faults phase's own, demoted on purpose, excepted): no demotion hides
+on a path the port runs.
+
 Imports neither jax nor the JAX package.
 """
 from __future__ import annotations
@@ -285,12 +313,14 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1717,6 +1747,338 @@ def phase_serve(seed: int):
             total += len(ref)
     log(f"[serve] greedy tokens equal on both paths: {agree}/{total} = {agree / total:.3f}")
     return launches
+
+
+# Runtimes and engines the faults phase demotes on purpose: the health
+# check after each phase passes over them.
+FAULTED = weakref.WeakSet()
+# The faults phase's mix: 8 requests of 16..512 tokens, 16 new each, greedy.
+FAULT_LENGTHS = (16, 512, 37, 300, 64, 200, 129, 400)
+# Events a faults-phase collector keeps: a served mix's dispatch spans
+# (about 5,700) would push its warnings out of the default ring of 4,096.
+FAULT_EVENTS = 1 << 16
+
+
+def health_check(phase: str) -> None:
+    """No demotion hides: the process-default collector holds no quarantine
+    or degradation warning, and no live runtime or engine (but the faults
+    phase's) is quarantined or degraded."""
+    from repro_torch import obs
+    from repro_torch.core.runtime import TunedRuntime
+    from repro_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    warns = [f"{w['name']} [{w.get('key')}] {w.get('error', '')}"
+             for w in obs.current_collector().events("warning")
+             if w["name"] in ("dispatch.quarantine", "serve.degraded")]
+    sick = []       # uncollected garbage counts too: it was quarantined all the same
+    for o in gc.get_objects():
+        kind = type(o)         # not isinstance: some lazy modules warn on __class__
+        if kind is TunedRuntime and len(o.health) and o not in FAULTED:
+            sick.append(f"runtime {o.name}: {o.health.snapshot()}")
+        elif kind is ServingEngine and o.degraded and o not in FAULTED:
+            sick.append(f"a degraded engine ({o.stats['degraded_calls']} calls)")
+    if warns or sick:
+        raise AssertionError(f"after phase {phase}: {warns + sick}")
+    log(f"[health] phase {phase}: no quarantine, no degraded engine "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+@contextlib.contextmanager
+def prefill_logits(into: list):
+    """Records the logits of every ``lm.prefill`` call while active (the
+    engines call it through the module)."""
+    from repro_torch.models import lm
+
+    orig = lm.prefill
+
+    def rec(*a, **k):
+        logits, caches = orig(*a, **k)
+        into.append(logits.float().clone())
+        return logits, caches
+
+    lm.prefill = rec
+    try:
+        yield into
+    finally:
+        lm.prefill = orig
+
+
+def phase_faults(seed: int):
+    """The fault plane on qwen2_0_5b at full width: the guard, degraded and
+    lock-step serving, and the obs plane (the module docstring's list)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.annotate import get_tunable
+    from repro_torch.core.database import Record, TuningDatabase
+    from repro_torch.core.runtime import HealthBook, dispatch, runtime
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.obs.export import load_snapshot
+    from repro_torch.obs.metrics import percentile_row
+    from repro_torch.serving.engine import EngineConfig, LockStepEngine, Request, ServingEngine
+    from repro_torch.testing import FaultPlan, FaultRule
+
+    tag = "faults"
+    cfg = get_config("qwen2_0_5b")
+    params = lm.init_params(cfg, seed=seed, device="cuda")
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+    run = RunConfig()
+    rs = np.random.RandomState(seed + 26)
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in FAULT_LENGTHS]
+    serving = ("matmul", "rmsnorm", "flash_attention")
+
+    def serve(rt, plan=None, col=None, engine=None):
+        eng = engine or ServingEngine(cfg, run, params, ecfg, runtime=rt)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, max_new_tokens=16, seed=seed + i))
+        with (col or contextlib.nullcontext()), (plan or contextlib.nullcontext()):
+            done = eng.serve()
+        torch.cuda.synchronize()
+        if len(done) != len(prompts) or any(r.output is None or len(r.output) != 16
+                                            for r in done):
+            raise AssertionError(f"[{tag}] a request was lost or cut short")
+        return [r.output.tolist() for r in done], eng
+
+    probe_prompt = torch.from_numpy(prompts[3].astype(np.int64)).cuda()[None]
+
+    def probe_logits(rt, plan=None, col=None):
+        """A 300-token prefill in all 8 slots, then one decode step of the
+        pool (its q projection is the [8,896]@[896,896] bucket): the step's
+        logits, fp32."""
+        pool = lm.init_cache(cfg, 8, ecfg.max_seq, "cuda")
+        toks = torch.zeros((1, 512), dtype=torch.long, device="cuda")
+        toks[:, :300] = probe_prompt
+        with (col or contextlib.nullcontext()), (plan or contextlib.nullcontext()), rt, \
+                torch.inference_mode():
+            _, cache = lm.prefill(params, {"tokens": toks}, cfg, run, cache_len=ecfg.max_seq,
+                                  true_len=300)
+            for slot in range(8):
+                lm.insert_cache(pool, cache, slot)
+            nxt = torch.full((8, 1), int(prompts[0][0]), dtype=torch.long, device="cuda")
+            logits, _ = lm.decode_step(params, nxt, pool, torch.full((8,), 300, device="cuda"),
+                                       cfg, run)
+            return logits.float()
+
+    def quarantine_warnings(col):
+        return [w for w in col.events("warning") if w["name"] == "dispatch.quarantine"]
+
+    # (a) baselines
+    rt_k = runtime(name="faults-kernel")
+    t_k, _ = serve(rt_k)
+    t_r, _ = serve(runtime(mode="reference", name="faults-reference"))
+    logits_a = probe_logits(rt_k)
+    same = sum(a == b for x, y in zip(t_k, t_r) for a, b in zip(x, y))
+    log(f"[{tag}] (a) guarded kernel engine T_k and reference engine T_r: {len(t_k)} requests "
+        f"of {list(FAULT_LENGTHS)} tokens, 16 new each; {same}/{16 * len(t_k)} tokens equal; "
+        f"kernel telemetry tiers {rt_k.telemetry.tiers}")
+    if rt_k.telemetry.tiers.get("reference", 0) or len(rt_k.health):
+        raise AssertionError(f"[{tag}] (a) the fault-free engine left the kernel path")
+
+    # (b) every serving tunable faulted under the guard
+    rt_b = runtime(name="faults-guarded")
+    FAULTED.add(rt_b)
+    plan_b = FaultPlan([FaultRule(site="dispatch.kernel:*")], seed=seed, name="every-tunable")
+    col_b = obs.collect(name="faults-b", max_events=FAULT_EVENTS)
+    t_b, _ = serve(rt_b, plan_b, col_b)
+    fired = {s.split(":", 1)[1] for s, _, _ in plan_b.fired}
+    health = rt_b.health.snapshot()
+    quarantined = {k.split("|")[0] for k, h in health.items() if h["level"] == "kernel"}
+    warns = quarantine_warnings(col_b)
+    with tempfile.TemporaryDirectory() as d:
+        col_b.write_prom(os.path.join(d, "faults.prom"))
+        prom = open(os.path.join(d, "faults.prom")).read()
+    n_quar = sum(r["value"] for r in col_b.snapshot()["counters"].get("dispatch.quarantine", []))
+    log(f"[{tag}] (b) every tunable faulted, guard on: tokens equal T_r: {t_b == t_r}; fired "
+        f"{len(plan_b.fired)} times on {sorted(fired)}; {len(health)} keys quarantined, levels "
+        f"{sorted({h['level'] for h in health.values()})}; {len(warns)} warnings, "
+        f"{n_quar:g} quarantines counted; tiers "
+        f"{rt_b.telemetry.tiers}; Prometheus export holds dispatch_quarantine: "
+        f"{'repro_dispatch_quarantine' in prom}")
+    if t_b != t_r:
+        raise AssertionError(f"[{tag}] (b) the faulted guarded engine's tokens differ from T_r")
+    if not (fired == quarantined == set(serving)) or any(
+            h["level"] != "kernel" for h in health.values()):
+        raise AssertionError(f"[{tag}] (b) fired {fired}, quarantined {health}")
+    if not warns or not all("InjectedFault" in w["error"] for w in warns):
+        raise AssertionError(f"[{tag}] (b) quarantine warnings {warns}")
+    if "repro_dispatch_quarantine" not in prom:
+        raise AssertionError(f"[{tag}] (b) the Prometheus export lacks dispatch.quarantine")
+
+    # (c) one stored record faults once
+    mm = get_tunable("matmul")
+    # the key needs shapes, dtypes and the device only
+    qx = torch.empty((8, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    qw = torch.empty((cfg.d_model, cfg.num_heads * cfg.hd), dtype=torch.bfloat16, device="cuda")
+    cargs, _ = mm.dispatch.canon((qx, qw))
+    db = TuningDatabase(None)
+    rt_c = runtime(db=db, name="faults-record")
+    rt_c.health = HealthBook(base_s=300.0)      # read before a probe could heal it
+    FAULTED.add(rt_c)
+    key = rt_c.key_for(mm, cargs)
+    heur = mm.default_config(*cargs)
+    legal = [c for c in mm.space.enumerate() if c != heur and mm.why_illegal(c, *cargs) is None]
+    rec = min(legal, key=lambda c: sum(c[k] != heur[k] for k in heur))
+    db.put(Record(key=key, config=rec, objective=1e-6, evaluator="wallclock", evaluations=1,
+                  timestamp=time.time()), save=False)
+    plan_c = FaultPlan([FaultRule(site="dispatch.kernel:matmul", when={"tier": "exact"},
+                                  times=1)], seed=seed, name="one-record")
+    logits_c = probe_logits(rt_c, plan_c, obs.collect(name="faults-c", max_events=FAULT_EVENTS))
+    health = rt_c.health.snapshot()
+    by_key = rt_c.telemetry.by_key
+    others = {k: v for k, v in by_key.items() if k != key and "reference" in v}
+    _, rel_c = rel_err(logits_c, logits_a)
+    log(f"[{tag}] (c) record {rec} (heuristic {heur}) for {key} faulted once: health "
+        f"{health}; its telemetry {by_key.get(key)}; {len(by_key) - 1} other keys, "
+        f"{len(others)} of them on the reference; decode logits rel to (a)'s {rel_c:.3e} "
+        f"(tol {TOL_LOGITS})")
+    if list(health) != [key] or health[key]["level"] != "record":
+        raise AssertionError(f"[{tag}] (c) health book {health}")
+    if by_key.get(key, {}).get("heuristic", 0) <= 0 or "reference" in by_key.get(key, {}):
+        raise AssertionError(f"[{tag}] (c) the faulted bucket's telemetry {by_key.get(key)}")
+    if others or len(plan_c.fired) != 1:
+        raise AssertionError(f"[{tag}] (c) other buckets left the kernel tiers: {others}")
+    if rel_c > TOL_LOGITS:
+        raise AssertionError(f"[{tag}] (c) logits rel {rel_c:.3g} > {TOL_LOGITS}")
+
+    # (d) a NaN probe
+    rt_d = runtime(guard_nonfinite=True, name="faults-nan")
+    FAULTED.add(rt_d)
+    plan_d = FaultPlan([FaultRule(site="dispatch.kernel:rmsnorm", kind="nan", times=1)],
+                       seed=seed, name="nan")
+    col_d = obs.collect(name="faults-d", max_events=FAULT_EVENTS)
+    logits_d = probe_logits(rt_d, plan_d, col_d)
+    health = rt_d.health.snapshot()
+    finite = bool(torch.isfinite(logits_d).all())
+    _, rel_d = rel_err(logits_d, logits_a)
+    warns = quarantine_warnings(col_d)
+    log(f"[{tag}] (d) NaN probe on rmsnorm: fired {plan_d.fired}; health {health}; logits "
+        f"finite {finite}, rel to (a)'s {rel_d:.3e} (tol {TOL_LOGITS}); warning "
+        f"{[w['error'] for w in warns]}")
+    if not (len(health) == 1 and all(k.startswith("rmsnorm|") and h["level"] == "kernel"
+                                     for k, h in health.items())):
+        raise AssertionError(f"[{tag}] (d) health book {health}")
+    if not finite or rel_d > TOL_LOGITS or not any("DispatchFault" in w["error"] for w in warns):
+        raise AssertionError(f"[{tag}] (d) finite {finite}, rel {rel_d:.3g}, warnings {warns}")
+
+    # (e) the unguarded engine
+    rt_e = runtime(guard=False, name="faults-unguarded")
+    plan_e = FaultPlan([FaultRule(site="dispatch.kernel:*", times=1)], seed=seed,
+                       name="first-dispatch")
+    col_e = obs.collect(name="faults-e", max_events=FAULT_EVENTS)
+    eng_e = ServingEngine(cfg, run, params, ecfg, runtime=rt_e)
+    FAULTED.add(eng_e)
+    t_e, _ = serve(rt_e, plan_e, col_e, engine=eng_e)
+    degraded, calls = eng_e.degraded, eng_e.stats["degraded_calls"]
+    warned = [w["key"] for w in col_e.events("warning") if w["name"] == "serve.degraded"]
+    eng_e.reset_degraded()
+    t_e2, _ = serve(rt_e, engine=eng_e)
+    log(f"[{tag}] (e) unguarded, faulted at its first dispatch ({plan_e.fired}): degraded "
+        f"{degraded}, {calls} degraded calls, warnings {warned}; tokens equal T_r: "
+        f"{t_e == t_r}; re-armed: tokens equal T_k: {t_e2 == t_k}, degraded calls "
+        f"{eng_e.stats['degraded_calls']}")
+    if not degraded or calls <= 0 or not warned or t_e != t_r:
+        raise AssertionError(f"[{tag}] (e) the degraded engine: degraded {degraded}, calls "
+                             f"{calls}, warnings {warned}, tokens equal T_r {t_e == t_r}")
+    if t_e2 != t_k or eng_e.stats["degraded_calls"] != calls or eng_e.degraded:
+        raise AssertionError(f"[{tag}] (e) re-armed, the engine did not serve T_k on kernels")
+
+    # (f) LockStepEngine against the slot pool, 8 prompts of one length
+    same_len = [rs.randint(0, cfg.vocab_size, 256).astype(np.int32) for _ in range(8)]
+    lock_logits, pool_logits = [], []
+    lock = LockStepEngine(cfg, run, params, ecfg)
+    pool_eng = ServingEngine(cfg, run, params, ecfg, runtime=rt_k)
+    outs = {}
+    for name, eng, into in (("lock", lock, lock_logits), ("pool", pool_eng, pool_logits)):
+        for i, p in enumerate(same_len):
+            eng.submit(Request(prompt=p, max_new_tokens=16, seed=seed + i))
+        with prefill_logits(into), rt_k:
+            outs[name] = [r.output.tolist() for r in eng.serve()]
+    first_lock = lock_logits[0]
+    first_pool = torch.cat(pool_logits)
+    _, rel_f = rel_err(first_lock, first_pool)
+    agree = sum(a == b for x, y in zip(outs["lock"], outs["pool"]) for a, b in zip(x, y))
+    log(f"[{tag}] (f) LockStepEngine: {lock.stats['decode_steps']} decode steps, the slot pool "
+        f"{pool_eng.stats['decode_steps']} on the same 8 x 256-token mix; first-token logits "
+        f"rel {rel_f:.3e} (tol {TOL_LOGITS}); tokens equal {agree}/{16 * 8}")
+    if rel_f > TOL_LOGITS:
+        raise AssertionError(f"[{tag}] (f) first-token logits rel {rel_f:.3g} > {TOL_LOGITS}")
+
+    # (g) obs inside a torch.profiler window
+    col_g = obs.collect(name="faults-g", profiler_annotations=True,
+                          max_events=FAULT_EVENTS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t_g, _ = serve(rt_k, col=col_g)
+    names = {ev.name() for ev in prof.profiler.kineto_results.events()}
+    snap = col_g.snapshot()
+    lat = percentile_row(snap, "serve.latency_s")
+    by_tier = {}
+    for r in snap["counters"].get("dispatch.calls", []):
+        by_tier[r["tags"]["tier"]] = by_tier.get(r["tags"]["tier"], 0) + r["value"]
+    n_spans = sum(r["count"] for n, rows in snap["histograms"].items() if n.startswith("span.")
+                  for r in rows)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "metrics.json")
+        col_g.write(path)
+        loaded = load_snapshot(path)
+    trip = loaded["counters"] == snap["counters"] and loaded["histograms"] == snap["histograms"]
+    log(f"[{tag}] (g) obs: serve.latency_s p50 {lat['p50'] * 1e3:.2f} ms p99 "
+        f"{lat['p99'] * 1e3:.2f} ms (n={lat['count']}); dispatch.calls by tier {by_tier}; "
+        f"{n_spans} spans ({len(col_g.events('span'))} in the ring); serve.admit among the "
+        f"profiler's named ranges: {'serve.admit' in names}; snapshot JSON round trip equal: "
+        f"{trip}; tokens equal T_k: {t_g == t_k}")
+    if "serve.admit" not in names or not trip or not lat or lat["count"] != len(prompts):
+        raise AssertionError(f"[{tag}] (g) the obs plane: serve.admit ranged "
+                             f"{'serve.admit' in names}, round trip {trip}, latency {lat}")
+
+    # the guard's and the collector's host cost, interleaved: a decode step
+    # of the pool (host-bound, so its spread is wide), and one dispatch of
+    # the decode q projection's bucket (host-bound too: 2,000 calls a turn)
+    pool = lm.init_cache(cfg, 8, ecfg.max_seq, "cuda")
+    tokens = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    pos = torch.arange(8, device="cuda") * 200 + 50
+    qx = torch.randn((8, cfg.d_model), device="cuda").to(torch.bfloat16)
+    qw = torch.randn((cfg.d_model, cfg.d_model), device="cuda").to(torch.bfloat16)
+    rt_off = runtime(guard=False, name="faults-guard-off")
+    variants = {"guard on, no collector": (rt_k, None),
+                "guard off, no collector": (rt_off, None),
+                "guard on, collector disabled": (rt_k, False),
+                "guard on, collector enabled": (rt_k, True)}
+    step_ms = {v: [] for v in variants}
+    call_us = {v: [] for v in variants}
+    for _ in range(3):
+        for v, (rt, on) in variants.items():
+            scope = contextlib.nullcontext() if on is None else obs.collect(enabled=on)
+            with scope, rt, torch.inference_mode():
+                for i in range(7):
+                    t0 = time.perf_counter()
+                    lm.decode_step(params, tokens, pool, pos, cfg, run)[0].float().cpu()
+                    if i:
+                        step_ms[v].append((time.perf_counter() - t0) * 1e3)
+                dispatch("matmul", qx, qw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    dispatch("matmul", qx, qw)
+                torch.cuda.synchronize()
+                call_us[v].append((time.perf_counter() - t0) * 1e6 / 2000)
+    med = {v: float(np.median(t)) for v, t in step_ms.items()}
+    per = {v: float(np.median(t)) for v, t in call_us.items()}
+    n_disp = cfg.num_layers * 9 + 2
+    on, off = per["guard on, no collector"], per["guard off, no collector"]
+    log(f"[{tag}] decode step (8 slots) host clock, median of {len(step_ms[v])} in turns: "
+        + "; ".join(f"{v} {ms:.2f} ms" for v, ms in med.items()))
+    d = cfg.d_model
+    log(f"[{tag}] one matmul dispatch [8,{d}]@[{d},{d}], host clock, median of 3 turns of "
+        f"2,000: " + "; ".join(f"{v} {us:.2f} us" for v, us in per.items()))
+    log(f"[{tag}] the guard's host cost: {on - off:+.2f} us a dispatch, x {n_disp} dispatches = "
+        f"{(on - off) * n_disp / 1e3:+.3f} ms a decode step (steps: "
+        f"{med['guard on, no collector'] - med['guard off, no collector']:+.2f} ms); the "
+        f"collector's: disabled {per['guard on, collector disabled'] - on:+.2f} us a dispatch, "
+        f"enabled {per['guard on, collector enabled'] - on:+.2f} us (steps: disabled "
+        f"{med['guard on, collector disabled'] - med['guard on, no collector']:+.2f} ms, "
+        f"enabled {med['guard on, collector enabled'] - med['guard on, no collector']:+.2f} ms)")
 
 
 HYBRID_LENGTHS = (16, 1500, 37, 700, 129, 1024, 300, 8)
@@ -3789,16 +4151,19 @@ def main() -> int:
     t0 = time.perf_counter()
 
     def timed(name, fn, *fargs):
-        """Run one phase, its seconds logged; the card's cache emptied after."""
+        """Run one phase, its seconds logged; the card's cache emptied and
+        the health check run after."""
         t = time.perf_counter()
         out = fn(*fargs)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
+        health_check(name)
         return out
 
     timed("build", phase_build)
     results = timed("kernels", phase_kernels, prof, args.seed)
     serve_launches = timed("serve", phase_serve, args.seed)
+    timed("faults", phase_faults, args.seed)
     hybrid_launches = timed("hybrid", phase_hybrid, args.seed)
     moe_launches = timed("moe", phase_moe, args.seed)
     gemma_launches = timed("gemma", phase_gemma, args.seed)

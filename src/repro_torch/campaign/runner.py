@@ -13,6 +13,12 @@ back from the job's key extra (``asilu`` -> ``act="silu"``, ``cTruew0`` ->
 so a fused-activation job is timed and gated with its activation, where the
 JAX runner measures every job at the tunable's defaults.
 
+Each attempt is the ``campaign.job:<kernel>`` fault site and, under an
+enabled :mod:`repro_torch.obs` collector, a ``campaign.job`` span; a job
+records ``campaign.jobs`` by status, ``campaign.job_s`` and
+``campaign.speedup`` (heuristic over best) by kernel, and a poisoned job
+warns once.
+
 Export clusters the platform's winners into cover sets and writes the
 database a deployment ships.
 """
@@ -36,6 +42,9 @@ from ..core.platform import resolve_device
 from ..core.runtime import TunedRuntime
 from ..core.search import CoordinateDescent, SearchAlgorithm
 from ..core.tuner import autotune, promoted_dtype
+from ..obs.collect import current_collector as _obs_collector
+from ..obs.trace import span as _obs_span
+from ..testing.faults import fault_point as _fault_point
 from .planner import TuningJob, _register_tunables
 from .scheduler import CampaignManifest
 from .transfer import compute_covers, warm_start_configs
@@ -172,13 +181,17 @@ def run_campaign(
                 seeds = warm_start_configs(db, job.kernel, manifest.platform, job.arg_shapes,
                                            promoted_dtype(job.arg_dtypes), job.key_extra,
                                            space=tunable.space)
+            col = _obs_collector()
+            t_job = time.perf_counter()
             while True:
                 job.attempts += 1
                 search = (search_factory(job) if search_factory
                           else CoordinateDescent(budget=job.budget, restarts=2))
                 try:
+                    _fault_point(f"campaign.job:{job.kernel}", attempt=job.attempts)
                     args = materialize_args(job, seed=arg_seed, device=device)
-                    with campaign_rt:
+                    with campaign_rt, _obs_span("campaign.job", kernel=job.kernel,
+                                                budget=job.budget):
                         res = autotune(tunable, args, search=search, evaluator=evaluator,
                                        db=db, key_extra=job.key_extra, seed_configs=seeds,
                                        platform=manifest.platform,
@@ -193,6 +206,10 @@ def run_campaign(
                         manifest.save()
                         continue
                     job.status = "poisoned"
+                    if col.enabled:
+                        col.counter("campaign.jobs", status="poisoned")
+                    col.warn_once("campaign.job_poisoned", key=job.db_key(manifest.platform),
+                                  kernel=job.kernel, attempts=job.attempts, error=job.error)
                     log.warning("job %s %s poisoned after %d attempt(s): %s", job.kernel,
                                 job.arg_shapes, job.attempts, job.error)
                     break
@@ -202,6 +219,14 @@ def run_campaign(
                 job.default_objective = res.default_objective
                 job.seeded = bool(seeds)
                 job.error = ""
+                if col.enabled:
+                    col.observe("campaign.job_s", time.perf_counter() - t_job,
+                                kernel=job.kernel)
+                    if res.best_objective > 0 and res.default_objective > 0:
+                        col.observe("campaign.speedup",
+                                    res.default_objective / res.best_objective,
+                                    kernel=job.kernel)
+                    col.counter("campaign.jobs", status="done")
                 # pruned trials by reason ("correctness gate failed",
                 # "refused launch (CUDA error 7)", ...)
                 by_reason = manifest.meta.setdefault("pruned", {})

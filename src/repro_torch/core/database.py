@@ -19,6 +19,8 @@ import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+from ..testing.faults import fault_point as _fault_point
+
 log = logging.getLogger("repro_torch.database")
 
 SCHEMA_VERSION = 2
@@ -132,6 +134,7 @@ class TuningDatabase:
         # A torn or foreign file degrades to an empty database: records are
         # always recoverable by re-tuning.
         try:
+            _fault_point(f"db.load:{self.path}")
             with open(self.path) as f:
                 blob = json.load(f)
         except (ValueError, OSError) as e:

@@ -25,10 +25,39 @@ without this wrapper its output would carry no ``grad_fn`` and the layer
 would silently drop out of the graph; a dispatch that has no backward and
 whose inputs require grad raises instead.
 
-Two differences from ``repro.core.runtime``, both on purpose:
+Guarded execution (``guard=True``, the default, as in ``repro``): a
+stored record's config that raises quarantines its database key in the
+runtime's :class:`HealthBook` and the call falls through to the heuristic
+config; an injected fault (:mod:`repro_torch.testing`) or a failed
+non-finite probe quarantines it and the reference serves it. Any other
+error of the heuristic config raises (see :meth:`TunedRuntime._guarded_call`).
+Quarantines back off exponentially and re-probe when they lapse; the guard
+is consulted at every eager call, so a quarantined bucket serves the
+reference only until its probe succeeds. ``guard_nonfinite=True`` also
+counts a non-finite output of a bucket's first (probe) execution as a
+fault. ``config=`` overrides and ``guard=False`` stay unguarded. Under an
+enabled :mod:`repro_torch.obs` collector each dispatch runs in a
+``span("dispatch")``, resolution is timed (``dispatch.resolve_s``) and
+counted (``dispatch.calls``), and a quarantine is counted and warned once.
+
+Differences from ``repro.core.runtime``, all on purpose:
 
 * the default mode is the kernel path; there is no environment switch;
-* there is no fault guard: a kernel that raises raises through.
+* :class:`~repro_torch.kernels._build.KernelUnavailable` (no toolkit, a
+  failed build, a library that does not load, a tensor on a device with no
+  kernel) and :class:`~repro_torch.kernels._build.CudaError` (a launch the
+  card refused) raise through the guard: a kernel that does not exist on
+  this host is not a fault of one variant, and serving the reference in its
+  place would hide it;
+* the reference answers only the fault plane's faults and failed
+  non-finite probes; a real error of the heuristic config raises, where
+  ``repro``'s guard serves the reference for any exception;
+* a call site may name its own plain version (``dispatch(...,
+  reference=fn)``) for where it takes the reference tier, so a faulted
+  site computes what reference mode computes there.
+
+A sticky CUDA error (an illegal address) surfaces at a later
+synchronisation, outside any guard; nothing here tries to catch it.
 """
 from __future__ import annotations
 
@@ -38,10 +67,14 @@ import contextvars
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..obs.collect import current_collector as _obs_collector
+from ..obs.trace import span as _obs_span
+from ..testing import faults as _faults
+from ..testing.faults import InjectedFault
 from .annotate import DispatchSpec, Tunable, get_tunable
 from .database import TuningDatabase, split_key
 from .params import Config
@@ -49,6 +82,13 @@ from .platform import platform_key
 from .tuner import _args_key, first_device
 
 _MODES = ("kernel", "reference")
+
+
+class DispatchFault(RuntimeError):
+    """A guarded dispatch's own fault signal (a failed non-finite probe):
+    raised and caught inside the guard, quarantining the bucket."""
+
+
 TIERS = ("override", "exact", "tune", "cover", "heuristic", "reference")
 
 # Dispatch phases: forward sites, gradient sites (dispatches made while a
@@ -94,11 +134,18 @@ class ResolutionRequest:
 
 @dataclasses.dataclass
 class Resolution:
-    """``config=None`` means: run the reference implementation."""
+    """``config=None`` means: run the reference implementation.
+
+    ``cache=False`` keeps the resolution out of the runtime's cache (a
+    quarantined bucket re-resolves at every call); ``probe=True`` asks the
+    guard to validate this execution before the health book clears the
+    bucket."""
 
     config: Optional[Config]
     tier: str
     key: Optional[str] = None
+    cache: bool = True
+    probe: bool = False
 
 
 class ResolutionPolicy:
@@ -178,6 +225,76 @@ def default_policy() -> Tuple[ResolutionPolicy, ...]:
     return (ExactHit(), TuneNow(), CoverSet(), Heuristic(), Reference())
 
 
+@dataclasses.dataclass
+class _Health:
+    level: str              # "record" (this db record) | "kernel" (any variant)
+    fails: int = 0
+    until: float = 0.0      # monotonic stamp the quarantine lapses (probe due)
+    backoff: float = 0.0    # current re-probe interval
+
+
+class HealthBook:
+    """Per-runtime quarantine ledger for faulting kernel executions.
+
+    Keyed by full database keys. Two levels: ``"record"`` — the stored or
+    measured config of this bucket faulted (resolution skips the database
+    tiers and serves the heuristic); ``"kernel"`` — the heuristic config
+    faulted too (resolution goes straight to the reference). An entry
+    re-probes after an exponential backoff (capped), so a transient fault
+    heals without a restart and a persistent one re-quarantines with a
+    longer interval. Past ``capacity`` entries the first to lapse are
+    dropped (a dropped entry costs one extra probe).
+    """
+
+    def __init__(self, base_s: float = 5.0, max_s: float = 300.0,
+                 capacity: int = 1024):
+        self.base_s = float(base_s)
+        self.max_s = float(max_s)
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._entries: Dict[str, _Health] = {}
+
+    def consult(self, key: str) -> Optional[Tuple[str, str]]:
+        """None when healthy; ("probe"|"blocked", level) when quarantined."""
+        with self._lock:
+            h = self._entries.get(key)
+            if h is None:
+                return None
+            state = "probe" if time.monotonic() >= h.until else "blocked"
+            return state, h.level
+
+    def quarantine(self, key: str, level: str) -> _Health:
+        with self._lock:
+            h = self._entries.get(key)
+            if h is None:
+                h = self._entries[key] = _Health(level=level)
+            elif level == "kernel":
+                h.level = "kernel"      # escalate; never de-escalate here
+            h.fails += 1
+            h.backoff = min(self.max_s, self.base_s * (2 ** (h.fails - 1)))
+            h.until = time.monotonic() + h.backoff
+            while len(self._entries) > self.capacity:
+                victim = min(self._entries, key=lambda k: self._entries[k].until)
+                del self._entries[victim]
+            return h
+
+    def record_ok(self, key: str) -> None:
+        with self._lock:
+            self._entries.pop(key, None)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        now = time.monotonic()
+        with self._lock:
+            return {
+                k: {"level": h.level, "fails": h.fails,
+                    "backoff_s": h.backoff, "probe_in_s": max(0.0, h.until - now)}
+                for k, h in self._entries.items()
+            }
+
+
 class Telemetry:
     """Per-runtime counters: which tier served each kernel x bucket.
 
@@ -204,7 +321,7 @@ class Telemetry:
             self.cache_evictions = 0
 
     def record(self, kernel: str, key: Optional[str], tier: str,
-               cached: bool = False) -> None:
+               cached: bool = False, col=None) -> None:
         k = key if key is not None else f"{kernel}|*"
         phase = _phase_ctx.get()
         with self._lock:
@@ -217,6 +334,13 @@ class Telemetry:
             ph[tier] = ph.get(tier, 0) + 1
             pk = self.by_key_phase.setdefault(phase, {}).setdefault(k, {})
             pk[tier] = pk.get(tier, 0) + 1
+        # The same accounting as a tagged obs counter (one enabled check when
+        # nobody collects; a dispatch hands down the collector it looked up);
+        # the per-key breakdown stays here.
+        col = col if col is not None else _obs_collector()
+        if col.enabled:
+            col.counter("dispatch.calls", kernel=kernel, tier=tier, phase=phase,
+                        cached="hit" if cached else "miss")
 
     def record_eviction(self, count: int = 1) -> None:
         with self._lock:
@@ -280,7 +404,8 @@ class TunedRuntime:
     ``cache_ttl`` seconds when that is set. ``allow_tune`` lets the TuneNow
     tier tune a missing bucket on the spot with ``tune_kwargs``.
     ``bwd_dispatch=False`` turns every ``vjp="dispatch"`` backward into the
-    reference VJP.
+    reference VJP. ``guard`` (default on) and ``guard_nonfinite`` (default
+    off) set the fault guard (module docstring); ``health`` is its ledger.
     """
 
     def __init__(
@@ -294,6 +419,8 @@ class TunedRuntime:
         cache_capacity: Union[int, object] = _INHERIT,
         cache_ttl: Union[float, None, object] = _INHERIT,
         bwd_dispatch: Union[bool, object] = _INHERIT,
+        guard: Union[bool, object] = _INHERIT,
+        guard_nonfinite: Union[bool, object] = _INHERIT,
         name: str = "",
         _is_root: bool = False,
     ):
@@ -320,6 +447,13 @@ class TunedRuntime:
         self.cache_capacity = max(0, int(inherit(cache_capacity, "cache_capacity", 4096)))
         self.cache_ttl: Optional[float] = inherit(cache_ttl, "cache_ttl", None)
         self.bwd_dispatch = bool(inherit(bwd_dispatch, "bwd_dispatch", True))
+        # A variant that raises quarantines its bucket and the call falls
+        # through instead of raising; guard=False restores raise-through.
+        self.guard = bool(inherit(guard, "guard", True))
+        # Opt-in: a non-finite output of a bucket's first execution is a
+        # fault (legitimate kernels may emit -inf masks, so off by default).
+        self.guard_nonfinite = bool(inherit(guard_nonfinite, "guard_nonfinite", False))
+        self.health = HealthBook()
         self.name = name or ("default" if _is_root else f"runtime@{id(self):x}")
         self.telemetry = Telemetry()
         # key -> (db it was resolved against, Resolution, monotonic stamp)
@@ -354,6 +488,10 @@ class TunedRuntime:
         """Drop every cached resolution (after changing the database)."""
         with self._cache_lock:
             self._cache.clear()
+
+    def _cache_evict(self, key: str) -> None:
+        with self._cache_lock:
+            self._cache.pop(key, None)
 
     def _cache_get(self, key: str) -> Optional[Resolution]:
         now = time.monotonic()
@@ -400,60 +538,184 @@ class TunedRuntime:
         ``allow_tune`` / ``tune_kwargs`` override the runtime's own for this
         call only; a cached resolution wins over ``allow_tune=True``
         (``clear_cache()`` first to tune buckets already resolved).
+
+        With the guard on, the health book is consulted first: a bucket
+        quarantined at level ``kernel`` resolves to the reference, one at
+        level ``record`` among the tiers that read no database record, and
+        one whose backoff lapsed re-runs the pipeline as a probe (uncached,
+        ``probe=True``) so the guard re-validates it.
         """
-        tunable = _as_tunable(tunable)
+        return self._resolve(_as_tunable(tunable), args, key_extra, allow_tune, tune_kwargs,
+                             _obs_collector())
+
+    def _resolve(self, tunable: Tunable, args: Sequence[Any], key_extra: str,
+                 allow_tune: Optional[bool], tune_kwargs: Optional[Dict[str, Any]],
+                 col) -> Resolution:
         platform = self.platform_for(args)
+        t0 = time.perf_counter() if col.enabled else 0.0
         key = _args_key(tunable, args, platform, key_extra)
-        hit = self._cache_get(key)
-        if hit is not None:
-            self.telemetry.record(tunable.name, key, hit.tier, cached=True)
-            return hit
+        probe = skip_record_tiers = False
+        if self.guard:
+            h = self.health.consult(key)
+            if h is not None:
+                state, level = h
+                if state == "probe":
+                    probe = True
+                elif level == "kernel":
+                    res = Resolution(None, "reference", key=key, cache=False)
+                    self._record(tunable, key, res.tier, False, col, t0)
+                    return res
+                else:
+                    skip_record_tiers = True
+        if not (probe or skip_record_tiers):
+            hit = self._cache_get(key)
+            if hit is not None:
+                self._record(tunable, key, hit.tier, True, col, t0)
+                return hit
         req = ResolutionRequest(
             tunable=tunable, args=tuple(args), key=key, db=self.db, key_extra=key_extra,
             platform=platform,
             allow_tune=self.allow_tune if allow_tune is None else bool(allow_tune),
             tune_kwargs={**self.tune_kwargs, **(tune_kwargs or {})})
+        pipeline = self.policy
+        if skip_record_tiers:
+            # the stored or measured config of this bucket faulted
+            pipeline = tuple(p for p in pipeline if p.name not in ("exact", "tune", "cover"))
         res = None
-        for pol in self.policy:
+        for pol in pipeline:
             res = pol.resolve(req)
             if res is not None:
                 break
         if res is None:
             res = Resolution(None, "reference")
         res.key = key
-        self._cache_put(key, res)
-        self.telemetry.record(tunable.name, key, res.tier)
+        if probe or skip_record_tiers:
+            res.cache, res.probe = False, probe
+        elif self.guard and self.guard_nonfinite and res.config is not None:
+            # a bucket's first execution is probed; the cached copy is not
+            res = dataclasses.replace(res, probe=True)
+        if res.cache:
+            self._cache_put(key, dataclasses.replace(res, probe=False))
+        self._record(tunable, key, res.tier, False, col, t0)
         return res
+
+    def _record(self, tunable: Tunable, key: str, tier: str, cached: bool, col,
+                t0: float) -> None:
+        self.telemetry.record(tunable.name, key, tier, cached=cached, col=col)
+        if col.enabled:
+            col.observe("dispatch.resolve_s", time.perf_counter() - t0, tier=tier,
+                        phase=_phase_ctx.get(), cached="hit" if cached else "miss")
 
     # -- dispatch ------------------------------------------------------------
     def dispatch(self, tunable: Union[str, Tunable], *args,
                  config: Optional[Config] = None,
-                 dp_dims: Optional[Dict[int, int]] = None, **kwargs):
+                 dp_dims: Optional[Dict[int, int]] = None,
+                 reference: Optional[Callable] = None, **kwargs):
         """Execute one tunable through this runtime.
 
         Reference mode wins over everything, ``config=`` included. In kernel
-        mode ``config=`` bypasses resolution (tier ``override``); otherwise
-        the resolved config runs on the canonical args, and the Reference
-        tier runs the spec's reference on the original args. A kernel-mode
+        mode ``config=`` bypasses resolution (tier ``override``) and the
+        guard; otherwise the resolved config runs on the canonical args
+        behind the guard, and the Reference tier runs the reference on the
+        original args: ``reference`` when the call site names one (its own
+        plain version of the same function), else the spec's. A kernel-mode
         call is differentiable through :class:`KernelCall`. ``dp_dims`` is
         the JAX package's local-shard keying of transposed operands; on one
         device it changes nothing and is accepted for call-site parity.
+
+        Under an enabled obs collector the call runs inside
+        ``span("dispatch")`` (kernel and phase on the event).
         """
         del dp_dims
         tunable = _as_tunable(tunable)
+        col = _obs_collector()        # looked up once a dispatch, handed down
+        if col.enabled:
+            with _obs_span("dispatch", kernel=tunable.name, phase=_phase_ctx.get()):
+                return self._dispatch_impl(tunable, args, config, reference, kwargs, col)
+        return self._dispatch_impl(tunable, args, config, reference, kwargs, col)
+
+    def _dispatch_impl(self, tunable: Tunable, args, config, reference, kwargs, col):
         spec = tunable.dispatch or _DEFAULT_SPEC
         if not self.kernel_mode_active:
-            self.telemetry.record(tunable.name, None, "reference")
-            return _reference_call(tunable, spec, args, kwargs)
+            self.telemetry.record(tunable.name, None, "reference", col=col)
+            return _reference_call(tunable, spec, args, kwargs, reference)
         cargs, restore = spec.canon(args)
         if config is not None:
-            self.telemetry.record(tunable.name, None, "override")
-        else:
-            res = self.resolve(tunable, cargs, key_extra=spec.extra_for(kwargs))
-            if res.config is None:
-                return _reference_call(tunable, spec, args, kwargs)
-            config = res.config
-        return restore(_kernel_call(self, tunable, spec, config, cargs, kwargs))
+            # pinned by hand (tests, benchmarks): the real traceback wanted
+            self.telemetry.record(tunable.name, None, "override", col=col)
+            return restore(_kernel_call(self, tunable, spec, config, cargs, kwargs))
+        res = self._resolve(tunable, cargs, spec.extra_for(kwargs), None, None, col)
+        if res.config is None:
+            return _reference_call(tunable, spec, args, kwargs, reference)
+        if not self.guard:
+            _kernel_fault(tunable, res.tier)
+            return restore(_kernel_call(self, tunable, spec, res.config, cargs, kwargs))
+        return self._guarded_call(tunable, spec, res, args, cargs, restore, reference,
+                                  kwargs)
+
+    def _guarded_call(self, tunable, spec, res, args, cargs, restore, reference, kwargs):
+        """Run a resolved variant behind the fault guard.
+
+        A stored or measured record (tiers exact, tune, cover) whose config
+        raises, whatever it raised, quarantines its bucket at level
+        ``record`` and gives way to the heuristic config when that differs.
+        The reference serves a bucket only for a fault of the fault plane
+        (:class:`~repro_torch.testing.InjectedFault`) or a failed
+        non-finite probe (:class:`DispatchFault`), and then quarantines it
+        at level ``kernel``; any other error of the last kernel config tried
+        raises, and the health book takes no entry for it: a kernel that
+        fails on the card is never answered by its plain version. The
+        serving tier gets a telemetry row of its own.
+        :class:`KernelUnavailable`, :class:`CudaError` (a launch the card
+        refused), the missing-backward contract error and the checkpoint
+        recompute's stop signal raise through at every tier, as do
+        ``BaseException``s (KeyboardInterrupt, an injected crash).
+        """
+        key = res.key
+        mode = _backward_mode(self, tunable, spec, cargs)
+        try:
+            rule = _kernel_fault(tunable, res.tier)
+            out = _run_variant(self, tunable, spec, res.config, cargs, kwargs, mode)
+            if rule is not None and rule.kind == "nan":
+                out = _nan_corrupt(out)
+            if res.probe:
+                # the probe's isfinite().all() waits for the device: probes only
+                if self.guard_nonfinite and _has_nonfinite(out):
+                    raise DispatchFault(f"non-finite output from {tunable.name} "
+                                        "during its probe")
+                self.health.record_ok(key)
+            return restore(out)
+        except Exception as e:
+            _raise_through(e)
+            err, tier = e, res.tier
+        if tier in _RECORD_TIERS:
+            hcfg = tunable.default_config(*cargs)
+            if hcfg != res.config:
+                self._note_quarantine(tunable, key, tier, "record", err)
+                try:
+                    _kernel_fault(tunable, "heuristic")
+                    out = _run_variant(self, tunable, spec, hcfg, cargs, kwargs, mode)
+                    self.telemetry.record(tunable.name, key, "heuristic")
+                    return restore(out)
+                except Exception as e2:
+                    _raise_through(e2)
+                    err, tier = e2, "heuristic"
+        if not isinstance(err, _PLAIN_MAY_SERVE):
+            raise err
+        self._note_quarantine(tunable, key, tier, "kernel", err)
+        self.telemetry.record(tunable.name, key, "reference")
+        return _reference_call(tunable, spec, args, kwargs, reference)
+
+    def _note_quarantine(self, tunable: Tunable, key: str, tier: str, level: str,
+                         exc: Exception) -> None:
+        self.health.quarantine(key, level)
+        self._cache_evict(key)
+        col = _obs_collector()
+        if col.enabled:
+            col.counter("dispatch.quarantine", kernel=tunable.name, tier=tier, level=level)
+        # fires with collection off too: a silently demoted site is the hazard
+        col.warn_once("dispatch.quarantine", key=f"{key}|{level}", kernel=tunable.name,
+                      tier=tier, level=level, error=f"{type(exc).__name__}: {exc}")
 
     def fusion_wins(self, tunable: Union[str, Tunable], *args, **kwargs) -> bool:
         """Whether a fused-epilogue site should dispatch fused here.
@@ -485,8 +747,9 @@ class TunedRuntime:
 _DEFAULT_SPEC = DispatchSpec()
 
 
-def _reference_call(tunable: Tunable, spec: DispatchSpec, args, kwargs):
-    ref = spec.reference_for(tunable)
+def _reference_call(tunable: Tunable, spec: DispatchSpec, args, kwargs,
+                    reference: Optional[Callable] = None):
+    ref = reference if reference is not None else spec.reference_for(tunable)
     if ref is None:
         raise TypeError(f"tunable {tunable.name!r} has no reference implementation")
     return ref(*args, **kwargs)
@@ -568,16 +831,15 @@ def _match_grads(name: str, grads, args, needs) -> tuple:
     return tuple(out)
 
 
-def _kernel_call(runtime: "TunedRuntime", tunable: Tunable, spec: DispatchSpec,
-                 config: Config, cargs: tuple, kwargs: Dict[str, Any]):
-    """Run one bound variant on canonical args; differentiable when an input
-    requires grad (see :class:`KernelCall`), the bare variant otherwise."""
-    variant = tunable.variant(**config)
-    needs_grad = torch.is_grad_enabled() and any(
-        isinstance(a, torch.Tensor) and a.requires_grad for a in cargs)
-    if not needs_grad:
-        out = variant(*cargs, **kwargs)
-        return out[0] if spec.residuals else out
+def _backward_mode(runtime: "TunedRuntime", tunable: Tunable, spec: DispatchSpec,
+                   cargs: tuple) -> Optional[str]:
+    """None when no input needs a gradient, else how :class:`KernelCall`
+    differentiates the call ("dispatch" or "reference"). Raises for a
+    tunable that declares no backward: a contract error of the tunable,
+    which no other variant would mend, so it is raised before the guard."""
+    if not (torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in cargs)):
+        return None
     mode = spec.vjp
     if mode == "dispatch" and (spec.bwd is None or not runtime.bwd_dispatch):
         mode = "reference"
@@ -588,7 +850,85 @@ def _kernel_call(runtime: "TunedRuntime", tunable: Tunable, spec: DispatchSpec,
             f"{tunable.name}: a kernel-mode dispatch of inputs that require grad, but "
             f"the tunable declares no backward (vjp={spec.vjp!r}); its output would "
             "carry no gradient")
+    return mode
+
+
+def _run_variant(runtime: "TunedRuntime", tunable: Tunable, spec: DispatchSpec,
+                 config: Config, cargs: tuple, kwargs: Dict[str, Any], mode: Optional[str]):
+    """Run one bound variant on canonical args: the bare variant when no
+    gradient is needed (``mode=None``), else through :class:`KernelCall`."""
+    variant = tunable.variant(**config)
+    if mode is None:
+        out = variant(*cargs, **kwargs)
+        return out[0] if spec.residuals else out
     return KernelCall.apply(_Plan(runtime, tunable, spec, variant, mode, kwargs), *cargs)
+
+
+def _kernel_call(runtime: "TunedRuntime", tunable: Tunable, spec: DispatchSpec,
+                 config: Config, cargs: tuple, kwargs: Dict[str, Any]):
+    """Run one bound variant on canonical args; differentiable when an input
+    requires grad (see :class:`KernelCall`), the bare variant otherwise."""
+    return _run_variant(runtime, tunable, spec, config, cargs, kwargs,
+                        _backward_mode(runtime, tunable, spec, cargs))
+
+
+# the stored or measured tiers: a config of theirs that faults gives way to
+# the heuristic config
+_RECORD_TIERS = ("exact", "tune", "cover")
+# the faults the plain path may answer: the fault plane's own, and a failed
+# non-finite probe
+_PLAIN_MAY_SERVE = (InjectedFault, DispatchFault)
+
+
+def _kernel_fault(tunable: Tunable, tier: str):
+    """The ``dispatch.kernel:<tunable>`` fault site: one flag read, and no
+    site name built, while no fault plan is active."""
+    if not _faults._enabled:
+        return None
+    return _faults.fault_point(f"dispatch.kernel:{tunable.name}", tier=tier)
+
+
+def raises_through(exc: BaseException) -> bool:
+    """Whether no guard or degraded path may absorb ``exc``: a kernel that
+    does not exist on this host (:class:`KernelUnavailable`), a launch the
+    card refused (:class:`CudaError`), or the signal ``torch.utils.checkpoint``
+    raises through a recompute once it holds every tensor the backward needs
+    (control flow, not a fault)."""
+    import torch.utils.checkpoint as ckpt
+
+    from ..kernels._build import CudaError, KernelUnavailable
+
+    stop = getattr(ckpt, "_StopRecomputationError", ())
+    return isinstance(exc, (KernelUnavailable, CudaError, stop))
+
+
+def _raise_through(exc: Exception) -> None:
+    if raises_through(exc):
+        raise exc
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            yield from _tensors(o)
+
+
+def _has_nonfinite(out) -> bool:
+    """True when a floating-point output holds a NaN or an inf. Each check
+    waits for the device, which is why only probes run it."""
+    return any(t.is_floating_point() and not bool(torch.isfinite(t).all())
+               for t in _tensors(out))
+
+
+def _nan_corrupt(out):
+    """Floating-point outputs replaced by NaNs (fault kind "nan")."""
+    if isinstance(out, torch.Tensor):
+        return torch.full_like(out, float("nan")) if out.is_floating_point() else out
+    if isinstance(out, (tuple, list)):
+        return type(out)(_nan_corrupt(o) for o in out)
+    return out
 
 
 def _as_tunable(t: Union[str, Tunable]) -> Tunable:
@@ -634,21 +974,25 @@ def runtime(
     cache_capacity: Union[int, object] = _INHERIT,
     cache_ttl: Union[float, None, object] = _INHERIT,
     bwd_dispatch: Union[bool, object] = _INHERIT,
+    guard: Union[bool, object] = _INHERIT,
+    guard_nonfinite: Union[bool, object] = _INHERIT,
     name: str = "",
 ) -> TunedRuntime:
     """Create a scoped dispatch runtime (use as ``with runtime(...)``)."""
     return TunedRuntime(db=db, mode=mode, policy=policy, allow_tune=allow_tune,
                         tune_kwargs=tune_kwargs, platform=platform,
                         cache_capacity=cache_capacity, cache_ttl=cache_ttl,
-                        bwd_dispatch=bwd_dispatch, name=name)
+                        bwd_dispatch=bwd_dispatch, guard=guard,
+                        guard_nonfinite=guard_nonfinite, name=name)
 
 
 def dispatch(tunable: Union[str, Tunable], *args,
              config: Optional[Config] = None,
-             dp_dims: Optional[Dict[int, int]] = None, **kwargs):
+             dp_dims: Optional[Dict[int, int]] = None,
+             reference: Optional[Callable] = None, **kwargs):
     """Dispatch through whichever runtime is active at the call."""
     return current_runtime().dispatch(tunable, *args, config=config, dp_dims=dp_dims,
-                                      **kwargs)
+                                      reference=reference, **kwargs)
 
 
 def fusion_wins(tunable: Union[str, Tunable], *args, **kwargs) -> bool:

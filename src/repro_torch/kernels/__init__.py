@@ -9,7 +9,7 @@ and builds nothing: a kernel's CUDA library is built at its first launch
 (see :mod:`._build`).
 """
 from . import attention, fused, matmul, moe_gemm, rmsnorm, ssm_scan, xent  # noqa: F401
-from ._build import launch_counts, reset_launch_counts  # noqa: F401
+from ._build import KernelUnavailable, launch_counts, reset_launch_counts  # noqa: F401
 
 # Each ported kernel: its CUDA source and the TPU kernel it replaces.
 KERNEL_SOURCES = {

@@ -8,6 +8,11 @@ reused). :func:`build_all` starts one ``nvcc`` per source at once. The
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library.
 
+A kernel that cannot exist on this host raises :class:`KernelUnavailable`:
+nvcc missing or failing, a library that does not load, or a wrapper given
+a tensor on a device with no kernel. The dispatch guard re-raises it rather
+than serving the reference in its place.
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises :class:`CudaError`, which carries the CUDA code, when
 that is not 0, since a refused launch never runs and a later synchronise
@@ -43,6 +48,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+class KernelUnavailable(RuntimeError):
+    """No kernel exists for this call on this host: the toolkit is missing,
+    the build failed, the library did not load, or the tensors lie on a
+    device the wrapper has no kernel for. Not a fault of one variant, so the
+    dispatch guard never absorbs it."""
+
+
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
@@ -58,7 +70,7 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+    raise KernelUnavailable("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
 def _digest(name: str) -> str:
@@ -103,7 +115,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         if tmp.exists():
             tmp.unlink()
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelUnavailable(f"nvcc failed for {name}.cu:\n{log}")
     out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)          # atomic: a concurrent build sees all or nothing
 
@@ -130,7 +142,11 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+                try:
+                    lib = ctypes.CDLL(str(lib_path(name)))
+                except OSError as e:
+                    raise KernelUnavailable(f"lib{name} did not load: {e}") from e
+                _libs[name] = lib
     return lib
 
 

@@ -237,7 +237,7 @@ def flash_attention(q, k, v, *, block_q: int, block_k: int, stages: int = 2,
     if q.device.type == "cpu":
         _check(q, k, v)
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-    raise RuntimeError(f"flash_attention has no kernel for device {q.device}")
+    raise _build.KernelUnavailable(f"flash_attention has no kernel for device {q.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -413,4 +413,4 @@ def flash_attention_bwd(ct, q, k, v, o, lse, *, block_q: int, block_k: int,
         _check(q, k, v)
         return flash_attention_bwd_plain(ct, q, k, v, o, lse, causal=causal, window=window,
                                          scale=scale)
-    raise RuntimeError(f"flash_attention_bwd has no kernel for device {q.device}")
+    raise _build.KernelUnavailable(f"flash_attention_bwd has no kernel for device {q.device}")

@@ -165,7 +165,7 @@ def matmul_bias_act(x, w, b, *, bm: int, bn: int, bk: int, stages: int, splits: 
                                     splits=splits, act=act)
     if x.device.type == "cpu":
         return matmul_bias_act_plain(x, w, b, act)
-    raise RuntimeError(f"matmul_bias_act has no kernel for device {x.device}")
+    raise _build.KernelUnavailable(f"matmul_bias_act has no kernel for device {x.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -280,4 +280,4 @@ def rmsnorm_matmul(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, split
                                    splits=splits, eps=eps)
     if x.device.type == "cpu":
         return rmsnorm_matmul_plain(x, scale, w, eps)
-    raise RuntimeError(f"rmsnorm_matmul has no kernel for device {x.device}")
+    raise _build.KernelUnavailable(f"rmsnorm_matmul has no kernel for device {x.device}")

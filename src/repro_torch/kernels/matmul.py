@@ -439,4 +439,4 @@ def matmul(x, w, *, bm: int, bn: int, bk: int, stages: int, splits: int):
         return matmul_cuda(x, w, bm=bm, bn=bn, bk=bk, stages=stages, splits=splits)
     if x.device.type == "cpu":
         return matmul_plain(x, w)
-    raise RuntimeError(f"matmul has no kernel for device {x.device}")
+    raise _build.KernelUnavailable(f"matmul has no kernel for device {x.device}")

@@ -142,4 +142,4 @@ def expert_gemm(x, w, *, bc: int, bn: int, bk: int, stages: int, splits: int):
         return expert_gemm_cuda(x, w, bc=bc, bn=bn, bk=bk, stages=stages, splits=splits)
     if x.device.type == "cpu":
         return expert_gemm_plain(x, w)
-    raise RuntimeError(f"expert_gemm has no kernel for device {x.device}")
+    raise _build.KernelUnavailable(f"expert_gemm has no kernel for device {x.device}")

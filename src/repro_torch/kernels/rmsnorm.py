@@ -123,7 +123,7 @@ def rmsnorm(x, weight, *, block_rows: int, eps: float = 1e-6):
         return rmsnorm_cuda(x, weight, block_rows=block_rows, eps=eps)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, weight, eps)
-    raise RuntimeError(f"rmsnorm has no kernel for device {x.device}")
+    raise _build.KernelUnavailable(f"rmsnorm has no kernel for device {x.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -246,4 +246,4 @@ def rmsnorm_bwd(ct, x, weight, invrms, *, block_rows: int, eps: float = 1e-6):
         return rmsnorm_bwd_cuda(ct, x, weight, invrms, block_rows=block_rows, eps=eps)
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(ct, x, weight, invrms, eps)
-    raise RuntimeError(f"rmsnorm_bwd has no kernel for device {x.device}")
+    raise _build.KernelUnavailable(f"rmsnorm_bwd has no kernel for device {x.device}")

@@ -316,7 +316,7 @@ def ssm_scan(xc, dt, B, C, A, h0, *, chunk: int, block_d: int, stages: int, lane
                              lanes=lanes)
     if xc.device.type == "cpu":
         return ssm_scan_plain(xc, dt, B, C, A, h0)
-    raise RuntimeError(f"ssm_scan has no kernel for device {xc.device}")
+    raise _build.KernelUnavailable(f"ssm_scan has no kernel for device {xc.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +479,7 @@ def ssm_update(xc, dt, B, C, A, h, *, block_b: int, block_d: int, lanes: int):
                                lanes=lanes)
     if xc.device.type == "cpu":
         return ssm_update_plain(xc, dt, B, C, A, h)
-    raise RuntimeError(f"ssm_update has no kernel for device {xc.device}")
+    raise _build.KernelUnavailable(f"ssm_update has no kernel for device {xc.device}")
 
 
 # ---------------------------------------------------------------------------

@@ -112,7 +112,7 @@ def softmax_xent(logits, labels, *, block_rows: int, block_v: int):
         return softmax_xent_cuda(logits, labels, block_rows=block_rows, block_v=block_v)
     if logits.device.type == "cpu":
         return softmax_xent_plain(logits, labels)
-    raise RuntimeError(f"softmax_xent has no kernel for device {logits.device}")
+    raise _build.KernelUnavailable(f"softmax_xent has no kernel for device {logits.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -179,4 +179,4 @@ def softmax_xent_bwd(ct, logits, labels, lse, *, block_rows: int, block_v: int):
                                      block_v=block_v)
     if logits.device.type == "cpu":
         return softmax_xent_bwd_plain(ct, logits, labels, lse)
-    raise RuntimeError(f"softmax_xent_bwd has no kernel for device {logits.device}")
+    raise _build.KernelUnavailable(f"softmax_xent_bwd has no kernel for device {logits.device}")

@@ -6,7 +6,8 @@ another platform's namespace); ``--mode`` picks the kernel path or the
 reference path, and ``--bwd-dispatch off`` differentiates every kernel
 through its reference instead of its dispatched backward plan. The run ends with the runtime's telemetry report (which
 tier served each kernel x bucket, split into the fwd / bwd / opt phases)
-and each kernel's launch count.
+and each kernel's launch count. ``--metrics-out`` collects the obs plane's
+metrics (``train.step_s``, ``dispatch.calls``, the spans) into a snapshot.
 
     # full width on the card, random weights from --seed, batch 4 x 2048:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 6
@@ -26,10 +27,12 @@ and each kernel's launch count.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import Optional, Sequence
 
 from .. import kernels
+from .. import obs
 from ..configs.base import get_config
 from ..core.database import TuningDatabase
 from ..core.runtime import runtime
@@ -56,6 +59,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--bwd-dispatch", default="on", choices=("on", "off"),
                     help="off: differentiate every kernel through its reference, not its "
                          "dispatched backward plan")
+    ap.add_argument("--metrics-out", default=None,
+                    help="collect obs metrics for the run and write the snapshot JSON here "
+                         "(render with `python -m repro_torch.obs report --metrics <file>`)")
+    ap.add_argument("--metrics-sample", type=float, default=1.0,
+                    help="obs sample rate of the high-frequency sites (1.0 = all)")
     args = ap.parse_args(argv)
     if args.db and not os.path.exists(args.db):
         # a typo'd path would open as an empty database and every bucket
@@ -78,13 +86,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       TrainerConfig(total_steps=args.steps, seed=args.seed),
                       runtime=rt, device=args.device)
     kernels.reset_launch_counts()
-    for i, m in enumerate(trainer.train(), 1):
+    # without --metrics-out the ambient collector is the disabled default
+    col = (obs.collect(name="train", sample_rate=args.metrics_sample)
+           if args.metrics_out else None)
+    with col if col is not None else contextlib.nullcontext():
+        steps = trainer.train()
+    for i, m in enumerate(steps, 1):
         print(f"step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
               f"lr {m['lr']:.3g} ({m['step_time_s']:.3f} s)")
     print(f"trained {cfg.name} on {trainer.device}: {trainer.step} steps of {batch} x {seq} "
           f"tokens")
     print(rt.telemetry.report())
     print("kernel launches:", kernels.launch_counts())
+    if len(rt.health):
+        print(f"quarantined buckets: {rt.health.snapshot()}")
+    if col is not None:
+        col.write(args.metrics_out)
+        print(f"wrote metrics -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ once; copying it per token would move the whole cache every step).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -102,10 +103,13 @@ def chunked_attention(
 
 def _attend(q, k, v, *, causal, window, use_kernel, kv_valid_len=None,
             q_chunk=512, k_chunk=1024):
+    plain = functools.partial(chunked_attention, q_chunk=q_chunk, k_chunk=k_chunk)
     if use_kernel and rt.current_runtime().kernel_mode_active and kv_valid_len is None:
-        return rt.dispatch("flash_attention", q, k, v, causal=causal, window=window)
-    return chunked_attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
-                             k_chunk=k_chunk, kv_valid_len=kv_valid_len)
+        # where flash takes the reference tier (a quarantined bucket), this
+        # site computes what reference mode computes here
+        return rt.dispatch("flash_attention", q, k, v, causal=causal, window=window,
+                           reference=plain)
+    return plain(q, k, v, causal=causal, window=window, kv_valid_len=kv_valid_len)
 
 
 def _split_heads(x, n, hd):

@@ -159,11 +159,16 @@ def decode_step(params, tokens, caches, pos, cfg: ArchConfig, run: tf.RunConfig)
     """tokens [b, 1]; pos a scalar or [b] absolute position per row.
 
     Returns (logits [b, vocab], caches); the caches are updated in place.
+    The recurrent states are committed after the logits are computed, so a
+    step that raises at any dispatch, the unembed's included, leaves them as
+    they were (the engine's degraded retry steps each once).
     """
     x = embed(params["embed"], tokens)
+    pending = []
     x, _, caches = tf.stack_apply(params["segments"], x, cfg, run, mode="decode",
-                                  caches=caches, pos=pos)
+                                  caches=caches, pos=pos, pending=pending)
     logits = rmsnorm_dense(params["final_norm"], params["lm_head"], x[:, 0], cfg.norm_eps)
+    tf.commit_states(pending)
     return logits, caches
 
 

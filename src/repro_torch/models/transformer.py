@@ -183,10 +183,16 @@ def _train_layer(block, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig):
 
 
 def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
-                caches=None, pos=None, cache_len=None, true_len=None):
+                caches=None, pos=None, cache_len=None, true_len=None, pending=None):
     """Apply all segments. Returns (x, aux, caches): ``aux`` the layers'
     MoE losses summed; prefill builds the caches in the JAX layout, decode
-    updates ``caches`` in place and returns it, train returns None."""
+    updates ``caches`` in place and returns it, train returns None.
+
+    Decode writes each attention layer's new key and value into the pool as
+    the layer runs (a retry rewrites the same rows), and appends each
+    recurrent layer's new state (one copy a layer, not a snapshot of the
+    pool) to the caller's list ``pending``, for it to :func:`commit_states`
+    once the rest of its step has run."""
     aux_total = None
 
     def add_aux(aux):
@@ -220,8 +226,7 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                                          true_len=true_len)
                 add_aux(aux)
                 if mode == "decode" and spec.mixer != "attn":
-                    for kk, t in nc.items():      # the new state into the pool's slice
-                        c[kk].copy_(t)
+                    pending.append((c, nc))
                 if mode == "prefill":
                     per_layer[name].append(nc)
         if mode == "prefill":
@@ -230,6 +235,16 @@ def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,
                 for name, cs in per_layer.items()
             })
     return x, total(), (tuple(out_caches) if mode == "prefill" else caches)
+
+
+def commit_states(pending) -> None:
+    """Copy each held recurrent state (``stack_apply``'s ``pending``) into
+    its slice of the pool. A decode step commits only after its last
+    dispatch, so a step that raises part way leaves the pool as it was and
+    a retry steps every state once."""
+    for c, nc in pending:
+        for kk, t in nc.items():
+            c[kk].copy_(t)
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):

@@ -12,6 +12,10 @@ split into the ``fwd``, ``bwd`` and ``opt`` phases.
 ``RunConfig.microbatches = k`` splits each batch into k along the batch
 dim, accumulates fp32 gradients over them and averages, as the JAX
 trainer's scan does.
+
+Under an enabled :mod:`repro_torch.obs` collector each step records the
+``train.data`` and ``train.step`` spans, ``train.step_s``,
+``train.tokens`` and ``train.tokens_per_s``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from ..core.runtime import TunedRuntime, dispatch_phase
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..models import lm
 from ..models.transformer import RunConfig
+from ..obs.collect import current_collector as _obs_collector
+from ..obs.trace import span as _obs_span
 from ..optim import adamw
 
 
@@ -99,18 +105,33 @@ class Trainer:
         """One optimizer step on the next batch: ``loss``, ``grad_norm``,
         ``lr`` and ``step_time_s`` (host clock from the batch on the device
         to the updated parameters, synchronised)."""
-        batch = batch_to_tensors(self.data.next_batch(), self.device)
+        with _obs_span("train.data"):
+            batch_np = self.data.next_batch()
+            batch = batch_to_tensors(batch_np, self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        loss, grads = self.loss_and_grads(batch)
-        with self._scope(), dispatch_phase("opt"):
-            _, _, om = adamw.update(self.opt_cfg, grads, self.opt_state, self.params)
-        metrics = {"loss": float(loss), "grad_norm": float(om["grad_norm"]), "lr": om["lr"]}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        metrics["step_time_s"] = time.perf_counter() - t0
+        with _obs_span("train.step", step=self.step):
+            loss, grads = self.loss_and_grads(batch)
+            with self._scope(), dispatch_phase("opt"):
+                _, _, om = adamw.update(self.opt_cfg, grads, self.opt_state, self.params)
+            metrics = {"loss": float(loss), "grad_norm": float(om["grad_norm"]),
+                       "lr": om["lr"]}
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        metrics["step_time_s"] = dt
         self.step += 1
+        col = _obs_collector()
+        if col.enabled:
+            # the JAX trainer's count: the first leaf (in key order)'s two lead dims
+            first = batch_np[min(batch_np)] if batch_np else None
+            tokens = (int(first.shape[0] * first.shape[1])
+                      if first is not None and first.ndim >= 2 else 0)
+            col.observe("train.step_s", dt)
+            if tokens and dt > 0:
+                col.counter("train.tokens", tokens)
+                col.gauge("train.tokens_per_s", tokens / dt)
         return metrics
 
     def train(self) -> List[Dict[str, float]]:

@@ -64,6 +64,18 @@ def test_scan_sees_the_xlstm_modules():
     assert "def mlstm_forward(" in text and "def slstm_forward(" in text
 
 
+def test_scan_sees_the_fault_and_obs_modules():
+    """The fault harness and the obs plane are copies of stdlib-only JAX
+    modules: the scan holds them to "no jax, no repro" like the rest."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("testing/__init__.py", "testing/faults.py", "obs/__init__.py",
+                "obs/__main__.py", "obs/cli.py", "obs/collect.py", "obs/export.py",
+                "obs/metrics.py", "obs/trace.py"):
+        assert f"src/repro_torch/{mod}" in names
+    text = (ROOT / "src" / "repro_torch" / "obs" / "trace.py").read_text()
+    assert "from torch.profiler import record_function" in text
+
+
 @pytest.mark.parametrize("arch", ["gemma3_27b", "paligemma_3b", "xlstm_1_3b"])
 def test_the_new_archs_raise_without_a_card(no_card, arch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
