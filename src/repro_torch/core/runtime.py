@@ -89,7 +89,9 @@ class DispatchFault(RuntimeError):
     raised and caught inside the guard, quarantining the bucket."""
 
 
-TIERS = ("override", "exact", "tune", "cover", "heuristic", "reference")
+# "bgtune" is the BackgroundTune tier (repro_torch.core.bgtune): a miss
+# served the heuristic config while a worker tunes the bucket.
+TIERS = ("override", "exact", "tune", "bgtune", "cover", "heuristic", "reference")
 
 # Dispatch phases: forward sites, gradient sites (dispatches made while a
 # backward plan runs) and the optimizer update (the trainer tags it "opt").

@@ -8,6 +8,10 @@ through its reference instead of its dispatched backward plan. The run ends with
 tier served each kernel x bucket, split into the fwd / bwd / opt phases)
 and each kernel's launch count. ``--metrics-out`` collects the obs plane's
 metrics (``train.step_s``, ``dispatch.calls``, the spans) into a snapshot.
+``--ckpt-dir`` (default ``checkpoints``, made at the first save) takes a
+checkpoint every ``--ckpt-every`` steps; a run that finds a committed
+checkpoint there resumes from it, and a failed step restores the last one
+and replays.
 
     # full width on the card, random weights from --seed, batch 4 x 2048:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 6
@@ -23,6 +27,9 @@ metrics (``train.step_s``, ``dispatch.calls``, the spans) into a snapshot.
     # from a campaign's database:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 6 \\
         --db h100.db.json --mode kernel
+    # checkpoints every 2 steps; run again with more --steps to resume:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \\
+        --steps 4 --device cpu --ckpt-dir ckpt --ckpt-every 2
 """
 from __future__ import annotations
 
@@ -49,6 +56,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config, batch 8 x 64 (the JAX package's train_smoke)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="checkpoints",
+                    help="checkpoint directory (made at the first save); resumes from it")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--db", default=None, help="tuning database for this platform")
     ap.add_argument("--mode", default="kernel", choices=("kernel", "reference"))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -83,15 +93,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  name="train")
     trainer = Trainer(cfg, run, DataConfig(seed=args.seed, batch_size=batch, seq_len=seq),
                       AdamWConfig(total_steps=args.steps),
-                      TrainerConfig(total_steps=args.steps, seed=args.seed),
+                      TrainerConfig(total_steps=args.steps, seed=args.seed,
+                                    checkpoint_every=args.ckpt_every,
+                                    checkpoint_dir=args.ckpt_dir),
                       runtime=rt, device=args.device)
+    if trainer.ckpt.latest_step() is not None:
+        print(f"resumed from the checkpoint at step {trainer.restore_checkpoint()} "
+              f"in {args.ckpt_dir}")
+    start = trainer.step
     kernels.reset_launch_counts()
     # without --metrics-out the ambient collector is the disabled default
     col = (obs.collect(name="train", sample_rate=args.metrics_sample)
            if args.metrics_out else None)
     with col if col is not None else contextlib.nullcontext():
         steps = trainer.train()
-    for i, m in enumerate(steps, 1):
+    for i, m in enumerate(steps, start + 1):
         print(f"step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
               f"lr {m['lr']:.3g} ({m['step_time_s']:.3f} s)")
     print(f"trained {cfg.name} on {trainer.device}: {trainer.step} steps of {batch} x {seq} "

@@ -14,10 +14,9 @@ per-site call count, whether that call fails. Sites wired in the port:
     dispatch.kernel:<tunable>     runtime kernel execution (guarded or not)
     campaign.job:<kernel>         campaign runner job attempt
     db.load:<path>                tuning-database file read
-
-The JAX package's ``bgtune.worker:<kernel>``, ``checkpoint.write:<step>``
-and ``train.step:<step>`` come with the port's background tuner,
-checkpointer and recovery loop.
+    bgtune.worker:<kernel>        background tuner job attempt (worker thread)
+    checkpoint.write:<step>       checkpoint write (the writer thread when async)
+    train.step:<step>             trainer step under the recovery loop
 
 Fault kinds:
 

@@ -1,11 +1,11 @@
 """The training loop on one device: forward, the chunked loss, backward
-through the dispatched kernels, and AdamW.
+through the dispatched kernels, AdamW, checkpoints and restart.
 
 Counterpart of ``repro.train.trainer.Trainer`` without a mesh (that is the
-distributed slice), checkpoints, recovery or gradient compression, which
-are not ported yet. Every kernel the step runs, forward and backward,
-resolves through the dispatch runtime: pass ``runtime=repro_torch.runtime(
-db=..., mode=...)`` to pin a tuning database and a mode for the whole run;
+distributed slice) or gradient compression, which are not ported yet. Every
+kernel the step runs, forward and backward, resolves through the dispatch
+runtime: pass ``runtime=repro_torch.runtime(db=..., mode=...)`` to pin a
+tuning database and a mode for the whole run;
 ``runtime.telemetry`` then reports which tier served each kernel x bucket,
 split into the ``fwd``, ``bwd`` and ``opt`` phases.
 
@@ -16,13 +16,29 @@ trainer's scan does.
 Under an enabled :mod:`repro_torch.obs` collector each step records the
 ``train.data`` and ``train.step`` spans, ``train.step_s``,
 ``train.tokens`` and ``train.tokens_per_s``.
+
+Checkpoints and recovery follow the JAX trainer: every
+``checkpoint_every`` steps the state (the parameters, AdamW's ``m``, ``v``,
+``master`` and ``step``, the data pipeline's step and the trainer's) goes
+to :class:`~repro_torch.train.checkpoint.Checkpointer` (async by default:
+the host copy is taken before the next step starts), each step time to a
+:class:`~repro_torch.train.resilience.StragglerMonitor`, and
+:meth:`Trainer.train` runs the steps under
+:func:`~repro_torch.train.resilience.run_with_recovery`: a step that
+raises (the fault site ``train.step:<step>``, or ``fail_hook``) restores
+the last committed checkpoint and replays from it. A restore copies into
+the tensors the trainer and its optimizer state hold, in place. With no
+checkpoint to restore, a trainer that initialised its own parameters
+re-initialises them from ``tcfg.seed``; one that was handed ``params=``
+has nothing to restart from and raises.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,18 +52,34 @@ from ..models.transformer import RunConfig
 from ..obs.collect import current_collector as _obs_collector
 from ..obs.trace import span as _obs_span
 from ..optim import adamw
+from ..testing.faults import fault_point as _fault_point
+from . import checkpoint as ckpt_mod
+from .resilience import RestartPolicy, StragglerMonitor, run_with_recovery
+
+log = logging.getLogger("repro_torch.trainer")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
+    """The JAX trainer's fields and defaults, less ``grad_compression``
+    (the distributed slice). ``checkpoint_dir`` is created at the first
+    save only."""
+
     total_steps: int = 100
+    checkpoint_every: int = 25
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_keep: int = 3
+    async_checkpoint: bool = True
+    log_every: int = 10
     seed: int = 0
+    max_failures: int = 10
 
 
 class Trainer:
     """One-device trainer. ``params`` (for instance carried across from the
     JAX package with ``convert.from_jax_params``) defaults to
-    ``lm.init_params(cfg, tcfg.seed, device)``."""
+    ``lm.init_params(cfg, tcfg.seed, device)``; only then can the trainer
+    restart from scratch (:meth:`restore_checkpoint`)."""
 
     def __init__(self, cfg: ArchConfig, run: RunConfig, data_cfg: DataConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
@@ -64,12 +96,16 @@ class Trainer:
             raise ValueError(f"batch {data_cfg.batch_size} not divisible by "
                              f"{run.microbatches} microbatches")
         self.data = SyntheticPipeline(cfg, data_cfg)
+        self._own_init = params is None
         self.params = (params if params is not None
                        else lm.init_params(cfg, self.tcfg.seed, self.device))
         self._leaves = adamw.leaves(self.params)
         for p in self._leaves:
             p.requires_grad_(True)
         self.opt_state = adamw.init(self.opt_cfg, self.params)
+        self.ckpt = ckpt_mod.Checkpointer(self.tcfg.checkpoint_dir,
+                                          keep=self.tcfg.checkpoint_keep)
+        self.monitor = StragglerMonitor()
         self.step = 0
 
     def _scope(self):
@@ -121,6 +157,7 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         metrics["step_time_s"] = dt
+        self.monitor.record(self.step, dt)
         self.step += 1
         col = _obs_collector()
         if col.enabled:
@@ -132,11 +169,86 @@ class Trainer:
             if tokens and dt > 0:
                 col.counter("train.tokens", tokens)
                 col.gauge("train.tokens_per_s", tokens / dt)
+        if self.step % self.tcfg.checkpoint_every == 0:
+            self.save_checkpoint()
+        if self.step % self.tcfg.log_every == 0:
+            log.info("step %d loss %.4f (%.2fs)", self.step, metrics["loss"], dt)
         return metrics
 
-    def train(self) -> List[Dict[str, float]]:
-        """Run to ``tcfg.total_steps``; the metrics of every step."""
-        out = []
-        while self.step < self.tcfg.total_steps:
-            out.append(self.run_one_step())
-        return out
+    # -- checkpoint and restart ---------------------------------------------
+    def _state_tree(self) -> Dict:
+        return {"params": self.params, "opt": self.opt_state,
+                "data": {"step": self.data.step}, "trainer_step": self.step}
+
+    def save_checkpoint(self) -> None:
+        """Checkpoint the state at ``self.step`` (async unless
+        ``tcfg.async_checkpoint`` is off)."""
+        tree = self._state_tree()
+        if self.tcfg.async_checkpoint:
+            self.ckpt.save_async(self.step, tree)
+        else:
+            self.ckpt.save(self.step, tree)
+
+    @torch.no_grad()
+    def restore_checkpoint(self, step: Optional[int] = None) -> int:
+        """Roll the state back to checkpoint ``step`` (the latest committed
+        one by default), copying into the tensors the trainer holds; returns
+        the step to resume from. With no checkpoint: restart from scratch,
+        re-initialised from ``tcfg.seed``, or raise when the trainer was
+        handed its parameters."""
+        self.ckpt.wait()
+        step = step if step is not None else self.ckpt.latest_step()
+        if step is None:
+            if not self._own_init:
+                raise RuntimeError("no checkpoint to restore, and this trainer was given "
+                                   "params=: it cannot restart from scratch")
+            log.warning("no checkpoint to restore; restarting from scratch")
+            fresh = lm.init_params(self.cfg, self.tcfg.seed, self.device)
+            for p, f in zip(self._leaves, adamw.leaves(fresh)):
+                p.copy_(f)
+            del fresh
+            # adamw.init's state, in place
+            for t in self.opt_state["m"] + self.opt_state["v"]:
+                t.zero_()
+            for m, p in zip(self.opt_state.get("master", ()), self._leaves):
+                m.copy_(p)
+            self.opt_state["step"] = 0
+            self.step = self.data.step = 0
+            return 0
+        live = self._state_tree()
+        tree = self.ckpt.restore(step, live, device="cpu")
+        self._copy_into(live, tree)
+        self.opt_state["step"] = tree["opt"]["step"]
+        self.data.step = tree["data"]["step"]
+        self.step = tree["trainer_step"]
+        log.info("restored checkpoint at step %d", self.step)
+        return self.step
+
+    @staticmethod
+    def _copy_into(live, tree) -> None:
+        for (_, dst), (_, src) in zip(ckpt_mod.flatten_with_paths(live),
+                                      ckpt_mod.flatten_with_paths(tree)):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+
+    def train(self, fail_hook: Optional[Callable[[int], None]] = None
+              ) -> List[Dict[str, float]]:
+        """Run to ``tcfg.total_steps`` with recovery; the metrics of every
+        step index this call ran, in order. A step replayed after a restore
+        appears once, from its last run. ``fail_hook(step)`` (tests) may
+        raise to fail a step, as the ``train.step:<step>`` fault site does."""
+        ran: Dict[int, Dict[str, float]] = {}
+
+        def step_fn(step: int) -> Dict[str, float]:
+            if fail_hook is not None:
+                fail_hook(step)
+            _fault_point(f"train.step:{step}", step=step)
+            ran[step] = self.run_one_step()
+            return ran[step]
+
+        run_with_recovery(step_fn, self.restore_checkpoint, total_steps=self.tcfg.total_steps,
+                          start_step=self.step,
+                          policy=RestartPolicy(max_failures=self.tcfg.max_failures),
+                          sleep=lambda s: None)
+        self.ckpt.wait()
+        return [ran[i] for i in sorted(ran)]

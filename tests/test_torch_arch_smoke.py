@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -120,8 +121,17 @@ def _against_jax(jcfg, cfg, params, tparams, batch, mode):
     return loss, [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)], rt
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+# Five archs here, the other five in test_torch_arch_smoke_more.py (a worker
+# of their own), split so both files take about as long.
+HERE = ("minitron_4b", "qwen2_5_3b", "qwen2_0_5b", "xlstm_1_3b", "musicgen_large")
+
+
+@pytest.mark.parametrize("arch", HERE)
 def test_forward_loss_and_gradients_match_jax(arch, rs):
+    forward_loss_and_gradients_match_jax(arch, rs)
+
+
+def forward_loss_and_gradients_match_jax(arch, rs):
     jcfg, cfg, params, tparams = _both(arch)
     assert sum(s.num_layers for s in cfg.segments()) == cfg.num_layers
     _, grads, _ = _against_jax(jcfg, cfg, params, tparams, make_batch(cfg, rs), "reference")

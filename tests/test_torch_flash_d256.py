@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

@@ -10,6 +10,7 @@ the heuristic.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 from repro_torch.core import database as tdb  # noqa: E402
 from repro_torch.core.platform import H100_SXM  # noqa: E402
 from repro_torch.core.runtime import runtime  # noqa: E402

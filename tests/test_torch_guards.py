@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 
 from repro_torch.configs import get_config  # noqa: E402
@@ -43,7 +44,7 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), f"{path.name} imports {mod}"
 
 
 def test_scan_sees_the_whole_package():
@@ -74,6 +75,35 @@ def test_scan_sees_the_fault_and_obs_modules():
         assert f"src/repro_torch/{mod}" in names
     text = (ROOT / "src" / "repro_torch" / "obs" / "trace.py").read_text()
     assert "from torch.profiler import record_function" in text
+
+
+def test_scan_sees_the_resilience_modules():
+    """The background tuner, the checkpointer and the recovery loop: held
+    to "no jax, no ml_dtypes, no repro" like the rest (the JAX checkpointer
+    restores bf16 through ml_dtypes; the port through torch)."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("core/bgtune.py", "train/checkpoint.py", "train/resilience.py"):
+        assert f"src/repro_torch/{mod}" in names
+    text = (ROOT / "src" / "repro_torch" / "train" / "checkpoint.py").read_text()
+    assert "view(torch.int16)" in text
+
+
+def test_a_default_trainer_leaves_no_checkpoint_directory(tmp_path, monkeypatch):
+    """TrainerConfig keeps JAX's ``checkpoint_dir="checkpoints"``; the
+    directory is made at the first save, so a trainer built with the
+    defaults, as the tests build it, writes nothing where it runs."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    monkeypatch.chdir(tmp_path)
+    tr = Trainer(get_config("qwen2_0_5b").reduced(), RunConfig(q_chunk=8, k_chunk=8,
+                                                               loss_chunk=8),
+                 DataConfig(batch_size=1, seq_len=8), device="cpu")
+    assert tr.tcfg.checkpoint_dir == TrainerConfig().checkpoint_dir == "checkpoints"
+    tr.run_one_step()
+    assert tr.ckpt.latest_step() is None
+    assert not (tmp_path / "checkpoints").exists() and list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("arch", ["gemma3_27b", "paligemma_3b", "xlstm_1_3b"])

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -71,9 +72,24 @@ def _model(experts: bool):
     return jcfg, cfg, params
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["dense", "experts"])
+@pytest.fixture(scope="module", params=[False], ids=["dense"])
 def jamba(request):
+    """Without experts here; with them in test_torch_hybrid_train_experts.py,
+    which runs these cases on a worker of its own."""
     return _model(request.param)
+
+
+_STEPS = {}
+
+
+def _jax_step(jcfg):
+    """JAX's ``value_and_grad(loss_fn)`` in reference mode, jitted once a
+    model: the reference-mode loss test and the trainer test share it."""
+    if jcfg not in _STEPS:
+        with repro.runtime(mode="reference"):       # read while tracing: one trace
+            _STEPS[jcfg] = jax.jit(jax.value_and_grad(
+                lambda p, b: jlm.loss_fn(p, b, jcfg, JRUN), has_aux=True))
+    return _STEPS[jcfg]
 
 
 def _port_params(model):
@@ -95,8 +111,11 @@ def test_loss_and_every_gradient_leaf_match_jax(jamba, mode):
     batch = JPipe(jcfg, JData(seed=1, batch_size=2, seq_len=24)).next_batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     with repro.runtime(mode=mode):
-        (j_loss, j_aux), j_grads = jax.value_and_grad(
-            lambda p: jlm.loss_fn(p, jb, jcfg, JRUN), has_aux=True)(params)
+        if mode == "reference":
+            (j_loss, j_aux), j_grads = _jax_step(jcfg)(params, jb)
+        else:
+            (j_loss, j_aux), j_grads = jax.value_and_grad(
+                lambda p: jlm.loss_fn(p, jb, jcfg, JRUN), has_aux=True)(params)
     tp = _port_params(jamba)
     leaves = adamw.leaves(tp)
     for p in leaves:
@@ -130,9 +149,8 @@ def test_two_trainer_steps_match_jax(jamba):
     data = dict(seed=4, batch_size=2, seq_len=24)
     jopt = jadamw.AdamWConfig(**opt)
     jstate, jp, pipe = jadamw.init(jopt, params), params, JPipe(jcfg, JData(**data))
-    with repro.runtime(mode="reference"):       # read while tracing: one trace
-        step = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, b, jcfg, JRUN),
-                                          has_aux=True))
+    with repro.runtime(mode="reference"):
+        step = _jax_step(jcfg)
         j_losses = []
         for _ in range(2):
             (loss, _), g = step(jp, {k: jnp.asarray(v) for k, v in pipe.next_batch().items()})

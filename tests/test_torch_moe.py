@@ -11,46 +11,30 @@ Held against JAX on identical numpy inputs:
 * ``moe_apply``, scatter and dense, with and without ``true_len``: outputs
   and aux (1e-5 of max); which tokens capacity drops; pads take no
   capacity; ties in the router pick JAX's experts.
-* Reduced Mixtral-8x7B (2 layers, 4 experts top-2, window 8, f32):
-  prefill logits, three decode steps at a vector ``pos`` with prompts past
-  the window, ``loss_fn`` (xent and aux) and every gradient leaf; reduced
-  Jamba-1.5-Large with its MoE layers: prefill and decode. Parameters are
-  carried across by ``from_jax_params``; tolerance 1e-5 of max (1e-4 for
-  the gradients of the router, whose softmax sums over few experts).
-* The serving engine's tokens against the JAX engine's under the same
-  arrivals, for both models; with capacity headroom, any arrival pattern
-  gives the tokens of serving each request alone.
+
+The reduced models (Mixtral-8x7B, Jamba-1.5-Large with its experts) and
+their engines are held against JAX in ``test_torch_moe_models.py``.
 """
-import dataclasses
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
 import repro_torch  # noqa: E402
-from repro.configs import get_config as j_get_config  # noqa: E402
-from repro.data.pipeline import DataConfig as JData  # noqa: E402
-from repro.data.pipeline import SyntheticPipeline as JPipe  # noqa: E402
-from repro.distributed.sharding import Layout  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.moe_gemm import expert_gemm_pallas  # noqa: E402
-from repro.launch.mesh import make_host_mesh  # noqa: E402
-from repro.models import lm as jlm  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.transformer import RunConfig as JRun  # noqa: E402
-from repro.serving import engine as jeng  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import batch_to_tensors, from_jax_params, to_tensor  # noqa: E402
+from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.transformer import RunConfig  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
 
 JRUN = JRun(remat="none", q_chunk=16, k_chunk=16, loss_chunk=32)
 RUN = RunConfig(q_chunk=16, k_chunk=16, loss_chunk=32)
@@ -257,246 +241,3 @@ def test_scatter_hinted_names_the_distributed_slice():
     _, tp = _moe_params(0, 2)
     with pytest.raises(NotImplementedError, match="distributed slice"):
         moe.moe_apply(tp, torch.zeros(1, 2, D), top_k=1, dispatch="scatter_hinted")
-
-
-# ---------------------------------------------------------------------------
-# Reduced Mixtral-8x7B and reduced Jamba-1.5-Large with experts
-# ---------------------------------------------------------------------------
-
-
-def _model(name, **over):
-    jcfg = dataclasses.replace(j_get_config(name).reduced(), **over)
-    cfg = dataclasses.replace(get_config(name).reduced(), **over)
-    params, _ = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
-    return jcfg, cfg, params, tparams
-
-
-@pytest.fixture(scope="module")
-def mixtral():
-    return _model("mixtral_8x7b")
-
-
-@pytest.fixture(scope="module")
-def jamba():
-    return _model("jamba_1_5_large")
-
-
-def test_configs_are_the_jax_ones():
-    for name in ("mixtral_8x7b", "jamba_1_5_large"):
-        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
-    assert get_config("mixtral-8x7b") is get_config("mixtral_8x7b")
-    cfg = get_config("mixtral_8x7b")
-    assert [(s.mixer, s.window, s.ffn) for s in cfg.segments()[0].pattern] == \
-        [("attn", 4096, "moe")]
-    jam = [(s.mixer, s.ffn) for s in get_config("jamba_1_5_large").segments()[0].pattern]
-    assert jam == [("attn", "dense"), ("mamba", "moe")] + [("mamba", "dense"), ("mamba", "moe")] * 3
-
-
-@pytest.mark.parametrize("name", ["mixtral_8x7b", "jamba_1_5_large"])
-def test_own_init_has_the_jax_leaves(name):
-    jcfg, cfg = j_get_config(name).reduced(), get_config(name).reduced()
-    jparams, _ = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    conv = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
-    own = lm.init_params(cfg, 0, "cpu")
-    shapes = lambda p: [(tuple(t.shape), t.dtype) for t in adamw.leaves(p)]
-    assert shapes(own) == shapes(conv)
-    ffn = own["segments"][0][0]["l1" if name == "jamba_1_5_large" else "l0"]["moe"]
-    assert set(ffn) == {"router", "wg", "wu", "wd"} and ffn["router"].dtype == torch.float32
-    # the JAX scale: 1/sqrt of the expert count for an [e, d, ff] stack
-    assert abs(float(ffn["wg"].std()) - 0.5) < 0.05
-
-
-def _prefill_both(model, mode, toks, true_len=None, jmode=None):
-    jcfg, cfg, params, tparams = model
-    L = toks.shape[1] if true_len is None else true_len
-    with repro.runtime(mode=jmode or mode):
-        jl, jc = jlm.prefill(params, {"tokens": jnp.asarray(toks)}, jcfg, JRUN,
-                             cache_len=CACHE_LEN, true_len=jnp.asarray(L))
-    with repro_torch.runtime(mode=mode), torch.inference_mode():
-        tl, tc = lm.prefill(tparams, {"tokens": torch.from_numpy(toks).long()}, cfg, RUN,
-                            cache_len=CACHE_LEN, true_len=L)
-    return (jl, jc), (tl, tc)
-
-
-@pytest.mark.parametrize("mode", ["kernel", "reference"])
-@pytest.mark.parametrize("length,bucket", [(5, 5), (13, 16), (21, 32)])
-def test_mixtral_prefill_matches_jax(mixtral, mode, length, bucket):
-    """Right-padded buckets, as the engine prefills: pads take no capacity
-    and the window cache ring-aligns to the real length."""
-    toks = np.zeros((1, bucket), np.int32)
-    toks[0, :length] = np.random.RandomState(length).randint(0, 256, length)
-    (jl, jc), (tl, tc) = _prefill_both(mixtral, mode, toks, length)
-    _close(tl, jl)
-    _close(tc[0]["l0"]["k"], jc[0]["l0"]["k"])
-    assert tc[0]["l0"]["k"].shape[2] == 8          # the window's rolling cache
-
-
-def _decode_both(model, mode, lens, steps=3, jmode=None):
-    jcfg, cfg, params, tparams = model
-    j_pool = jlm.init_cache(jcfg, len(lens), CACHE_LEN)
-    t_pool = lm.init_cache(cfg, len(lens), CACHE_LEN, "cpu")
-    for slot, L in enumerate(lens):
-        toks = np.random.RandomState(L).randint(0, 256, (1, L)).astype(np.int32)
-        (_, jc), (_, tc) = _prefill_both(model, mode, toks, jmode=jmode)
-        j_pool = jlm.insert_cache(j_pool, jc, slot)
-        lm.insert_cache(t_pool, tc, slot)
-    rs = np.random.RandomState(9)
-    for step in range(steps):
-        tokens = rs.randint(0, 256, (len(lens), 1)).astype(np.int32)
-        pos = np.array(lens, np.int32) + step
-        with repro.runtime(mode=jmode or mode):
-            jl, j_pool = jlm.decode_step(params, jnp.asarray(tokens), j_pool,
-                                         jnp.asarray(pos), jcfg, JRUN)
-        with repro_torch.runtime(mode=mode), torch.inference_mode():
-            tl, t_pool = lm.decode_step(tparams, torch.from_numpy(tokens).long(), t_pool,
-                                        torch.from_numpy(pos).long(), cfg, RUN)
-        _close(tl, jl)
-    return j_pool, t_pool
-
-
-@pytest.mark.parametrize("mode", ["kernel", "reference"])
-def test_mixtral_three_decode_steps_at_vector_pos_match_jax(mixtral, mode):
-    """Three slots, two of them past the window of 8: the pool routes all
-    rows together (capacity 1 of 4 experts at 3 rows, top-2)."""
-    j_pool, t_pool = _decode_both(mixtral, mode, (21, 11, 4))
-    _close(t_pool[0]["l0"]["v"], j_pool[0]["l0"]["v"])
-
-
-@pytest.mark.parametrize("mode", ["kernel", "reference"])
-def test_mixtral_loss_and_every_gradient_leaf_match_jax(mixtral, mode):
-    jcfg, cfg, params, tparams = mixtral
-    batch = JPipe(jcfg, JData(seed=1, batch_size=2, seq_len=24)).next_batch()
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    with repro.runtime(mode=mode):
-        (j_loss, j_aux), j_grads = jax.value_and_grad(
-            lambda p: jlm.loss_fn(p, jb, jcfg, JRUN), has_aux=True)(params)
-    tp = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
-    leaves = adamw.leaves(tp)
-    for p in leaves:
-        p.requires_grad_()
-    with repro_torch.runtime(mode=mode) as rt:
-        loss, aux = lm.loss_fn(tp, batch_to_tensors(batch, "cpu"), cfg, RUN)
-        grads = torch.autograd.grad(loss, leaves)
-    _close(loss, j_loss)
-    _close(aux["xent"], j_aux["xent"])
-    _close(aux["aux"], j_aux["aux"])
-    assert float(aux["aux"].detach()) > 0.5          # two layers of e * sum(me * ce), about 1 each
-    names = [n for n, _ in adamw.named_leaves(tp)]
-    j_leaves = adamw.leaves(from_jax_params(jax.tree_util.tree_map(np.asarray, j_grads), cfg,
-                                            device="cpu"))
-    assert len(j_leaves) == len(grads) == len(names)
-    for name, g, jg in zip(names, grads, j_leaves):
-        _close(g, jg.numpy(), 1e-4 if name.endswith("router") else TOL)
-    if mode == "kernel":
-        kernels = {k.split("|")[0] for k in rt.telemetry.snapshot()["by_key_phase"]["bwd"]}
-        assert "expert_gemm" in kernels
-
-
-@pytest.mark.parametrize("mode", ["kernel", "reference"])
-def test_jamba_with_experts_prefill_matches_jax(jamba, mode):
-    toks = np.random.RandomState(19).randint(0, 256, (1, 19)).astype(np.int32)
-    (jl, jc), (tl, tc) = _prefill_both(jamba, mode, toks)
-    _close(tl, jl)
-    for leaf in ("h", "conv"):
-        _close(tc[0]["l3"][leaf], jc[0]["l3"][leaf])
-
-
-def test_jamba_with_experts_decode_matches_jax(jamba):
-    """The port's kernel path (plain versions on the CPU) against JAX's
-    reference path, which computes the same function without tracing the
-    16 layers' Pallas kernels in interpret mode."""
-    j_pool, t_pool = _decode_both(jamba, "kernel", (13, 6), jmode="reference")
-    for leaf in ("h", "conv"):
-        _close(t_pool[0]["l5"][leaf], j_pool[0]["l5"][leaf])
-
-
-def test_prefill_dispatches_expert_gemm_three_times_a_layer(mixtral):
-    _, cfg, _, tparams = mixtral
-    toks = torch.from_numpy(np.arange(13)[None]).long()
-    with repro_torch.runtime() as rt, torch.inference_mode():
-        lm.prefill(tparams, {"tokens": toks}, cfg, RUN, cache_len=CACHE_LEN)
-    calls = {k: v for k, v in rt.telemetry.by_key.items() if k.startswith("expert_gemm")}
-    assert sum(sum(t.values()) for t in calls.values()) == 3 * cfg.num_layers
-    assert {k.split("|")[0] for k in rt.telemetry.by_key} == \
-        {"matmul", "rmsnorm", "flash_attention", "expert_gemm"}
-
-
-# ---------------------------------------------------------------------------
-# Serving
-# ---------------------------------------------------------------------------
-
-
-def _prompt(length: int, seed: int) -> np.ndarray:
-    return np.random.RandomState(10_000 + 17 * length + seed).randint(0, 256, length).astype(
-        np.int32)
-
-
-def _engine(cfg, tparams, max_batch=3):
-    return ServingEngine(cfg, RUN, tparams, EngineConfig(max_batch=max_batch, max_seq=CACHE_LEN),
-                         runtime=repro_torch.runtime())
-
-
-@pytest.mark.parametrize("which", ["mixtral", "jamba"])
-def test_same_tokens_as_the_jax_engine(request, which):
-    """Default capacity (1.25): the pool's rows share it, so both engines
-    must route the same slots together, free ones included."""
-    jcfg, cfg, params, tparams = request.getfixturevalue(which)
-    spec = [(9, 5, 0.0, 0), (19, 4, 0.8, 1), (2, 6, 0.0, 2), (11, 4, 1.0, 3)]
-    j_engine = jeng.ServingEngine(
-        jcfg, JRUN, params, make_host_mesh(), Layout(),
-        jeng.EngineConfig(max_batch=3, max_seq=CACHE_LEN), runtime=repro.runtime(mode="reference"))
-    t_engine = _engine(cfg, tparams)
-    for eng, R in ((j_engine, jeng.Request), (t_engine, Request)):
-        for i, (L, n, temp, seed) in enumerate(spec):
-            eng.submit(R(prompt=_prompt(L, seed), max_new_tokens=n, temperature=temp,
-                         seed=seed, arrival_time=float(i)))
-    j_done, t_done = j_engine.serve(), t_engine.serve()
-    assert [r.output.tolist() for r in t_done] == [r.output.tolist() for r in j_done]
-    assert t_engine.stats["decode_steps"] == j_engine.stats["decode_steps"]
-    assert t_engine.stats["prefill_tokens"] == j_engine.stats["prefill_tokens"]
-
-
-def _solo_greedy(cfg, tparams, prompt, max_new):
-    with torch.inference_mode():
-        toks = torch.from_numpy(prompt.astype(np.int64))[None]
-        logits, caches = lm.prefill(tparams, {"tokens": toks}, cfg, RUN, cache_len=CACHE_LEN)
-        out = [int(logits[0].argmax())]
-        for step in range(min(max_new, CACHE_LEN - len(prompt)) - 1):
-            logits, caches = lm.decode_step(tparams, torch.tensor([[out[-1]]]), caches,
-                                            torch.tensor(len(prompt) + step), cfg, RUN)
-            out.append(int(logits[0].argmax()))
-    return np.asarray(out, np.int32)
-
-
-@pytest.mark.parametrize("case_seed", range(2))
-def test_any_arrival_pattern_matches_solo_with_headroom(case_seed):
-    """With capacity_factor 8 no token is ever dropped, so the rows stop
-    coupling and the solo property holds for MoE (the JAX tests set the
-    same headroom)."""
-    _, cfg, _, tparams = _model("mixtral_8x7b", capacity_factor=8.0)
-    rs = np.random.RandomState(700 + case_seed)
-    eng = _engine(cfg, tparams)
-    t = 0.0
-    reqs = []
-    for _ in range(rs.randint(2, 6)):
-        t += int(rs.randint(0, 5))
-        reqs.append(Request(prompt=_prompt(int(rs.choice([2, 9, 13])), int(rs.randint(3))),
-                            max_new_tokens=int(rs.randint(1, 8)), arrival_time=t))
-    for r in reqs:
-        eng.submit(r)
-    done = eng.serve()
-    assert len(done) == len(reqs)
-    for r in done:
-        np.testing.assert_array_equal(r.output, _solo_greedy(cfg, tparams, r.prompt,
-                                                             r.max_new_tokens))
-
-
-def test_serve_launcher_takes_mixtral_on_the_cpu(capsys):
-    from repro_torch.launch import serve
-
-    serve.main(["--arch", "mixtral_8x7b", "--smoke", "--device", "cpu", "--requests", "3",
-                "--new-tokens", "4", "--max-seq", "32"])
-    out = capsys.readouterr().out
-    assert "served 3 requests / 12 tokens on cpu" in out
-    assert "expert_gemm" in out

@@ -11,6 +11,7 @@ import random
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 
 from repro.core import params as jparams  # noqa: E402

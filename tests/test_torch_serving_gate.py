@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.annotate import get_tunable  # noqa: E402

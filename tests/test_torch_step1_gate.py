@@ -35,6 +35,7 @@ import re
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402

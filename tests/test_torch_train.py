@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test process: the suite runs a worker a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -66,6 +67,19 @@ def _close(t, j, tol=TOL):
     assert t.shape == j.shape
     err = np.abs(t - j).max()
     assert err <= tol * max(np.abs(j).max(), 1e-6), err
+
+
+_STEPS = {}
+
+
+def _jax_step(jcfg):
+    """JAX's ``value_and_grad(loss_fn)`` in reference mode, jitted once: the
+    optimizer tests share it (both at batch 2 x 32)."""
+    if jcfg not in _STEPS:
+        with repro.runtime(mode="reference"):       # read while tracing: one trace
+            _STEPS[jcfg] = jax.jit(jax.value_and_grad(
+                lambda p, b: jlm.loss_fn(p, b, jcfg, JRUN), has_aux=True))
+    return _STEPS[jcfg]
 
 
 def _jax_value_and_grad(model, mode, batch):
@@ -151,9 +165,8 @@ def test_three_adamw_steps_match_jax(model):
     # kernel mode, held above) and adamw.update, on its pipeline's batches
     jopt = jadamw.AdamWConfig(**opt)
     jstate, jp, pipe = jadamw.init(jopt, params), params, JPipe(jcfg, JData(**data))
-    with repro.runtime(mode="reference"):       # read while tracing: one trace
-        step = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, b, jcfg, JRUN),
-                                          has_aux=True))
+    with repro.runtime(mode="reference"):
+        step = _jax_step(jcfg)
         j_losses = []
         for _ in range(3):
             (loss, _), g = step(jp, {k: jnp.asarray(v) for k, v in pipe.next_batch().items()})
@@ -177,7 +190,8 @@ def test_one_adamw_update_from_the_same_gradients_matches_jax(model):
     """The optimizer alone: JAX's gradients into both packages' update."""
     jcfg, cfg, params = model
     batch = JPipe(jcfg, JData(seed=7, batch_size=2, seq_len=32)).next_batch()
-    _, j_grads, _ = _jax_value_and_grad(model, "reference", batch)
+    with repro.runtime(mode="reference"):
+        _, j_grads = _jax_step(jcfg)(params, {k: jnp.asarray(v) for k, v in batch.items()})
     opt = dict(lr=1e-2, warmup_steps=1, total_steps=10, weight_decay=0.1)
     jopt = jadamw.AdamWConfig(**opt)
     jstate = jadamw.init(jopt, params)
