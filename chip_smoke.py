@@ -242,9 +242,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              path's layer outputs and cotangents, one layer at a time, and
              every matmul launch of its forward and backward against the
              plain version on its own operands (DispatchTap) (each
-             leaf's distance with the two paths on their own is printed,
-             and for a leaf over its limit there, each path's distance from
-             an fp32 computation of the step); every
+             leaf's distance with the two paths on their own is printed;
+             each path's distance from an fp32 computation of the step is
+             in PERF.md); every
              loss must be finite, every kernel's launch counter (transposed
              matmul included) must rise, rmsnorm_bwd must launch 49 times
              a step (one a norm: 2 a layer and the final one), and no fwd
@@ -256,7 +256,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              directory (the free disk checked first, the directory removed
              after): a clean trainer's losses, then a trainer of the same
              seed whose train() is faulted once at train.step:4 restores
-             the step-3 checkpoint and replays; after the restore every
+             the step-3 checkpoint and replays, with one train.recovered
+             warning (at step 4) and no other; after the restore every
              leaf equals the host copy written at step 3 bit for bit, and
              the replayed losses equal the clean run's bit for bit (if the
              card's ops did not repeat, at the spread of two runs of step
@@ -289,8 +290,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dispatch at the reference tier; prints the step time, tokens/s,
              peak memory, the device's busy time and idle share, and
              ssm_scan_bwd's share of a step by host clock and device time
-             (step 1's fp32 report of the leaves over TOL_GRAD end to end
-             is left out: its readings are in PERF.md);
+             (each path's distance from an fp32 computation of step 1 is
+             in PERF.md);
 13. moe-train — Mixtral-8x7B at its published widths, 2 of 32 layers (3.2 B
              parameters), batch 4 x 2048 (2 x 2048 past 75 GiB), the same
              way, step 1's gradients gated on the kernel path's routes
@@ -304,15 +305,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
              a step; the sLSTM loop runs 512 steps a layer) under
              RunConfig(remat="none", loss_chunk=512), 2 steps; step 1
              gated as in the train phase, each mLSTM layer's recurrence
-             pinned inside the layer too (LayerTap); 49
-             rmsnorm_bwd a step, each mLSTM layer's fp32 out_proj 3 times a
+             pinned inside the layer too (LayerTap); one
+             rmsnorm_bwd a layer and one for the final norm a step, each mLSTM layer's fp32 out_proj 3 times a
              step on gemm_simt, one softmax_xent and one
              softmax_xent_bwd a step, no dispatch at the reference tier,
              peak under 75 GiB; prints the step time, tokens/s and the
              launches of matmul (by route, transposed, split-k), rmsnorm,
              rmsnorm_bwd, softmax_xent and softmax_xent_bwd (its device
-             shares and step 1's fp32 report, from the whole model, are in
-             PERF.md);
+             shares and step 1's distances from fp32, from the whole model,
+             are in PERF.md);
 15. campaign — plans full-width qwen2_0_5b (the train phase's step, every
              dispatch site forward and backward, and serving at the token
              cap of the engine's warmup, 65536, at
@@ -340,11 +341,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 After every phase a health check fails the run if the process-default obs
 collector holds a ``dispatch.quarantine``, ``serve.degraded``,
-``bgtune.worker_dead`` or ``bgtune.job_failed`` warning, or a live
-runtime's health book is not empty, or a live engine is degraded, or a
-live background tuner lost its worker (the faults phase's and the bgtune
-crash drill's own, demoted on purpose, excepted): no demotion hides on a
-path the port runs.
+``bgtune.worker_dead``, ``bgtune.job_failed`` or ``train.recovered``
+warning, or a live runtime's health book is not empty, or a live engine is
+degraded, or a live background tuner lost its worker, or a live trainer
+recovered from a failed step (the faults phase's, the bgtune crash
+drill's and the resilience drill's own, faulted on purpose, excepted): no
+demotion or recovery hides on a path the port runs.
 
 Imports neither jax nor the JAX package.
 """
@@ -422,9 +424,6 @@ TOL_GRAD_KBIAS = 4e-2
 # A step-1 gate that fails is recorded here and its phase runs on, so the
 # rest of the run still prints its measurements; main() then exits 1.
 GATE_FAILURES = []
-# Leaves over their limit, the two paths each on its own, that the gate
-# reports against fp32 (each keeps two fp32 gradients until then).
-REPORT_LEAVES = 32
 # fp32 gemms (the hybrid's dt_proj and out_proj): both sides sum in fp32
 # (TF32 off), in another order over k up to 16,384 terms: 1e-4 of max|plain|.
 TOL_F32_GEMM = 1e-4
@@ -1802,20 +1801,23 @@ FAULT_EVENTS = 1 << 16
 
 
 def health_check(phase: str) -> None:
-    """No demotion hides: the process-default collector holds no quarantine,
-    degradation or background-tuning warning, and no live runtime or engine
-    (but the faults phase's) is quarantined or degraded, and no live
-    background tuner (but the bgtune phase's crash drill) lost its worker."""
+    """No demotion or recovery hides: the process-default collector holds
+    no quarantine, degradation, background-tuning or training-recovery
+    warning, and no live runtime or engine (but the faults phase's) is
+    quarantined or degraded, no live background tuner (but the bgtune
+    phase's crash drill) lost its worker, and no live trainer (but the
+    resilience drill's) recovered from a failed step."""
     from repro_torch import obs
     from repro_torch.core.bgtune import BackgroundTuner
     from repro_torch.core.runtime import TunedRuntime
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.train import Trainer
 
     t0 = time.perf_counter()
     warns = [f"{w['name']} [{w.get('key')}] {w.get('error', '')}"
              for w in obs.current_collector().events("warning")
              if w["name"] in ("dispatch.quarantine", "serve.degraded", "bgtune.worker_dead",
-                              "bgtune.job_failed")]
+                              "bgtune.job_failed", "train.recovered")]
     sick = []       # uncollected garbage counts too: it was quarantined all the same
     for o in gc.get_objects():
         kind = type(o)         # not isinstance: some lazy modules warn on __class__
@@ -1826,10 +1828,12 @@ def health_check(phase: str) -> None:
         elif kind is BackgroundTuner and o not in FAULTED and (
                 o.snapshot()["death"] or not (o.accepting or o.stopped)):
             sick.append(f"background tuner {o.name}: {o.snapshot()}")
+        elif kind is Trainer and o.recoveries and o not in FAULTED:
+            sick.append(f"a trainer that recovered {o.recoveries} time(s) at step {o.step}")
     if warns or sick:
         raise AssertionError(f"after phase {phase}: {warns + sick}")
-    log(f"[health] phase {phase}: no quarantine, no degraded engine, no dead tuner "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"[health] phase {phase}: no quarantine, no degraded engine, no dead tuner, no "
+        f"recovered trainer ({time.perf_counter() - t0:.2f} s)")
 
 
 @contextlib.contextmanager
@@ -3273,15 +3277,6 @@ def phase_archs(seed: int):
     return out
 
 
-def _fp32_copy(tree):
-    """The parameter tree, every leaf an fp32 copy cut from the graph."""
-    if isinstance(tree, dict):
-        return {k: _fp32_copy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_fp32_copy(v) for v in tree)
-    return tree.detach().float()
-
-
 class _Pinned(torch.autograd.Function):
     """A layer's output carrying another computation's value and cotangent:
     the forward gives ``value`` in place of ``own``, and the backward sends
@@ -3479,8 +3474,7 @@ def _rel(a, b) -> float:
     return (a.float() - b.float()).norm().item() / max(b.float().norm().item(), 1e-30)
 
 
-def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False,
-               fp32_report: bool = True):
+def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False):
     """Step 1's loss and gradients: the trainer's kernel path against the
     plain path (reference mode, remat="full" so its fp32 attention scores
     and its scan's autograd graph are live for one layer at a time) on the
@@ -3499,17 +3493,14 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False,
     operands (DispatchTap). Reported, not
     gated: each leaf's distance when the two paths run on their own, where
     the bf16 roundings that differ in the first layer compound through the
-    rest, and for each leaf over TOL_GRAD there each path's distance from
-    an fp32 computation of the step (the parameters cast, reference mode;
-    skipped with ``fp32_report=False``).
+    rest (each path's distance from an fp32 computation of the step, for
+    the leaves over TOL_GRAD there, is in PERF.md).
     A failure goes to GATE_FAILURES. With ``replay_routes`` (an MoE arch)
     the plain path takes the kernel path's expert ids, layer by layer (its
     recompute too), in both its passes; a forward-only plain pass routing
     on its own reports how many tokens' routes flip and what that does to
     the loss. Returns the kernel path's MoE load-balancing loss (None
     without ``replay_routes``)."""
-    import dataclasses
-
     from repro_torch.convert import batch_to_tensors
     from repro_torch.core.runtime import runtime
     from repro_torch.data.pipeline import SyntheticPipeline
@@ -3539,35 +3530,13 @@ def gate_step1(trainer, cfg, run, data, tag: str, replay_routes: bool = False,
     on_routes = " on the kernel path's routes" if replay_routes else ""
     log(f"[{tag}] step-1 loss kernel path {lk:.6f}, plain path{on_routes} {lp:.6f}: rel "
         f"{loss_rel:.3e} (tol {TOL_LOSS})")
-    rels, over = [], {}
-    for name, gk, gp in zip(names, grads_k, grads_p):
-        rels.append((_rel(gk, gp), name))
-        if rels[-1][0] > limit(name) and len(over) < REPORT_LEAVES:
-            over[name] = (rels[-1][0], gk.float(), gp.float())
+    rels = [(_rel(gk, gp), name) for name, gk, gp in zip(names, grads_k, grads_p)]
     del grads_p
     rels.sort(reverse=True)
     log(f"[{tag}] report only, each path on its own: ||g_k - g_p|| / ||g_p|| over {len(rels)} "
         f"leaves: median {rels[len(rels) // 2][0]:.3e}, max {rels[0][0]:.3e} ({rels[0][1]}); "
         f"{sum(r > limit(n) for r, n in rels)} over TOL_GRAD ({TOL_GRAD}; k biases "
         f"{TOL_GRAD_KBIAS})")
-    if over and fp32_report:
-        # each path against an fp32 computation of the step: bf16 rounding
-        # leaves both about as far from it as from each other
-        p32 = _fp32_copy(trainer.params)
-        want = [t for n, t in adamw.named_leaves(p32) if n in over]
-        for t in want:
-            t.requires_grad_()
-        with runtime(mode="reference", name="fp32"), routes():
-            loss_t, _ = lm.loss_fn(p32, batch, dataclasses.replace(cfg, dtype="float32"),
-                                   plain_run)
-            grads_t = torch.autograd.grad(loss_t, want)
-        log(f"[{tag}] report only, the first {len(over)} of them against an fp32 computation "
-            f"of step 1 (loss {float(loss_t.detach()):.6f}): ||g - g_32|| / ||g_32||")
-        for (name, (rel, gk, gp)), gt in zip(over.items(), grads_t):
-            log(f"[{tag}]   {name}: kernel path {_rel(gk, gt):.3e}, plain path "
-                f"{_rel(gp, gt):.3e}; between them {rel:.3e}")
-        del p32, want, grads_t
-    over.clear()
 
     # gated: layer by layer, the plain path on the kernel path's layer
     # outputs and cotangents
@@ -3639,7 +3608,7 @@ TRAIN_PEAK_LIMIT = 75 * 2**30
 
 
 def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: bool = False,
-               by_step=None, seq: int = 2048, fp32_report: bool = True):
+               by_step=None, seq: int = 2048):
     """Train ``cfg`` through the Trainer at ``seq`` (default 2048) and the
     first batch of ``batches`` whose steps stay under TRAIN_PEAK_LIMIT:
     step 1 gated against the plain path, then ``steps`` steps with the
@@ -3668,8 +3637,7 @@ def _train_run(tag: str, cfg, seed: int, batches, steps: int, replay_routes: boo
         log(f"[{tag}] {lm.param_count(trainer.params) / 1e9:.3f} B params {cfg.dtype} + fp32 "
             f"AdamW master and moments: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated; batch {batch} x {seq}; init {time.perf_counter() - t0:.1f} s")
-        aux = gate_step1(trainer, cfg, run, data, tag, replay_routes=replay_routes,
-                         fp32_report=fp32_report)
+        aux = gate_step1(trainer, cfg, run, data, tag, replay_routes=replay_routes)
         gate_peak = torch.cuda.max_memory_allocated()
         rt.telemetry.reset()
         torch.cuda.synchronize()
@@ -3840,6 +3808,7 @@ CKPT_DISK_FACTOR = 2.5
 def phase_resilience(seed: int):
     """Checkpoints and recovery on qwen2_0_5b at full width and depth (the
     module docstring's list)."""
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import runtime
     from repro_torch.data.pipeline import DataConfig
@@ -3934,8 +3903,16 @@ def phase_resilience(seed: int):
         tr.restore_checkpoint, tr.run_one_step = restore, run_one_step
         plan = FaultPlan([FaultRule(site="train.step:4", times=1, message="injected node loss")],
                          seed=seed, name="step-4")
-        with plan:
+        FAULTED.add(tr)
+        with plan, obs.collect(name=tag) as col:
             metrics = tr.train()
+        recovered = [(w["step"], w["error"]) for w in col.events("warning")
+                     if w["name"] == "train.recovered"]
+        log(f"[{tag}] train.recovered warnings: {recovered}; trainer.recoveries "
+            f"{tr.recoveries}")
+        if tr.recoveries != 1 or [st for st, _ in recovered] != [4]:
+            raise AssertionError(f"[{tag}] one recovery at step 4 expected: {recovered}, "
+                                 f"{tr.recoveries}")
         restored_equal = not bad and len(timing["restore_s"]) == 1
         written.clear()
         log(f"[{tag}] fault fired {plan.count('train.step:*')} time(s): {plan.fired}; "
@@ -4019,10 +3996,8 @@ def phase_hybrid_train(seed: int):
         f"{cfg.num_kv_heads} heads of {cfg.hd}, d_inner {cfg.mamba_expand * cfg.d_model}, "
         f"d_state {cfg.mamba_d_state}, dt_rank {-(-cfg.d_model // 16)}, vocab {cfg.vocab_size}")
     t_phase = time.perf_counter()
-    # step 1's fp32 report of the end-to-end leaves over TOL_GRAD is left
-    # out: printed only, its readings in PERF.md (PR 22) and ROADMAP Queue 3
     trainer, batch, metrics, launches, snap, peak, _ = _train_run(
-        "hybrid-train", cfg, seed, (2, 1), steps, fp32_report=False)
+        "hybrid-train", cfg, seed, (2, 1), steps)
     # a step: 7 scans; 17 norms (2 a layer and the final one); the fp32 gemms
     # dt_proj and out_proj, each forward and its two gradients, 6 a Mamba layer
     _train_checks("hybrid-train", snap, launches, {
@@ -4391,11 +4366,11 @@ def phase_xlstm_train(seed: int):
     steps, seq = 2, 512
     log(f"[{tag}] {cfg.name} at full width, {cfg.num_layers} of its {full.num_layers} layers "
         f"({n_m} mLSTM, {cfg.num_layers - n_m} sLSTM), batch 4 x {seq} (2048 tokens a step; "
-        f"the sLSTM loop runs 512 steps a layer, the fewest the phase allows), remat 'none'; "
-        f"step 1's fp32 report is left out (its device shares and distances: PERF.md, PR 24)")
+        f"the sLSTM loop runs 512 steps a layer, the fewest the phase allows), remat 'none' "
+        f"(its device shares and step 1's distances from fp32 are in PERF.md)")
     t_phase = time.perf_counter()
     trainer, batch, metrics, launches, snap, peak, _ = _train_run(
-        tag, cfg, seed, (4,), steps, seq=seq, fp32_report=False)
+        tag, cfg, seed, (4,), steps, seq=seq)
     if peak > TRAIN_PEAK_LIMIT:
         raise AssertionError(f"{tag}: peak {peak / 2**30:.2f} GiB passes 75 GiB")
     # a step: one rmsnorm_bwd a norm (one a layer and the final one); each
@@ -4590,6 +4565,9 @@ def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float, heuristic_ste
     metrics = trainer.train()
     torch.cuda.synchronize()
     train_launches = kernels.launch_counts()
+    if trainer.recoveries:
+        raise AssertionError(f"tuned training recovered from {trainer.recoveries} failed "
+                             f"step(s): a fault was hidden")
     snap = trt.telemetry.snapshot()
     log(f"[tuned] launches over 2 steps: {train_launches}")
     log(f"[tuned] telemetry by phase: {snap['phases']}")

@@ -51,6 +51,35 @@ def _init_tree(cfg: ArchConfig, gen, dev) -> Dict[str, Any]:
     }
 
 
+@torch.no_grad()
+def reinit_params_(params: Dict[str, Any], cfg: ArchConfig, seed: int = 0) -> None:
+    """:func:`init_params` again, into ``params`` in place: the same numbers
+    for the same seed on the tree's device, drawn in the same order but one
+    piece (the embedding, a layer, the head) at a time, so no second full
+    tree is ever held."""
+    dev = params["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.tdtype
+    _copy_tree_(params["embed"], embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, dev))
+    for live, seg in zip(params["segments"], cfg.segments()):
+        for live_rep in live:
+            for i, spec in enumerate(seg.pattern):
+                _copy_tree_(live_rep[f"l{i}"], tf.layer_init(gen, cfg, spec, dev))
+    _copy_tree_(params["final_norm"], norm_init(cfg.d_model, dt, dev))
+    _copy_tree_(params["lm_head"], unembed_init(gen, cfg.d_model, cfg.vocab_size, dt, dev))
+
+
+def _copy_tree_(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_tree_(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_tree_(d, s)
+    else:
+        dst.copy_(src)
+
+
 def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
     """The parameter tree on the ``meta`` device: every leaf's shape and
     dtype, and no memory, as the JAX package's ``abstract_params``."""

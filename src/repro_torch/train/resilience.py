@@ -2,7 +2,7 @@
 policy.
 
 A copy of ``repro.train.resilience`` (stdlib only; the port imports nothing
-of the JAX package).
+of the JAX package), plus ``run_with_recovery(fatal=)``.
 
 At 1000+ nodes the mean time between node failures drops below job length;
 the framework must treat failure as a steady-state input, not an exception:
@@ -90,12 +90,15 @@ def run_with_recovery(
     start_step: int = 0,
     policy: Optional[RestartPolicy] = None,
     sleep=time.sleep,
+    fatal: Optional[Callable[[Exception], bool]] = None,
 ) -> Dict:
     """Supervision loop: execute steps, recover-and-replay on failure.
 
     step_fn(step) runs one training step (it owns state mutation).
     restore_fn() rolls state back to the last committed checkpoint and
-    returns the step to resume from.
+    returns the step to resume from. An exception for which ``fatal(e)``
+    holds is raised at once, with no recovery (the port's addition: the
+    Trainer passes ``runtime.raises_through``).
     """
     policy = policy or RestartPolicy()
     step = start_step
@@ -107,6 +110,8 @@ def run_with_recovery(
         except KeyboardInterrupt:
             raise
         except Exception as e:
+            if fatal is not None and fatal(e):
+                raise
             backoff = policy.on_failure()
             log.error("step %d failed (%s); restoring (backoff %.2fs)", step, e, backoff)
             sleep(backoff)

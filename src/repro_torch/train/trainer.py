@@ -26,11 +26,16 @@ the host copy is taken before the next step starts), each step time to a
 :meth:`Trainer.train` runs the steps under
 :func:`~repro_torch.train.resilience.run_with_recovery`: a step that
 raises (the fault site ``train.step:<step>``, or ``fail_hook``) restores
-the last committed checkpoint and replays from it. A restore copies into
-the tensors the trainer and its optimizer state hold, in place. With no
-checkpoint to restore, a trainer that initialised its own parameters
-re-initialises them from ``tcfg.seed``; one that was handed ``params=``
-has nothing to restart from and raises.
+the last committed checkpoint and replays from it, and leaves a
+``train.recovered`` warning on the obs collector and one more in
+``Trainer.recoveries``. An error that no guard may absorb
+(``runtime.raises_through``: a kernel missing on this host, a launch the
+card refused) raises out of :meth:`Trainer.train` with no recovery. A
+restore copies into the tensors the trainer and its optimizer state hold,
+in place. With no checkpoint to restore, a trainer that initialised its
+own parameters re-initialises them from ``tcfg.seed``, in place
+(:func:`lm.reinit_params_`); one that was handed ``params=`` has nothing
+to restart from and raises.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..convert import batch_to_tensors
 from ..core.platform import resolve_device
-from ..core.runtime import TunedRuntime, dispatch_phase
+from ..core.runtime import TunedRuntime, dispatch_phase, raises_through
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..models import lm
 from ..models.transformer import RunConfig
@@ -107,6 +112,7 @@ class Trainer:
                                           keep=self.tcfg.checkpoint_keep)
         self.monitor = StragglerMonitor()
         self.step = 0
+        self.recoveries = 0     # restores after a failed step, over every train() call
 
     def _scope(self):
         return self.runtime if self.runtime is not None else contextlib.nullcontext()
@@ -203,10 +209,7 @@ class Trainer:
                 raise RuntimeError("no checkpoint to restore, and this trainer was given "
                                    "params=: it cannot restart from scratch")
             log.warning("no checkpoint to restore; restarting from scratch")
-            fresh = lm.init_params(self.cfg, self.tcfg.seed, self.device)
-            for p, f in zip(self._leaves, adamw.leaves(fresh)):
-                p.copy_(f)
-            del fresh
+            lm.reinit_params_(self.params, self.cfg, self.tcfg.seed)
             # adamw.init's state, in place
             for t in self.opt_state["m"] + self.opt_state["v"]:
                 t.zero_()
@@ -238,17 +241,29 @@ class Trainer:
         appears once, from its last run. ``fail_hook(step)`` (tests) may
         raise to fail a step, as the ``train.step:<step>`` fault site does."""
         ran: Dict[int, Dict[str, float]] = {}
+        failed: List[Tuple[int, Exception]] = []
 
         def step_fn(step: int) -> Dict[str, float]:
-            if fail_hook is not None:
-                fail_hook(step)
-            _fault_point(f"train.step:{step}", step=step)
-            ran[step] = self.run_one_step()
+            try:
+                if fail_hook is not None:
+                    fail_hook(step)
+                _fault_point(f"train.step:{step}", step=step)
+                ran[step] = self.run_one_step()
+            except Exception as e:
+                failed.append((step, e))
+                raise
             return ran[step]
 
-        run_with_recovery(step_fn, self.restore_checkpoint, total_steps=self.tcfg.total_steps,
+        def restore_fn() -> int:
+            step, e = failed[-1]
+            self.recoveries += 1
+            _obs_collector().warn_once("train.recovered", key=f"{id(self)}:{self.recoveries}",
+                                       step=step, error=f"{type(e).__name__}: {e}")
+            return self.restore_checkpoint()
+
+        run_with_recovery(step_fn, restore_fn, total_steps=self.tcfg.total_steps,
                           start_step=self.step,
                           policy=RestartPolicy(max_failures=self.tcfg.max_failures),
-                          sleep=lambda s: None)
+                          sleep=lambda s: None, fatal=raises_through)
         self.ckpt.wait()
         return [ran[i] for i in sorted(ran)]

@@ -6,10 +6,11 @@ The JAX ``init_params`` output crosses through numpy with
 ``from_jax_params``. Held against JAX: every parameter leaf with its dtype;
 prefill logits and caches at exact prompt lengths (an SSM arch prefills at
 exact length), in kernel mode (JAX: Pallas in interpret mode; port: the
-kernels' plain versions) and in reference mode; three decode steps at a
-vector ``pos`` from a two-slot pool. The converted parameters, the serving
-engine's tokens and the serving plan are held in
-``test_torch_hybrid_serving.py``, which runs on a worker of its own.
+kernels' plain versions) and in reference mode. Three decode steps at a
+vector ``pos`` from a two-slot pool are held in
+``test_torch_hybrid_decode.py``; the converted parameters, the serving
+engine's tokens and the serving plan in ``test_torch_hybrid_serving.py``:
+each runs on a worker of its own.
 
 Tolerance: 1e-5 of max|logit| (at least 1), as for the dense model: the
 same fp32 math through 16 layers, with sums taken in another order.
@@ -81,8 +82,8 @@ _JAX_PREFILL = {}
 
 
 def _prefill_both(model, mode, toks):
-    """Both packages' prefill of ``toks``; JAX's once a (mode, prompt): the
-    decode test's 8-token slot is the prefill test's 8-token prompt."""
+    """Both packages' prefill of ``toks``; JAX's once a (mode, prompt) in a
+    process."""
     jcfg, cfg, params, tparams = model
     L = toks.shape[1]
     key = (mode, toks.tobytes())
@@ -108,57 +109,3 @@ def test_prefill_matches_jax(model, mode, length):
         for leaf in ("h", "conv"):
             _close(tc[0][f"l{i}"][leaf], jc[0][f"l{i}"][leaf])
     assert tc[0]["l1"]["h"].dtype == torch.float32
-
-
-@pytest.mark.parametrize("mode", ["kernel", "reference"])
-def test_three_decode_steps_at_vector_pos_match_jax(model, mode):
-    """Two slots prefilled at different lengths, inserted into a pool, then
-    three decode steps with pos = [L0 + t, L1 + t]: the logits and the pool's
-    Mamba state after each step."""
-    jcfg, cfg, params, tparams = model
-    lens = (21, 8)
-    j_pool = jlm.init_cache(jcfg, 2, CACHE_LEN)
-    t_pool = lm.init_cache(cfg, 2, CACHE_LEN, "cpu")
-    assert t_pool[0]["l1"]["h"].dtype == torch.float32
-    for slot, L in enumerate(lens):
-        toks = np.random.RandomState(L).randint(0, 256, (1, L)).astype(np.int32)
-        (_, jc), (_, tc) = _prefill_both(model, mode, toks)
-        j_pool = jlm.insert_cache(j_pool, jc, slot)
-        lm.insert_cache(t_pool, tc, slot)
-    rs = np.random.RandomState(9)
-    for step in range(3):
-        tokens = rs.randint(0, 256, (2, 1)).astype(np.int32)
-        pos = np.array(lens, np.int32) + step
-        with repro.runtime(mode=mode):
-            jl, j_pool = jlm.decode_step(params, jnp.asarray(tokens), j_pool,
-                                         jnp.asarray(pos), jcfg, JRUN)
-        with repro_torch.runtime(mode=mode), torch.inference_mode():
-            tl, t_pool = lm.decode_step(tparams, torch.from_numpy(tokens).long(), t_pool,
-                                        torch.from_numpy(pos).long(), cfg, RUN)
-        _close(tl, jl)
-        for leaf in ("h", "conv"):
-            _close(t_pool[0]["l3"][leaf], j_pool[0]["l3"][leaf])
-        _close(t_pool[0]["l0"]["v"], j_pool[0]["l0"]["v"])
-
-
-def test_decode_writes_the_mamba_state_back_into_the_pool(model):
-    _, cfg, _, tparams = model
-    pool = lm.init_cache(cfg, 2, CACHE_LEN, "cpu")
-    before = {k: t.clone() for k, t in pool[0]["l2"].items()}
-    with repro_torch.runtime(), torch.inference_mode():
-        _, out = lm.decode_step(tparams, torch.tensor([[5], [6]]), pool, torch.tensor([0, 0]),
-                                cfg, RUN)
-    assert out is pool
-    for k in ("h", "conv"):
-        assert not torch.equal(pool[0]["l2"][k], before[k]), k
-
-
-def test_decode_dispatches_every_kernel_on_the_path(model):
-    _, cfg, _, tparams = model
-    toks = torch.from_numpy(np.arange(13)[None]).long()
-    with repro_torch.runtime() as rt, torch.inference_mode():
-        _, caches = lm.prefill(tparams, {"tokens": toks}, cfg, RUN, cache_len=CACHE_LEN)
-        lm.decode_step(tparams, toks[:, :1], caches, torch.tensor([13]), cfg, RUN)
-    kernels = {k.split("|")[0] for k in rt.telemetry.by_key}
-    assert kernels == {"matmul", "rmsnorm", "flash_attention", "ssm_scan", "ssm_update"}
-    assert set(rt.telemetry.tiers) == {"heuristic"}

@@ -15,6 +15,11 @@ numpy. Held against JAX:
 * ``remat="full"`` recomputes the reference path's gradients (the card's
   step-1 gate takes that path), and the launcher trains the arch on the CPU.
 
+The kernel-mode loss and gradients run in ``test_torch_hybrid_train_kernel.py``
+and, with experts, ``test_torch_hybrid_train_experts_kernel.py``; the other
+cases with experts in ``test_torch_hybrid_train_experts.py``: four files on
+four workers.
+
 Tolerances: loss 1e-5 relative; each gradient leaf 3e-5 of its max|JAX|
 (1e-4 for the routers, as in ``test_torch_moe.py``). Both sides compute in
 fp32 through 16 layers; the Mamba leaves' gradients are sums over b * s
@@ -105,8 +110,12 @@ def _close(t, j, tol):
     assert err <= tol * max(np.abs(j).max() if j.size else 0.0, 1e-6), err
 
 
-@pytest.mark.parametrize("mode", ["kernel", "reference"])
+@pytest.mark.parametrize("mode", ["reference"])    # kernel: test_torch_hybrid_train_kernel.py
 def test_loss_and_every_gradient_leaf_match_jax(jamba, mode):
+    check_loss_and_every_gradient_leaf(jamba, mode)
+
+
+def check_loss_and_every_gradient_leaf(jamba, mode):
     jcfg, cfg, params = jamba
     batch = JPipe(jcfg, JData(seed=1, batch_size=2, seq_len=24)).next_batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}

@@ -2,7 +2,9 @@
 Jamba-1.5-Large with an MoE FFN every second layer (4 experts top-2).
 
 The cases and tolerances of ``test_torch_hybrid_train.py`` (its docstring),
-run here on the model with experts so the two models land on two workers.
+run here on the model with experts so the two models land on two workers;
+the kernel-mode loss and gradients in
+``test_torch_hybrid_train_experts_kernel.py``.
 """
 import pytest
 

@@ -88,3 +88,26 @@ def test_run_with_recovery_gives_up(mod):
         mod.run_with_recovery(step_fn, lambda: 0, total_steps=4,
                               policy=mod.RestartPolicy(max_failures=2), sleep=lambda s: None)
     assert calls == [0, 0, 0]
+
+
+def test_run_with_recovery_raises_what_fatal_names():
+    """The port's ``fatal=``: an error it names raises at once, with no
+    restore and no failure counted; any other still recovers."""
+    calls, restores = [], []
+    policy = tres.RestartPolicy(max_failures=5)
+
+    def step_fn(step):
+        calls.append(step)
+        if step == 1 and len(calls) == 2:
+            raise RuntimeError("recoverable")
+        if step == 2:
+            raise KeyError("fatal")
+
+    def restore_fn():
+        restores.append(1)
+        return 1
+
+    with pytest.raises(KeyError, match="fatal"):
+        tres.run_with_recovery(step_fn, restore_fn, total_steps=4, policy=policy,
+                               sleep=lambda s: None, fatal=lambda e: isinstance(e, KeyError))
+    assert calls == [0, 1, 1, 2] and restores == [1] and policy.failures == 1

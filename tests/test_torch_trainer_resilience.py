@@ -20,8 +20,11 @@ from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
+from repro_torch.kernels._build import CudaError, KernelUnavailable  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.transformer import RunConfig  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.testing import FaultPlan, FaultRule  # noqa: E402
@@ -103,10 +106,14 @@ def test_injected_step_faults_recover_to_same_loss(tmp_path, jax_params):
 
     chaotic = make_trainer(tmp_path / "chaos", jax_params, async_ckpt=True)
     plan = FaultPlan([FaultRule(site="train.step:4", times=1, message="injected node loss")])
-    with plan:
+    with plan, obs.collect(name="chaos") as col:
         metrics = chaotic.train()
     assert plan.count("train.step:4") == 1, "the drill must fire"
     assert chaotic.step == 6 and chaotic.ckpt.all_steps() == [3, 6]
+    # the recovery is not hidden: one warning, one count
+    warned = [w for w in col.events("warning") if w["name"] == "train.recovered"]
+    assert chaotic.recoveries == 1 and len(warned) == 1 and warned[0]["step"] == 4
+    assert "injected node loss" in warned[0]["error"]
     # restore and replay reconverge on the uninterrupted trajectory
     np.testing.assert_allclose(_losses(metrics), clean_losses, rtol=TOL)
 
@@ -122,6 +129,42 @@ def test_restart_from_scratch_reinitialises_from_the_seed(tmp_path):
     assert plan.count() == 1 and tr.ckpt.all_steps() == []
     np.testing.assert_allclose(_losses(metrics), clean_losses, rtol=TOL)
     assert tr.opt_state["step"] == 3
+
+
+def test_reinit_params_in_place_equals_a_fresh_init():
+    """The restart from scratch's re-init, a piece at a time into the live
+    tree, draws the numbers ``lm.init_params`` draws, bit for bit."""
+    live = lm.init_params(CFG, 5, "cpu")
+    held = adamw.leaves(live)
+    for t in held:
+        t.add_(1.0)
+    lm.reinit_params_(live, CFG, 7)
+    want = adamw.leaves(lm.init_params(CFG, 7, "cpu"))
+    assert all(a is b for a, b in zip(held, adamw.leaves(live)))
+    for a, b in zip(held, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("error", [
+    KernelUnavailable("rmsnorm: no kernel on this host"),
+    CudaError(7, "rmsnorm: CUDA error 7 (too many resources requested for launch)"),
+], ids=["unavailable", "refused"])
+def test_errors_no_guard_absorbs_raise_out_of_train(tmp_path, error):
+    """A kernel missing on this host or a launch the card refused is never
+    recovered by a restore and replay: it raises out of ``train()`` the
+    first time, with no recovery counted or warned."""
+    tr = make_trainer(tmp_path, steps=3, every=1)
+    calls = []
+
+    def fail_hook(step):
+        calls.append(step)
+        if step == 1:
+            raise error
+
+    with obs.collect(name="fatal") as col, pytest.raises(type(error)):
+        tr.train(fail_hook=fail_hook)
+    assert calls == [0, 1] and tr.recoveries == 0
+    assert not [w for w in col.events("warning") if w["name"] == "train.recovered"]
 
 
 def test_restart_from_scratch_refuses_handed_parameters(tmp_path, jax_params):
