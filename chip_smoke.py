@@ -325,7 +325,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
              trials, pruned trials by reason, seconds, and per kernel the
              tuned configs' time beside the heuristic configs' from the
              same calls;
-16. tuned  — on that database: ServingEngine.warmup and a few staggered
+16. analysis — on that manifest and exported database (82 keys):
+             (1) repro_torch.analysis's passes (lint, legality on h100-sxm,
+             h100-pcie and this card's key, contracts, the database and
+             manifest audit), strict: 0 errors, 0 warnings; (2) every
+             kernel's launch model against the built libraries' own
+             shared-memory functions (matmul, the fp32 flash forward and
+             both backward passes, rmsnorm_bwd, ssm_scan) for every config
+             at the nominal and the phase shapes, and every config pruned
+             for shared memory past this card's opt-in limit; (3) every
+             config the launch model calls legal at one main-path shape a
+             kernel (a seeded sample of ANALYSIS_SAMPLE, with the heuristic
+             and the largest-shared-memory config, where there are more)
+             launched and held to its plain version at the kernels phase's
+             tolerances; (4) the drift report over the database (the
+             campaign's evaluator, each record's manifest job replayed on
+             the campaign's seeded tensors, drawn on host threads a batch
+             at a time, never beside a timing): every record replays, and
+             no site past L2 reads above 105% of its
+             analytic roofline (L2-resident sites printed, not gated; the
+             slowdowns printed, not gated); (5) tools.analytic's roofline of
+             the qwen2_0_5b train step and 8-slot decode step at most their
+             device busy times from the train and serve phases, and the
+             cost model's price of each job's tuned and heuristic configs at
+             most 1.05 x their measured objectives (L2-resident sites
+             excepted); the share of jobs the model orders as the card did
+             is printed;
+17. tuned  — on that database: ServingEngine.warmup and a few staggered
              requests, then 2 Trainer steps from the train phase's seed
              and batch; every fwd and bwd dispatch must resolve at the
              exact tier, rmsnorm_matmul (decode, on the tensor-core routes
@@ -336,7 +362,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              times are printed beside the train phase's heuristic step
              times (reported, not claimed), and torch.profiler splits one
              more tuned step by kernel;
-17. summary — one ``{"kernels": [...]}`` line, then the last line
+18. summary — one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 After every phase a health check fails the run if the process-default obs
@@ -1654,9 +1680,10 @@ def kernel_share(label: str, by_name: dict, busy: float, kernel: str, marks) -> 
         f"{100 * ms / max(busy, 1e-9):.2f}% of {busy:.2f} ms busy")
 
 
-def profile_serving(params, cfg, run, ecfg) -> None:
+def profile_serving(params, cfg, run, ecfg) -> float:
     """A full-pool decode step (8 slots at staggered positions) and a prefill
-    of the largest bucket (1500 real tokens in 2048)."""
+    of the largest bucket (1500 real tokens in 2048); returns the decode
+    step's device busy ms."""
     from repro_torch.models import lm
 
     B = ecfg.max_batch
@@ -1674,8 +1701,9 @@ def profile_serving(params, cfg, run, ecfg) -> None:
             lm.prefill(params, {"tokens": prompt}, cfg, run, cache_len=ecfg.max_seq,
                        true_len=1500)[0].float().cpu()
 
-    profile("decode step (8 slots)", decode, 10)
+    _, busy = profile("decode step (8 slots)", decode, 10)
     profile("prefill bucket 2048", prefill, 3)
+    return busy
 
 
 def phase_serve(seed: int):
@@ -1753,7 +1781,8 @@ def phase_serve(seed: int):
         f"3.35 TB/s = {w_bytes / 3.35e12 * 1e3:.3f} ms (computed, not measured)")
     log(f"[serve] peak memory allocated: {peak / 2**30:.2f} GiB")
 
-    profile_serving(params, cfg, run, ecfg)
+    READINGS.update(decode_step_ms=1e3 * float(np.median(dec)),
+                    decode_busy_ms=profile_serving(params, cfg, run, ecfg))
 
     # One prefill, kernel path vs plain (reference-mode) path on the card.
     probe = prompts[lengths.index(300)]
@@ -3794,6 +3823,7 @@ def phase_train(seed: int):
     step_ms = _step_report("train", metrics, tokens)
     by_name, busy = profile(f"train step ({tokens} tokens)", trainer.run_one_step, 1,
                             wall_ms=step_ms)
+    READINGS.update(train_step_ms=step_ms, train_busy_ms=busy)
     kernel_share(f"train step ({tokens} tokens)", by_name, busy, "rmsnorm_bwd",
                  ("rmsnorm_bwd_rows", "rmsnorm_bwd_dw"))
     return launches, step_ms, [1e3 * m["step_time_s"] for m in metrics]
@@ -4472,6 +4502,365 @@ def phase_campaign(seed: int, budget: int, workdir: str):
     return out_path, launches
 
 
+# What the analysis phase holds its cost models against: the train phase's
+# step (host clock, device busy) and the serve phase's decode step.
+READINGS = {}
+
+# The analysis phase launches at most this many legal configs of a kernel
+# (a seeded sample that always holds the heuristic config and the legal
+# config with the most shared memory).
+ANALYSIS_SAMPLE = 48
+# A site whose bytes fit the card's L2 may read faster than the memory rate
+# the analytic bound prices: printed as L2-resident, not gated.
+ROOF_LIMIT = 1.05
+
+
+def _analysis_calls(seed: int):
+    """One main-path call a kernel, on the card, at the first of its
+    ``analysis.legality.PHASE_SHAPES`` (qwen2_0_5b's serving and training
+    shapes, the hybrid's for the two SSM kernels, Mixtral's decode for
+    expert_gemm), drawn in the kernels phase's ranges. (name, args, call
+    kwargs, plain version, tolerance of each output, as the kernels phase
+    holds it: ("rel", tol) of max|plain|, ("row", tol) of each row's,
+    ("abs", tol))."""
+    from repro_torch.analysis.legality import PHASE_SHAPES
+    from repro_torch.kernels import attention as fa
+    from repro_torch.kernels import fused as fu
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import xent as xe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shp = {k: v[0][1] for k, v in PHASE_SHAPES.items()}
+    draw = lambda shape, scale=1.0: (scale * torch.randn(shape, generator=gen,
+                                                         device="cuda")).to(torch.bfloat16)
+    weight = lambda shape: draw(shape, scale=shape[-2] ** -0.5)
+
+    def xent_inputs(logits_shape, labels_shape):
+        return (draw(logits_shape, scale=2.0),
+                torch.randint(0, logits_shape[-1], labels_shape, generator=gen, device="cuda"))
+
+    s = shp["rmsnorm_bwd"]
+    x, w = draw(s[1]), draw(s[2])
+    rmsnorm_bwd_args = (draw(s[0]), x, w, rn.rmsnorm_plain(x, w)[1])
+    s = shp["softmax_xent_bwd"]
+    logits, labels = xent_inputs(s[1], s[2])
+    xent_bwd_args = (torch.randn(s[0], generator=gen, device="cuda") / s[0][0], logits, labels,
+                     xe.softmax_xent_plain(logits, labels)[1])
+    s = shp["flash_attention_bwd"]
+    q, k, v = (draw(t, scale=0.3) for t in s[1:4])
+    flash_bwd_args = (draw(s[0]), q, k, v) + tuple(fa.flash_attention_plain(q, k, v, causal=True))
+    s, u = shp["ssm_scan"], shp["ssm_update"]
+    scan_args = _ssm_inputs(gen, s[0][:2], s[0][2], s[2][-1], 0.0)
+    update_args = _ssm_inputs(gen, u[0][:1], u[0][1], u[2][-1], 1.0)
+    bf16, row, ssm, xent_ = (("rel", TOL_BF16),), ("row", TOL_BF16), ("rel", TOL_SSM), \
+        ("rel", TOL_XENT)
+    return [
+        ("matmul", (draw(shp["matmul"][0]), weight(shp["matmul"][1])), {}, mm.matmul_plain,
+         bf16),
+        ("rmsnorm", tuple(map(draw, shp["rmsnorm"])), {}, rn.rmsnorm_plain,
+         (("rel", TOL_BF16), ("rel", TOL_XENT))),
+        ("rmsnorm_bwd", rmsnorm_bwd_args, {}, rn.rmsnorm_bwd_plain,
+         (("rel", TOL_BF16), ("rel", TOL_BF16))),
+        ("softmax_xent", xent_inputs(*shp["softmax_xent"]), {}, xe.softmax_xent_plain,
+         (xent_, xent_)),
+        ("softmax_xent_bwd", xent_bwd_args, {}, xe.softmax_xent_bwd_plain, bf16),
+        ("flash_attention", tuple(draw(t, scale=0.3) for t in shp["flash_attention"]),
+         {"causal": True}, fa.flash_attention_plain, (row, ("abs", TOL_LSE))),
+        ("flash_attention_bwd", flash_bwd_args, {"causal": True},
+         fa.flash_attention_bwd_plain, bf16 * 3),
+        ("matmul_bias_act", (draw(shp["matmul_bias_act"][0]),
+                             weight(shp["matmul_bias_act"][1]), draw(shp["matmul_bias_act"][2])),
+         {"act": "silu"}, fu.matmul_bias_act_plain, bf16),
+        ("rmsnorm_matmul", (draw(shp["rmsnorm_matmul"][0]), draw(shp["rmsnorm_matmul"][1]),
+                            weight(shp["rmsnorm_matmul"][2])), {}, fu.rmsnorm_matmul_plain,
+         bf16),
+        ("ssm_scan", scan_args, {}, ss.ssm_scan_plain, (ssm, ssm)),
+        ("ssm_update", update_args, {}, ss.ssm_update_plain, (ssm, ssm)),
+        ("expert_gemm", (draw(shp["expert_gemm"][0]), weight(shp["expert_gemm"][1])), {},
+         mg.expert_gemm_plain, bf16),
+    ]
+
+
+def _leaf_errs(out, ref, tols):
+    """(max abs err, worst err / its tolerance) over each output leaf."""
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    refs = ref if isinstance(ref, (tuple, list)) else (ref,)
+    worst_abs, worst = 0.0, 0.0
+    for o, r, (how, tol) in zip(outs, refs, tols):
+        d, rel = rel_err(o, r)
+        err = row_rel_err(o, r) if how == "row" else (d if how == "abs" else rel)
+        worst_abs, worst = max(worst_abs, d), max(worst, err / tol)
+    return worst_abs, worst
+
+
+def _smem_library_checks(prof) -> int:
+    """The launch models' shared memory against the five built libraries'
+    own arithmetic, for every config of each space at the nominal and the
+    phase shapes; and every config pruned for shared memory on h100-sxm
+    past the opt-in limit the CUDA runtime reports for this card."""
+    import ctypes
+    import itertools
+
+    from repro_torch.analysis.legality import PHASE_SHAPES
+    from repro_torch.core import gridmodel as gm
+    from repro_torch.core.platform import H100_SXM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as fa
+
+    I = ctypes.c_int
+    libs = {
+        "matmul": _build.entry("matmul", "repro_matmul_smem_bytes", [I] * 6),
+        "flash": _build.entry("flash_attention", "repro_flash_simt_smem_bytes", [I] * 3),
+        "dq": _build.entry("flash_attention_bwd", "repro_flash_bwd_dq_simt_smem_bytes", [I] * 3),
+        "dkv": _build.entry("flash_attention_bwd", "repro_flash_bwd_dkv_simt_smem_bytes",
+                            [I] * 3),
+        "rmsnorm_bwd": _build.entry("rmsnorm_bwd", "repro_rmsnorm_bwd_smem_bytes", [I] * 3),
+        "ssm_scan": _build.entry("ssm_scan", "repro_ssm_scan_smem_bytes", [I] * 5),
+    }
+    routes = {"gemm_tc": 0, "gemm_decode": 1, "gemm_wmma": 2, "gemm_simt": 3}
+    checked, pruned = 0, 0
+    mismatch = []
+
+    def lib_smem(kernel, m, cfg, shapes, dtypes):
+        es = 2 if m.dtype == "bfloat16" else 4
+        if m.kernel in routes:
+            bm, bn, bk, st = m.template
+            return libs["matmul"](routes[m.kernel], int(m.dtype == "bfloat16"), bm, bn, bk, st)
+        if m.kernel == "flash_fwd_simt":
+            t = fa.simt_tiles(shapes[0][-1])
+            return libs["flash"](shapes[0][-1], t["block_q"], t["block_k"])
+        if m.kernel in ("flash_bwd_dq_simt", "flash_bwd_dkv_simt"):
+            t = fa.simt_tiles(shapes[1][-1])
+            return libs["dq" if "dq" in m.kernel else "dkv"](shapes[1][-1], t["block_q"],
+                                                             t["block_k"])
+        if m.kernel == "rmsnorm_bwd_rows":
+            return libs["rmsnorm_bwd"](cfg["block_rows"], shapes[1][-1], es)
+        if m.kernel == "ssm_scan_ws":
+            return libs["ssm_scan"](cfg["chunk"], cfg["block_d"], shapes[4][1], es,
+                                    cfg["stages"])
+        return None
+
+    for kernel in ("matmul", "expert_gemm", "matmul_bias_act", "flash_attention",
+                   "flash_attention_bwd", "rmsnorm_bwd", "ssm_scan"):
+        b = gm.registered_models()[kernel]
+        cases = [(b.nominal, b.dtypes)] + [(s, d) for _, s, d in PHASE_SHAPES[kernel]]
+        if kernel.startswith("flash"):          # the fp32 SIMT kernels, every head dim
+            n = len(b.nominal)
+            cases += [(tuple(s[:-1] + (hd,) for s in b.nominal), ("float32",) * n)
+                      for hd in fa.HEAD_DIMS]
+        space = b.space
+        for combo in itertools.product(*(p.choices for p in space.params)):
+            cfg = dict(zip(space.names, combo))
+            for shapes, dtypes in cases:
+                models = gm.build_models(kernel, cfg, shapes, dtypes) or ()
+                for m in models:
+                    want = lib_smem(kernel, m, cfg, shapes, dtypes)
+                    if want is None:
+                        continue
+                    checked += 1
+                    if want != m.smem:
+                        mismatch.append((kernel, m.kernel, cfg, m.smem, want))
+                v = gm.config_verdict(kernel, cfg, H100_SXM, shapes, dtypes)
+                if v and v[0] == "smem":
+                    pruned += 1
+                    if max(m.smem for m in models) <= prof.smem_per_block:
+                        GATE_FAILURES.append(
+                            f"analysis: {kernel} {cfg} pruned for shared memory on h100-sxm "
+                            f"fits the {prof.smem_per_block} B this card reports")
+    log(f"[analysis] launch models vs the libraries' shared-memory functions: {checked} "
+        f"(config, shape, launch) triples, {len(mismatch)} differ; {pruned} smem-pruned "
+        f"(config, shape) pairs all past the card's opt-in limit {prof.smem_per_block} B")
+    for row in mismatch[:8]:
+        log(f"[analysis]   differ: {row}")
+    if mismatch:
+        GATE_FAILURES.append(f"analysis: {len(mismatch)} launch models' shared memory differ "
+                             f"from their libraries' (first {mismatch[0]})")
+    return checked
+
+
+def phase_analysis(prof, seed: int, workdir: str, db_path: str):
+    """The static passes, the launch models against the built libraries and
+    the card, drift, and the cost models against this run's measurements,
+    on the campaign phase's manifest and exported database."""
+    import random
+
+    from repro_torch.analysis import run_checks
+    from repro_torch.analysis.legality import default_platforms
+    from repro_torch.campaign import runner, scheduler
+    from repro_torch.configs import ShapeSpec, SHAPES, get_config
+    from repro_torch.core import gridmodel as gm
+    from repro_torch.core.annotate import get_tunable
+    from repro_torch.core.database import TuningDatabase
+    from repro_torch.core.evaluate import (CostModelEvaluator, WallClockEvaluator,
+                                           roofline_from_launch, site_dtype)
+    from repro_torch.kernels import _build
+    from repro_torch.obs import drift
+    from repro_torch.tools import analytic
+
+    manifest_path = os.path.join(workdir, "campaign.json")
+    manifest = scheduler.CampaignManifest.load(manifest_path)
+
+    # 1. the static passes, every pass, strict, on the campaign's manifest and database
+    platforms = default_platforms()
+    t0 = time.perf_counter()
+    report = run_checks(platforms=platforms, db=db_path, manifest=manifest_path)
+    by_pass = {}
+    for f in report.findings:
+        by_pass.setdefault(f.pass_name, {}).setdefault(f.severity, 0)
+        by_pass[f.pass_name][f.severity] += 1
+    log(f"[analysis] static passes on {platforms} ({time.perf_counter() - t0:.1f} s): "
+        f"{report.counts()}; by pass {by_pass}; database {report.stats.get('db')}")
+    for name, st in sorted(report.stats.get("legality", {}).items()):
+        if name.endswith(prof.name):
+            log(f"[analysis]   {name}: {st['legal']} legal of {st['total']}, pruned "
+                f"{st['by_category'] or 'none'}, {st['redundant']} redundant")
+    if report.exit_code(strict=True):
+        for f in report.findings:
+            if f.severity != "info":
+                log(f"[analysis]   {f.format()}")
+        GATE_FAILURES.append(f"analysis: the static passes found {report.counts()}")
+
+    # 2. the launch models against the built libraries and the card's limit
+    _smem_library_checks(prof)
+
+    # 3. every legal config launches at a main-path shape, held to its plain version
+    rng = random.Random(seed)
+    for name, args, kw, plain, tols in _analysis_calls(seed):
+        t = get_tunable(name)
+        shapes = [tuple(a.shape) for a in args]
+        dtypes = [a.dtype for a in args]
+        r = gm.space_report(name, prof, shapes, dtypes)
+        legal = t.space.legal_configs(prof, shapes, dtypes, kernel=name)
+        heur = t.default_config(*args)
+        run = legal
+        if len(legal) > ANALYSIS_SAMPLE:
+            big = max(legal, key=lambda c: max(
+                m.smem for m in gm.build_models(name, c, shapes, dtypes)))
+            rest = [c for c in legal if c not in (heur, big)]
+            run = [heur] + ([big] if big != heur else []) + rng.sample(
+                rest, ANALYSIS_SAMPLE - 1 - int(big != heur))
+        with torch.no_grad():
+            ref = plain(*args, **kw)
+        worst_abs = worst = 0.0
+        for cfg in run:
+            try:
+                with torch.no_grad():
+                    out = t.variant(**cfg)(*args, **kw)
+                torch.cuda.synchronize()
+            except _build.CudaError as e:
+                GATE_FAILURES.append(f"analysis: {name} {cfg}, legal by its launch model, "
+                                     f"refused at {shapes}: {e}")
+                continue
+            a, w = _leaf_errs(out, ref, tols)
+            worst_abs, worst = max(worst_abs, a), max(worst, w)
+            if w > 1:
+                GATE_FAILURES.append(f"analysis: {name} {cfg} at {shapes}: {w:.3g} x its "
+                                     f"tolerance from the plain version")
+        log(f"[analysis] {name} {shapes}: {r['legal']} legal of {r['total']} (pruned "
+            f"{r['by_category'] or 'none'}), {len(legal)} in the space, launched {len(run)}; "
+            f"worst max abs err {worst_abs:.3g}, {worst:.3f} of its tolerance")
+        del args, ref
+
+    # 4. drift over the exported database, with the campaign's evaluator
+    db = TuningDatabase(db_path)
+    t0 = time.perf_counter()
+    entries = drift.drift_report(db, platform=manifest.platform, profile=prof,
+                                 evaluator=WallClockEvaluator(repeats=3, warmup=1),
+                                 seed=seed, device="cuda", manifest=manifest)
+    log(f"[analysis] drift: {len(entries)} of {len(db)} records replayed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lines = drift.format_drift(entries).splitlines()
+    for line in lines[:12]:
+        log(f"[analysis]   {line}")
+    n_reg = sum(e.regressed for e in entries)
+    log(f"[analysis] drift: {n_reg} site(s) past 1.5x their record (reported, not gated)")
+    resident = []
+    known = drift.manifest_calls(manifest)
+    for e in entries:
+        if not np.isfinite(e.live_s):
+            GATE_FAILURES.append(f"analysis: drift replay of {e.key} failed")
+            continue
+        shapes, dtypes = drift.replay_call(e.key, known)
+        nbytes = analytic.site_terms(e.kernel, shapes, site_dtype(shapes, dtypes))[1]
+        if nbytes <= prof.l2_bytes:
+            resident.append(e)
+        elif e.pct_of_roofline > 100 * ROOF_LIMIT:
+            GATE_FAILURES.append(f"analysis: {e.key} reads {e.pct_of_roofline:.1f}% of its "
+                                 f"analytic roofline ({nbytes / 1e6:.1f} MB, past L2)")
+    if len(entries) != len(db):
+        GATE_FAILURES.append(f"analysis: drift replayed {len(entries)} of {len(db)} records")
+    top = max((e for e in entries if e not in resident and np.isfinite(e.live_s)),
+              key=lambda e: e.pct_of_roofline, default=None)
+    log(f"[analysis] drift: {len(resident)} L2-resident site(s) not gated (worst "
+        f"{max((e.pct_of_roofline for e in resident), default=0):.1f}% of roofline); the "
+        f"highest of the rest {top.pct_of_roofline if top else 0:.1f}% ({top.key if top else '-'})"
+        f", limit {100 * ROOF_LIMIT:.0f}%")
+
+    # 5. the cost models against this run's measurements
+    cfg = get_config("qwen2_0_5b")
+    for label, shape, measured in (
+            ("train step, batch 4 x 2048", SHAPES["train_2k"],
+             READINGS.get("train_busy_ms", READINGS.get("train_step_ms"))),
+            ("decode step, 8 slots at max_seq 2048", ShapeSpec("decode", 2048, 8, "decode"),
+             READINGS.get("decode_busy_ms", READINGS.get("decode_step_ms")))):
+        rl = analytic.analytic_roofline(cfg, shape, profile=prof)
+        bound_ms = 1e3 * rl.step_time_s
+        log(f"[analysis] analytic roofline, qwen2_0_5b {label}: {bound_ms:.4f} ms "
+            f"({rl.dominant}; compute {1e3 * rl.compute_s:.4f}, memory {1e3 * rl.memory_s:.4f};"
+            f" roofline fraction {rl.roofline_fraction:.3f}) against {measured:.4f} ms measured "
+            f"({100 * bound_ms / measured:.1f}%)")
+        if not bound_ms <= measured:
+            GATE_FAILURES.append(f"analysis: the analytic bound of the {label} {bound_ms:.4f} "
+                                 f"ms exceeds its measurement {measured:.4f} ms")
+    ev = CostModelEvaluator(prof)
+    agree = priced = skipped = exempt = 0
+    worst = (0.0, "")
+    for j in manifest.jobs:
+        if j.kernel not in gm.registered_models():
+            skipped += 1
+            continue
+        t = get_tunable(j.kernel)
+        rec = db.lookup(j.db_key(manifest.platform))
+        metas = [torch.empty(s, dtype=getattr(torch, d), device="meta")
+                 for s, d in zip(j.arg_shapes, j.arg_dtypes)]
+        heur = t.default_config(*metas)
+        kw = runner.call_kwargs(j)
+        price = {}
+        for tag, cfg_, measured in (("tuned", rec.config, j.best_objective),
+                                    ("heuristic", heur, j.default_objective)):
+            m = ev.evaluate(lambda c=cfg_: roofline_from_launch(
+                j.kernel, c, j.arg_shapes, j.arg_dtypes, prof, call_kwargs=kw))
+            if not m.ok:
+                GATE_FAILURES.append(f"analysis: no price for {j.kernel} {cfg_}: {m.error}")
+                continue
+            price[tag] = m.objective
+            nbytes = analytic.site_terms(j.kernel, j.arg_shapes,
+                                         site_dtype(j.arg_shapes, j.arg_dtypes))[1]
+            ratio = m.objective / measured
+            if nbytes <= prof.l2_bytes:
+                exempt += 1
+            elif ratio > ROOF_LIMIT:
+                GATE_FAILURES.append(f"analysis: {j.kernel} {j.arg_shapes} {tag} {cfg_}: "
+                                     f"priced {1e3 * m.objective:.4f} ms above its measured "
+                                     f"{1e3 * measured:.4f} ms")
+            if nbytes > prof.l2_bytes and ratio > worst[0]:
+                worst = (ratio, f"{j.kernel} {j.arg_shapes} {tag}")
+        if len(price) == 2:
+            priced += 1
+            same_cfg = rec.config == heur
+            card = j.best_objective < j.default_objective
+            model = price["tuned"] < price["heuristic"]
+            agree += int(same_cfg or card == model)
+    log(f"[analysis] cost model: {priced} jobs priced at their tuned and heuristic configs "
+        f"({skipped} with no launch model: attn_chunks, torch code); {exempt} L2-resident "
+        f"prices not gated; the highest price/measured of the rest {worst[0]:.3f} ({worst[1]})"
+        f", limit {ROOF_LIMIT}; the model orders the two configs as the card did on "
+        f"{agree} of {priced} ({100 * agree / max(priced, 1):.1f}%, reported, not gated)")
+
+
 def phase_tuned(seed: int, db_path: str, heuristic_step_ms: float, heuristic_steps):
     """Serve and train full-width qwen2_0_5b from the campaign's database:
     every dispatch at the exact tier, both fused kernels launched."""
@@ -4646,6 +5035,7 @@ def main() -> int:
     xlstm_train_launches, xlstm_batch = timed("xlstm-train", phase_xlstm_train, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
         db_path, _ = timed("campaign", phase_campaign, args.seed, args.campaign_budget, workdir)
+        timed("analysis", phase_analysis, prof, args.seed, workdir, db_path)
         tuned_serve, tuned_train = timed("tuned", phase_tuned, args.seed, db_path,
                                          heuristic_step_ms, heuristic_steps)
 

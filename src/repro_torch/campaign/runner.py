@@ -21,16 +21,28 @@ warns once.
 
 Export clusters the platform's winners into cover sets and writes the
 database a deployment ships.
+
+``job_timeout`` bounds each attempt's wall clock, as the JAX runner's
+``--job-timeout`` does. The attempt then runs on a thread of its own and
+banks its record into a private database, copied into the campaign's only
+when it returns in time. A Python thread cannot cancel a CUDA launch, so an
+attempt past its time is abandoned still holding the card: it counts as
+failed, the job is poisoned with a ``TimeoutError``, and the campaign ends
+there, its other jobs pending (``manifest.meta["timed_out"]`` names the
+job). A later ``campaign run``, in a fresh process, resumes after it. The
+JAX runner goes on to the next job instead, which on one card would launch
+beside the abandoned attempt.
 """
 from __future__ import annotations
 
+import contextvars
 import logging
 import re
 import signal
 import threading
 import time
 import zlib
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,7 +105,14 @@ def materialize_args(job: TuningJob, seed: int = 0, device=None):
     primal args, as the forward would have saved them: the rmsnorm inverse
     rms, the cross entropy lse, the attention output and lse.
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    return place_args(job, host_args(job, seed), device)
+
+
+def host_args(job: TuningJob, seed: int = 0) -> List[torch.Tensor]:
+    """:func:`materialize_args`' seeded draws on the host, each in its
+    dtype, before the device copy and the derived residuals. numpy's draws
+    and torch's casts release the GIL, so a replay can draw the next jobs'
+    arguments on threads while the card times this one."""
     # crc32, not hash(): str hashes are salted per process.
     rs = np.random.RandomState(seed ^ (zlib.crc32(job.kernel.encode()) & 0xFFFF))
     hi = max(2, max((int(s[-1]) for s in job.arg_shapes if len(s) >= 2), default=2))
@@ -101,8 +120,7 @@ def materialize_args(job: TuningJob, seed: int = 0, device=None):
     args = []
     for i, (shape, dtype) in enumerate(zip(job.arg_shapes, job.arg_dtypes)):
         if dtype.startswith("int") or dtype.startswith("uint"):
-            labels = rs.randint(0, hi, size=shape).astype(np.int32)
-            args.append(torch.from_numpy(labels).to(device))
+            args.append(torch.from_numpy(rs.randint(0, hi, size=shape).astype(np.int32)))
             continue
         t = rs.randn(*shape)
         if job.kernel in SSM_COEFFS:
@@ -115,7 +133,22 @@ def materialize_args(job: TuningJob, seed: int = 0, device=None):
                 t = t * 0.3
         elif job.kernel in attn_like:
             t = t * 0.3
-        args.append(_float_tensor(t, dtype, device))
+        args.append(_float_tensor(t, dtype, "cpu"))
+    return args
+
+
+def place_args(job: TuningJob, args: Sequence[torch.Tensor], device=None) -> tuple:
+    """:func:`host_args`' tensors on ``device`` (default the CPU), with the
+    backward jobs' residual operands derived there."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    return derive_residuals(job, [a.to(device) for a in args])
+
+
+def derive_residuals(job: TuningJob, args) -> tuple:
+    """The backward jobs' residual operands, derived from their primal
+    arguments as the forward would have saved them: the rmsnorm inverse rms,
+    the cross entropy lse, the attention output and lse."""
+    args = list(args)
     if job.kernel == "rmsnorm_bwd" and len(args) >= 4:
         xf = args[1].float()
         args[3] = torch.rsqrt((xf * xf).mean(dim=-1) + 1e-6)
@@ -136,6 +169,42 @@ def _sigterm_to_interrupt(signum, frame):
     raise KeyboardInterrupt("SIGTERM")
 
 
+class JobTimeout(TimeoutError):
+    """An attempt ran past ``job_timeout``; its thread may still hold the card."""
+
+
+def _run_attempt(body: Callable[[TuningDatabase], Any], db: TuningDatabase,
+                 job_timeout: Optional[float]):
+    """``body(db)`` in this thread, or, with a timeout, on a daemon thread
+    (in a copy of this context, so fault plans, runtimes and collectors
+    reach it) banking into a private database that is merged into ``db``
+    only when the attempt returns in time. BaseExceptions of the body are
+    re-raised here."""
+    if job_timeout is None:
+        return body(db)
+    scratch = TuningDatabase(None)
+    box: Dict[str, Any] = {}
+    ctx = contextvars.copy_context()
+
+    def run():
+        try:
+            box["res"] = ctx.run(body, scratch)
+        except BaseException as e:  # noqa: BLE001 -- relayed to the caller
+            box["exc"] = e
+
+    t = threading.Thread(target=run, daemon=True, name="campaign-job")
+    t.start()
+    t.join(job_timeout)
+    if t.is_alive():
+        raise JobTimeout(f"attempt exceeded --job-timeout {job_timeout:g}s")
+    if "exc" in box:
+        raise box["exc"]
+    for rec in scratch.records():
+        db.put(rec, save=False)
+    db.save()
+    return box["res"]
+
+
 def run_campaign(
     manifest: CampaignManifest,
     db: TuningDatabase,
@@ -146,6 +215,7 @@ def run_campaign(
     arg_seed: int = 0,
     max_attempts: int = 1,
     device=None,
+    job_timeout: Optional[float] = None,
 ) -> Dict:
     """Tune pending jobs best-first on ``device`` (default: the card);
     returns the manifest's summary.
@@ -155,7 +225,8 @@ def run_campaign(
     descent at the job's budget). A job whose attempts all raise is
     ``poisoned`` with its error and skipped by later runs. An interrupt
     (Ctrl-C, SIGTERM) saves the manifest with the job in flight still
-    pending.
+    pending. An attempt past ``job_timeout`` seconds poisons its job and
+    ends the campaign (see the module's docstring).
     """
     _register_tunables()
     device = resolve_device(device)
@@ -169,7 +240,7 @@ def run_campaign(
             prev_sigterm = signal.signal(signal.SIGTERM, _sigterm_to_interrupt)
         except (ValueError, OSError):
             prev_sigterm = None
-    interrupted = False
+    interrupted = timed_out = False
     try:
         for job in manifest.pending():
             if max_jobs is not None and ran >= max_jobs:
@@ -187,16 +258,29 @@ def run_campaign(
                 job.attempts += 1
                 search = (search_factory(job) if search_factory
                           else CoordinateDescent(budget=job.budget, restarts=2))
-                try:
+                def body(bank, job=job, tunable=tunable, search=search, seeds=seeds):
                     _fault_point(f"campaign.job:{job.kernel}", attempt=job.attempts)
                     args = materialize_args(job, seed=arg_seed, device=device)
                     with campaign_rt, _obs_span("campaign.job", kernel=job.kernel,
                                                 budget=job.budget):
-                        res = autotune(tunable, args, search=search, evaluator=evaluator,
-                                       db=db, key_extra=job.key_extra, seed_configs=seeds,
-                                       platform=manifest.platform,
-                                       call_kwargs=call_kwargs(job))
-                    del args
+                        return autotune(tunable, args, search=search, evaluator=evaluator,
+                                        db=bank, key_extra=job.key_extra, seed_configs=seeds,
+                                        platform=manifest.platform,
+                                        call_kwargs=call_kwargs(job))
+
+                try:
+                    res = _run_attempt(body, db, job_timeout)
+                except JobTimeout as e:
+                    job.error = f"TimeoutError: {e}"
+                    job.status = "poisoned"
+                    manifest.meta["timed_out"] = {"key": job.db_key(manifest.platform),
+                                                  "seconds": job_timeout, "at": time.time()}
+                    col.warn_once("campaign.job_timeout", key=job.db_key(manifest.platform),
+                                  kernel=job.kernel, seconds=job_timeout)
+                    log.warning("job %s %s timed out after %gs; the campaign stops here",
+                                job.kernel, job.arg_shapes, job_timeout)
+                    timed_out = True
+                    break
                 except Exception as e:      # a failed job must not sink the campaign
                     job.error = f"{type(e).__name__}: {e}"
                     if job.attempts < max_attempts:
@@ -239,6 +323,8 @@ def run_campaign(
                          ", seeded" if seeds else "")
                 break
             manifest.save()
+            if timed_out:
+                break
     except KeyboardInterrupt:
         interrupted = True
         log.warning("campaign interrupted; manifest saved with the job in flight pending")

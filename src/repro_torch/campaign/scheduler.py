@@ -6,115 +6,36 @@ hardware profiles:
 * **dedup** -- jobs that land on one database key merge; their per-step
   weights add and their scenarios union;
 * **priority** -- a job's roofline seconds on the card (the larger of its
-  FLOP time at the bf16 tensor-core peak and its bytes at the memory rate,
-  the per-site model of ``repro.tools.analytic.site_roofline_seconds``)
-  times its per-step weight: the seconds at stake. Jobs are tuned
-  best-first;
+  FLOP time and its bytes at the memory rate,
+  :func:`repro_torch.tools.analytic.site_roofline_seconds`) times its
+  per-step weight: the seconds at stake, optionally scaled by the share of
+  analytic step time its scenarios take (:func:`analytic_scenario_seconds`).
+  Jobs are tuned best-first;
 * **budget** -- a global evaluation budget split in proportion to
   priority, with a floor per job;
+* **legality** -- per kernel, the configs its launch models refuse on the
+  card before any trial (:func:`plan_legality`), stamped into the manifest
+  for ``campaign status``;
 * **manifest** -- the schedule and each job's state, written atomically
   after every job, so ``campaign run`` resumes where it stopped.
-
-The JAX package's static legality counts (``plan_legality``, from its TPU
-grid models) have no counterpart yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 from ..core.database import atomic_write_json
 from ..core.platform import H100_SXM, HardwareProfile
+from ..tools.analytic import site_roofline_seconds
 from .planner import TuningJob
 
-_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4, "int64": 8}
-
-
-def _prod(seq) -> float:
-    out = 1.0
-    for x in seq:
-        out *= x
-    return out
-
-
-def site_roofline_seconds(kernel: str, arg_shapes: Tuple[Tuple[int, ...], ...], dtype: str,
-                          profile: HardwareProfile) -> float:
-    """max(FLOP time, memory time) of one execution of a kernel site
-    (multiply-add = 2 FLOPs; ``repro.tools.analytic``'s per-site model)."""
-    sh = arg_shapes
-    dt = _DTYPE_BYTES.get(dtype, 4)
-    if kernel == "matmul" and len(sh) >= 2 and len(sh[0]) == 2:
-        m, k = sh[0]
-        n = sh[1][1]
-        flops = 2.0 * m * k * n
-        mem = (m * k + k * n + m * n) * dt
-    elif kernel == "rmsnorm":
-        rows, d = sh[0]
-        flops = 4.0 * rows * d
-        mem = 2.0 * rows * d * dt
-    elif kernel == "rmsnorm_bwd":
-        rows, d = sh[0]
-        flops = 6.0 * rows * d
-        mem = 3.0 * rows * d * dt
-    elif kernel == "softmax_xent":
-        rows, vocab = sh[0]
-        flops = 6.0 * rows * vocab
-        mem = rows * vocab * dt
-    elif kernel == "softmax_xent_bwd":
-        rows, vocab = sh[1]
-        flops = 5.0 * rows * vocab
-        mem = 2.0 * rows * vocab * dt
-    elif kernel in ("flash_attention", "attn_chunks"):
-        b, h, s, hd = sh[0]
-        flops = 2.0 * 2.0 * b * h * s * (s / 2.0) * hd
-        mem = (sum(_prod(x) for x in sh) + _prod(sh[0])) * dt
-    elif kernel == "flash_attention_bwd":
-        b, h, s, hd = sh[0]
-        flops = 4.0 * 2.0 * b * h * s * (s / 2.0) * hd
-        mem = (2.0 * sum(_prod(x) for x in sh[1:4]) + 4.0 * _prod(sh[0])) * dt
-    elif kernel == "matmul_bias_act" and len(sh) >= 2 and len(sh[0]) == 2:
-        m, k = sh[0]
-        n = sh[1][1]
-        flops = 2.0 * m * k * n + 4.0 * m * n
-        mem = (m * k + k * n + n + m * n) * dt
-    elif kernel == "rmsnorm_matmul" and len(sh) >= 3 and len(sh[2]) == 2:
-        rows, d = sh[0]
-        n = sh[2][1]
-        flops = 2.0 * rows * d * n + 4.0 * rows * d
-        mem = (rows * d + d + d * n + rows * n) * dt
-    elif kernel == "expert_gemm" and len(sh) >= 2 and len(sh[0]) == 3:
-        e, c, k = sh[0]
-        n = sh[1][2]
-        flops = 2.0 * e * c * k * n
-        mem = e * (c * k + k * n + c * n) * dt
-    elif kernel in ("ssm_scan", "ssm_scan_bwd"):
-        off = 2 if kernel == "ssm_scan_bwd" else 0      # the two cotangents lead
-        b, s, di = sh[off]
-        ds = sh[off + 2][2]
-        flops = 6.0 * b * s * di * ds
-        mem = (sum(_prod(x) for x in sh) + 2.0 * _prod(sh[off])) * 4
-        if kernel == "ssm_scan_bwd":                    # the recompute and the gradients
-            flops *= 3.0
-            mem *= 2.0
-    elif kernel in ("ssm_update", "ssm_update_bwd"):
-        off = 2 if kernel == "ssm_update_bwd" else 0
-        b, di = sh[off]
-        ds = sh[off + 2][1]
-        flops = 6.0 * b * di * ds
-        mem = (sum(_prod(x) for x in sh) + _prod(sh[-1])) * 4
-        if kernel == "ssm_update_bwd":
-            flops *= 3.0
-            mem *= 2.0
-    else:
-        elems = sum(_prod(s) for s in sh)
-        flops = 2.0 * elems
-        mem = elems * dt * 2
-    return max(flops / profile.peak_flops_bf16, mem / profile.hbm_bandwidth)
-
-
 def job_roofline_seconds(job: TuningJob, profile: HardwareProfile) -> float:
+    """max(FLOP time, memory time) of one execution of the job's site, by
+    :func:`repro_torch.tools.analytic.site_roofline_seconds`, so the
+    scheduler's priorities and the drift detector's %-of-roofline price a
+    site alike."""
     return site_roofline_seconds(job.kernel, job.arg_shapes, job.arg_dtypes[0], profile)
 
 
@@ -132,14 +53,49 @@ def dedupe_jobs(jobs: Sequence[TuningJob], platform: str) -> List[TuningJob]:
     return sorted(merged.values(), key=lambda j: (j.kernel, j.arg_shapes, j.key_extra))
 
 
-def prioritize_jobs(jobs: Sequence[TuningJob],
-                    profile: HardwareProfile = H100_SXM) -> List[TuningJob]:
+def analytic_scenario_seconds(
+    arch_names: Sequence[str],
+    train_shapes: Sequence[str] = ("train_2k",),
+    reduced: bool = False,
+    profile: HardwareProfile = H100_SXM,
+    chips: int = 1,
+) -> Dict[str, float]:
+    """Analytic step seconds per training scenario (``tools/analytic.py``):
+    the cross-arch weighting, so a job from an arch whose step costs ten
+    times more gets a proportionally larger share of the budget."""
+    from ..configs import SHAPES, get_config
+    from ..tools import analytic
+
+    out: Dict[str, float] = {}
+    for name in arch_names:
+        cfg = get_config(name)
+        if reduced:
+            cfg = cfg.reduced()
+        for shape_name in train_shapes:
+            shape = SHAPES[shape_name]
+            fl = analytic.step_flops(cfg, shape)
+            hbm = analytic.step_hbm_bytes(cfg, shape, chips=chips, model_par=1)
+            out[f"{cfg.name}/{shape.name}"] = max(fl["total"] / chips / profile.peak_flops_bf16,
+                                                  hbm["total"] / profile.hbm_bandwidth)
+    return out
+
+
+def prioritize_jobs(jobs: Sequence[TuningJob], profile: HardwareProfile = H100_SXM,
+                    scenario_seconds: Optional[Dict[str, float]] = None) -> List[TuningJob]:
     """Rank by seconds at stake: roofline time of one execution times the
-    per-step weight, highest first."""
+    per-step weight, highest first. With ``scenario_seconds`` (see
+    :func:`analytic_scenario_seconds`) each job's stake is also scaled by
+    the share of the analytic step time its scenarios take."""
+    total_scen = sum(scenario_seconds.values()) if scenario_seconds else 0.0
     out = []
     for job in jobs:
         j = dataclasses.replace(job)
         j.priority = job_roofline_seconds(j, profile) * max(j.weight, 1e-9)
+        if scenario_seconds and total_scen > 0:
+            known = [scenario_seconds[sc.split("@")[0]] for sc in j.scenarios
+                     if sc.split("@")[0] in scenario_seconds]
+            if known:
+                j.priority *= sum(known) / total_scen * len(scenario_seconds)
         out.append(j)
     out.sort(key=lambda j: (-j.priority, j.kernel, j.arg_shapes, j.key_extra))
     return out
@@ -227,6 +183,7 @@ class CampaignManifest:
         done = [j for j in self.jobs if j.status == "done"]
         speedups = [j.default_objective / j.best_objective for j in done
                     if j.best_objective > 0 and j.default_objective > 0]
+        legality = self.meta.get("legality") or {}
         return {
             "platform": self.platform,
             "jobs": len(self.jobs),
@@ -235,18 +192,59 @@ class CampaignManifest:
             "total_budget": self.total_budget,
             "mean_speedup": (sum(speedups) / len(speedups)) if speedups else 0.0,
             "seeded_jobs": sum(1 for j in done if j.seeded),
+            "configs_pruned": sum(v.get("pruned", 0) for v in legality.values()),
         }
+
+
+def plan_legality(jobs: Sequence[TuningJob],
+                  profile: HardwareProfile = H100_SXM) -> Dict[str, Dict[str, int]]:
+    """Per kernel of the plan that has launch models
+    (:mod:`repro_torch.core.gridmodel`): the configs of its space, those its
+    models refuse on ``profile`` at the nominal shapes (the tuner's pre-pass
+    prunes them before any trial, so the budget is spread over the legal
+    ones), and the refusals by category. ``campaign status`` prints them."""
+    from ..core.gridmodel import registered_models, space_report
+
+    models = registered_models()
+    out: Dict[str, Dict[str, int]] = {}
+    for kernel in sorted({j.kernel for j in jobs}):
+        if kernel not in models:
+            continue
+        r = space_report(kernel, profile)
+        out[kernel] = {"total": r["total"], "legal": r["legal"], "pruned": r["illegal"],
+                       **{f"pruned_{c}": n for c, n in sorted(r["by_category"].items())}}
+    return out
+
+
+def manifest_missing_bwd(manifest: CampaignManifest) -> bool:
+    """True when a training manifest predates the tuned backward plane: it
+    carries ``@dp`` training scenarios (the training planner's marker) but
+    not one ``*_bwd`` job, and its meta does not say the plan is
+    forward-only on purpose. Running it banks a forward-only database, so the
+    step's gradient sites never hit exactly; ``campaign run`` refuses it
+    unless given ``--allow-missing-bwd``. Serving manifests are forward-only
+    by design and never flagged."""
+    has_train = any(any("@dp" in s for s in j.scenarios) for j in manifest.jobs)
+    if not has_train or manifest.meta.get("bwd_roster"):
+        return False
+    return not any(j.kernel.endswith("_bwd") for j in manifest.jobs)
 
 
 def build_manifest(jobs: Sequence[TuningJob], total_budget: int, path: Optional[str] = None,
                    platform: Optional[str] = None, profile: HardwareProfile = H100_SXM,
-                   min_budget: int = 6, max_budget: int = 128) -> CampaignManifest:
+                   min_budget: int = 6, max_budget: int = 128,
+                   scenario_seconds: Optional[Dict[str, float]] = None) -> CampaignManifest:
     """Plan output -> deduplicated, prioritized, budgeted, saved schedule.
-    ``platform`` (the database namespace) defaults to the profile's name."""
+    ``platform`` (the database namespace) defaults to the profile's name.
+    The manifest's meta records whether the plan carries the backward
+    roster (``bwd_roster``) and the plan's legality counts (``legality``)."""
     platform = platform or profile.name
-    scheduled = allocate_budget(prioritize_jobs(dedupe_jobs(jobs, platform), profile),
-                                total_budget, min_budget=min_budget, max_budget=max_budget)
+    scheduled = allocate_budget(
+        prioritize_jobs(dedupe_jobs(jobs, platform), profile, scenario_seconds),
+        total_budget, min_budget=min_budget, max_budget=max_budget)
     m = CampaignManifest(path=path, platform=platform, jobs=list(scheduled),
                          total_budget=total_budget)
+    m.meta["bwd_roster"] = any(j.kernel.endswith("_bwd") for j in scheduled)
+    m.meta["legality"] = plan_legality(scheduled, profile)
     m.save()
     return m

@@ -9,6 +9,7 @@ default) config. ``dispatch=DispatchSpec(...)`` tells the dispatch runtime
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -56,6 +57,11 @@ class DispatchSpec:
       auxiliary outputs (flash attention's lse, rmsnorm's inverse rms,
       softmax-xent's lse); dispatch saves them for ``bwd`` and hands callers
       the primal only.
+    * ``bwd_via`` — the tunables ``bwd`` decomposes the gradient onto when
+      they are neither the forward nor its ``<name>_bwd`` sibling (the fused
+      epilogues' plans dispatch ``matmul``, ``rmsnorm`` and
+      ``rmsnorm_bwd``); the contracts pass of :mod:`repro_torch.analysis`
+      holds the plan's source to it.
     """
 
     reference: Optional[Callable] = None
@@ -66,6 +72,7 @@ class DispatchSpec:
     bwd: Optional[Callable] = None
     residuals: int = 0
     example: Optional[Callable[[], Tuple[tuple, Dict[str, Any]]]] = None
+    bwd_via: Tuple[str, ...] = ()
 
     def reference_for(self, tunable: "Tunable") -> Optional[Callable]:
         return self.reference if self.reference is not None else tunable.reference
@@ -166,6 +173,20 @@ def tunable(
 
 def get_tunable(name: str) -> Tunable:
     return _REGISTRY[name]
+
+
+@contextlib.contextmanager
+def scoped_registry():
+    """The registry as it was on entry, restored on exit: tunables
+    registered inside the block (a test's toys) leave it again, so the
+    process-wide contracts pass never sees them, whatever order tests run
+    in."""
+    saved = dict(_REGISTRY)
+    try:
+        yield
+    finally:
+        _REGISTRY.clear()
+        _REGISTRY.update(saved)
 
 
 def registered() -> Dict[str, Tunable]:

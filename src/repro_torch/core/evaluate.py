@@ -12,8 +12,14 @@ reason, as the JAX evaluator prunes a variant that fails to compile. Any
 other error propagates: a fault inside a kernel is a bug, not a slow
 config.
 
-``CostModelEvaluator`` (XLA's cost analysis of a compiled program) has no
-counterpart here yet.
+:class:`CostModelEvaluator` scores a variant without launching it: the
+lower bound :func:`roofline_from_launch` puts on one call from the kernel's
+launch models (:mod:`repro_torch.core.gridmodel`) and the analytic site
+model (:mod:`repro_torch.tools.analytic`), the counterpart of JAX's
+``roofline_from_compiled``, which reads XLA's cost analysis of a compiled
+program the port does not have. Its collective term is 0 on one card (the
+HLO parser that feeds JAX's, ``collective_stats``, waits for the port's
+several-GPU slice).
 """
 from __future__ import annotations
 
@@ -191,3 +197,125 @@ class WallClockEvaluator(Evaluator):
             fn(*args)
             times.append(time.perf_counter() - t0)
         return times
+
+
+# ---------------------------------------------------------------------------
+# The cost model: a lower bound from launch models and the analytic terms
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    """The roofline terms of one call, in seconds: compute, memory and (0 on
+    one card) collective from its launches, and the analytic site model's
+    bound (``analytic_s``), the floor under all of them."""
+
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops: float
+    bytes: float
+    collective_bytes: float
+    chips: int
+    analytic_s: float = 0.0
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s, "analytic": self.analytic_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Lower-bound time: the largest term (perfect overlap)."""
+        return max(self.compute_s, self.memory_s, self.collective_s, self.analytic_s)
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self) | {"dominant": self.dominant,
+                                           "step_time_s": self.step_time_s}
+
+
+def price_launches(models, profile) -> RooflineTerms:
+    """Compute and memory terms of a sequence of launches on ``profile``.
+
+    Compute: each launch's FLOPs (of its padded tiles) at the peak its route
+    runs at (``bf16`` tensor cores or ``fp32`` SIMT cores); where every block
+    does the same work, the busiest SM holds ``ceil(blocks / SMs)`` of them,
+    so a partial last wave costs a whole one. Memory: each input read once
+    and each output written once, plus the split-k partials that cannot stay
+    in L2 (written, then read back)."""
+    compute = memory = flops = nbytes = 0.0
+    for m in models:
+        peak = profile.peak_flops_bf16 if m.peak == "bf16" else profile.peak_flops_fp32
+        f = m.flops
+        if m.uniform and m.blocks > 0:
+            f = m.flops / m.blocks * math.ceil(m.blocks / profile.sm_count) * profile.sm_count
+        spill = 2.0 * max(0.0, m.workspace - profile.l2_bytes)
+        compute += f / peak
+        memory += (m.bytes + spill) / profile.hbm_bandwidth
+        flops += m.flops
+        nbytes += m.bytes + spill
+    return RooflineTerms(compute_s=compute, memory_s=memory, collective_s=0.0, flops=flops,
+                         bytes=nbytes, collective_bytes=0.0, chips=1)
+
+
+def site_dtype(shapes, dtypes) -> str:
+    """The dtype the analytic site model prices a call at: its largest
+    argument's (the logits of the cross entropy's backward, not its fp32
+    cotangent), the first of equals."""
+    if not isinstance(dtypes, (tuple, list)):
+        return str(dtypes).replace("torch.", "")
+    sizes = [math.prod(s) for s in shapes]
+    return str(dtypes[sizes.index(max(sizes))]).replace("torch.", "")
+
+
+def roofline_from_launch(kernel: str, config: Dict[str, Any], shapes, dtypes,
+                         profile=None,
+                         call_kwargs: Optional[Dict[str, Any]] = None) -> RooflineTerms:
+    """The lower bound on one call of ``kernel`` at ``config``: its launch
+    models' terms (:func:`price_launches`), floored by the analytic site
+    model (``tools.analytic.site_roofline_seconds`` at :func:`site_dtype`'s
+    dtype). It depends on the config through the padded tiles, split-k's
+    partials and the waves. Raises ``ValueError`` where the kernel has no
+    launch model for the call."""
+    from ..tools.analytic import site_roofline_seconds
+    from .gridmodel import build_models
+    from .platform import H100_SXM
+
+    profile = profile or H100_SXM
+    models = build_models(kernel, config, shapes, dtypes, call_kwargs)
+    if models is None:
+        raise ValueError(f"{kernel}: no launch model for {config} at {shapes}")
+    terms = price_launches(models, profile)
+    terms.analytic_s = site_roofline_seconds(kernel, tuple(map(tuple, shapes)),
+                                             site_dtype(shapes, dtypes), profile)
+    return terms
+
+
+class CostModelEvaluator(Evaluator):
+    """Scores a variant by its cost model, launching nothing.
+
+    ``fn(*args)`` is a thunk that returns the call's launch models (one
+    :class:`~repro_torch.core.gridmodel.LaunchModel` or a tuple of them),
+    priced by :func:`price_launches`, or :class:`RooflineTerms` already
+    priced (:func:`roofline_from_launch`). The objective is the lower-bound
+    time, the largest term: minimizing it minimizes the dominant one."""
+
+    name = "costmodel"
+
+    def __init__(self, profile=None):
+        from .platform import H100_SXM
+
+        self.profile = profile or H100_SXM
+
+    def evaluate(self, fn: Callable, args: Sequence[Any] = (), reference=None) -> Measurement:
+        from .gridmodel import LaunchModel
+
+        try:
+            out = fn(*args)
+            if isinstance(out, LaunchModel):
+                out = (out,)
+            terms = out if isinstance(out, RooflineTerms) else price_launches(out, self.profile)
+        except (ValueError, TypeError, KeyError, ZeroDivisionError) as e:
+            return Measurement(math.inf, False, error=f"{type(e).__name__}: {e}")
+        return Measurement(terms.step_time_s, True, meta={"roofline": terms.to_json()})

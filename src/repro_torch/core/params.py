@@ -168,6 +168,28 @@ class ParamSpace:
             return cfg
         raise RuntimeError("search space is empty")
 
+    def legal_configs(self, platform: Any = None,
+                      shapes: Optional[Sequence[Tuple[int, ...]]] = None,
+                      dtypes: Any = None, kernel: Optional[str] = None) -> List[Config]:
+        """Valid configs that every kernel tuning over this space can also
+        launch on ``platform`` (a profile, a platform key, or the detected
+        device), by the launch models of :mod:`repro_torch.core.gridmodel`
+        at each kernel's nominal shapes; with ``shapes`` (one call's), the
+        configs ``kernel`` (default: the first kernel registered on the
+        space) can launch at them. A space with no launch model behind it
+        (the torch-code backwards, model-level chunk knobs) is returned
+        whole."""
+        kernels = getattr(self, "_grid_kernels", ())
+        if not kernels:
+            return list(self.enumerate())
+        if kernel is not None or shapes is not None:
+            kernels = (kernel or kernels[0],)
+        from .gridmodel import config_verdict, resolve_profile
+
+        profile = resolve_profile(platform)
+        return [cfg for cfg in self.enumerate()
+                if all(config_verdict(k, cfg, profile, shapes, dtypes) is None for k in kernels)]
+
     @staticmethod
     def config_key(config: Config) -> str:
         """Stable string key for a config (database + dedup)."""

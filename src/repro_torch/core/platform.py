@@ -73,6 +73,9 @@ TORCH_CPU = HardwareProfile(
     l2_bytes=32 * 1024**2,
 )
 
+PROFILES = {p.name: p for p in (H100_SXM, H100_PCIE, TORCH_CPU)}
+
+
 def _cuda_profile(index: int) -> HardwareProfile:
     props = torch.cuda.get_device_properties(index)
     name = props.name

@@ -999,3 +999,19 @@ def dispatch(tunable: Union[str, Tunable], *args,
 
 def fusion_wins(tunable: Union[str, Tunable], *args, **kwargs) -> bool:
     return current_runtime().fusion_wins(tunable, *args, **kwargs)
+
+
+def entry_point(name: str) -> Callable:
+    """A deployment entry point for a registered tunable: ``fn(*args,
+    config=None, **call_kwargs)`` that dispatches through
+    :func:`current_runtime`, so it honours whatever runtime is active where
+    it is *called*, not where it was made (``repro.core.runtime``'s)."""
+
+    def call(*args, config: Optional[Config] = None, **kwargs):
+        return current_runtime().dispatch(name, *args, config=config, **kwargs)
+
+    call.__name__ = name
+    call.__qualname__ = name
+    call.__doc__ = (f"Registry-dispatched entry point for tunable {name!r} (resolution: the "
+                    "active TunedRuntime's policy pipeline).")
+    return call

@@ -13,11 +13,15 @@ The loop of ``repro.core.tuner.autotune``:
      beat it, is written to the database under the call's key.
 
 All of it runs under ``torch.no_grad()`` and calls the bound variants
-directly, never through the dispatch runtime's autograd plane. The JAX
-package's TPU legality pre-pass (its grid models) becomes each Hopper
-space's constraints and, where legality depends on the call's shapes (the
-flash kernels' tiles at head dim 256), the tunable's ``legal`` check: a
-config it refuses is pruned before any trial.
+directly, never through the dispatch runtime's autograd plane. Before the
+search, a static pre-pass asks the kernel's launch models
+(:mod:`repro_torch.core.gridmodel`) which configs the device cannot launch
+at the call's shapes (shared memory, threads, tensor-core tiles, and any
+race or coverage fault), as JAX's pre-pass asks its TPU grid models; such a
+config is pruned before any trial, its trial's ``pruned`` reason led by the
+verdict's category, and the record counts them (``static_pruned``). Where
+legality depends on the call's shapes, the tunable's ``legal`` check (the
+flash kernels' tiles at head dim 256) says the same to the runtime's tiers.
 
 Keys must read exactly as the JAX package writes them, so dtypes are
 spelled the JAX way (``bfloat16``, never ``torch.bfloat16``) and the key
@@ -36,7 +40,7 @@ import torch
 from .annotate import Tunable
 from .database import Record, TuningDatabase, make_key, now
 from .evaluate import Evaluator, WallClockEvaluator
-from .params import Config
+from .params import Config, ParamSpace
 from .platform import platform_key
 from .search import CoordinateDescent, SearchAlgorithm, SearchResult, Trial
 from .search.base import INVALID
@@ -103,6 +107,22 @@ def first_device(args: Sequence[Any]) -> Optional[torch.device]:
     return None
 
 
+def static_illegal(tunable: Tunable, args: Sequence[Any]) -> Dict[str, str]:
+    """config_key -> "category: reason" for every config of the tunable's
+    space that its launch models refuse at these tensors' shapes and dtypes
+    on their device (empty for a tunable with no launch model)."""
+    from .gridmodel import space_illegal
+    from .platform import detect_platform
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if not tensors:
+        return {}
+    profile = detect_platform(tensors[0].device)
+    return {ck: f"{cat}: {reason}" for ck, (cat, reason) in space_illegal(
+        tunable.name, profile, [tuple(t.shape) for t in tensors],
+        [t.dtype for t in tensors]).items()}
+
+
 @dataclasses.dataclass
 class TuningResult:
     best_config: Config
@@ -140,6 +160,9 @@ def autotune(
     platform = platform or platform_key(first_device(args))
     kw = dict(call_kwargs or {})
 
+    illegal_static = static_illegal(tunable, args)
+    static_pruned = set()
+
     with torch.no_grad():
         reference = None
         if tunable.reference is not None:
@@ -150,6 +173,12 @@ def autotune(
             return evaluator.evaluate(lambda *a: variant(*a, **kw), args, reference=reference)
 
         def objective(config: Config) -> Trial:
+            ck = ParamSpace.config_key(config)
+            if ck in illegal_static:
+                static_pruned.add(ck)
+                log.debug("variant %s statically pruned: %s", config, illegal_static[ck])
+                return Trial(config=config, objective=INVALID, ok=False,
+                             meta={"pruned": illegal_static[ck]})
             illegal = tunable.why_illegal(config, *args)
             if illegal is not None:
                 # the card cannot run it at these shapes: pruned, never launched
@@ -183,7 +212,7 @@ def autotune(
     db.put(Record(key=key, config=best_config, objective=best_objective,
                   evaluator=evaluator.name, evaluations=result.evaluations, timestamp=now(),
                   meta={"search": search.name, "default_objective": default_obj,
-                        "search_seconds": elapsed}),
+                        "search_seconds": elapsed, "static_pruned": len(static_pruned)}),
            save=save)
     log.info("tuned %s: %.3gs -> %.3gs in %d evals", key, default_obj, best_objective,
              result.evaluations)

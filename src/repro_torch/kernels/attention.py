@@ -40,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, gridmodel, tunable
 from ..core.params import EnumParam
 from ..core.platform import H100_SXM
 from . import _build, ref
@@ -86,21 +86,22 @@ ATTENTION_SPACE = ParamSpace(
         EnumParam("stages", (2, 3)),
     ],
     [
-        Constraint(lambda c: smem_bytes(c, SPACE_HEAD_DIM) <= SMEM,
+        Constraint(gridmodel.LaunchLimit("flash_attention", ("smem",)),
                    "bf16 q tile, k/v ring and barriers exceed 227 KB of shared memory at d=128"),
     ],
 )
 
 
+def _shapes(*ts):
+    return tuple(tuple(t.shape) for t in ts), tuple(t.dtype for t in ts)
+
+
 def fwd_illegal(c, q, k, v) -> Optional[str]:
     """Why the bf16 forward cannot run config ``c`` at this call's head dim
     (its CTA past 227 KB: at d = 256 every 128-key tile, and 128 x 64 with
-    three stages), or None. fp32 runs :func:`simt_tiles`, so every config
-    is legal there."""
-    d = q.shape[-1]
-    if q.dtype != torch.float32 and smem_bytes(c, d) > SMEM:
-        return f"bf16 forward tiles {c} need {smem_bytes(c, d)} B of shared memory at d={d}"
-    return None
+    three stages), or None: the launch model's verdict at the call's shapes.
+    fp32 runs :func:`simt_tiles`, so every config is legal there."""
+    return gridmodel.shape_illegal("flash_attention", c, *_shapes(q, k, v))
 
 
 def _attn_heuristic(q, k, v):
@@ -249,26 +250,45 @@ BWD_TILE = 64        # rows of a streamed tile: k in the dq pass, q in the dk/dv
 BWD_STAGES = 2       # depth of the backward's ring
 
 
+_BWD_FIXED = 1024 + 8 * (1 + 2 * BWD_STAGES)
+
+
+def bwd_dq_smem_bytes(c, d: int) -> int:
+    """Shared memory of one bf16 dq-pass CTA (mirrors ``BwdDq::SMEM`` in
+    csrc/flash_attention_bwd.cu): q and do tiles of ``block_q`` rows and a
+    ring of 64-key k and v tiles."""
+    return _BWD_FIXED + 2 * c["block_q"] * d * 2 + 2 * BWD_STAGES * BWD_TILE * d * 2
+
+
+def bwd_dkv_smem_bytes(c, d: int) -> int:
+    """Shared memory of one bf16 dk/dv-pass CTA (mirrors ``BwdDkv::SMEM``):
+    k and v tiles of ``block_k`` keys and a ring of 64-row q and do tiles,
+    each stage with 64 lse and delta values."""
+    return _BWD_FIXED + 2 * c["block_k"] * d * 2 + BWD_STAGES * (2 * BWD_TILE * d * 2 + 512)
+
+
 def bwd_smem_bytes(c, d: int) -> int:
-    """Shared memory of the larger of the two bf16 backward CTAs (mirrors
-    ``BwdDq::SMEM`` and ``BwdDkv::SMEM`` in csrc/flash_attention_bwd.cu):
-    the dq pass holds q and do tiles of ``block_q`` rows and a ring of
-    64-key k and v tiles; the dk/dv pass k and v tiles of ``block_k`` keys
-    and a ring of 64-row q and do tiles, each with 64 lse and delta values."""
-    fixed, tile = 1024 + 8 * (1 + 2 * BWD_STAGES), BWD_TILE * d * 2
-    dq = fixed + 2 * c["block_q"] * d * 2 + 2 * BWD_STAGES * tile
-    dkv = fixed + 2 * c["block_k"] * d * 2 + BWD_STAGES * (2 * tile + 512)
-    return max(dq, dkv)
+    """Shared memory of the larger of the two bf16 backward CTAs."""
+    return max(bwd_dq_smem_bytes(c, d), bwd_dkv_smem_bytes(c, d))
+
+
+def simt_bwd_dq_smem_bytes(c, d: int) -> int:
+    """Shared memory of one fp32 SIMT dq-pass CTA (mirrors
+    repro_flash_bwd_dq_simt_smem_bytes)."""
+    bq, bk = c["block_q"], c["block_k"]
+    return (3 * bq * (d + 1) + 2 * bk * (d + 1) + FLASH_WARPS * bk) * 4
+
+
+def simt_bwd_dkv_smem_bytes(c, d: int) -> int:
+    """Shared memory of one fp32 SIMT dk/dv-pass CTA (mirrors
+    repro_flash_bwd_dkv_simt_smem_bytes)."""
+    bq, bk = c["block_q"], c["block_k"]
+    return (4 * bk * (d + 1) + 2 * bq * (d + 1) + 2 * bq + 2 * FLASH_WARPS * bq) * 4
 
 
 def simt_bwd_smem_bytes(c, d: int) -> int:
-    """Shared memory of the larger of the two fp32 SIMT backward CTAs
-    (mirrors repro_flash_bwd_dq_simt_smem_bytes and
-    repro_flash_bwd_dkv_simt_smem_bytes)."""
-    bq, bk = c["block_q"], c["block_k"]
-    dq = 3 * bq * (d + 1) + 2 * bk * (d + 1) + FLASH_WARPS * bk
-    dkv = 4 * bk * (d + 1) + 2 * bq * (d + 1) + 2 * bq + 2 * FLASH_WARPS * bq
-    return max(dq, dkv) * 4
+    """Shared memory of the larger of the two fp32 SIMT backward CTAs."""
+    return max(simt_bwd_dq_smem_bytes(c, d), simt_bwd_dkv_smem_bytes(c, d))
 
 
 # block_q is the dq pass's q tile (64 rows per consumer warpgroup), block_k
@@ -282,7 +302,7 @@ ATTENTION_BWD_SPACE = ParamSpace(
         PowerOfTwoParam("block_k", 64, 128),
     ],
     [
-        Constraint(lambda c: bwd_smem_bytes(c, SPACE_HEAD_DIM) <= SMEM,
+        Constraint(gridmodel.LaunchLimit("flash_attention_bwd", ("smem",)),
                    "bf16 backward tiles, rings and barriers exceed 227 KB of shared memory "
                    "at d=128"),
     ],
@@ -292,11 +312,9 @@ ATTENTION_BWD_SPACE = ParamSpace(
 def bwd_illegal(c, ct, q, k, v, o, lse) -> Optional[str]:
     """Why the bf16 backward cannot run config ``c`` at this call's head
     dim (either pass's CTA past 227 KB: at d = 256 all but 64 x 64), or
-    None; fp32 runs :func:`simt_tiles`."""
-    d = q.shape[-1]
-    if q.dtype != torch.float32 and bwd_smem_bytes(c, d) > SMEM:
-        return f"bf16 backward tiles {c} need {bwd_smem_bytes(c, d)} B of shared memory at d={d}"
-    return None
+    None: the launch models' verdict at the call's shapes; fp32 runs
+    :func:`simt_tiles`."""
+    return gridmodel.shape_illegal("flash_attention_bwd", c, *_shapes(ct, q, k, v, o, lse))
 
 
 def _attn_bwd_heuristic(ct, q, k, v, o, lse):
@@ -414,3 +432,121 @@ def flash_attention_bwd(ct, q, k, v, o, lse, *, block_q: int, block_k: int,
         return flash_attention_bwd_plain(ct, q, k, v, o, lse, causal=causal, window=window,
                                          scale=scale)
     raise _build.KernelUnavailable(f"flash_attention_bwd has no kernel for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# Launch models (core/gridmodel.py)
+# ---------------------------------------------------------------------------
+
+MAX_THREADS = 2 * 128 + 32      # two consumer warpgroups and the producer warp
+
+
+def _pairs(s_q: int, s_k: int, bq: int, bk: int, causal: bool, window: int) -> int:
+    """(q tile, k tile) pairs a pass visits: the kernels skip a k tile that
+    the causal and window masks hide from every row of the q tile."""
+    off, n = s_k - s_q, 0
+    for q0 in range(0, s_q, bq):
+        hi = min(s_k, min(q0 + bq, s_q) + off) if causal else s_k
+        lo = max(0, q0 + off - window + 1) if window > 0 else 0
+        if hi > lo:
+            n += -(-hi // bk) - lo // bk
+    return n
+
+
+def _geometry(q, k):
+    b, h, s_q, d = q
+    kvh, s_k = k[1], k[2]
+    if d not in HEAD_DIMS or kvh <= 0 or h % kvh or k[0] != b or k[3] != d:
+        return None
+    return b, h, kvh, s_q, s_k, d
+
+
+def _flash_model(cfg, shapes, dtypes, causal: bool = True, window: int = 0, **_):
+    """One CTA a q tile of one (batch, head): the tensor-core kernel at the
+    config's tiles in bf16, the SIMT kernel at :func:`simt_tiles` in fp32."""
+    g = _geometry(shapes[0], shapes[1])
+    if g is None:
+        return None
+    b, h, kvh, s_q, s_k, d = g
+    dtype = dtypes[0]
+    bf16 = dtype == "bfloat16"
+    es = 2 if bf16 else 4
+    t = cfg if bf16 else simt_tiles(d)
+    bq, bk = t["block_q"], t["block_k"]
+    gq = -(-s_q // bq)
+    pairs = _pairs(s_q, s_k, bq, bk, causal, window)
+    outs = (gridmodel.OutputModel("o", (b * h, s_q, d), (1, bq, d), lambda i, bh: (bh, i, 0)),
+            gridmodel.OutputModel("lse", (b * h, s_q), (1, bq), lambda i, bh: (bh, i)))
+    common = dict(grid=(gq, b * h), axes=("q", "bh"), cuda_grid=(gq, b * h, 1), outputs=outs,
+                  dtype=dtype, where=f"at d={d}", flops=4.0 * b * h * pairs * bq * bk * d,
+                  bytes=float(es * (2 * b * h * s_q * d + 2 * b * kvh * s_k * d)
+                              + 4 * b * h * s_q))
+    if bf16:
+        return gridmodel.LaunchModel(
+            "flash_fwd_tc", route="tc", threads=(bq // 64) * 128 + 32, smem=smem_bytes(cfg, d),
+            mma=("wgmma", bq, bk, 16), max_threads=MAX_THREADS, peak="bf16", **common)
+    return gridmodel.LaunchModel("flash_fwd_simt", route="simt", threads=32 * FLASH_WARPS,
+                                 smem=simt_smem_bytes(t, d), **common)
+
+
+def dkv_cols(d: int) -> int:
+    """Columns of dk and dv one dk/dv CTA accumulates (mirrors dkv_cols in
+    csrc/flash_attention_bwd.cu): all of them up to d = 128, a half at 256."""
+    return d if d < 128 else 128
+
+
+def _flash_bwd_model(cfg, shapes, dtypes, causal: bool = True, window: int = 0, **_):
+    """The dq pass (a CTA a q tile, streaming 64-key tiles) and the dk/dv
+    pass (a CTA a k tile of one kv head, its q heads' group summed inside
+    the CTA; at d = 256 a CTA a half of the columns, the grid's z). fp32
+    runs both SIMT passes at :func:`simt_tiles`. The delta reduction the
+    wrapper runs first reads ct and o (counted with the dq pass)."""
+    g = _geometry(shapes[1], shapes[2])
+    if g is None:
+        return None
+    b, h, kvh, s_q, s_k, d = g
+    dtype = dtypes[1]
+    bf16 = dtype == "bfloat16"
+    es = 2 if bf16 else 4
+    t = cfg if bf16 else simt_tiles(d)
+    bq, bk = t["block_q"], t["block_k"]
+    sk_tile, sq_tile = (BWD_TILE, BWD_TILE) if bf16 else (bk, bq)
+    q_bytes, kv_bytes, rows = b * h * s_q * d, b * kvh * s_k * d, 4 * 2 * b * h * s_q
+    dc = dkv_cols(d) if bf16 else d
+    gq, gk, gz = -(-s_q // bq), -(-s_k // bk), d // dc
+    dq_pairs = _pairs(s_q, s_k, bq, sk_tile, causal, window)
+    kv_pairs = _pairs(s_q, s_k, sq_tile, bk, causal, window)   # the same pairs, counted by k
+    dq = dict(grid=(gq, b * h), axes=("q", "bh"), cuda_grid=(gq, b * h, 1), dtype=dtype,
+              where=f"at d={d}",
+              outputs=(gridmodel.OutputModel("dq", (b * h, s_q, d), (1, bq, d),
+                                             lambda i, bh: (bh, i, 0)),),
+              flops=6.0 * b * h * dq_pairs * bq * sk_tile * d,
+              bytes=float(es * (2 * q_bytes + 2 * kv_bytes + 3 * q_bytes) + rows + 4 * b * h * s_q))
+    dkv = dict(grid=(gk, b * kvh, gz), axes=("k", "bkv", "cols"), cuda_grid=(gk, b * kvh, gz),
+               dtype=dtype, where=f"at d={d}",
+               outputs=tuple(gridmodel.OutputModel(n, (b * kvh, s_k, d), (1, bk, dc),
+                                                   lambda i, bkv, c: (bkv, i, c))
+                             for n in ("dk", "dv")),
+               flops=4.0 * b * h * kv_pairs * sq_tile * bk * (d * gz + dc * gz),
+               bytes=float(es * (2 * q_bytes + 4 * kv_bytes) + rows))
+    if bf16:
+        return (gridmodel.LaunchModel("flash_bwd_dq_tc", route="tc",
+                                      threads=(bq // 64) * 128 + 32,
+                                      smem=bwd_dq_smem_bytes(cfg, d), mma=("wgmma", bq, 64, 16),
+                                      max_threads=MAX_THREADS, peak="bf16", **dq),
+                gridmodel.LaunchModel("flash_bwd_dkv_tc", route="tc",
+                                      threads=(bk // 64) * 128 + 32,
+                                      smem=bwd_dkv_smem_bytes(cfg, d), mma=("wgmma", bk, 64, 16),
+                                      max_threads=MAX_THREADS, peak="bf16", **dkv))
+    return (gridmodel.LaunchModel("flash_bwd_dq_simt", route="simt", threads=32 * FLASH_WARPS,
+                                  smem=simt_bwd_dq_smem_bytes(t, d), **dq),
+            gridmodel.LaunchModel("flash_bwd_dkv_simt", route="simt", threads=32 * FLASH_WARPS,
+                                  smem=simt_bwd_dkv_smem_bytes(t, d), **dkv))
+
+
+_Q, _KV = (2, 16, 4096, SPACE_HEAD_DIM), (2, 4, 4096, SPACE_HEAD_DIM)
+gridmodel.register_launch_model("flash_attention", _flash_model, space=ATTENTION_SPACE,
+                                nominal=(_Q, _KV, _KV))
+gridmodel.register_launch_model(
+    "flash_attention_bwd", _flash_bwd_model, space=ATTENTION_BWD_SPACE,
+    nominal=(_Q, _Q, _KV, _KV, _Q, _Q[:3]), dtypes=("bfloat16",) * 5 + ("float32",))

@@ -34,10 +34,12 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 
-from ..core import DispatchSpec, tunable
+from ..core import DispatchSpec, gridmodel, tunable
 from . import _build, ref
 from . import matmul as mm
 
@@ -156,6 +158,7 @@ def matmul_bias_act_cuda(x, w, b, *, bm: int, bn: int, bk: int, stages: int, spl
         canonicalize=_mba_canon,
         vjp="dispatch",
         bwd=_mba_bwd,
+        bwd_via=("matmul",),
     ),
 )
 def matmul_bias_act(x, w, b, *, bm: int, bn: int, bk: int, stages: int, splits: int,
@@ -240,6 +243,16 @@ def prologue_smem_bytes(c) -> int:
     return mm.smem_bytes(c) + norm
 
 
+def rmm_loop_smem_bytes(t, dtype_bytes: int) -> int:
+    """Shared memory of one CTA of the k-sliced loops (mirrors loop_smem in
+    csrc/rmsnorm_matmul.cu): the rows' inverse rms, then the larger of the
+    staged slices and (bf16) the fp32 output tile, each staged row padded."""
+    bm, bn, bk = t["bm"], t["bn"], t["bk"]
+    if dtype_bytes == 2:
+        return bm * 4 + max((bm * (bk + 8) + bk * (bn + 8)) * 2, bm * (bn + 4) * 4)
+    return bm * 4 + (bm * (bk + 4) + bk * (bn + 4)) * 4
+
+
 def rmsnorm_matmul_cuda(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, splits: int,
                         eps: float = 1e-6, force_loop: bool = False):
     """Launch csrc/rmsnorm_matmul.cu on CUDA tensors, on the route
@@ -271,7 +284,8 @@ def rmsnorm_matmul_cuda(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, 
     space=mm.MATMUL_SPACE,
     reference=ref.rmsnorm_matmul,
     heuristic=_rmm_heuristic,
-    dispatch=DispatchSpec(canonicalize=_rmm_canon, vjp="dispatch", bwd=_rmm_bwd),
+    dispatch=DispatchSpec(canonicalize=_rmm_canon, vjp="dispatch", bwd=_rmm_bwd,
+                          bwd_via=("rmsnorm", "matmul", "rmsnorm_bwd")),
 )
 def rmsnorm_matmul(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, splits: int,
                    eps: float = 1e-6):
@@ -281,3 +295,68 @@ def rmsnorm_matmul(x, scale, w, *, bm: int, bn: int, bk: int, stages: int, split
     if x.device.type == "cpu":
         return rmsnorm_matmul_plain(x, scale, w, eps)
     raise _build.KernelUnavailable(f"rmsnorm_matmul has no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Launch models (core/gridmodel.py): matmul's over gemm.cuh, with the
+# epilogue's bias or the prologue's norm
+# ---------------------------------------------------------------------------
+
+
+def _mba_model(cfg, shapes, dtypes, **_):
+    (xs, ws, bs) = shapes[:3]
+    rows, k, n = math.prod(xs[:-1]), xs[-1], ws[1]
+    if k != ws[0] or bs != (n,):
+        return None
+    es = 2 if dtypes[0] == "bfloat16" else 4
+    return mm.gemm_models(cfg, rows, n, k, 1, dtypes[0], extra_bytes=es * n,
+                          epilogue_flops=4.0 * rows * n)
+
+
+def _rmm_model(cfg, shapes, dtypes, **_):
+    """The norm prologue on the tc route (matmul's ring plus a scale slice a
+    stage) and the decode route (the persistent gemm_decode_norm, walking
+    column tiles with a stride of its grid); fp32 and widths TMA cannot
+    address take the k-sliced loop at matmul's WMMA tiles."""
+    (xs, ss, ws) = shapes[:3]
+    rows, d, n = math.prod(xs[:-1]), xs[-1], ws[1]
+    if ss != (d,) or ws[0] != d:
+        return None
+    dtype = dtypes[0]
+    bf16 = dtype == "bfloat16"
+    es = 2 if bf16 else 4
+    extra, norm_flops = es * d, 4.0 * rows * d
+    if bf16 and d % 8 == 0 and mm.shape_route(True, rows, n, d, cfg["bm"]) == "tc":
+        return mm.gemm_models(cfg, rows, n, d, 1, dtype, extra_bytes=extra,
+                              epilogue_flops=norm_flops, smem=prologue_smem_bytes(cfg))
+    if bf16 and d % 8 == 0 and n % 8 == 0:
+        models = mm.gemm_models(cfg, rows, n, d, 1, dtype, extra_bytes=extra,
+                                epilogue_flops=norm_flops, smem=prologue_smem_bytes(cfg))
+        main = models[0]
+        smem = prologue_smem_bytes(cfg)
+        per_sm = max(1, mm.H100_SXM.smem_per_sm // max(smem, 1))
+        gx = min(main.cuda_grid[0], mm.H100_SXM.sm_count * per_sm)
+        # the persistent kernel: each CTA walks column tiles gridDim.x apart
+        walk = dataclasses.replace(
+            main, kernel="gemm_decode_norm", cuda_grid=(gx, *main.cuda_grid[1:]),
+            outputs=tuple(dataclasses.replace(o, index_map=None, tile=()) for o in main.outputs),
+            uniform=False)
+        return (walk,) + models[1:]
+    t = mm.wmma_tiles(rows)
+    mt, nt = -(-rows // t["bm"]), -(-n // t["bn"])
+    return gridmodel.LaunchModel(
+        "rmm_wmma" if bf16 else "rmm_simt", route="wmma" if bf16 else "simt",
+        grid=(nt, mt), axes=("n", "m"), cuda_grid=(nt, mt, 1), threads=mm.loop_threads(t),
+        smem=rmm_loop_smem_bytes(t, es), max_threads=512, dtype=dtype,
+        mma=("wmma", t["bm"], t["bn"], t["bk"]) if bf16 else None,
+        outputs=(gridmodel.OutputModel("c", (rows, n), (t["bm"], t["bn"]),
+                                       lambda j, i: (i, j)),),
+        flops=2.0 * mt * t["bm"] * nt * t["bn"] * -(-d // t["bk"]) * t["bk"] + norm_flops,
+        bytes=es * (rows * d + d * n + rows * n + d), peak="bf16" if bf16 else "fp32",
+        uniform=True)
+
+
+gridmodel.register_launch_model("matmul_bias_act", _mba_model, space=mm.MATMUL_SPACE,
+                                nominal=mm.NOMINAL + ((4096,),))
+gridmodel.register_launch_model("rmsnorm_matmul", _rmm_model, space=mm.MATMUL_SPACE,
+                                nominal=((4096, 4096), (4096,), (4096, 4096)))

@@ -53,10 +53,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from ..core import Constraint, DispatchSpec, ParamSpace, tunable
+from ..core import Constraint, DispatchSpec, ParamSpace, gridmodel, tunable
 from ..core.params import EnumParam
 from ..core.platform import H100_SXM
 from . import _build, ref
@@ -113,6 +114,10 @@ def loop_threads(t) -> int:
     return 32 * (t["bm"] // (16 * fm)) * (t["bn"] // 32)
 
 
+# The tunables over MATMUL_SPACE: a config must launch for each of them (the
+# norm prologue adds its scale slices to the ring).
+GEMM_TUNABLES = ("matmul", "matmul_bias_act", "rmsnorm_matmul")
+
 MATMUL_SPACE = ParamSpace(
     [
         EnumParam("bm", (16, 64, 128)),
@@ -122,9 +127,9 @@ MATMUL_SPACE = ParamSpace(
         EnumParam("splits", (1, 2, 4, 8, 16)),
     ],
     [
-        Constraint(lambda c: smem_bytes(c) <= H100_SXM.smem_per_block,
+        Constraint(gridmodel.LaunchLimit(GEMM_TUNABLES, ("smem",)),
                    "ring and staged output exceed the 227 KB of shared memory a block may use"),
-        Constraint(lambda c: _threads(c) <= MAX_THREADS and _acc_regs(c) <= MAX_ACC,
+        Constraint(gridmodel.LaunchLimit(GEMM_TUNABLES, ("threads",)),
                    "CTA exceeds two consumer warpgroups or 128 accumulator registers a thread"),
     ],
 )
@@ -190,6 +195,7 @@ def gemm_heuristic(rows: int, n: int, k: int, batch: int = 1) -> dict:
 
 
 ROWS_COLS, ROWS_KC = 512, 64     # gemm.cuh's fp32 decode-row kernel: columns a CTA, k slice
+ROWS_THREADS, SIMT_THREADS = 128, 256    # threads of its row and register-tile kernels
 # gemm.cuh's simt kernel: its one tile and its shared memory (the ring
 # of k-major A and B slices, rows padded by 4 floats)
 SIMT_TILE = {"bm": 128, "bn": 256, "bk": 32, "stages": 3}
@@ -337,6 +343,23 @@ def route(x: torch.Tensor, w: torch.Tensor, bm=None) -> str:
     return _route(x.dtype == torch.bfloat16, _desc(x), _desc(w), bm)
 
 
+def route_tiles(r: str, rows: int, n: int, k: int, batch: int, cfg: dict) -> dict:
+    """The launch of route ``r`` (not the first port's loop): its tiles,
+    ring depth, the kernel's code and name, and the split-k partition. The
+    one place the wrapper (:func:`plan`) and the launch models
+    (:func:`gemm_models`) take them from."""
+    code, kernel = ROUTES[r], r
+    if r == "simt":
+        t = simt_tiles(rows, n, k, batch)
+        code, kernel = (ROWS_CODE, "rows") if t["bm"] == DECODE_ROWS else (code, "tile")
+    elif r == "wmma":
+        t = dict(wmma_tiles(rows), stages=1)
+    else:
+        t = {key: cfg[key] for key in ("bm", "bn", "bk", "stages", "splits")}
+    kps, splits = split_k(k, t["bk"], t["splits"])
+    return dict(t, route=r, code=code, kernel=kernel, kps=kps, splits=splits)
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan(bf16: bool, xd, wd, cfg, force_loop: bool) -> dict:
     cfg = dict(cfg)
@@ -346,19 +369,9 @@ def _plan(bf16: bool, xd, wd, cfg, force_loop: bool) -> dict:
     if force_loop:
         r = "wmma" if bf16 else "simt"
         t, code = dict(wmma_tiles(rows), stages=1), ROUTES["wmma"] if bf16 else LOOP_CODE
-        kernel = "loop"
-    else:
-        r = _route(bf16, xd, wd, cfg["bm"])
-        code, kernel = ROUTES[r], r
-        if r == "simt":
-            t = simt_tiles(rows, n, k, batch)
-            code, kernel = (ROWS_CODE, "rows") if t["bm"] == DECODE_ROWS else (code, "tile")
-        elif r == "wmma":
-            t = dict(wmma_tiles(rows), stages=1)
-        else:
-            t = {key: cfg[key] for key in ("bm", "bn", "bk", "stages", "splits")}
-    kps, splits = split_k(k, t["bk"], t["splits"])
-    return dict(t, route=r, code=code, kernel=kernel, kps=kps, splits=splits)
+        kps, splits = split_k(k, t["bk"], t["splits"])
+        return dict(t, route=r, code=code, kernel="loop", kps=kps, splits=splits)
+    return route_tiles(_route(bf16, xd, wd, cfg["bm"]), rows, n, k, batch, cfg)
 
 
 def plan(x, w, cfg, force_loop: bool = False) -> dict:
@@ -371,6 +384,99 @@ def plan(x, w, cfg, force_loop: bool = False) -> dict:
     pay one dict lookup."""
     return _plan(x.dtype == torch.bfloat16, _desc(x), _desc(w), tuple(sorted(cfg.items())),
                  force_loop)
+
+
+# ---------------------------------------------------------------------------
+# Launch models (core/gridmodel.py): the launches of one call, from the same
+# route rule, tiles and shared-memory functions the wrapper uses
+# ---------------------------------------------------------------------------
+
+GEMM_KERNELS = {"tc": "gemm_tc", "decode": "gemm_decode", "wmma": "gemm_wmma",
+                "rows": "gemm_simt_rows", "tile": "gemm_simt"}
+
+
+def shape_route(bf16: bool, rows: int, n: int, k: int, bm: int) -> str:
+    """:func:`route` for contiguous, 16-byte aligned operands of these
+    shapes: a row-major x's leading dim is k and w's is n, and TMA needs
+    both a multiple of 8 bf16 elements."""
+    if not bf16:
+        return "simt"
+    if k == 0 or k % 8 or n % 8:
+        return "wmma"
+    return "decode" if bm == DECODE_ROWS else "tc"
+
+
+def gemm_models(cfg: dict, rows: int, n: int, k: int, batch: int, dtype: str,
+                w_batched: bool = False, extra_bytes: float = 0.0,
+                epilogue_flops: float = 0.0, smem=None) -> tuple:
+    """The launches of ``batch`` products [rows, k] @ [k, n] at ``cfg``:
+    the route's kernel and, over split k, the kernel that sums the fp32
+    partials (the splits are the partial kernel's declared reduction).
+    ``smem`` replaces the route's shared memory (a prologue's),
+    ``extra_bytes`` and ``epilogue_flops`` add a bias or a norm's traffic
+    and work. Shared by ``matmul``, ``matmul_bias_act``, ``rmsnorm_matmul``
+    and ``expert_gemm``, as their kernels share gemm.cuh."""
+    bf16 = dtype == "bfloat16"
+    es = 2 if bf16 else 4
+    p = route_tiles(shape_route(bf16, rows, n, k, cfg["bm"]), rows, n, k, batch, cfg)
+    r, splits = p["route"], p["splits"]
+    bm, bn, bk = p["bm"], p["bn"], p["bk"]
+    red = ("split",) if splits > 1 else ()
+    mt, nt = _cdiv(rows, bm), _cdiv(n, bn)
+    if r == "simt" and p["kernel"] == "rows":
+        mt = 1
+    axes = ("m", "n", "batch", "split")
+    grid = (mt, nt, batch, splits)
+    out = gridmodel.OutputModel("c", (batch, rows, n), (1, bm, bn),
+                                lambda i, j, b, s: (b, i, j), reduce=red)
+    traffic = es * (batch * rows * k + (batch if w_batched else 1) * k * n
+                    + (0 if splits > 1 else batch * rows * n)) + extra_bytes
+    flops = 2.0 * batch * mt * bm * nt * bn * _cdiv(k, bk) * bk + epilogue_flops
+    common = dict(route=r, grid=grid, axes=axes, outputs=(out,), dtype=dtype, flops=flops,
+                  bytes=traffic, workspace=4.0 * splits * batch * rows * n if splits > 1 else 0.0,
+                  uniform=True, template=(bm, bn, bk, p["stages"]))
+    if r == "tc":
+        # the dimension with fewer tiles runs fastest (gemm.cuh's launch_tc)
+        gx, gy = (mt, nt) if mt <= nt else (nt, mt)
+        model = gridmodel.LaunchModel(
+            GEMM_KERNELS["tc"], cuda_grid=(gx, gy, batch * splits),
+            threads=_threads(cfg), smem=smem_bytes(cfg) if smem is None else smem,
+            mma=("wgmma", bm, bn, bk), max_threads=MAX_THREADS, acc_regs=_acc_regs(cfg),
+            max_acc_regs=MAX_ACC, peak="bf16", **common)
+    elif r == "decode":
+        model = gridmodel.LaunchModel(
+            GEMM_KERNELS["decode"], cuda_grid=(nt, mt, batch * splits), threads=_threads(cfg),
+            smem=smem_bytes(cfg) if smem is None else smem, mma=("wgmma", bn, DECODE_ROWS, bk),
+            max_threads=MAX_THREADS, acc_regs=_acc_regs(cfg), max_acc_regs=MAX_ACC,
+            peak="bf16", **common)
+    elif r == "wmma":
+        model = gridmodel.LaunchModel(
+            GEMM_KERNELS["wmma"], cuda_grid=(nt, mt, batch * splits), threads=loop_threads(p),
+            smem=loop_smem_bytes(p, 2) if smem is None else smem, mma=("wmma", bm, bn, bk),
+            max_threads=512, peak="bf16", **common)
+    elif p["kernel"] == "rows":
+        model = gridmodel.LaunchModel(GEMM_KERNELS["rows"], cuda_grid=(nt, 1, batch * splits),
+                                      threads=ROWS_THREADS, smem=0, **common)
+    else:
+        model = gridmodel.LaunchModel(GEMM_KERNELS["tile"], cuda_grid=(nt, mt, batch * splits),
+                                      threads=SIMT_THREADS, smem=SIMT_SMEM, **common)
+    if splits == 1:
+        return (model,)
+    count = batch * rows * n
+    blocks = min(_cdiv(count, 256), 4096)
+    total = gridmodel.LaunchModel(
+        "gemm_splitk_sum", route=r, grid=(blocks,), axes=("block",), cuda_grid=(blocks, 1, 1),
+        threads=256, outputs=(gridmodel.OutputModel("c", (count,)),), dtype=dtype,
+        flops=float(count * splits), bytes=float(es * count))
+    return model, total
+
+
+def _matmul_model(cfg, shapes, dtypes, **_):
+    (xs, ws) = shapes[:2]
+    rows = math.prod(xs[:-1])
+    if xs[-1] != ws[0]:
+        return None
+    return gemm_models(cfg, rows, ws[1], xs[-1], 1, dtypes[0])
 
 
 def count_launch(name: str, p: dict, transposed: bool) -> None:
@@ -440,3 +546,9 @@ def matmul(x, w, *, bm: int, bn: int, bk: int, stages: int, splits: int):
     if x.device.type == "cpu":
         return matmul_plain(x, w)
     raise _build.KernelUnavailable(f"matmul has no kernel for device {x.device}")
+
+
+# The nominal shapes the space is judged at: a production-scale bf16 gemm,
+# where every config takes its own route.
+NOMINAL = ((4096, 4096), (4096, 4096))
+gridmodel.register_launch_model("matmul", _matmul_model, space=MATMUL_SPACE, nominal=NOMINAL)

@@ -35,7 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core import Constraint, DispatchSpec, Param, ParamSpace, tunable
+from ..core import Constraint, DispatchSpec, Param, ParamSpace, gridmodel, tunable
 from . import _build, ref
 from . import matmul as mm
 
@@ -51,7 +51,7 @@ def _tile(c):
 EXPERT_GEMM_SPACE = ParamSpace(
     [Param("bc", mm.MATMUL_SPACE["bm"].choices)]
     + [mm.MATMUL_SPACE[k] for k in ("bn", "bk", "stages", "splits")],
-    [Constraint(lambda c, con=con: con(_tile(c)), con.reason)
+    [Constraint(gridmodel.LaunchLimit("expert_gemm", con.fn.categories), con.reason)
      for con in mm.MATMUL_SPACE.constraints],
 )
 
@@ -143,3 +143,15 @@ def expert_gemm(x, w, *, bc: int, bn: int, bk: int, stages: int, splits: int):
     if x.device.type == "cpu":
         return expert_gemm_plain(x, w)
     raise _build.KernelUnavailable(f"expert_gemm has no kernel for device {x.device}")
+
+
+def _expert_gemm_model(cfg, shapes, dtypes, **_):
+    """matmul's launches over the e experts' products (gemm.cuh's batch)."""
+    (e, c, k), (e2, k2, n) = shapes[:2]
+    if e != e2 or k != k2:
+        return None
+    return mm.gemm_models(_tile(cfg), c, n, k, e, dtypes[0], w_batched=True)
+
+
+gridmodel.register_launch_model("expert_gemm", _expert_gemm_model, space=EXPERT_GEMM_SPACE,
+                                nominal=((8, 512, 4096), (8, 4096, 14336)))

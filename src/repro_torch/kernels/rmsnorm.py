@@ -29,10 +29,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, gridmodel, tunable
 from ..core.platform import H100_SXM
 from . import _build, ref
 
@@ -41,8 +42,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RMSNORM_SPACE = ParamSpace(
     [PowerOfTwoParam("block_rows", 1, 32)],
     [
-        Constraint(lambda c: 32 * c["block_rows"] <= H100_SXM.max_threads_per_block,
-                   "one warp per row: block_rows exceeds 1024 threads"),
+        Constraint(gridmodel.LaunchLimit(("rmsnorm", "rmsnorm_bwd"), ("threads",)),
+                   "a CTA's teams exceed the threads a block may hold"),
     ],
 )
 
@@ -247,3 +248,75 @@ def rmsnorm_bwd(ct, x, weight, invrms, *, block_rows: int, eps: float = 1e-6):
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(ct, x, weight, invrms, eps)
     raise _build.KernelUnavailable(f"rmsnorm_bwd has no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Launch models (core/gridmodel.py)
+# ---------------------------------------------------------------------------
+
+MAX_THREADS = 32 * MAX_WARPS     # both kernels' launch bounds
+
+
+def rmsnorm_team(d: int, itemsize: int):
+    """(warps a row's team, whether the row stays in registers) of the
+    forward kernel: 4 16-byte vectors a thread, at most :data:`MAX_WARPS`
+    warps (mirrors the launch in csrc/rmsnorm.cu)."""
+    vecs = -(-d // (16 // itemsize))
+    w = -(-vecs // (32 * 4))
+    resident = w <= MAX_WARPS
+    return (max(w, 1) if resident else MAX_WARPS), resident
+
+
+def _itemsize(dtype: str) -> int:
+    return 2 if dtype in ("bfloat16", "float16") else 4
+
+
+def _rmsnorm_model(cfg, shapes, dtypes, **_):
+    """One CTA a ``block_rows`` rows, its teams walking them in turn."""
+    rows, d = math.prod(shapes[0][:-1]), shapes[0][-1]
+    es = _itemsize(dtypes[0])
+    br = cfg["block_rows"]
+    warps = rmsnorm_team(d, es)[0]
+    teams = min(br, MAX_WARPS // warps)
+    grid = -(-rows // br)
+    return gridmodel.LaunchModel(
+        "rmsnorm_kernel", route="rows", grid=(grid,), axes=("rows",), cuda_grid=(grid, 1, 1),
+        threads=32 * warps * teams, max_threads=MAX_THREADS, dtype=dtypes[0],
+        outputs=(gridmodel.OutputModel("out", (rows, d), (br, d), lambda i: (i, 0)),
+                 gridmodel.OutputModel("invrms", (rows,), (br,), lambda i: (i,))),
+        flops=4.0 * rows * d, bytes=float(es * (2 * rows * d + d) + 4 * rows))
+
+
+def _rmsnorm_bwd_model(cfg, shapes, dtypes, **_):
+    """Pass 1: ``rmsnorm_bwd_ctas`` CTAs whose teams walk the rows (dx) and
+    keep fp32 dw partials, a row of the workspace a CTA (the declared
+    reduction over the CTAs); pass 2 sums them, 32 columns a CTA."""
+    rows, d = shapes[1]
+    es = _itemsize(dtypes[1])
+    br = cfg["block_rows"]
+    warps = rmsnorm_bwd_team(d, es)[0]
+    teams = rmsnorm_bwd_teams(br, d, es)
+    ctas = max(rmsnorm_bwd_ctas(rows, d, es, br), 1)
+    rows_pass = gridmodel.LaunchModel(
+        "rmsnorm_bwd_rows", route="rows", grid=(ctas,), axes=("cta",), cuda_grid=(ctas, 1, 1),
+        threads=32 * warps * teams, smem=rmsnorm_bwd_smem_bytes(br, d, es),
+        max_threads=MAX_THREADS, dtype=dtypes[1],
+        outputs=(gridmodel.OutputModel("dx", (rows, d)),
+                 gridmodel.OutputModel("dw", (d,), (d,), lambda c: (0,), reduce=("cta",))),
+        flops=6.0 * rows * d, bytes=float(es * (3 * rows * d + d) + 4 * rows),
+        workspace=4.0 * ctas * d)
+    cols = -(-d // 32)
+    dw_pass = gridmodel.LaunchModel(
+        "rmsnorm_bwd_dw", route="rows", grid=(cols,), axes=("cols",), cuda_grid=(cols, 1, 1),
+        threads=1024, dtype=dtypes[1],
+        outputs=(gridmodel.OutputModel("dw", (d,), (32,), lambda j: (j,)),),
+        flops=float(ctas * d), bytes=float(es * d))
+    return rows_pass, dw_pass
+
+
+gridmodel.register_launch_model("rmsnorm", _rmsnorm_model, space=RMSNORM_SPACE,
+                                nominal=((8192, 4096), (4096,)))
+gridmodel.register_launch_model(
+    "rmsnorm_bwd", _rmsnorm_bwd_model, space=RMSNORM_SPACE,
+    nominal=((8192, 4096), (8192, 4096), (4096,), (8192,)),
+    dtypes=("bfloat16", "bfloat16", "bfloat16", "float32"))

@@ -68,7 +68,7 @@ import math
 import numpy as np
 import torch
 
-from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core import Constraint, DispatchSpec, ParamSpace, PowerOfTwoParam, gridmodel, tunable
 from ..core.params import EnumParam
 from ..core.platform import H100_SXM
 from . import _build, ref
@@ -103,9 +103,9 @@ SSM_SCAN_SPACE = ParamSpace(
         EnumParam("lanes", (1, 2, 4)),
     ],
     [
-        Constraint(lambda c: 32 <= c["block_d"] * c["lanes"] <= SCAN_MAX_CONSUMERS,
+        Constraint(gridmodel.LaunchLimit("ssm_scan", ("threads",)),
                    "block_d x lanes consumer threads outside one warp .. 512"),
-        Constraint(lambda c: scan_smem_bytes(c) <= H100_SXM.smem_per_block,
+        Constraint(gridmodel.LaunchLimit("ssm_scan", ("smem",)),
                    "stages x chunk-step slices exceed 227 KB of shared memory"),
     ],
 )
@@ -117,7 +117,7 @@ SSM_UPDATE_SPACE = ParamSpace(
         EnumParam("lanes", (1, 2, 4)),
     ],
     [
-        Constraint(lambda c: 32 <= c["block_d"] * c["lanes"] <= H100_SXM.max_threads_per_block,
+        Constraint(gridmodel.LaunchLimit("ssm_update", ("threads",)),
                    "block_d x lanes threads outside one warp .. 1024 a CTA"),
     ],
 )
@@ -522,3 +522,67 @@ def ssm_update_bwd(ct_y, ct_h, xc, dt, B, C, A, h, *, block_d: int):
     cat = lambda i, dim: torch.cat([g[i] for g in strips], dim=dim)
     return (cat(0, 1), cat(1, 1), sum(g[2] for g in strips), sum(g[3] for g in strips),
             cat(4, 0), cat(5, 1))
+
+
+# ---------------------------------------------------------------------------
+# Launch models (core/gridmodel.py)
+# ---------------------------------------------------------------------------
+
+
+def _es(dtype: str) -> int:
+    return 2 if dtype in ("bfloat16", "float16") else 4
+
+
+def _ssm_scan_model(cfg, shapes, dtypes, **_):
+    """One CTA ``block_d`` channels of one sequence: ``block_d * lanes``
+    consumer threads and the producer warp, a ring of ``stages`` slices in
+    shared memory; its loader by :func:`loader`'s rule on the shapes (the
+    bases taken 16-byte aligned)."""
+    (b, s, di), ds = shapes[0], shapes[4][1]
+    if ds > MAX_STATE or tuple(shapes[4]) != (di, ds):
+        return None
+    es = _es(dtypes[0])
+    bd, lanes = cfg["block_d"], cfg["lanes"]
+    gd = -(-di // bd)
+    ld = "tma" if di * es % 16 == 0 and ds % 4 == 0 else "cpasync"
+    return gridmodel.LaunchModel(
+        "ssm_scan_ws", route=ld, grid=(gd, b), axes=("d", "b"), cuda_grid=(gd, b, 1),
+        threads=bd * lanes + 32, min_threads=64, max_threads=SCAN_MAX_CONSUMERS + 32,
+        smem=scan_smem_bytes(cfg, ds, es), dtype=dtypes[0],
+        outputs=(gridmodel.OutputModel("y", (b, s, di), (1, max(s, 1), bd),
+                                       lambda j, i: (i, 0, j)),
+                 gridmodel.OutputModel("hn", (b, di, ds), (1, bd, ds), lambda j, i: (i, j, 0))),
+        flops=6.0 * b * s * gd * bd * ds,
+        bytes=float(es * b * s * di + 4 * (2 * b * s * di + 2 * b * s * ds + di * ds
+                                           + 2 * b * di * ds)))
+
+
+def _ssm_update_model(cfg, shapes, dtypes, **_):
+    """One CTA ``block_d`` channels by ``block_b`` rows, ``lanes`` threads a
+    channel."""
+    (b, di), ds = shapes[0], shapes[4][1]
+    if ds > MAX_STATE or tuple(shapes[4]) != (di, ds):
+        return None
+    es = _es(dtypes[0])
+    bb, bd, lanes = cfg["block_b"], cfg["block_d"], cfg["lanes"]
+    gd, gb = -(-di // bd), -(-b // bb)
+    return gridmodel.LaunchModel(
+        "ssm_update_kernel", route="rows", grid=(gd, gb), axes=("d", "b"),
+        cuda_grid=(gd, gb, 1), threads=bd * lanes, dtype=dtypes[0],
+        outputs=(gridmodel.OutputModel("y", (b, di), (bb, bd), lambda j, i: (i, j)),
+                 gridmodel.OutputModel("hn", (b, di, ds), (bb, bd, ds),
+                                       lambda j, i: (i, j, 0))),
+        flops=6.0 * b * di * ds,
+        bytes=float(es * b * di + 4 * (2 * b * di + 2 * b * ds + di * ds + 2 * b * di * ds)))
+
+
+# The nominal shapes: Jamba's d_inner, xc in fp32 (the widest ring).
+_DI = 16384
+gridmodel.register_launch_model(
+    "ssm_scan", _ssm_scan_model, space=SSM_SCAN_SPACE,
+    nominal=((1, 2048, _DI), (1, 2048, _DI), (1, 2048, MAX_STATE), (1, 2048, MAX_STATE),
+             (_DI, MAX_STATE), (1, _DI, MAX_STATE)), dtypes="float32")
+gridmodel.register_launch_model(
+    "ssm_update", _ssm_update_model, space=SSM_UPDATE_SPACE,
+    nominal=((8, _DI), (8, _DI), (8, MAX_STATE), (8, MAX_STATE), (_DI, MAX_STATE),
+             (8, _DI, MAX_STATE)), dtypes=("bfloat16",) + ("float32",) * 5)

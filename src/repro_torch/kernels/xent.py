@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from ..core import DispatchSpec, ParamSpace, PowerOfTwoParam, tunable
+from ..core import DispatchSpec, ParamSpace, PowerOfTwoParam, gridmodel, tunable
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -180,3 +180,49 @@ def softmax_xent_bwd(ct, logits, labels, lse, *, block_rows: int, block_v: int):
     if logits.device.type == "cpu":
         return softmax_xent_bwd_plain(ct, logits, labels, lse)
     raise _build.KernelUnavailable(f"softmax_xent_bwd has no kernel for device {logits.device}")
+
+
+# ---------------------------------------------------------------------------
+# Launch models (core/gridmodel.py)
+# ---------------------------------------------------------------------------
+
+MAX_ROWS = 16        # warps a CTA: 32 would need more than an SM's registers
+
+
+def _es(dtype: str) -> int:
+    return 2 if dtype in ("bfloat16", "float16") else 4
+
+
+def _xent_model(cfg, shapes, dtypes, **_):
+    """The forward: one warp a row, ``block_rows`` rows a CTA, streaming the
+    row ``block_v`` columns a step (its values in registers)."""
+    rows, vocab = shapes[0]
+    br, es = cfg["block_rows"], _es(dtypes[0])
+    grid = -(-rows // br)
+    return gridmodel.LaunchModel(
+        "xent_fwd", route="rows", grid=(grid,), axes=("rows",), cuda_grid=(grid, 1, 1),
+        threads=32 * br, max_threads=32 * MAX_ROWS, dtype=dtypes[0],
+        template=(cfg["block_v"] // 32,),           # values a lane holds in registers
+        outputs=(gridmodel.OutputModel("loss", (rows,), (br,), lambda i: (i,)),
+                 gridmodel.OutputModel("lse", (rows,), (br,), lambda i: (i,))),
+        flops=6.0 * rows * vocab, bytes=float(es * rows * vocab + 8 * rows + 8 * rows))
+
+
+def _xent_bwd_model(cfg, shapes, dtypes, **_):
+    """The backward: a CTA a ``block_rows`` x ``block_v`` tile of d_logits."""
+    rows, vocab = shapes[1]
+    br, bv, es = cfg["block_rows"], cfg["block_v"], _es(dtypes[1])
+    gx, gy = -(-vocab // bv), -(-rows // br)
+    return gridmodel.LaunchModel(
+        "xent_bwd", route="tiles", grid=(gx, gy), axes=("vocab", "rows"),
+        cuda_grid=(gx, gy, 1), threads=32 * br, max_threads=32 * MAX_ROWS, dtype=dtypes[1],
+        outputs=(gridmodel.OutputModel("dl", (rows, vocab), (br, bv), lambda j, i: (i, j)),),
+        flops=5.0 * rows * vocab, bytes=float(2 * es * rows * vocab + 16 * rows))
+
+
+gridmodel.register_launch_model("softmax_xent", _xent_model, space=XENT_SPACE,
+                                nominal=((8192, 32768), (8192,)), dtypes=("bfloat16", "int32"))
+gridmodel.register_launch_model(
+    "softmax_xent_bwd", _xent_bwd_model, space=XENT_SPACE,
+    nominal=((8192,), (8192, 32768), (8192,), (8192,)),
+    dtypes=("float32", "bfloat16", "int32", "float32"))

@@ -37,6 +37,7 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
     }
 
 
+# repro: allow-raw(this IS the attn_chunks tunable body — the plain torch flash-equivalent reference; its q/k chunk sizes are the registry knobs)
 def chunked_attention(
     q: torch.Tensor,        # [b, h, s_q, d]
     k: torch.Tensor,        # [b, kv, s_k, d]
@@ -218,6 +219,7 @@ def attention_decode(
 
     qh = q.transpose(1, 2)
     kh, vh = ck.transpose(1, 2), cv.transpose(1, 2)
+    # repro: allow-raw(single-token decode over the rolling window cache — [b,h,1,window] scores are cache-layout-bound, below any kernel tile floor)
     if window > 0:
         # rolling cache: every slot is within the window; mask unwritten ones
         valid = torch.arange(clen, device=x.device)[None, :] <= posv[:, None]

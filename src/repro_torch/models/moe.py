@@ -96,8 +96,9 @@ def _route(router_w, x2, top_k: int, valid: Optional[torch.Tensor] = None):
     ``valid`` ([n] bool, optional) marks real tokens: pad tokens get zero
     combine weight and are left out of both factors of the load-balancing
     loss."""
+    # repro: allow-raw(router projection is [n, d] @ [d, e] with e a handful of experts — below the tuned-gemm tile floor)
     logits = x2.float() @ router_w                        # [n, e]
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1)  # repro: allow-raw(router softmax over e experts — the fused kernel tiles vocab-scale axes, not e)
     weights, ids = _top_k(probs, top_k)
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balancing auxiliary loss on the top-1 choice.
@@ -149,6 +150,7 @@ def moe_apply(
         outs = _expert_ffn(p, x2[None].expand(e, n, d), ffn_kind)    # [e, n, d]
         combine = torch.zeros((n, e), dtype=torch.float32, device=x.device)
         combine.scatter_add_(1, ids, weights)
+        # repro: allow-raw(dense oracle path — correctness baseline for the scatter dispatch, never the serving path)
         y = torch.einsum("ne,end->nd", combine, outs.float())
         return y.reshape(b, s, d).to(x.dtype), aux
 

@@ -174,6 +174,7 @@ def _mlstm_qkvg(p, x, n_heads):
     heads = lambda w: dispatch("matmul", xb, w).reshape(b, s, n_heads, hd).transpose(1, 2)
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
     # the gate projection is [di, 2h]: a plain fp32 product, as in JAX
+    # repro: allow-raw(gate projection is tiny — [di, 2h] with h a handful of heads, far below the tuned-gemm tile floor)
     gates = xb.float() @ p["w_gates"] + p["b_gates"]
     log_i, f_raw = gates.chunk(2, dim=-1)                        # [b, s, h]
     return q, k, v, z, log_i.transpose(1, 2), F.logsigmoid(f_raw).transpose(1, 2)
@@ -208,6 +209,7 @@ def _mlstm_scan(q, k, v, log_i, log_f, chunk: int):
     m = torch.zeros((b, n_heads), dtype=f32, device=q.device)
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
     hs = []
+    # repro: allow-raw(mLSTM decay-masked score matmuls await a fused mlstm_scores tunable — plain-matmul records cannot carry the mask epilogue; the inter-chunk state recurrence is sequential by construction)
     for c0 in range(0, s + pad, chunk):
         qc = q[:, :, c0:c0 + chunk].float() * scale               # [b, h, c, hd]
         kc, vc = k[:, :, c0:c0 + chunk].float(), v[:, :, c0:c0 + chunk].float()
@@ -274,7 +276,9 @@ def mlstm_decode(p: Params, x: torch.Tensor, state, *, n_heads: int):
     C = f_s[..., None, None] * C + i_s[..., None, None] * (k[..., :, None] * v[..., None, :])
     n = f_s[..., None] * n + i_s[..., None] * k
     qf = (q * hd ** -0.5)[..., None, :]                                  # [b, h, 1, hd]
+    # repro: allow-raw(decode-step state readout — [b,h,hd] contractions, too small to tile)
     num = (qf @ C)[..., 0, :]
+    # repro: allow-raw(decode-step state readout — [b,h,hd] contractions, too small to tile)
     den = (qf @ n[..., None])[..., 0, 0].abs()
     h = (num / torch.maximum(den, torch.exp(-m_new))[..., None]).reshape(b, 1, di)
     return _mlstm_out(p, h, z, x.dtype), {"C": C, "n": n, "m": m_new}
@@ -316,6 +320,7 @@ def _slstm_cell(p, r32, xw, state, n_heads):
     b = xw.shape[0]
     d = state["h"].shape[-1]
     hr = state["h"].reshape(b, n_heads, d // n_heads).transpose(0, 1)   # [heads, b, hd]
+    # repro: allow-raw(per-step block-diagonal recurrent product [heads, b, hd] @ [heads, hd, 4 hd] carries h — each token needs the last one's, so it stays inside the token loop)
     rec = torch.bmm(hr, r32).transpose(0, 1).reshape(b, 4 * d)
     zf, if_, ff_, of_ = (xw + rec + p["b"]).chunk(4, dim=-1)
     z = torch.tanh(zf)

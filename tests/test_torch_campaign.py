@@ -40,6 +40,7 @@ from repro_torch.core.evaluate import WallClockEvaluator  # noqa: E402
 from repro_torch.core.platform import H100_SXM, TORCH_CPU  # noqa: E402
 from repro_torch.core.search import RandomSearch  # noqa: E402
 from repro_torch.models.transformer import RunConfig  # noqa: E402
+from repro_torch.tools import analytic  # noqa: E402
 
 KERNELS = planner.DEFAULT_KERNELS
 FIELDS = ("kernel", "arg_shapes", "arg_dtypes", "key_extra", "weight", "scenarios")
@@ -163,10 +164,28 @@ def test_hybrid_and_moe_priorities_equal_jax(arch):
          + jplanner.plan_serving_jobs(jcfg, 8, 2048, kernels=KERNELS, max_tokens=8192))
     j = _windowed(j, tcfg.window)
     td, jd = scheduler.dedupe_jobs(t, "h100-sxm"), jsched.dedupe_jobs(j, "h100-sxm")
-    tp, jp = scheduler.prioritize_jobs(td, H100_SXM), jsched.prioritize_jobs(jd, H100_SXM)
-    assert _rows(tp) == _rows(jp)
-    np.testing.assert_allclose([x.priority for x in tp], [x.priority for x in jp], rtol=1e-12)
+    tp = scheduler.prioritize_jobs(td, H100_SXM)
+    # The port prices a float32 gemm site (gemm.cuh's simt route) at the card's
+    # fp32 peak, where JAX prices every site at the bf16 peak: those jobs are
+    # held against JAX's priority with the fp32 peak in the bf16 peak's place.
+    jp = {tuple(getattr(x, f) for f in FIELDS): x.priority
+          for x in jsched.prioritize_jobs(jd, H100_SXM)}
+    jf = {tuple(getattr(x, f) for f in FIELDS): x.priority for x in jsched.prioritize_jobs(
+        jd, dataclasses.replace(H100_SXM, peak_flops_bf16=H100_SXM.peak_flops_fp32))}
+    jrows = _rows(jsched.prioritize_jobs(jd, H100_SXM))
+    simt = [x.kernel in analytic.SIMT_GEMMS and x.arg_dtypes[0] == "float32" for x in tp]
+    want = {r: (jf if s else jp)[r] for r, s in zip(_rows(tp), simt)}
+    assert sorted(_rows(tp)) == sorted(jrows)
+    np.testing.assert_allclose([x.priority for x in tp], [want[r] for r in _rows(tp)],
+                               rtol=1e-12)
+    if any(simt):
+        # JAX's rows in the order of the expected priorities, with
+        # prioritize_jobs' own tie-break (kernel, shapes, key extra)
+        assert _rows(tp) == sorted(jrows, key=lambda r: (-want[r], r[0], r[1], r[3]))
+    else:
+        assert _rows(tp) == jrows
     assert {"expert_gemm"} <= {x.kernel for x in tp}
+    assert any(simt) == (arch == "jamba_1_5_large")
 
 
 def test_transfer_equals_jax():

@@ -1,5 +1,6 @@
 """The port's observability plane (``repro_torch.obs``): the counterparts of
-``tests/test_obs.py`` but the drift detector, and its parity with the JAX
+``tests/test_obs.py`` but the drift detector (``tests/test_torch_drift.py``),
+and its parity with the JAX
 package's ``repro.obs``: the same samples give the same histogram rows, and
 the same snapshot renders and diffs to the same text."""
 import json
@@ -280,8 +281,8 @@ def test_cli_report_and_diff(tmp_path, capsys):
     assert main(["diff", a, b]) == 0
     assert "lat_s" in capsys.readouterr().out
     assert main(["report"]) == 2
-    assert main(["report", "--drift"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert main(["report", "--drift"]) == 2          # the drift report needs its database
+    assert "--drift needs --db" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from repro.core.annotate import tunable as j_tunable  # noqa: E402
 from repro.core.params import ParamSpace as JSpace  # noqa: E402
 from repro.core.params import PowerOfTwoParam as JPow  # noqa: E402
 from repro_torch.core import evaluate as teval  # noqa: E402
-from repro_torch.core.annotate import tunable  # noqa: E402
+from repro_torch.core.annotate import scoped_registry, tunable  # noqa: E402
 from repro_torch.core.database import TuningDatabase, make_key  # noqa: E402
 from repro_torch.core.params import EnumParam, ParamSpace, PowerOfTwoParam  # noqa: E402
 from repro_torch.core.search import ExhaustiveSearch  # noqa: E402
@@ -89,6 +89,15 @@ def test_gate_dtype_decides_before_the_upcast():
     assert teval.correctness_gate(r + r * 1e-2, r)
     assert teval.tolerance_for(torch.bfloat16) == jeval.tolerance_for(jnp.bfloat16)
     assert teval.tolerance_for(torch.float32) == jeval.tolerance_for(jnp.float32)
+
+
+@pytest.fixture(autouse=True)
+def _own_registry():
+    """The toys a test here registers leave the port's registry with the test:
+    repro_torch.analysis's contracts pass reads the whole process-wide
+    registry, whichever test files ran before it on the worker."""
+    with scoped_registry():
+        yield
 
 
 def _toy(name, refuse=None, crash=None):
