@@ -250,7 +250,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              a step (one a norm: 2 a layer and the final one), and no fwd
              or bwd dispatch may fall to the reference tier; torch.profiler
              splits one more step by kernel, with rmsnorm_bwd's device time;
-   resilience — full-width qwen2_0_5b trained as in the train phase (6
+   resilience — qwen2_0_5b at full width cut to RESILIENCE_LAYERS (12)
+             of its 24 layers, trained as in the train phase (6
              steps, batch 4 x 2048) with checkpoint_every=3,
              async_checkpoint=True, checkpoint_keep=1 into a temporary
              directory (the free disk checked first, the directory removed
@@ -266,6 +267,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
              never commits; prints the checkpoint's GB, save_async's
              seconds (the device-to-host copy), the writes', the
              restore's and the step times;
+   dp     — data parallelism: qwen2_0_5b at full width and depth through
+             the Trainer on a 2x1 mesh, two ranks of this script
+             (``--dp-rank``, spawned by launch.mesh.spawn_ranks; a
+             FileStore, gloo, both on cuda:0, since NCCL refuses two ranks
+             on one device; the process group and the parent's wait each
+             with a timeout), the train phase's global batch 4 x 2048 (2 x
+             2048 a rank), RunConfig(remat="none", loss_chunk=512), 3 steps,
+             no compression. Gate 1: step 1's loss over the ranks
+             (TOL_LOSS) and rank 0's reduced gradients, leaf by leaf
+             (TOL_GRAD; TOL_GRAD_KBIAS for the k biases), against one
+             process's step 1 on the same batch and seed; gate 2: after
+             every step the replicas' parameter checksums, reduced as a min
+             and a max, agree (bit-identical); gate 3: every training kernel
+             launched on each rank. Then the launcher: ``torchrun
+             --standalone --nproc_per_node 2 -m repro_torch.launch.train``
+             with DP_LAUNCH_ARGS (int8_ef, remat "dots", a checkpoint at
+             step 2) must exit 0, both ranks printing the same losses, and
+             its one checkpoint must hold "ef". Prints the step time a rank,
+             the all-reduce seconds and bytes a step (gloo through host
+             memory on one card, not NVLink), the dispatched keys (a rank's
+             rows) and the collective term analytic_roofline prices for the
+             step at the data sheet's NVLink rate;
 11. paligemma-train — PaliGemma-3B (arXiv:2407.07726) at full width and
              depth (18 layers, 8 q heads of 256 on one kv head, vocab
              257,216, 3.04 B parameters), its 256 patch embeddings (a stub
@@ -299,8 +322,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              only); expert_gemm's forward and transposed-gradient launches
              (9 a layer a step, all on tc), a finite aux loss above 0; prints
              as the hybrid phase, with expert_gemm's device share;
-14. xlstm-train — xLSTM-1.3B at full width cut to XLSTM_TRAIN_LAYERS (16)
-             of its 48 layers (1.113 B), bf16 with
+14. xlstm-train — xLSTM-1.3B at full width cut to XLSTM_TRAIN_LAYERS (4)
+             of its 48 layers, bf16 with
              the fp32 AdamW master and moments, batch 4 x 512 (2048 tokens
              a step; the sLSTM loop runs 512 steps a layer) under
              RunConfig(remat="none", loss_chunk=512), 2 steps; step 1
@@ -3833,11 +3856,18 @@ def phase_train(seed: int):
 # The resilience phase: free disk it needs, as a multiple of one checkpoint
 # (with keep=1 the committed step and the one being staged coexist).
 CKPT_DISK_FACTOR = 2.5
+# qwen2_0_5b's layers the resilience phase trains (of 24), at full width:
+# its checkpoint I/O (three writes and a restore) is most of the phase, so
+# half the depth keeps the card call inside its time limit with the dp
+# phase beside it; the checkpoint and recovery logic are the same at any depth.
+RESILIENCE_LAYERS = 12
 
 
 def phase_resilience(seed: int):
-    """Checkpoints and recovery on qwen2_0_5b at full width and depth (the
-    module docstring's list)."""
+    """Checkpoints and recovery on qwen2_0_5b at full width, cut to
+    RESILIENCE_LAYERS of its 24 layers (the module docstring's list)."""
+    import dataclasses
+
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import runtime
@@ -3849,7 +3879,7 @@ def phase_resilience(seed: int):
     from repro_torch.train.checkpoint import flatten_with_paths
 
     tag = "resilience"
-    cfg = get_config("qwen2_0_5b")
+    cfg = dataclasses.replace(get_config("qwen2_0_5b"), num_layers=RESILIENCE_LAYERS)
     steps, batch = 6, 4
     run = RunConfig(remat="none", loss_chunk=512, microbatches=1)
     data = DataConfig(seed=seed, batch_size=batch, seq_len=2048)
@@ -3873,7 +3903,8 @@ def phase_resilience(seed: int):
                      for _, t in flatten_with_paths(clean._state_tree())
                      if isinstance(t, torch.Tensor))
         free = shutil.disk_usage(workdir).free
-        log(f"[{tag}] {cfg.name} at full width and depth, batch {batch} x 2048: the state "
+        log(f"[{tag}] {cfg.name} at full width, {cfg.num_layers} of its 24 layers, batch "
+            f"{batch} x 2048: the state "
             f"(bf16 params, fp32 master, m, v) {nbytes / 1e9:.3f} GB; {free / 1e9:.1f} GB free "
             f"under {os.path.dirname(workdir)}")
         if free < CKPT_DISK_FACTOR * nbytes:
@@ -4004,6 +4035,250 @@ def phase_resilience(seed: int):
             f"the restore {np.median(times[1:4]):.1f} median, after it "
             f"{np.median(times[4:]):.1f}")
         del tr
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# The dp phase: data parallelism across two ranks that share the card.
+# NCCL refuses two ranks on one device, so they meet over gloo (a FileStore
+# in the phase's directory), which stages CUDA tensors through host memory:
+# its all-reduce times are not NVLink's.
+DP_BATCH, DP_SEQ, DP_STEPS = 4, 2048, 3
+DP_PG_TIMEOUT_S = 240.0        # a collective that waits longer fails its rank
+DP_RANK_TIMEOUT_S = 300.0      # the parent's deadline for both ranks
+DP_LAUNCH_TIMEOUT_S = 300.0    # and for the torchrun launcher run
+DP_LAUNCH_ARGS = ("--arch", "qwen2_0_5b", "--mesh", "2x1", "--backend", "gloo", "--device",
+                  "cuda:0", "--compression", "int8_ef", "--batch", "2", "--seq", "512",
+                  "--steps", "2", "--ckpt-every", "2")
+
+
+def _dp_run():
+    from repro_torch.models.transformer import RunConfig
+
+    return RunConfig(remat="none", loss_chunk=512, microbatches=1)
+
+
+def dp_rank(workdir: str, seed: int) -> None:
+    """One rank of the dp phase (``chip_smoke.py --dp-rank DIR``): the
+    Trainer on a 2x1 mesh over the global batch of the train phase, DP_STEPS
+    steps, the replicas' checksums compared after each; then (rank 0) step
+    1's reduced gradients against the one-process ones the parent left in
+    DIR; its readings go to DIR/rank{r}.json."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.evaluate import collective_stats
+    from repro_torch.core.platform import detect_platform
+    from repro_torch.core.runtime import runtime
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import init_ranks, make_mesh_from_spec
+    from repro_torch.optim import adamw
+    from repro_torch.tools.analytic import analytic_roofline
+    from repro_torch.train import Trainer, TrainerConfig
+
+    env = init_ranks("gloo", store=os.path.join(workdir, "store"), timeout_s=DP_PG_TIMEOUT_S)
+    mesh = make_mesh_from_spec("2x1")
+    cfg = get_config("qwen2_0_5b")
+    data = DataConfig(seed=seed, batch_size=DP_BATCH, seq_len=DP_SEQ)
+    rt = runtime(name="dp")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, _dp_run(), data,
+                      adamw.AdamWConfig(warmup_steps=2, total_steps=DP_STEPS),
+                      TrainerConfig(total_steps=DP_STEPS, seed=seed, checkpoint_every=10**9),
+                      runtime=rt, device="cuda:0", mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"rank": env.rank, "init_s": time.perf_counter() - t0}
+    # rank 0 keeps step 1's reduced gradients on the host for gate 1
+    reduced = []
+    reduce_grads = collectives.reduce_grads
+
+    def keep_first(grads, *args, **kwargs):
+        grads = reduce_grads(grads, *args, **kwargs)
+        if env.rank == 0 and not reduced:
+            reduced.extend(g.detach().cpu() for g in grads)
+        return grads
+
+    collectives.reduce_grads = keep_first
+    # the steps, counted from 0; gate 2 after each (check_replicas raises)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    try:
+        for _ in range(DP_STEPS):
+            collectives.reset_collective_counts()
+            metrics.append(trainer.run_one_step())
+            stats = collective_stats()              # the step's collectives, by kind
+            trainer.check_replicas()
+    finally:
+        collectives.reduce_grads = reduce_grads
+    # gate 1: step 1's loss and reduced gradients, leaf by leaf, against one process's
+    if env.rank == 0:
+        ref = torch.load(os.path.join(workdir, "one_process.pt"))
+        names = [n for n, _ in adamw.named_leaves(trainer.params)]
+        rels = sorted(((_rel(g, r), n) for n, g, r in zip(names, reduced, ref["grads"])),
+                      reverse=True)
+        limit = lambda n: TOL_GRAD_KBIAS if n.endswith("/mixer/k/b") else TOL_GRAD
+        out["gate1"] = {"loss": metrics[0]["loss"], "loss_one": ref["loss"],
+                        "leaves": len(rels), "median": rels[len(rels) // 2][0],
+                        "worst": rels[:4], "over": [(r, n) for r, n in rels if r > limit(n)]}
+        del ref, reduced
+    out["launches"] = kernels.launch_counts()
+    out["metrics"] = metrics
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    snap = rt.telemetry.snapshot()
+    out["tiers"] = snap["phases"]
+    out["fwd_keys"] = sorted(snap["by_key_phase"].get("fwd", {}))
+    roof = analytic_roofline(cfg, ShapeSpec("train_2k", DP_SEQ, DP_BATCH, "train"), chips=2,
+                             collective_bytes_by_kind=stats["bytes_by_kind"],
+                             profile=detect_platform("cuda:0"))
+    out["collective_stats"] = stats
+    out["roofline"] = roof.to_json()
+    with open(os.path.join(workdir, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _dp_launcher(workdir: str):
+    """The torchrun launcher run (two ranks on the card over gloo, int8_ef,
+    a checkpoint at step 2): {rank: its step losses}, the checkpoint's
+    steps and whether it holds "ef", and the seconds."""
+    import re
+    import signal
+
+    ckpt = os.path.join(workdir, "launch-ckpt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "repro_torch.launch.train", *DP_LAUNCH_ARGS, "--ckpt-dir", ckpt]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=workdir, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DP_LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"dp: the launcher run passed {DP_LAUNCH_TIMEOUT_S} s:\n"
+                             f"{text[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    for line in text.splitlines():
+        if line.startswith("[rank") or "Error" in line:
+            log(f"[dp]   launcher: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"dp: the launcher run exited {proc.returncode}:\n{text[-3000:]}")
+    losses = collections.defaultdict(list)
+    for r, loss in re.findall(r"\[rank (\d)\] step \d+: loss ([-\d.]+)", text):
+        losses[int(r)].append(float(loss))
+    steps = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    ef = False
+    if steps:
+        with open(os.path.join(ckpt, steps[-1], "manifest.json")) as f:
+            ef = any(leaf["path"].startswith("['ef']") for leaf in json.load(f)["leaves"])
+    return dict(losses), steps, ef, seconds
+
+
+def phase_dp(seed: int):
+    """Data parallelism: qwen2_0_5b at full width and depth on a 2x1 mesh,
+    two ranks sharing the card over gloo (the module docstring's list)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import batch_to_tensors
+    from repro_torch.core.runtime import runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train import Trainer, TrainerConfig
+
+    tag = "dp"
+    cfg = get_config("qwen2_0_5b")
+    roots = [tempfile.gettempdir(), os.path.join(ROOT, "build")]
+    os.makedirs(roots[1], exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="dp-", dir=max(roots, key=lambda d: shutil.disk_usage(d).free))
+    try:
+        # one process's step-1 loss and gradients of the same global batch
+        t0 = time.perf_counter()
+        data = DataConfig(seed=seed, batch_size=DP_BATCH, seq_len=DP_SEQ)
+        one = Trainer(cfg, _dp_run(), data, tcfg=TrainerConfig(seed=seed),
+                      runtime=runtime(name="dp-one"), device="cuda")
+        loss, grads = one.loss_and_grads(batch_to_tensors(SyntheticPipeline(cfg, data)
+                                                          .next_batch(), "cuda"))
+        torch.save({"loss": float(loss), "grads": [g.cpu() for g in grads]},
+                   os.path.join(workdir, "one_process.pt"))
+        del one, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{tag}] {cfg.name}, batch {DP_BATCH} x {DP_SEQ}: one process's step-1 loss "
+            f"{float(loss):.6f} and gradients kept on the host "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks([sys.executable, os.path.abspath(__file__), "--dp-rank", workdir,
+                             "--seed", str(seed)], 2, os.path.join(workdir, "logs"),
+                            DP_RANK_TIMEOUT_S, env={"PYTHONPATH": os.path.join(ROOT, "src")})
+        rank_s = time.perf_counter() - t0
+        for res in ranks:
+            if res.returncode != 0:
+                raise AssertionError(f"{tag}: rank {res.rank} exited {res.returncode} "
+                                     f"(None: killed at the deadline):\n{res.log[-4000:]}")
+        outs = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+        g1 = outs[0]["gate1"]
+        loss_rel = abs(g1["loss"] - g1["loss_one"]) / abs(g1["loss_one"])
+        log(f"[{tag}] two ranks, mesh 2x1, {DP_BATCH // 2} x {DP_SEQ} a rank, {rank_s:.1f} s "
+            f"(init {outs[0]['init_s']:.1f} s a rank)")
+        log(f"[{tag}] gate 1, step 1: loss over the ranks {g1['loss']:.6f}, one process "
+            f"{g1['loss_one']:.6f}: rel {loss_rel:.3e} (tol {TOL_LOSS}); rank 0's reduced "
+            f"gradients against one process's, ||g_dp - g_1|| / ||g_1|| over {g1['leaves']} "
+            f"leaves: median {g1['median']:.3e}, worst {g1['worst']} (tol {TOL_GRAD}; k "
+            f"biases {TOL_GRAD_KBIAS})")
+        if loss_rel > TOL_LOSS or g1["over"]:
+            msg = (f"{tag}: step-1 gate: the ranks' reduced step differs from one process's: "
+                   f"loss rel {loss_rel:.3g}; leaves over their limit: {g1['over'][:8]}")
+            log(f"[{tag}] FAILED {msg}")
+            GATE_FAILURES.append(msg)
+        for out in outs:
+            r, ms = out["rank"], out["metrics"]
+            log(f"[{tag}] rank {r}: losses {[round(m['loss'], 6) for m in ms]}, grad norms "
+                f"{[round(m['grad_norm'], 4) for m in ms]}; step times (ms) "
+                f"{[round(1e3 * m['step_time_s'], 1) for m in ms]}; all-reduce "
+                f"{[round(m['allreduce_s'], 3) for m in ms]} s of "
+                f"{ms[0]['allreduce_bytes']} B a step (gloo through host memory on one card, "
+                f"not NVLink); peak {out['peak_gib']:.2f} GiB; replicas bit-identical after "
+                f"each of {len(ms)} steps (gate 2)")
+            log(f"[{tag}] rank {r}: telemetry {out['tiers']}; forward keys (a rank's "
+                f"{DP_BATCH // 2 * DP_SEQ} rows, bucketed) {out['fwd_keys']}")
+            log(f"[{tag}] rank {r}: launches {out['launches']}")
+            missing = [k for k in TRAIN_KERNELS if out["launches"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"{tag}: rank {r} never launched {missing} (gate 3)")
+            for phase in ("fwd", "bwd"):
+                if out["tiers"].get(phase, {}).get("reference", 0):
+                    raise AssertionError(f"{tag}: rank {r}'s {phase} dispatches fell to the "
+                                         f"reference tier: {out['tiers'][phase]}")
+        if [m["loss"] for m in outs[0]["metrics"]] != [m["loss"] for m in outs[1]["metrics"]]:
+            raise AssertionError(f"{tag}: the ranks report different losses")
+        roof = outs[0]["roofline"]
+        log(f"[{tag}] collective_stats of rank 0's last step: {outs[0]['collective_stats']}")
+        log(f"[{tag}] analytic_roofline of the step on 2 cards: collective "
+            f"{1e3 * roof['collective_s']:.3f} ms for {roof['collective_bytes_per_chip']:.0f} wire "
+            f"bytes a card at the profile's interconnect rate (the data sheet's NVLink "
+            f"figure, not this run's gloo), compute {1e3 * roof['compute_s']:.3f} ms, memory "
+            f"{1e3 * roof['memory_s']:.3f} ms, dominant {roof['dominant']}")
+        losses, steps, ef, seconds = _dp_launcher(workdir)
+        log(f"[{tag}] launcher (torchrun, 2 ranks, {' '.join(DP_LAUNCH_ARGS)}): {seconds:.1f} s; "
+            f"losses by rank {losses}; checkpoints {steps}, 'ef' in it: {ef}")
+        if sorted(losses) != [0, 1] or losses[0] != losses[1] or len(losses[0]) != 2 \
+                or not all(np.isfinite(losses[0])):
+            raise AssertionError(f"{tag}: the launcher's ranks report {losses}")
+        if steps != ["step_000000002"] or not ef:
+            raise AssertionError(f"{tag}: the launcher's checkpoint: {steps}, ef {ef}")
+        READINGS.update(dp_step_ms=[1e3 * m["step_time_s"] for m in outs[0]["metrics"]])
+        return [out["launches"] for out in outs]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4376,10 +4651,10 @@ def phase_xlstm(seed: int):
     return launches
 
 
-# xLSTM-1.3B's layers the xlstm-train phase trains (of 48): 8 mLSTM and 8
-# sLSTM at full width, a third of the depth, to keep the card call inside
-# its time limit; the serving phase runs all 48.
-XLSTM_TRAIN_LAYERS = 16
+# xLSTM-1.3B's layers the xlstm-train phase trains (of 48): 2 mLSTM and 2
+# sLSTM at full width, a twelfth of the depth, to keep the card call inside
+# its time limit with the dp phase beside it; the serving phase runs all 48.
+XLSTM_TRAIN_LAYERS = 4
 
 
 def phase_xlstm_train(seed: int):
@@ -4994,7 +5269,18 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--campaign-budget", type=int, default=200,
                     help="global evaluation budget of the campaign phase")
+    ap.add_argument("--dp-rank", default=None, metavar="DIR",
+                    help="run one rank of the dp phase in DIR (the phase starts its ranks so)")
     args = ap.parse_args()
+    if args.dp_rank:
+        if not torch.cuda.is_available():
+            print("chip_smoke: a dp rank needs an NVIDIA card", file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dp_rank(args.dp_rank, args.seed)
+        return 0
     kind, count, smi = phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 versions stay fp32
@@ -5029,6 +5315,7 @@ def main() -> int:
     xlstm_launches = timed("xlstm", phase_xlstm, args.seed)
     train_launches, heuristic_step_ms, heuristic_steps = timed("train", phase_train, args.seed)
     timed("resilience", phase_resilience, args.seed)
+    dp_launches = timed("dp", phase_dp, args.seed)
     pali_launches, pali_batch = timed("paligemma-train", phase_paligemma_train, args.seed)
     hybrid_train_launches, hybrid_batch = timed("hybrid-train", phase_hybrid_train, args.seed)
     moe_train_launches, moe_batch = timed("moe-train", phase_moe_train, args.seed)
@@ -5150,6 +5437,9 @@ def main() -> int:
                                             batch=pali_batch)
         if name == "expert_gemm":
             entry["arctic"] = at(name, "arctic", archs_launches["arctic_480b"])
+        if dp_launches[0].get(name, 0):
+            entry["dp"] = {"path": "dp", "launches": dp_launches[0][name],
+                           "launches_by_rank": [by.get(name, 0) for by in dp_launches]}
         if name in pick["xlstm"]:
             entry["xlstm"] = at(name, "xlstm", xlstm_launches)
         if name in pick["xlstm_train"]:

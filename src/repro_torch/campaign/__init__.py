@@ -4,9 +4,9 @@ The port of ``repro.campaign``: turn the tuning core's primitives into the
 shippable artifact, a per-platform tuning database.
 
   plan      the concrete tuning jobs (kernel x shape bucket x dtype) a
-            deployment hits: the one-card training step's dispatch sites,
-            forward and backward, and the serving engine's slot-pool
-            buckets                                     -> campaign.planner
+            deployment hits: the training step's dispatch sites on one
+            card or one data-parallel rank, forward and backward, and the
+            serving engine's slot-pool buckets          -> campaign.planner
   schedule  dedup jobs by database key, rank them by the roofline seconds
             at stake on this card, split a global evaluation budget, keep a
             resumable manifest                          -> campaign.scheduler

@@ -28,6 +28,9 @@ A small campaign on the CPU (the kernels' plain versions):
         --train-shapes train_smoke --serving 2x32 --budget 120 --out c.json
     python -m repro_torch.campaign run --device cpu --manifest c.json --db db.json
     python -m repro_torch.campaign export --device cpu --db db.json --out cpu.db.json
+
+``plan --train-mesh 2x1`` plans the training step of one rank of a
+data-parallel trainer on a 2 x 1 mesh (``launch.train --mesh 2x1``).
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ def cmd_plan(args) -> int:
         reduced=args.reduced,
         max_tokens=args.max_tokens,
         max_seq=args.max_seq,
+        train_mesh=args.train_mesh or None,
     )
     profile = detect_platform(resolve_device(args.device))
     # budget flows to the archs whose analytic step time is largest (JAX's plan)
@@ -221,6 +225,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cap on the attention sequence length")
     pp.add_argument("--platform", default=None,
                     help="database namespace (default: the device's platform key)")
+    pp.add_argument("--train-mesh", default=None,
+                    help="plan the training step of one data-parallel rank on this mesh "
+                         "(DATAxMODEL, e.g. 2x1): jobs key on the rank's rows under each "
+                         "arch's default layout, as a trainer on that mesh dispatches")
     pp.set_defaults(fn=cmd_plan)
 
     pr = sub.add_parser("run", help="tune the pending jobs (resumable)")

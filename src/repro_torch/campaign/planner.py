@@ -5,7 +5,7 @@ granularity of one database record. The port of ``repro.campaign.planner``
 for the archs the port runs, with the same jobs, keys, weights and
 scenario names (but for serving's windowed flash jobs, below):
 
-* :func:`plan_training_jobs` -- every dispatch site of the one-card
+* :func:`plan_training_jobs` -- every dispatch site of one rank's
   training step, forward and backward: the projections and FFN gemms with
   their two transposed-operand gradients, the fused FFN activation site,
   the norms and their ``rmsnorm_bwd``, the chunked loss's unembed gemms,
@@ -42,6 +42,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ..configs.base import SHAPES, ArchConfig, ShapeSpec, get_config
 from ..core.database import make_key, shape_bucket
 from ..core.tuner import promoted_dtype
+from ..distributed.sharding import data_parallel_degree
+from ..launch.defaults import default_layout, default_run
 from ..models.moe import expert_capacity
 from ..models.ssm import slstm_ff
 from ..models.transformer import MIXERS, RunConfig
@@ -173,13 +175,6 @@ def _mamba_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
     return cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state, max(1, -(-cfg.d_model // 16))
 
 
-def default_run(cfg: ArchConfig, shape: ShapeSpec) -> RunConfig:
-    """The run config the port's launcher trains ``shape`` with."""
-    if shape.name == "train_smoke":
-        return RunConfig(remat="none", loss_chunk=32, q_chunk=32, k_chunk=32)
-    return RunConfig(remat="none", loss_chunk=512)
-
-
 def plan_train_jobs(
     cfg: ArchConfig,
     shape: ShapeSpec,
@@ -244,17 +239,37 @@ def plan_train_jobs(
     return jobs
 
 
+def _parse_mesh_axes(mesh_axes) -> Dict[str, int]:
+    """Accept {"data": 2, "model": 4}, "2x4", or "2x16x16" (pod first)."""
+    if mesh_axes is None:
+        return {}
+    if isinstance(mesh_axes, str):
+        from ..launch.mesh import parse_mesh_spec
+
+        dims, names = parse_mesh_spec(mesh_axes)
+        return dict(zip(names, dims))
+    return {k: int(v) for k, v in dict(mesh_axes).items()}
+
+
 def plan_training_jobs(
     cfg: ArchConfig,
     shape: ShapeSpec,
+    layout=None,
+    mesh_axes=None,
     run: Optional[RunConfig] = None,
     kernels: Sequence[str] = DEFAULT_KERNELS,
     max_tokens: int = MAX_TOKENS,
     max_seq: int = 4096,
 ) -> List[TuningJob]:
-    """Every dispatch site of the one-card training step, forward and
-    backward, at the shapes the step looks up (one device: nothing is
-    sharded, the scenarios read ``@dp1``).
+    """Every dispatch site of the training step, forward and backward, at
+    the shapes one rank looks up.
+
+    ``mesh_axes`` (an axis -> size map or a "DATAxMODEL" spec; no process
+    group needed) and ``layout`` (default ``launch.defaults.default_layout``)
+    give the step's data-parallel degree, as JAX's planner computes it:
+    from the microbatch's global batch. A data-parallel rank of the Trainer
+    runs its share of each microbatch's rows, so the planned rows are the
+    rank's; the scenarios read ``@dp{degree}``, ``@dp1`` with no mesh.
 
     Each gemm site adds its two gradients, dL/dx = ct[m,n] @ wT[n,k] and
     dL/dw = xT[k,m] @ ct[m,n]; each norm, loss and attention site adds its
@@ -267,12 +282,16 @@ def plan_training_jobs(
     """
     _register_tunables()
     run = run if run is not None else default_run(cfg, shape)
+    sizes = _parse_mesh_axes(mesh_axes)
+    layout = layout if layout is not None else default_layout(cfg)
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.num_heads, cfg.num_kv_heads
     f = cfg.dtype
     B, S = shape.global_batch, shape.seq_len
-    b_loc = max(1, B // max(1, int(run.microbatches)))    # per-microbatch batch
-    scen = f"{cfg.name}/{shape.name}@dp1"
+    b_mb = max(1, B // max(1, int(run.microbatches)))     # per-microbatch global batch
+    dp = data_parallel_degree(sizes, layout, b_mb) if sizes else 1
+    b_loc = max(1, b_mb // dp)                            # a rank's rows of it
+    scen = f"{cfg.name}/{shape.name}@dp{dp}"
     s = min(S, max_seq)
     T = min(b_loc * s, max_tokens)
     counts = _site_counts(cfg)
@@ -494,11 +513,14 @@ def plan_jobs(
     max_tokens: int = MAX_TOKENS,
     max_seq: int = 4096,
     run: Optional[RunConfig] = None,
+    train_mesh=None,
 ) -> List[TuningJob]:
     """The whole campaign workload, in a fixed order: each arch's training
     step (every dispatch site, forward and backward) for each train shape
     and, with ``serving=(max_batch, max_seq)``, its serving buckets.
-    ``reduced`` plans the small smoke configs."""
+    ``reduced`` plans the small smoke configs; ``train_mesh`` (an axis ->
+    size map or a "DATAxMODEL" spec) plans the training step of one rank on
+    that mesh under each arch's ``default_layout``."""
     _register_tunables()
     jobs: List[TuningJob] = []
     for name in arch_names:
@@ -506,8 +528,9 @@ def plan_jobs(
         if reduced:
             cfg = cfg.reduced()
         for shape_name in train_shapes:
-            jobs.extend(plan_training_jobs(cfg, SHAPES[shape_name], run=run, kernels=kernels,
-                                           max_tokens=max_tokens, max_seq=max_seq))
+            jobs.extend(plan_training_jobs(cfg, SHAPES[shape_name], mesh_axes=train_mesh,
+                                           run=run, kernels=kernels, max_tokens=max_tokens,
+                                           max_seq=max_seq))
         if serving is not None:
             jobs.extend(plan_serving_jobs(cfg, serving[0], serving[1], kernels=kernels,
                                           max_tokens=max_tokens))

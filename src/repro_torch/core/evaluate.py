@@ -17,9 +17,11 @@ lower bound :func:`roofline_from_launch` puts on one call from the kernel's
 launch models (:mod:`repro_torch.core.gridmodel`) and the analytic site
 model (:mod:`repro_torch.tools.analytic`), the counterpart of JAX's
 ``roofline_from_compiled``, which reads XLA's cost analysis of a compiled
-program the port does not have. Its collective term is 0 on one card (the
-HLO parser that feeds JAX's, ``collective_stats``, waits for the port's
-several-GPU slice).
+program the port does not have. A launch's collective term is 0 (no kernel
+communicates); :func:`collective_stats`, the counterpart of JAX's HLO
+parser, reports what a run's collectives moved by kind, from the counts
+:mod:`repro_torch.distributed.collectives` keeps, for
+``tools.analytic.analytic_roofline`` to price.
 """
 from __future__ import annotations
 
@@ -233,6 +235,22 @@ class RooflineTerms:
     def to_json(self) -> Dict[str, Any]:
         return dataclasses.asdict(self) | {"dominant": self.dominant,
                                            "step_time_s": self.step_time_s}
+
+
+def collective_stats(counts: Optional[Dict[str, Dict[str, int]]] = None) -> Dict[str, Any]:
+    """``{"bytes_by_kind", "total_bytes", "count"}`` of the collectives run:
+    JAX's ``collective_stats`` record, from the collectives' own counts
+    (``counts`` as ``collectives.collective_counts()`` gives them, by
+    default the live ones) where JAX parses compiled HLO. Bytes are each
+    collective's payload (an all-reduce's reduced tensor, a ring hop's
+    chunk), as JAX counts result shapes."""
+    if counts is None:
+        from ..distributed.collectives import collective_counts
+
+        counts = collective_counts()
+    by_kind = dict(counts.get("bytes_by_kind", {}))
+    return {"bytes_by_kind": by_kind, "total_bytes": sum(by_kind.values()),
+            "count": sum(counts.get("calls_by_kind", {}).values())}
 
 
 def price_launches(models, profile) -> RooflineTerms:

@@ -10,6 +10,10 @@ below. The CPU path is ``torch-cpu``, distinct from the JAX package's
 Peaks (dense, no sparsity): H100 SXM 989 TFLOP/s bf16 and 3.35 TB/s HBM3
 (NVIDIA data sheet); H100 PCIe 756 TFLOP/s bf16 and 2.0 TB/s HBM2e (NVIDIA
 data sheet). A card set below its full power limit runs below these.
+Interconnect (``interconnect_bandwidth``, the cost model's collective
+rate): the data sheet's NVLink figure, 900 GB/s for the SXM part and
+600 GB/s for the PCIe part's NVLink bridge (each the data sheet's total of
+both directions), never a measurement.
 
 :func:`resolve_device` is the rule every entry point follows: the port runs
 on ``cuda`` unless the caller asks for ``cpu``, and a host with no card
@@ -36,6 +40,7 @@ class HardwareProfile:
     smem_per_sm: int
     l2_bytes: int
     max_threads_per_block: int = 1024
+    interconnect_bandwidth: float = 900e9   # bytes/s between cards (data sheet)
 
 
 H100_SXM = HardwareProfile(
@@ -57,6 +62,7 @@ H100_PCIE = dataclasses.replace(
     peak_flops_fp32=51e12,
     hbm_bandwidth=2.0e12,
     sm_count=114,
+    interconnect_bandwidth=600e9,
 )
 
 # The CPU path exists for tests and small runs; its peaks only matter for
@@ -71,6 +77,7 @@ TORCH_CPU = HardwareProfile(
     smem_per_block=232_448,
     smem_per_sm=233_472,
     l2_bytes=32 * 1024**2,
+    interconnect_bandwidth=10e9,
 )
 
 PROFILES = {p.name: p for p in (H100_SXM, H100_PCIE, TORCH_CPU)}

@@ -5,6 +5,11 @@ shared library with a plain C interface, at first use, into
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
 sources and flags (so an edited source rebuilds and an unchanged one is
 reused). :func:`build_all` starts one ``nvcc`` per source at once. The
+three gemm libraries that instantiate every operand layout (``SPLIT``)
+compile each layout's tensor-core kernels and each A granule's fp32
+register-tile kernels, most of their compile time, in translation units of
+their own (``csrc/gemm_part.cu`` with ``GEMM_PARTS``' defines), started
+with the rest and linked into the library. The
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library.
 
@@ -41,6 +46,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo") + ARCH_FLAGS
+# The libraries compiled in parts, and each part's defines: an operand
+# layout's tensor-core kernels, an A granule's register-tile kernels.
+SPLIT = ("matmul", "matmul_bias_act", "expert_gemm")
+GEMM_PARTS = tuple((f"-DGEMM_TC_TA={a}", f"-DGEMM_TC_TB={b}") for a in (0, 1) for b in (0, 1)) \
+    + tuple((f"-DGEMM_SIMT_EA={ea}",) for ea in (0, 1, 2, 4))
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -75,7 +85,11 @@ def _nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    sources = sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]
+    if name in SPLIT:
+        h.update(f"parts {GEMM_PARTS}".encode())
+        sources.append(CSRC / "gemm_part.cu")
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -90,33 +104,59 @@ def ptxas_report(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
+def _popen(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name: str):
-    """Start nvcc for csrc/<name>.cu unless its library is built; returns
-    (process, tmp path, final path) or None."""
+    """Start nvcc for csrc/<name>.cu (and its parts, each an object)
+    unless its library is built; returns (processes, objects, tmp path,
+    final path) or None."""
     out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out
+    src = str(CSRC / f"{name}.cu")
+    if name not in SPLIT:
+        return [_popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src])], [], tmp, out
+    flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c", "-DGEMM_SPLIT"]
+    jobs = [(src, [])] + [(str(CSRC / "gemm_part.cu"), list(d)) for d in GEMM_PARTS]
+    objs = [tmp.with_name(f"{tmp.name}.{i}.o") for i in range(len(jobs))]
+    procs = [_popen([_nvcc(), *flags, *extra, "-o", str(obj), cu])
+             for (cu, extra), obj in zip(jobs, objs)]
+    return procs, objs, tmp, out
 
 
-def _finish(name: str, started) -> None:
-    proc, tmp, out = started
+def _wait(proc) -> str:
     try:
         log, _ = proc.communicate()
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    if proc.returncode != 0:
+    return log
+
+
+def _finish(name: str, started) -> None:
+    procs, objs, tmp, out = started
+    logs = [_wait(p) for p in procs]
+    try:
+        failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
+        if not failed and objs:
+            link = _popen([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)])
+            logs.append(_wait(link))
+            if link.returncode != 0:
+                failed = logs[-1:]
+    finally:
+        for obj in objs:
+            if obj.exists():
+                obj.unlink()
+    if failed:
         if tmp.exists():
             tmp.unlink()
-        raise KernelUnavailable(f"nvcc failed for {name}.cu:\n{log}")
-    out.with_suffix(".ptxas.txt").write_text(log)
+        raise KernelUnavailable(f"nvcc failed for {name}.cu:\n{failed[0]}")
+    out.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)          # atomic: a concurrent build sees all or nothing
 
 

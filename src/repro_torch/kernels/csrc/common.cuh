@@ -19,9 +19,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// Every library's entry point for an error's text; a translation unit linked
+// into a library beside its main one (REPRO_LIBRARY_PART) leaves it to that.
+#ifndef REPRO_LIBRARY_PART
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif
 
 // Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB).
 template <typename K>

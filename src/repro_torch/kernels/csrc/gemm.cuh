@@ -1546,6 +1546,28 @@ static cudaError_t launch_simt_b(const Problem& p, dim3 grid, int eb) {
   }
 }
 
+#ifdef GEMM_SPLIT
+// Each layout's tensor-core and decode kernels and each A granule's
+// register-tile kernels are compiled in translation units of their own
+// (csrc/gemm_part.cu, one nvcc each, started with the library's main one)
+// and linked into the same library: together they are most of a gemm
+// library's compile time.
+#define GEMM_PART_TC(TA, TB) \
+  __attribute__((visibility("hidden"))) cudaError_t launch_tc_l##TA##TB(const Problem& p);
+#define GEMM_PART_SIMT(EA)                                                                     \
+  __attribute__((visibility("hidden"))) cudaError_t launch_simt_ea##EA(const Problem& p,       \
+                                                                     dim3 grid, int eb);
+GEMM_PART_TC(0, 0) GEMM_PART_TC(0, 1) GEMM_PART_TC(1, 0) GEMM_PART_TC(1, 1)
+GEMM_PART_SIMT(0) GEMM_PART_SIMT(1) GEMM_PART_SIMT(2) GEMM_PART_SIMT(4)
+#undef GEMM_PART_TC
+#undef GEMM_PART_SIMT
+#define GEMM_TC_LAYOUT(TA, TB) launch_tc_l##TA##TB
+#define GEMM_SIMT_B(EA) launch_simt_ea##EA
+#else
+#define GEMM_TC_LAYOUT(TA, TB) launch_tc_layout<TA != 0, TB != 0>
+#define GEMM_SIMT_B(EA) launch_simt_b<EA>
+#endif
+
 // A template so that a library that never takes the route (rmsnorm_matmul)
 // does not compile its kernels.
 template <typename P>
@@ -1560,10 +1582,10 @@ static cudaError_t launch_simt(const P& p) {
   const int eb = p.tb ? 0 : simt_granule(p.b, p.ldb, p.sb);
   if (ea < 0 || eb < 0) return cudaErrorInvalidValue;
   switch (ea) {
-    case 0: return launch_simt_b<0>(p, grid, eb);
-    case 1: return launch_simt_b<1>(p, grid, eb);
-    case 2: return launch_simt_b<2>(p, grid, eb);
-    case 4: return launch_simt_b<4>(p, grid, eb);
+    case 0: return GEMM_SIMT_B(0)(p, grid, eb);
+    case 1: return GEMM_SIMT_B(1)(p, grid, eb);
+    case 2: return GEMM_SIMT_B(2)(p, grid, eb);
+    case 4: return GEMM_SIMT_B(4)(p, grid, eb);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1643,9 +1665,9 @@ static int launch(const Problem& p) {
         return cudaErrorInvalidValue;
       err = launch_tc_layout<false, false, true>(p);
     } else if (p.ta) {
-      err = p.tb ? launch_tc_layout<true, true>(p) : launch_tc_layout<true, false>(p);
+      err = p.tb ? GEMM_TC_LAYOUT(1, 1)(p) : GEMM_TC_LAYOUT(1, 0)(p);
     } else {
-      err = p.tb ? launch_tc_layout<false, true>(p) : launch_tc_layout<false, false>(p);
+      err = p.tb ? GEMM_TC_LAYOUT(0, 1)(p) : GEMM_TC_LAYOUT(0, 0)(p);
     }
   } else if constexpr (NORM) {     // the prologue exists on the tensor-core routes only
     return cudaErrorInvalidValue;

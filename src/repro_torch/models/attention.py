@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import runtime as rt
-from .layers import Params, apply_rope, dense, dense_init
+from .layers import Axes, Params, apply_rope, dense, dense_axes, dense_init
 
 NEG_INF = -1e30
 
@@ -35,6 +35,13 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
         "v": dense_init(gen, d_model, n_kv * head_dim, dtype, device, qkv_bias),
         "o": dense_init(gen, n_heads * head_dim, d_model, dtype, device),
     }
+
+
+def attention_axes(qkv_bias: bool = False) -> Axes:
+    return {"q": dense_axes("d_model", "heads", qkv_bias),
+            "k": dense_axes("d_model", "kv_heads", qkv_bias),
+            "v": dense_axes("d_model", "kv_heads", qkv_bias),
+            "o": dense_axes("heads", "d_model")}
 
 
 # repro: allow-raw(this IS the attn_chunks tunable body — the plain torch flash-equivalent reference; its q/k chunk sizes are the registry knobs)

@@ -3,7 +3,10 @@
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts: a dense weight is ``[d_in, d_out]`` (not ``nn.Linear``'s
 ``[out, in]``), so the matmul kernel and its database keys see the same
-operands in both packages.
+operands in both packages. Each ``*_init`` has an ``*_axes`` beside it:
+the same tree with every leaf's *logical* dim names (``("d_model",
+"ff")``), the names the JAX package's inits return and the sharding solver
+(:mod:`repro_torch.distributed.sharding`) reads.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from ..core.runtime import dispatch, fusion_wins
 
 Params = Dict[str, Any]
+Axes = Dict[str, Any]
 
 
 def _init(gen: torch.Generator, shape, dtype, device, scale: Optional[float] = None):
@@ -33,6 +37,13 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False) ->
     return p
 
 
+def dense_axes(in_axis: str, out_axis: str, bias: bool = False) -> Axes:
+    a: Axes = {"w": (in_axis, out_axis)}
+    if bias:
+        a["b"] = (out_axis,)
+    return a
+
+
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b): the projection gemm goes through the ``matmul`` dispatch."""
     if "b" in p and fusion_wins("matmul_bias_act", x, p["w"], p["b"]):
@@ -45,6 +56,10 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def norm_init(d: int, dtype, device) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def norm_axes() -> Axes:
+    return {"scale": ("d_model",)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -74,6 +89,13 @@ def ffn_init(gen, d: int, ff: int, kind: str, dtype, device) -> Params:
             "wd": _init(gen, (ff, d), dtype, device, scale=1.0 / math.sqrt(ff)),
         }
     raise ValueError(f"unknown ffn kind {kind!r}")
+
+
+def ffn_axes(kind: str) -> Axes:
+    a = {"wu": ("d_model", "ff"), "wd": ("ff", "d_model")}
+    if kind in ("swiglu", "geglu"):
+        a["wg"] = ("d_model", "ff")
+    return a
 
 
 def _act_matmul(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
@@ -122,12 +144,26 @@ def embedding_init(gen, vocab: int, d: int, dtype, device) -> Params:
     return {"table": _init(gen, (vocab, d), dtype, device, scale=1.0)}
 
 
+def embedding_axes() -> Axes:
+    return {"table": ("vocab", "d_model")}
+
+
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    """The table's rows (``table[tokens]``), through ``F.embedding``, whose
+    backward on the card sums a token's cotangents in fp32 and rounds once.
+    Indexing's backward adds each repeat of a token into the bf16 gradient
+    row one at a time, rounding each sum: a frequent token's row then
+    depends on how many rows the batch holds, and one process and two
+    data-parallel ranks part."""
+    return F.embedding(tokens, p["table"])
 
 
 def unembed_init(gen, d: int, vocab: int, dtype, device) -> Params:
     return {"w": _init(gen, (d, vocab), dtype, device)}
+
+
+def unembed_axes() -> Axes:
+    return {"w": ("d_model", "vocab")}
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

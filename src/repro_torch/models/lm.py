@@ -4,6 +4,7 @@ Public surface, plain functions over dicts of tensors, as in
 ``repro.models.lm``:
     init_params(cfg, seed, device)                -> params
     abstract_params(cfg)                          -> the tree on the meta device
+    param_axes(cfg)                               -> each leaf's logical dim names
     forward(params, batch, cfg, run, ...)         -> (hidden, aux, caches)
     loss_fn(params, batch, cfg, run)              -> (loss, {"xent", "aux"})
     prefill(params, batch, cfg, run, ...)         -> (last_logits, caches)
@@ -26,7 +27,8 @@ from ..configs.base import ArchConfig
 from ..core.platform import resolve_device
 from ..core.runtime import dispatch
 from . import transformer as tf
-from .layers import embed, embedding_init, norm_init, rmsnorm, rmsnorm_dense, unembed, unembed_init
+from .layers import (embed, embedding_axes, embedding_init, norm_axes, norm_init, rmsnorm,
+                     rmsnorm_dense, unembed, unembed_axes, unembed_init)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -84,6 +86,21 @@ def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
     """The parameter tree on the ``meta`` device: every leaf's shape and
     dtype, and no memory, as the JAX package's ``abstract_params``."""
     return _init_tree(cfg, torch.Generator(), torch.device("meta"))
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameter tree's shape with a tuple of logical dim names at each
+    leaf (``("d_model", "ff")``): the axes tree the JAX package's
+    ``abstract_params`` returns, with each segment's stacked ``layers`` dim
+    unstacked as the port's parameters are, one entry a repeat. The
+    sharding solver reads it."""
+    return {
+        "embed": embedding_axes(),
+        "segments": tuple([tf.superblock_axes(cfg, seg) for _ in range(seg.repeats)]
+                          for seg in cfg.segments()),
+        "final_norm": norm_axes(),
+        "lm_head": unembed_axes(),
+    }
 
 
 def param_count(params) -> int:

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.runtime import dispatch as rt_dispatch
-from .layers import Params, _init
+from .layers import Axes, Params, _init
 
 DISPATCH_MODES = ("scatter", "dense")
 
@@ -66,6 +66,15 @@ def moe_init(gen, d: int, ff: int, n_experts: int, dtype, device,
     if ffn_kind in ("gelu", "relu2"):
         del p["wg"]
     return p
+
+
+def moe_axes(ffn_kind: str = "swiglu") -> Axes:
+    """The router stays replicated (``experts_r`` is no rule of the solver)."""
+    a: Axes = {"router": ("d_model", "experts_r"), "wu": ("experts", "d_model", "ff"),
+               "wd": ("experts", "ff", "d_model")}
+    if ffn_kind not in ("gelu", "relu2"):
+        a["wg"] = ("experts", "d_model", "ff")
+    return a
 
 
 def _expert_ffn(p: Params, x: torch.Tensor, ffn_kind: str) -> torch.Tensor:

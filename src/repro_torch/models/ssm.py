@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.runtime import dispatch
-from .layers import Params, _init
+from .layers import Axes, Params, _init
 
 LOG_EPS = -1e30
 
@@ -144,6 +144,23 @@ def mamba_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]):
 # ===========================================================================
 # mLSTM (matrix-memory LSTM) -- the stabilized chunkwise-parallel form
 # ===========================================================================
+
+
+def mamba_axes() -> Axes:
+    return {"in_proj": ("d_model", "ff"), "conv_w": ("conv_k", "ff"), "conv_b": ("ff",),
+            "x_proj": ("ff", "ssm_small"), "dt_proj": ("ssm_small", "ff"), "dt_bias": ("ff",),
+            "A_log": ("ff", "ssm_state"), "D": ("ff",), "out_proj": ("ff", "d_model")}
+
+
+def mlstm_axes() -> Axes:
+    return {"in_proj": ("d_model", "ff"), "wq": ("ff", "ff2"), "wk": ("ff", "ff2"),
+            "wv": ("ff", "ff2"), "w_gates": ("ff", "heads_small"), "b_gates": ("heads_small",),
+            "norm_scale": ("ff",), "out_proj": ("ff", "d_model")}
+
+
+def slstm_axes() -> Axes:
+    return {"w": ("d_model", "heads"), "r": ("heads_small", "hd", "hd4"), "b": ("heads",),
+            "up_g": ("d_model", "ff"), "up_u": ("d_model", "ff"), "down": ("ff", "d_model")}
 
 
 def mlstm_init(gen, d: int, n_heads: int, dtype, device, expand: int = 2) -> Params:

@@ -17,14 +17,18 @@ a recurrent mixer's state, which its ``*_decode`` returns as new tensors,
 is copied back into the pool's slices). In ``train`` mode
 ``RunConfig.remat="full"`` wraps each layer in ``torch.utils.checkpoint``
 (non-reentrant): only the layer's input is kept and the layer runs again
-in the backward. Every layer returns its MoE load-balancing loss (0
-without experts), and ``stack_apply`` sums them; prefill passes
+in the backward. ``remat="dots"`` is JAX's ``checkpoint_dots``: the same
+checkpoint with a selective policy (:func:`dots_policy`) that keeps the
+outputs of torch's matmul-family ops and recomputes the rest. Every layer
+returns its MoE load-balancing loss (0 without experts), and
+``stack_apply`` sums them; prefill passes
 ``true_len`` to the MoE layers too, so bucket pads take no expert capacity,
 and decode passes none.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -34,9 +38,9 @@ from ..core.runtime import current_runtime
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
-from .layers import ffn_apply, ffn_init, norm_init, rmsnorm
+from .layers import Axes, ffn_apply, ffn_axes, ffn_init, norm_axes, norm_init, rmsnorm
 
-REMAT = ("none", "full")
+REMAT = ("none", "dots", "full")
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
@@ -45,9 +49,10 @@ class RunConfig:
     """Runtime knobs that change no math: attention chunking of the plain
     path, rematerialization, the mLSTM's chunk, the sequence chunk of the
     loss, the MoE dispatch formulation and gradient accumulation steps
-    (``repro``'s names and defaults, except ``remat``: the port has
-    ``"none"`` and ``"full"``; the JAX default ``"dots"``, which keeps
-    matmul outputs, is not ported yet and raises). ``slstm_unroll`` is the
+    (``repro``'s names and defaults, except ``remat``'s default: ``"none"``
+    where JAX's is ``"dots"``, which the training launcher takes from
+    :func:`repro_torch.launch.defaults.default_run` without ``--smoke``).
+    ``slstm_unroll`` is the
     JAX scan's unroll factor, a schedule knob: it is accepted and changes
     nothing in eager mode, where the sLSTM's loop runs one token a step."""
 
@@ -94,6 +99,31 @@ def layer_init(gen, cfg: ArchConfig, spec: LayerSpec, device):
         if spec.ffn in ("dense", "moe+dense"):
             p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt, device)
     return p
+
+
+def layer_axes(cfg: ArchConfig, spec: LayerSpec) -> Axes:
+    """:func:`layer_init`'s tree with each leaf's logical dim names (the
+    JAX package's ``layer_init`` axes less the leading ``layers`` dim, which
+    the port unstacks)."""
+    _check_spec(spec)
+    if spec.mixer == "attn":
+        mixer = attn.attention_axes(cfg.qkv_bias)
+    else:
+        mixer = {"mamba": ssm.mamba_axes, "mlstm": ssm.mlstm_axes,
+                 "slstm": ssm.slstm_axes}[spec.mixer]()
+    a = {"norm1": norm_axes(), "mixer": mixer}
+    if spec.ffn != "none":
+        a["norm2"] = norm_axes()
+        if "moe" in spec.ffn:
+            a["moe"] = moe_mod.moe_axes(cfg.ffn_kind)
+        if spec.ffn in ("dense", "moe+dense"):
+            a["ffn"] = ffn_axes(cfg.ffn_kind)
+    return a
+
+
+def superblock_axes(cfg: ArchConfig, seg) -> Axes:
+    """One super-block's axes, ``{"l{i}": layer axes}``."""
+    return {f"l{i}": layer_axes(cfg, spec) for i, spec in enumerate(seg.pattern)}
 
 
 def segment_init(gen, cfg: ArchConfig, seg, device):
@@ -164,9 +194,30 @@ def _recurrent_apply(p, h, spec: LayerSpec, cfg: ArchConfig, run: RunConfig, mod
     return dec(p, h, cache, **kw)
 
 
+# The ops whose outputs remat="dots" keeps: torch's matmul family at the
+# aten level, which torch.matmul, einsum and F.linear lower to.
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                     torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: keep a
+    matmul-family op's output where autograd records it, recompute
+    everything else. A kernel launched through the dispatch runtime is no
+    torch op (and runs under ``no_grad`` inside its autograd function), so
+    it is recomputed, as JAX's ``checkpoint_dots`` recomputes a
+    ``pallas_call``; the plain versions' ``torch.matmul`` outputs are kept,
+    as JAX keeps ``jnp.dot``'s."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in DOT_OPS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _train_layer(block, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig):
-    """One layer in train mode, (x, aux); under ``remat="full"`` a
-    checkpointed one.
+    """One layer in train mode, (x, aux); under ``remat="full"`` or
+    ``"dots"`` a checkpointed one.
 
     The recompute runs inside the backward, which autograd may run on
     another thread; the layer enters the runtime active at the forward so
@@ -179,7 +230,13 @@ def _train_layer(block, x, spec: LayerSpec, cfg: ArchConfig, run: RunConfig):
         with rt:
             return layer_apply(block, xx, spec, cfg, run, "train")[:2]
 
-    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    if run.remat == "full":
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts, dots_policy))
 
 
 def stack_apply(segments_params, x, cfg: ArchConfig, run: RunConfig, mode: str,

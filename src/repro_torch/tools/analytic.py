@@ -12,10 +12,12 @@ Three deviations, each the card's:
   FLOPs at ``peak_flops_fp32``; JAX prices every site at the bf16 peak.
 * **roofline_fraction** -- divided by the given profile's bf16 peak (JAX's
   divides by TPU v5e's whatever profile it was given).
-* **the collective term** -- 0: the port runs on one card. Its wire model
-  (and the HLO collective parser that feeds JAX's) waits for the port's
-  several-GPU slice (ROADMAP Queue 1 item 4); a multi-card call with
-  collective bytes raises.
+* **the collective term** -- JAX's wire model: each collective kind's
+  bytes times its ring factor (``_WIRE_FACTOR``), over the profile's
+  ``interconnect_bandwidth`` (the data sheet's NVLink figure) where JAX
+  divides by ICI's. The bytes by kind come from the port's collectives'
+  counts (``core.evaluate.collective_stats``), where JAX parses them from
+  the compiled HLO.
 
 Conventions: FLOPs count multiply-adds as 2; byte counts are per device;
 ``T`` is the tokens processed (B*S for train/prefill, B for one decode
@@ -379,6 +381,17 @@ class AnalyticRoofline:
         }
 
 
+# Wire-byte factor per collective kind (ring schedules): an all-reduce moves
+# about twice the payload a device; gather and scatter kinds about once.
+_WIRE_FACTOR = {
+    "all-reduce": 2.0,
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
 def analytic_roofline(
     cfg: ArchConfig,
     shape: ShapeSpec,
@@ -393,10 +406,11 @@ def analytic_roofline(
     active_params: Optional[int] = None,
 ) -> AnalyticRoofline:
     """The step's three roofline terms on ``profile``: its FLOPs at the bf16
-    peak, its memory traffic at the memory rate, and no collective term (one
-    card; see the module's docstring)."""
-    if chips > 1 and collective_bytes_by_kind:
-        raise NotImplementedError("the collective wire model waits for the several-GPU slice")
+    peak, its memory traffic at the memory rate, and its collectives' wire
+    bytes (``collective_bytes_by_kind``, payload bytes a device by kind)
+    at the interconnect rate."""
+    wire = sum(v * _WIRE_FACTOR.get(k, 1.0)
+               for k, v in (collective_bytes_by_kind or {}).items())
     n_active = active_params if active_params is not None else active_param_count(cfg)
     fl = step_flops(cfg, shape, remat)
     hbm = step_hbm_bytes(cfg, shape, chips, model_par, fsdp, remat, fused_xent, params=params)
@@ -405,10 +419,10 @@ def analytic_roofline(
     return AnalyticRoofline(
         compute_s=fl["total"] / chips / profile.peak_flops_bf16,
         memory_s=hbm["total"] / profile.hbm_bandwidth,
-        collective_s=0.0,
+        collective_s=wire / profile.interconnect_bandwidth,
         flops_per_chip=fl["total"] / chips,
         hbm_bytes_per_chip=hbm["total"],
-        collective_bytes_per_chip=0.0,
+        collective_bytes_per_chip=wire,
         model_flops=model_flops,
         chips=chips,
         peak_flops=profile.peak_flops_bf16,

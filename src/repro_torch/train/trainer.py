@@ -1,8 +1,9 @@
-"""The training loop on one device: forward, the chunked loss, backward
-through the dispatched kernels, AdamW, checkpoints and restart.
+"""The training loop: forward, the chunked loss, backward through the
+dispatched kernels, the data-parallel gradient all-reduce, gradient
+compression, AdamW, checkpoints and restart.
 
-Counterpart of ``repro.train.trainer.Trainer`` without a mesh (that is the
-distributed slice) or gradient compression, which are not ported yet. Every
+Counterpart of ``repro.train.trainer.Trainer``. With no ``mesh`` it trains
+on one device. Every
 kernel the step runs, forward and backward, resolves through the dispatch
 runtime: pass ``runtime=repro_torch.runtime(db=..., mode=...)`` to pin a
 tuning database and a mode for the whole run;
@@ -36,6 +37,43 @@ in place. With no checkpoint to restore, a trainer that initialised its
 own parameters re-initialises them from ``tcfg.seed``, in place
 (:func:`lm.reinit_params_`); one that was handed ``params=`` has nothing
 to restart from and raises.
+
+**Data parallelism** (``mesh=``, a ``DeviceMesh`` of
+:func:`repro_torch.launch.mesh.make_mesh_from_spec` over an initialised
+process group; ``layout=`` defaults to ``launch.defaults.default_layout``):
+one process a rank, each on its own rows of the global batch, with
+replicated parameters. The parameter specs are solved with
+``param_shardings`` as in JAX, and a spec that shards a parameter (a tensor
+axis of size > 1, or FSDP over a data axis of size > 1) raises
+``NotImplementedError``: tensor parallelism and FSDP are the next slice.
+An arch with experts raises too (its load-balancing loss is not additive
+over ranks). Each step:
+
+* every rank draws the *global* batch (the pipeline with ``host_index=0,
+  host_count=1``, what JAX's one process feeds) and keeps its rows: of
+  microbatch j (``b = B / k`` rows), the rows ``[j b + s b/dp, j b + (s+1)
+  b/dp)`` of its data shard ``s``; with one microbatch, ``[s B/dp, (s+1)
+  B/dp)``. ``dp`` is computed once, as JAX does, from the microbatch's
+  batch (``data_parallel_degree``), so a rank's dispatch keys are its true
+  shard; ranks whose coordinates on unused data axes differ replicate;
+* each microbatch's loss and gradients are weighted by the rank's share of
+  that microbatch's loss tokens and accumulated; then the gradients are
+  summed over the ranks in fp32 buckets (``collectives.reduce_grads``), once
+  a step, and the loss with them: the global mean, equal to JAX's at any
+  world size, masks included;
+* ``grad_compression`` applies to the reduced gradient, where JAX applies it
+  to its global one (the wire carries fp32), with ``int8_ef``'s scale a
+  JAX tensor's (a segment's layers stacked); every rank then runs the same
+  AdamW update, so the replicas stay bit-identical
+  (:meth:`Trainer.check_replicas`, also run at construction);
+* the reported loss and grad norm are global; ``allreduce_s`` and
+  ``allreduce_bytes`` report the step's gradient reduce.
+
+Checkpoints hold the error-feedback state under ``"ef"``, as JAX's do. On
+a mesh rank 0 writes, and every rank waits at a barrier for the commit;
+every rank restores. Recovery is per process: a step that fails on one
+rank only leaves the others waiting in the all-reduce until the process
+group's timeout.
 """
 from __future__ import annotations
 
@@ -45,6 +83,7 @@ import logging
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
@@ -52,6 +91,8 @@ from ..convert import batch_to_tensors
 from ..core.platform import resolve_device
 from ..core.runtime import TunedRuntime, dispatch_phase, raises_through
 from ..data.pipeline import DataConfig, SyntheticPipeline
+from ..distributed import collectives
+from ..distributed import sharding as shd
 from ..models import lm
 from ..models.transformer import RunConfig
 from ..obs.collect import current_collector as _obs_collector
@@ -66,9 +107,8 @@ log = logging.getLogger("repro_torch.trainer")
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The JAX trainer's fields and defaults, less ``grad_compression``
-    (the distributed slice). ``checkpoint_dir`` is created at the first
-    save only."""
+    """The JAX trainer's fields and defaults. ``checkpoint_dir`` is created
+    at the first save only."""
 
     total_steps: int = 100
     checkpoint_every: int = 25
@@ -77,29 +117,69 @@ class TrainerConfig:
     async_checkpoint: bool = True
     log_every: int = 10
     seed: int = 0
+    grad_compression: str = "none"      # none | bf16 | int8_ef
     max_failures: int = 10
 
 
+def _stacked_groups(params) -> List[List[int]]:
+    """The leaves (by :func:`adamw.leaves` index) that are one tensor in
+    JAX, which stacks a segment's repeats: a layer leaf with its
+    counterparts in the segment's other repeats, every other leaf alone."""
+    groups: Dict[Tuple, List[int]] = {}
+    for i, (name, _) in enumerate(adamw.named_leaves(params)):
+        parts = name.split("/")
+        key = ("segments", parts[2], *parts[4:]) if parts[1] == "segments" else (name,)
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class _DataParallel:
+    """A rank's place in the data-parallel step: ``ranks`` processes, the
+    batch split ``degree`` ways (``approx``: JAX's microbatch degree differs
+    from the full batch's), this rank on data shard ``shard`` of it, each
+    shard held by ``replicas`` ranks."""
+
+    ranks: int
+    degree: int
+    approx: bool
+    shard: int
+    replicas: int
+
+
 class Trainer:
-    """One-device trainer. ``params`` (for instance carried across from the
-    JAX package with ``convert.from_jax_params``) defaults to
+    """The trainer. ``params`` (for instance carried across from the JAX
+    package with ``convert.from_jax_params``) defaults to
     ``lm.init_params(cfg, tcfg.seed, device)``; only then can the trainer
-    restart from scratch (:meth:`restore_checkpoint`)."""
+    restart from scratch (:meth:`restore_checkpoint`). ``mesh`` and
+    ``layout`` make it a data-parallel rank (the module docstring)."""
 
     def __init__(self, cfg: ArchConfig, run: RunConfig, data_cfg: DataConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
                  tcfg: Optional[TrainerConfig] = None,
                  runtime: Optional[TunedRuntime] = None,
-                 device=None, params=None):
+                 device=None, params=None, mesh=None, layout=None):
         self.cfg = cfg
         self.run = run
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.tcfg = tcfg or TrainerConfig()
+        if self.tcfg.grad_compression not in collectives.MODES:
+            raise ValueError(f"grad_compression {self.tcfg.grad_compression!r} not in "
+                             f"{collectives.MODES}")
         self.runtime = runtime
         self.device = resolve_device(device)
         if data_cfg.batch_size % run.microbatches:
             raise ValueError(f"batch {data_cfg.batch_size} not divisible by "
                              f"{run.microbatches} microbatches")
+        self.mesh = mesh
+        self.layout = layout
+        self._dp = None
+        if mesh is not None:
+            if layout is None:
+                from ..launch.defaults import default_layout
+
+                self.layout = default_layout(cfg)
+            self._dp = self._data_parallel(cfg, run, data_cfg)
         self.data = SyntheticPipeline(cfg, data_cfg)
         self._own_init = params is None
         self.params = (params if params is not None
@@ -108,14 +188,67 @@ class Trainer:
         for p in self._leaves:
             p.requires_grad_(True)
         self.opt_state = adamw.init(self.opt_cfg, self.params)
+        self.ef_state = (collectives.ef_init(self._leaves)
+                         if self.tcfg.grad_compression == "int8_ef" else None)
+        self._scale_groups = _stacked_groups(self.params)
         self.ckpt = ckpt_mod.Checkpointer(self.tcfg.checkpoint_dir,
                                           keep=self.tcfg.checkpoint_keep)
         self.monitor = StragglerMonitor()
         self.step = 0
         self.recoveries = 0     # restores after a failed step, over every train() call
+        if self.distributed:
+            self.check_replicas()
+
+    @property
+    def distributed(self) -> bool:
+        """Whether this trainer is one rank of several."""
+        return self._dp is not None and self._dp.ranks > 1
+
+    @property
+    def rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank() if self.distributed else 0
+
+    def _data_parallel(self, cfg: ArchConfig, run: RunConfig, data_cfg: DataConfig
+                       ) -> _DataParallel:
+        """The rank's place, after refusing what this slice does not run."""
+        mesh, layout = self.mesh, self.layout
+        sizes = shd.mesh_axis_sizes(mesh)
+        specs = shd.param_shardings(lm.param_axes(cfg), lm.abstract_params(cfg), sizes, layout)
+        sharded = sum(not shd.is_replicated(sp, sizes) for sp in shd.spec_leaves(specs))
+        if sharded:
+            raise NotImplementedError(
+                f"{cfg.name} on mesh {sizes} under layout {layout.name!r}: {sharded} parameter "
+                "specs shard a parameter (tensor parallelism or FSDP), which the next slice "
+                "ports; this one runs data parallelism over replicated parameters")
+        ranks = mesh.size()
+        if ranks > 1 and cfg.num_experts:
+            raise NotImplementedError(f"{cfg.name} has experts: expert parallelism and its "
+                                      "load-balancing loss across ranks are the next slice")
+        if ranks > 1 and (data_cfg.host_index, data_cfg.host_count) != (0, 1):
+            raise ValueError("every rank draws the global batch: host_index=0, host_count=1")
+        # the degree, once, from the microbatch's batch dim (JAX's trainer)
+        b = max(1, data_cfg.batch_size // max(1, run.microbatches))
+        use, degree = shd._divisible_data_axes(sizes, layout, b)
+        approx = (run.microbatches > 1
+                  and degree != shd.data_parallel_degree(sizes, layout, data_cfg.batch_size))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        shard = 0
+        for a in use:
+            shard = shard * sizes[a] + coord[a]
+        return _DataParallel(ranks=ranks, degree=degree, approx=approx, shard=shard,
+                             replicas=ranks // degree)
 
     def _scope(self):
-        return self.runtime if self.runtime is not None else contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        if self.runtime is not None:
+            stack.enter_context(self.runtime)
+        if self._dp is not None:
+            stack.enter_context(shd.mesh_context(self.mesh, self.layout,
+                                                 dp_degree=self._dp.degree,
+                                                 dp_approx=self._dp.approx))
+        return stack
 
     def _grads(self, loss) -> List[torch.Tensor]:
         """d loss / d leaves; zeros for a leaf the loss does not read (the
@@ -143,22 +276,122 @@ class Trainer:
                 total = total + loss.detach()
             return total / k, [a / k for a in acc]
 
+    def rank_rows(self, batch_np: Dict[str, np.ndarray]):
+        """This rank's rows of a global batch: (its microbatches, each a
+        dict of arrays, and each one's weight, the rank's share of that
+        microbatch's loss tokens over the replicas and the microbatch
+        count)."""
+        dp, k = self._dp, self.run.microbatches
+        n = next(iter(batch_np.values())).shape[0]
+        b = n // k
+        rows = b // dp.degree
+        labels = batch_np["labels"]
+        mask = batch_np.get("loss_mask")
+        tokens = (np.asarray(mask, np.float64).reshape(n, -1).sum(axis=1) if mask is not None
+                  else np.full(n, float(np.prod(labels.shape[1:]))))
+        parts, weights = [], []
+        for j in range(k):
+            lo = j * b + dp.shard * rows
+            parts.append({name: a[lo:lo + rows] for name, a in batch_np.items()})
+            total = tokens[j * b:(j + 1) * b].sum()
+            share = tokens[lo:lo + rows].sum() / total if total > 0 else 1.0 / dp.degree
+            weights.append(share / (dp.replicas * k))
+        return parts, weights
+
+    def global_loss_and_grads(self, batch_np: Dict[str, np.ndarray]):
+        """The global batch's loss and gradients, in :func:`adamw.leaves`
+        order, as one process would compute them: this rank's weighted
+        share of its rows, summed over the ranks (a collective: every rank
+        calls it with the same global batch). Sets ``last_allreduce_s`` and
+        ``last_allreduce_bytes``. On one device, :meth:`loss_and_grads`."""
+        if not self.distributed:
+            return self.loss_and_grads(batch_to_tensors(batch_np, self.device))
+        parts, weights = self.rank_rows(batch_np)
+        with self._scope():
+            if len(parts) == 1:
+                loss, _ = lm.loss_fn(self.params, batch_to_tensors(parts[0], self.device),
+                                     self.cfg, self.run)
+                grads, scale = self._grads(loss), weights[0]
+                total = loss.detach().float() * scale
+            else:
+                grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for p in self._leaves]
+                total = torch.zeros((), dtype=torch.float32, device=self.device)
+                for part, w in zip(parts, weights):
+                    loss, _ = lm.loss_fn(self.params, batch_to_tensors(part, self.device),
+                                         self.cfg, self.run)
+                    for a, g in zip(grads, self._grads(loss)):
+                        a.add_(g.float(), alpha=w)
+                    total = total + loss.detach().float() * w
+                scale = 1.0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        before = collectives.COLLECTIVE_BYTES["all-reduce"]
+        t0 = time.perf_counter()
+        collectives.reduce_grads(grads, scale=scale)
+        total = total.reshape(1).to(collectives.comm_device(self.device))
+        collectives.all_reduce(total)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_allreduce_s = time.perf_counter() - t0
+        self.last_allreduce_bytes = collectives.COLLECTIVE_BYTES["all-reduce"] - before
+        return total[0], grads
+
+    @torch.no_grad()
+    def replica_checksums(self) -> torch.Tensor:
+        """Two int64 checksums a parameter leaf (the sum of its bits and of
+        their squares, as integers), on the host."""
+        out = []
+        for p in self._leaves:
+            flat = p.detach().reshape(-1)
+            bits = flat.view({2: torch.int16, 4: torch.int32}[flat.element_size()])
+            s1 = s2 = 0
+            for c in bits.split(1 << 24):
+                c = c.long()
+                s1 += int(c.sum())
+                s2 += int((c * c).sum())
+            out += [s1, s2]
+        return torch.tensor(out, dtype=torch.int64)
+
+    def check_replicas(self) -> None:
+        """Raise unless every rank holds the same parameters, bit for bit:
+        the checksums of :meth:`replica_checksums` reduced as a min and a
+        max over the ranks must agree (a collective)."""
+        if not self.distributed:
+            return
+        sums = self.replica_checksums().to(collectives.comm_device(self.device))
+        lo, hi = collectives.all_reduce(sums.clone(), "min"), collectives.all_reduce(sums, "max")
+        diff = (lo != hi).nonzero().reshape(-1).tolist()
+        if diff:
+            names = [n for n, _ in adamw.named_leaves(self.params)]
+            raise RuntimeError(f"rank {self.rank}: replicas differ in {len(diff) // 2 or 1} "
+                               f"parameter leaves, the first {names[diff[0] // 2]}")
+
     def run_one_step(self) -> Dict[str, float]:
         """One optimizer step on the next batch: ``loss``, ``grad_norm``,
         ``lr`` and ``step_time_s`` (host clock from the batch on the device
-        to the updated parameters, synchronised)."""
+        to the updated parameters, synchronised); a rank of several adds
+        ``allreduce_s`` and ``allreduce_bytes``."""
         with _obs_span("train.data"):
             batch_np = self.data.next_batch()
-            batch = batch_to_tensors(batch_np, self.device)
+            batch = None if self.distributed else batch_to_tensors(batch_np, self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         with _obs_span("train.step", step=self.step):
-            loss, grads = self.loss_and_grads(batch)
+            if self.distributed:
+                loss, grads = self.global_loss_and_grads(batch_np)
+            else:
+                loss, grads = self.loss_and_grads(batch)
+            grads, self.ef_state = collectives.compress_grads(
+                grads, self.ef_state, self.tcfg.grad_compression, self._scale_groups)
             with self._scope(), dispatch_phase("opt"):
                 _, _, om = adamw.update(self.opt_cfg, grads, self.opt_state, self.params)
             metrics = {"loss": float(loss), "grad_norm": float(om["grad_norm"]),
                        "lr": om["lr"]}
+            if self.distributed:
+                metrics.update(allreduce_s=self.last_allreduce_s,
+                               allreduce_bytes=self.last_allreduce_bytes)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -167,8 +400,11 @@ class Trainer:
         self.step += 1
         col = _obs_collector()
         if col.enabled:
-            # the JAX trainer's count: the first leaf (in key order)'s two lead dims
+            # the JAX trainer's count: the first leaf (in key order)'s two lead
+            # dims; a rank counts its own rows
             first = batch_np[min(batch_np)] if batch_np else None
+            if first is not None and self.distributed:
+                first = first[:first.shape[0] // self._dp.degree]
             tokens = (int(first.shape[0] * first.shape[1])
                       if first is not None and first.ndim >= 2 else 0)
             col.observe("train.step_s", dt)
@@ -183,17 +419,29 @@ class Trainer:
 
     # -- checkpoint and restart ---------------------------------------------
     def _state_tree(self) -> Dict:
-        return {"params": self.params, "opt": self.opt_state,
+        tree = {"params": self.params, "opt": self.opt_state,
                 "data": {"step": self.data.step}, "trainer_step": self.step}
+        if self.ef_state is not None:
+            tree["ef"] = self.ef_state
+        return tree
 
     def save_checkpoint(self) -> None:
         """Checkpoint the state at ``self.step`` (async unless
-        ``tcfg.async_checkpoint`` is off)."""
+        ``tcfg.async_checkpoint`` is off). A rank of several: rank 0 writes
+        and waits for the commit, and every rank waits for it at a
+        barrier."""
         tree = self._state_tree()
-        if self.tcfg.async_checkpoint:
-            self.ckpt.save_async(self.step, tree)
-        else:
-            self.ckpt.save(self.step, tree)
+        if self.rank == 0:
+            if self.tcfg.async_checkpoint:
+                self.ckpt.save_async(self.step, tree)
+            else:
+                self.ckpt.save(self.step, tree)
+        if self.distributed:
+            import torch.distributed as dist
+
+            if self.rank == 0:
+                self.ckpt.wait()
+            dist.barrier()
 
     @torch.no_grad()
     def restore_checkpoint(self, step: Optional[int] = None) -> int:
@@ -215,6 +463,8 @@ class Trainer:
                 t.zero_()
             for m, p in zip(self.opt_state.get("master", ()), self._leaves):
                 m.copy_(p)
+            for e in self.ef_state or ():
+                e.zero_()
             self.opt_state["step"] = 0
             self.step = self.data.step = 0
             return 0

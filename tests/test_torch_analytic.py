@@ -147,8 +147,10 @@ def test_roofline_fraction_uses_the_profile_given():
     assert 0 < sxm.roofline_fraction < 1 and pcie.roofline_fraction != sxm.roofline_fraction
     assert sxm.roofline_fraction != pytest.approx(
         min(1.0, sxm.model_flops / 197e12 / sxm.step_time_s))      # TPU v5e's bf16 peak
-    with pytest.raises(NotImplementedError):
-        analytic.analytic_roofline(cfg, shape, chips=4, collective_bytes_by_kind={"x": 1.0})
+    # several cards: collective bytes are priced (a kind with no ring factor moves once)
+    multi = analytic.analytic_roofline(cfg, shape, chips=4, collective_bytes_by_kind={"x": 1.0})
+    assert multi.collective_bytes_per_chip == 1.0
+    assert multi.collective_s == pytest.approx(1.0 / H100_SXM.interconnect_bandwidth, rel=REL)
 
 
 def test_fp32_gemm_sites_run_at_the_fp32_peak():

@@ -243,8 +243,8 @@ def test_remat_full_recomputes_the_same_gradients(model):
     for a, b in zip(grads["none"], grads["full"]):
         _close(a, b.numpy())
     assert grads["full_fwd"] > grads["none_fwd"]
-    with pytest.raises(NotImplementedError):
-        RunConfig(remat="dots")
+    with pytest.raises(NotImplementedError):     # "dots" is ported (test_torch_dp_train.py)
+        RunConfig(remat="offload")
 
 
 def test_train_launcher_runs_on_the_cpu_when_asked(capsys):
