@@ -289,6 +289,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
              memory on one card, not NVLink), the dispatched keys (a rank's
              rows) and the collective term analytic_roofline prices for the
              step at the data sheet's NVLink rate;
+   tp     — tensor parallelism, in the dp phase's two ranks after their
+             data-parallel steps (no new processes): a 1x2 mesh over the
+             same gloo group under launch.defaults.default_layout (the
+             tensor axis "model": embed and lm_head cut on the vocabulary,
+             q/k/v and their biases on the heads, o on its input, gate/up
+             and down on ff; one kv head and 7 q heads a rank; norm scales
+             replicated). Serve: qwen2_0_5b at full width and depth from
+             the seed (each rank's pieces of the serve phase's numbers),
+             ServingEngine(mesh=...) over the serve phase's 8 greedy
+             prompts (16-256 tokens, TP_NEW new each, staggered), on a
+             database holding the heuristic config of the fused sites the
+             rank dispatches (the decode unembed, the q projection with its
+             bias, the FFN gate), which opts them in as a campaign's record
+             would; every matmul, matmul_bias_act and rmsnorm_matmul launch
+             held against its plain version on its own operands
+             (KernelTap); the 300-token prefill's logits against the serve
+             phase's at TOL_LOGITS; the greedy tokens of the run without a
+             database against the serve phase's one-process tokens
+             (printed: the share equal and each request's first differing
+             step), and each of them gated against one process's logits on
+             its own history (the prompt and the 1x2 tokens before it, one
+             teacher-forced forward of the serve phase's parameters): that
+             step's argmax, or within TOL_LOGITS of max|logits| of it (a
+             near-tie; exact agreement is not a property of two bf16
+             computations, as the serve phase's two paths show). Train: the
+             dp phase's global
+             batch on the 1x2 mesh; step 1's loss (TOL_LOSS) and every
+             gradient leaf, each rank's pieces against the matching pieces
+             of the one process's gradients the parent left in the
+             directory, the norms summed over the ranks (TOL_GRAD,
+             TOL_GRAD_KBIAS for the k biases), printed layer by layer; every
+             launch of step 1 of the nine kernels (matmul forward and
+             transposed, rmsnorm and its backward, both cross entropy
+             kernels at vocab 75,968 with the labels shifted to the rank,
+             both flash kernels at 7/1 heads, matmul_bias_act) held
+             against its plain version (KernelTap); two more steps, the
+             replicated leaves' checksums equal across the ranks after each.
+             Prints the decode step and prefill times on rank 0's host
+             clock beside the serve phase's, the train step time a rank,
+             the tensor axis's all-reduce and all-gather seconds and bytes
+             a step, and each rank's peak memory;
 11. paligemma-train — PaliGemma-3B (arXiv:2407.07726) at full width and
              depth (18 layers, 8 q heads of 256 on one kv head, vocab
              257,216, 3.04 B parameters), its 256 patch embeddings (a stub
@@ -944,11 +985,19 @@ def _rmsnorm_bwd_case(prof, rows_out, rows, d, gen, path="train"):
         f"{host:.1f}, F.rms_norm backward {lib_host if lib_host is None else round(lib_host, 1)}")
 
 
-def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen, path="train"):
+def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen, path="train", off_row=False):
+    """``off_row``: a third of the labels -1 and a third past the row (a
+    tensor-parallel rank's labels on the other ranks' columns), which the
+    kernels take as off the row, a label logit of 0."""
     from repro_torch.kernels import xent as xe
 
     logits = (2 * torch.randn((rows, vocab), generator=gen, device="cuda")).to(torch.bfloat16)
     labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+    if off_row:
+        third = rows // 3
+        labels[:third] = -1
+        labels[third:2 * third] = vocab + torch.randint(0, 2048, (third,), generator=gen,
+                                                        device="cuda")
     ct = torch.randn((rows,), generator=gen, device="cuda") / rows
     heur = xe.softmax_xent.default_config(logits, labels)
     other = {"block_rows": 1, "block_v": 512}
@@ -967,15 +1016,17 @@ def _xent_cases(prof, fwd_rows, bwd_rows, rows, vocab, gen, path="train"):
     _, lse = xe.softmax_xent_cuda(logits, labels, **heur)
     # yardstick of the backward: autograd of one F.cross_entropy call,
     # (softmax - onehot) * ct, its forward graph built once outside the timer
+    # (a label off the row is F.cross_entropy's ignore_index: the same pass)
+    lib_labels = labels.masked_fill((labels < 0) | (labels >= vocab), -100)
     lg = logits.detach().clone().requires_grad_()
-    ce = torch.nn.functional.cross_entropy(lg, labels, reduction="none")
+    ce = torch.nn.functional.cross_entropy(lg, lib_labels, reduction="none")
     ce_ct = ct.to(ce.dtype)
     n = rows * vocab
     for name, out, errs, tol, run, plain, lib, nbytes in (
         ("softmax_xent", fwd_rows, f_errs, TOL_XENT,
          lambda c: xe.softmax_xent_cuda(logits, labels, **c),
          lambda: xe.softmax_xent_plain(logits, labels),
-         lambda: torch.nn.functional.cross_entropy(logits, labels, reduction="none"),
+         lambda: torch.nn.functional.cross_entropy(logits, lib_labels, reduction="none"),
          n * 2 + rows * (8 + 4 + 4)),
         ("softmax_xent_bwd", bwd_rows, b_errs, TOL_BF16,
          lambda c: xe.softmax_xent_bwd_cuda(ct, logits, labels, lse, **c),
@@ -1632,9 +1683,34 @@ def phase_kernels(prof, seed: int):
     # the archs phase's 512-token prefill (10) and of a one-token decode (2).
     for c in (10, 2):
         _egemm_case(prof, results["expert_gemm"], 128, c, 7168, 4864, gen, "arctic", iters=5)
+    tp_kernel_rows(prof, results, gen)
     xlstm_kernel_rows(prof, results, gen)
     gemm_host_cost(gen)
     return results
+
+
+def tp_kernel_rows(prof, results, gen) -> None:
+    """The shapes a rank of the tp phase's 1x2 mesh gives the kernels
+    (qwen2_0_5b): the unembed chunk at vocab / 2 = 75,968 columns (593.5
+    tiles of 128: an edge tile) forward and with its two gradients; the
+    decode unembed, unfused and fused; the kv projection at n = 64, the
+    decode route's smallest n; both cross entropy kernels at 75,968 with
+    labels off the row; both flash kernels at 7 q heads on 1 kv head; the
+    FFN gate at ff / 2 with its silu epilogue and the q projection with
+    its bias at decode rows."""
+    d, ff, vt, tok, rows = 896, 4864, 151936 // 2, 8192, 2048
+    for m, kk, nn, ta, tb in ((rows, d, vt, False, False), (rows, vt, d, False, True),
+                              (d, rows, vt, True, False)):
+        _matmul_case(prof, results["matmul"], m, kk, nn, gen, "tp", ta=ta, tb=tb)
+    for n in (vt, 64):
+        _matmul_case(prof, results["matmul"], 8, d, n, gen, "tp")
+    _rmm_case(prof, results["rmsnorm_matmul"], 8, d, vt, gen, "tp", want="decode")
+    _xent_cases(prof, results["softmax_xent"], results["softmax_xent_bwd"], rows, vt, gen,
+                path="tp", off_row=True)
+    _flash_case(prof, results["flash_attention"], 2048, gen, "tp", h=7, kvh=1, b=4)
+    _flash_bwd_case(prof, results["flash_attention_bwd"], 4, 2048, gen, h=7, kvh=1, path="tp")
+    _mba_case(prof, results["matmul_bias_act"], tok, d, ff // 2, "silu", gen, "tp")
+    _mba_case(prof, results["matmul_bias_act"], 8, d, 448, "none", gen, "tp")
 
 
 def xlstm_kernel_rows(prof, results, gen) -> None:
@@ -1805,7 +1881,11 @@ def phase_serve(seed: int):
     log(f"[serve] peak memory allocated: {peak / 2**30:.2f} GiB")
 
     READINGS.update(decode_step_ms=1e3 * float(np.median(dec)),
-                    decode_busy_ms=profile_serving(params, cfg, run, ecfg))
+                    decode_busy_ms=profile_serving(params, cfg, run, ecfg),
+                    serve_prefill_ms={b: 1e3 * float(np.median(ts))
+                                      for b, ts in engine.timings["prefill_s"].items()},
+                    serve_greedy=[(r.prompt.tolist(), r.output.tolist()) for r in done
+                                  if r.temperature == 0])
 
     # One prefill, kernel path vs plain (reference-mode) path on the card.
     probe = prompts[lengths.index(300)]
@@ -1826,6 +1906,7 @@ def phase_serve(seed: int):
         f"{int(lk.argmax())} vs {int(lr.argmax())}")
     if rel > TOL_LOGITS:
         raise AssertionError(f"prefill logits differ: rel {rel:.3g} > {TOL_LOGITS}")
+    READINGS.update(serve_probe=(probe.tolist(), lk.cpu()))
 
     # Greedy tokens of the plain path, for the agreement share.
     ref_engine = ServingEngine(cfg, run, params, ecfg, runtime=runtime(mode="reference"))
@@ -1839,6 +1920,7 @@ def phase_serve(seed: int):
             agree += int((ref == r.output).sum())
             total += len(ref)
     log(f"[serve] greedy tokens equal on both paths: {agree}/{total} = {agree / total:.3f}")
+    READINGS.update(serve_greedy_agree=f"{agree}/{total}")
     return launches
 
 
@@ -3521,6 +3603,107 @@ class DispatchTap:
             GATE_FAILURES.append(msg)
 
 
+# The plain version of each kernel a KernelTap holds: (module under
+# repro_torch.kernels, function).
+TAP_PLAIN = {"matmul": ("matmul", "matmul_plain"),
+             "matmul_bias_act": ("fused", "matmul_bias_act_plain"),
+             "rmsnorm_matmul": ("fused", "rmsnorm_matmul_plain"),
+             "rmsnorm": ("rmsnorm", "rmsnorm_plain"),
+             "rmsnorm_bwd": ("rmsnorm", "rmsnorm_bwd_plain"),
+             "softmax_xent": ("xent", "softmax_xent_plain"),
+             "softmax_xent_bwd": ("xent", "softmax_xent_bwd_plain"),
+             "flash_attention": ("attention", "flash_attention_plain"),
+             "flash_attention_bwd": ("attention", "flash_attention_bwd_plain")}
+
+
+class KernelTap:
+    """DispatchTap for several kernels: while active, each launch of a
+    named tunable on a card's tensors is held against its plain version
+    (TAP_PLAIN) on the very operands the path gave it, output by output:
+    bf16 outputs at TOL_BF16 of max|plain| (flash's output row by row), the
+    cross entropy's fp32 loss and lse at TOL_XENT, flash's lse at TOL_LSE
+    (absolute), rmsnorm's fp32 inverse rms at 1e-5, an fp32 gemm at
+    TOL_F32_GEMM, any other fp32 output at TOL_BF16. ``n`` counts the
+    launches held by kernel, ``worst`` the largest reading by kernel,
+    ``bad`` those over."""
+
+    def __init__(self, names):
+        self.names = tuple(names)
+
+    def __enter__(self):
+        import importlib
+
+        from repro_torch.core.annotate import get_tunable
+        from repro_torch.core.runtime import ensure_registered
+
+        ensure_registered()
+        self.n, self.worst, self.bad, self._saved = collections.Counter(), {}, [], []
+        for name in self.names:
+            t = get_tunable(name)
+            mod, fname = TAP_PLAIN[name]
+            plain = getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fname)
+            knobs = set(t.space.names)
+
+            def held(*args, _fn=t.fn, _plain=plain, _name=name, _knobs=knobs, **kw):
+                out = _fn(*args, **kw)
+                if args[0].is_cuda:
+                    with torch.no_grad():
+                        ref = _plain(*args, **{k: v for k, v in kw.items() if k not in _knobs})
+                    self._hold(_name, args, out, ref)
+                return out
+
+            self._saved.append((t, t.fn))
+            t.fn = held
+        return self
+
+    def __exit__(self, *exc):
+        for t, fn in self._saved:
+            t.fn = fn
+
+    def _hold(self, name, args, out, ref) -> None:
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        refs = ref if isinstance(ref, (tuple, list)) else (ref,)
+        what = name + " " + " ".join(str(list(a.shape)) for a in args
+                                     if isinstance(a, torch.Tensor))
+        worst = 0.0
+        for i, (o, r) in enumerate(zip(outs, refs)):
+            if o.dtype == torch.bfloat16:
+                tol = TOL_BF16
+                err = (row_rel_err(o, r) if name == "flash_attention" and i == 0
+                       else rel_err(o, r)[1])
+            elif name == "flash_attention":
+                tol, err = TOL_LSE, rel_err(o, r)[0]
+            else:
+                tol = {"softmax_xent": TOL_XENT, "rmsnorm": 1e-5,
+                       "matmul": TOL_F32_GEMM}.get(name, TOL_BF16)
+                err = rel_err(o, r)[1]
+            worst = max(worst, err / tol)
+            if err > tol:
+                self.bad.append((name, i, round(err, 6), what))
+        self.n[name] += 1
+        if worst >= self.worst.get(name, (0.0, ""))[0]:
+            self.worst[name] = (worst, what)
+
+    def report(self) -> dict:
+        return {"n": dict(self.n), "worst": self.worst, "bad": self.bad[:8],
+                "n_bad": len(self.bad)}
+
+
+def gate_tap(tag: str, what: str, rep: dict, want=()) -> None:
+    """Print a KernelTap report (from any process); launches over their
+    limit, or a kernel in ``want`` never held, go to GATE_FAILURES."""
+    log(f"[{tag}] {what}: launches held against the plain version on their own operands, "
+        f"by kernel {rep['n']}; the worst of each as a fraction of its limit: "
+        + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in sorted(rep["worst"].items()))
+        + f"; {rep['n_bad']} over")
+    missing = [k for k in want if not rep["n"].get(k)]
+    if rep["n_bad"] or missing:
+        msg = (f"{tag}: {what}: {rep['n_bad']} launches differ from their plain version "
+               f"({rep['bad']}); kernels never held: {missing}")
+        log(f"[{tag}] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+
+
 def _rel(a, b) -> float:
     """||a - b|| / ||b|| in fp32."""
     return (a.float() - b.float()).norm().item() / max(b.float().norm().item(), 1e-30)
@@ -4045,7 +4228,7 @@ def phase_resilience(seed: int):
 # its all-reduce times are not NVLink's.
 DP_BATCH, DP_SEQ, DP_STEPS = 4, 2048, 3
 DP_PG_TIMEOUT_S = 240.0        # a collective that waits longer fails its rank
-DP_RANK_TIMEOUT_S = 300.0      # the parent's deadline for both ranks
+DP_RANK_TIMEOUT_S = 480.0      # the parent's deadline for both ranks (dp, then tp)
 DP_LAUNCH_TIMEOUT_S = 300.0    # and for the torchrun launcher run
 DP_LAUNCH_ARGS = ("--arch", "qwen2_0_5b", "--mesh", "2x1", "--backend", "gloo", "--device",
                   "cuda:0", "--compression", "int8_ef", "--batch", "2", "--seq", "512",
@@ -4136,9 +4319,212 @@ def dp_rank(workdir: str, seed: int) -> None:
                              profile=detect_platform("cuda:0"))
     out["collective_stats"] = stats
     out["roofline"] = roof.to_json()
+    del trainer, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp"] = tp_rank(workdir, seed, env)
     with open(os.path.join(workdir, f"rank{env.rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+# The tp phase: the serve phase's greedy prompts, TP_NEW new tokens each.
+TP_NEW = 16
+TP_STEPS = 3
+TRAIN_TAP = ("matmul", "rmsnorm", "rmsnorm_bwd", "softmax_xent", "softmax_xent_bwd",
+             "flash_attention", "flash_attention_bwd", "matmul_bias_act")
+SERVE_TAP = ("matmul", "matmul_bias_act", "rmsnorm_matmul")
+
+
+def _fused_opt_in(rt, sites) -> None:
+    """Record in ``rt``'s database the heuristic config of each fused site
+    ``(tunable, args, kwargs)``: what opts the site in (``fusion_wins``), as
+    a campaign's record would, with the config the site runs untuned."""
+    from repro_torch.core.annotate import get_tunable
+    from repro_torch.core.database import Record
+
+    for name, args, kw in sites:
+        t = get_tunable(name)
+        spec = t.dispatch
+        cargs, _ = spec.canon(args)
+        key = rt.key_for(t, cargs, spec.extra_for(kw))
+        rt.db.put(Record(key, t.default_config(*cargs), 0.0, "wallclock", 0, time.time(),
+                         {"opt_in": "heuristic config"}), save=False)
+
+
+def tp_rank(workdir: str, seed: int, env) -> dict:
+    """The tp phase on this rank (the module docstring's item): serve, then
+    train, on a 1x2 mesh over the dp phase's process group. Returns this
+    rank's readings; the parent gates them."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.convert import batch_to_tensors
+    from repro_torch.core.database import TuningDatabase
+    from repro_torch.core.runtime import runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.defaults import default_layout
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+    from repro_torch.train import Trainer, TrainerConfig
+
+    mesh = make_mesh_from_spec("1x2")
+    cfg = get_config("qwen2_0_5b")
+    layout = default_layout(cfg)
+    ref = torch.load(os.path.join(workdir, "tp_ref.pt"))
+    out = {"rank": env.rank}
+    # -- serve -------------------------------------------------------------
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, "cuda:0", mesh=mesh, layout=layout)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    cut = [n for n, p in adamw.named_leaves(params) if tp.shard_info(p)]
+    out["cuts"] = {"cut": len(cut), "leaves": len(adamw.leaves(params)),
+                   "layer 0": [n.split("/l0/")[1] for n in cut if "/segments/0/0/l0/" in n],
+                   "other": [n for n in cut if "/segments/" not in n]}
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+
+    def serve(rt, tap=None):
+        engine = ServingEngine(cfg, RunConfig(), params, ecfg, runtime=rt, mesh=mesh,
+                               layout=layout)
+        reqs = [Request(prompt=np.asarray(p, np.int32), max_new_tokens=TP_NEW,
+                        temperature=0.0, seed=seed + i, arrival_time=float(i))
+                for i, (p, _) in enumerate(ref["greedy"])]
+        for r in reqs:
+            engine.submit(r)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        collectives.reset_collective_counts()
+        t0 = time.perf_counter()
+        with tap if tap is not None else contextlib.nullcontext():
+            done = engine.serve()
+        torch.cuda.synchronize()
+        return engine, done, time.perf_counter() - t0
+
+    # the gated run: the serve phase's configuration (no database), untapped:
+    # its tokens against the serve phase's, its times and launches
+    rt = runtime(db=TuningDatabase(None), name="tp-serve")
+    torch.cuda.reset_peak_memory_stats()
+    engine, done, out["serve_s"] = serve(rt)
+    params = engine.params
+    out["serve_launches"] = kernels.launch_counts()
+    out["serve_tiers"] = rt.telemetry.snapshot()["tiers"]
+    out["serve_collectives"] = {**collectives.collective_counts(),
+                                "seconds_by_kind": collectives.collective_seconds()}
+    out["tokens"] = [r.output.tolist() for r in done]
+    out["want"] = [o[:TP_NEW] for _, o in ref["greedy"]]
+    out["stats"] = dict(engine.stats)
+    out["decode_ms"] = 1e3 * float(np.median(engine.timings["decode_s"]))
+    out["prefill_ms"] = {str(b): 1e3 * float(np.median(ts))
+                         for b, ts in engine.timings["prefill_s"].items()}
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the held run: the fused sites opted in (the decode unembed, the q
+    # projection with its bias, the FFN gate), every gemm launch held
+    d, layer0 = cfg.d_model, params["segments"][0][0]["l0"]
+    x8 = torch.zeros((8, d), dtype=cfg.tdtype, device="cuda:0")
+    ff, q = layer0["ffn"]["wg"], layer0["mixer"]["q"]
+    rt_f = runtime(db=TuningDatabase(None), name="tp-serve-fused")
+    _fused_opt_in(rt_f, [
+        ("rmsnorm_matmul", (x8, params["final_norm"]["scale"], params["lm_head"]["w"]),
+         {"eps": cfg.norm_eps}),
+        ("matmul_bias_act", (x8, q["w"], q["b"]), {}),
+        ("matmul_bias_act", (x8, ff, torch.zeros(ff.shape[1], dtype=cfg.tdtype,
+                                                 device="cuda:0")), {"act": "silu"})])
+    tap = KernelTap(SERVE_TAP)
+    _, done_f, out["serve_fused_s"] = serve(rt_f, tap)
+    out["serve_fused_launches"] = kernels.launch_counts()
+    out["serve_tap"] = tap.report()
+    out["serve_fused_tiers"] = rt_f.telemetry.snapshot()["tiers"]
+    out["tokens_fused"] = [r.output.tolist() for r in done_f]
+    # the 300-token probe's prefill logits against the serve phase's
+    probe, want = ref["probe"]
+    toks = torch.zeros((1, 512), dtype=torch.long, device="cuda:0")
+    toks[0, :len(probe)] = torch.tensor(probe, device="cuda:0")
+    with torch.inference_mode(), rt, shd.mesh_context(mesh, layout):
+        logits, _ = lm.prefill(params, {"tokens": toks}, cfg, RunConfig(), cache_len=2048,
+                               true_len=len(probe))
+    lk = logits.float().cpu()
+    out["probe"] = {"shape": list(lk.shape), "finite": bool(torch.isfinite(lk).all()),
+                    "rel": rel_err(lk, want.float())[1],
+                    "argmax": [int(lk.argmax()), int(want.argmax())]}
+    del engine, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- train -------------------------------------------------------------
+    data = DataConfig(seed=seed, batch_size=DP_BATCH, seq_len=DP_SEQ)
+    rt = runtime(db=TuningDatabase(None), name="tp-train")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, _dp_run(), data,
+                      adamw.AdamWConfig(warmup_steps=2, total_steps=TP_STEPS),
+                      TrainerConfig(total_steps=TP_STEPS, seed=seed, checkpoint_every=10**9),
+                      runtime=rt, device="cuda:0", mesh=mesh, layout=layout)
+    torch.cuda.synchronize()
+    out["train_init_s"] = time.perf_counter() - t0
+    leaves = trainer._leaves
+    gate = next(p for n, p in adamw.named_leaves(trainer.params)
+                if n.endswith("/segments/0/0/l0/ffn/wg"))
+    _fused_opt_in(rt, [("matmul_bias_act",
+                        (torch.zeros((DP_BATCH * DP_SEQ, d), dtype=cfg.tdtype, device="cuda:0"),
+                         gate, torch.zeros(gate.shape[1], dtype=cfg.tdtype, device="cuda:0")),
+                        {"act": "silu"})])
+    kept = []
+    compress = collectives.compress_grads
+
+    def keep_first(grads, *args, **kwargs):
+        if not kept:
+            kept.extend(g.detach().float().cpu() for g in grads)
+        return compress(grads, *args, **kwargs)
+
+    collectives.compress_grads = keep_first
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, colls = [], []
+    try:
+        for step in range(TP_STEPS):
+            collectives.reset_collective_counts()
+            if step == 0:
+                with KernelTap(TRAIN_TAP) as tap:
+                    metrics.append(trainer.run_one_step())
+                out["train_tap"] = tap.report()
+                out["train_launches_step1"] = kernels.launch_counts()
+            else:
+                metrics.append(trainer.run_one_step())
+            colls.append({**collectives.collective_counts(),
+                          "seconds_by_kind": collectives.collective_seconds()})
+            trainer.check_replicas()
+    finally:
+        collectives.compress_grads = compress
+    out["train_launches"] = kernels.launch_counts()
+    out["metrics"] = metrics
+    out["train_collectives"] = colls
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["train_tiers"] = rt.telemetry.snapshot()["phases"]
+    # step 1 leaf by leaf: this rank's pieces against the same pieces of one
+    # process's gradients, the squared norms summed over the ranks
+    one = torch.load(os.path.join(workdir, "one_process.pt"))
+    names = [n for n, _ in adamw.named_leaves(trainer.params)]
+    sq = torch.zeros((len(names), 2), dtype=torch.float64)
+    for i, (g, p) in enumerate(zip(kept, leaves)):
+        r = tp.take_shard(one["grads"][i].float(), tp.shard_info(p))
+        if tp.shard_info(p) is None and env.rank != 0:
+            continue            # a replicated leaf counts once
+        sq[i, 0] = float((g - r).double().pow(2).sum())
+        sq[i, 1] = float(r.double().pow(2).sum())
+    dist.all_reduce(sq)
+    rels = (sq[:, 0].sqrt() / sq[:, 1].sqrt().clamp_min(1e-30)).tolist()
+    out["gate1"] = {"loss": metrics[0]["loss"], "loss_one": one["loss"], "names": names,
+                    "rels": rels}
+    del one, kept, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _dp_launcher(workdir: str):
@@ -4211,6 +4597,10 @@ def phase_dp(seed: int):
         del one, grads
         gc.collect()
         torch.cuda.empty_cache()
+        # the tp phase's references: the serve phase's one-process greedy
+        # tokens and its 300-token prefill's logits
+        torch.save({"greedy": READINGS["serve_greedy"], "probe": READINGS["serve_probe"]},
+                   os.path.join(workdir, "tp_ref.pt"))
         log(f"[{tag}] {cfg.name}, batch {DP_BATCH} x {DP_SEQ}: one process's step-1 loss "
             f"{float(loss):.6f} and gradients kept on the host "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -4278,9 +4668,144 @@ def phase_dp(seed: int):
         if steps != ["step_000000002"] or not ef:
             raise AssertionError(f"{tag}: the launcher's checkpoint: {steps}, ef {ef}")
         READINGS.update(dp_step_ms=[1e3 * m["step_time_s"] for m in outs[0]["metrics"]])
-        return [out["launches"] for out in outs]
+        return [out["launches"] for out in outs], tp_gates([out["tp"] for out in outs], seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def tp_gates(outs, seed: int) -> list:
+    """Print and gate the tp phase's readings of both ranks (the module
+    docstring's item); returns each rank's launches of the whole phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import runtime
+    from repro_torch.models import lm
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.transformer import RunConfig
+
+    tag = "tp"
+    r0 = outs[0]
+    log(f"[{tag}] qwen2_0_5b on a 1x2 mesh (two ranks on cuda:0 over gloo): rank 0 holds "
+        f"{r0['cuts']['cut']} of {r0['cuts']['leaves']} leaves cut over 'model' (layer 0: "
+        f"{r0['cuts']['layer 0']}; {r0['cuts']['other']}); init {r0['init_s']:.1f} s a rank")
+    for out in outs:
+        r = out["rank"]
+        gate_tap(tag, f"rank {r} serving with the fused sites opted in", out["serve_tap"],
+                 want=SERVE_TAP)
+        for key in ("serve_tiers", "serve_fused_tiers"):
+            if out[key].get("reference", 0):
+                raise AssertionError(f"{tag}: rank {r}'s serving fell to the reference tier: "
+                                     f"{out[key]}")
+        missing = [k for k in SERVE_KERNELS if out["serve_launches"].get(k, 0) <= 0]
+        missing += [k for k in ("matmul_bias_act", "rmsnorm_matmul")
+                    if out["serve_fused_launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{tag}: rank {r} never launched {missing} serving")
+    if outs[0]["tokens"] != outs[1]["tokens"]:
+        raise AssertionError(f"{tag}: the ranks emitted different tokens")
+    got, want = outs[0]["tokens"], outs[0]["want"]
+    agree = sum(int(a == b) for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(len(w) for w in want)
+    first = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+             for g, w in zip(got, want)]
+    fused = sum(int(a == b) for g, w in zip(r0["tokens_fused"], want) for a, b in zip(g, w))
+    log(f"[{tag}] served {len(got)} greedy requests of {TP_NEW} new tokens in "
+        f"{r0['serve_s']:.2f} s; tokens equal to the serve phase's one process (the same "
+        f"configuration: no database): {agree}/{total}; first differing step by request "
+        f"{first}; launches {r0['serve_launches']}. With the fused sites opted in "
+        f"({r0['serve_fused_s']:.2f} s, every launch held): {fused}/{total} equal (the "
+        f"fused norm and bias round elsewhere); launches {r0['serve_fused_launches']}")
+    # Each 1x2 token against one process's logits on the same history
+    # (teacher forcing: the prompt and the 1x2 tokens before it, one forward):
+    # a greedy token is that step's argmax, or within TOL_LOGITS of max|logits|
+    # of it (a near-tie bf16 roundings may turn either way)
+    gaps, off = [], []
+    params = lm.init_params(get_config("qwen2_0_5b"), seed, "cuda")
+    cfg = get_config("qwen2_0_5b")
+    with torch.inference_mode(), runtime(name="tp-teacher"):
+        for (prompt, _), toks in zip(READINGS["serve_greedy"], got):
+            seq = torch.tensor([list(prompt) + toks[:-1]], device="cuda")
+            x, _, _ = lm.forward(params, {"tokens": seq}, cfg, RunConfig(), mode="train")
+            logits = unembed(params["lm_head"], x[0, len(prompt) - 1:]).float()
+            top = logits.max(-1).values
+            mine = logits.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+            gap = ((top - mine) / logits.abs().amax(-1)).tolist()
+            gaps.append(max(gap))
+            off.append(sum(g > 0 for g in gap))
+    del params
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the 1x2 tokens against one process's logits on their own history: steps "
+        f"not that step's argmax by request {off}; the largest gap to the argmax by request "
+        f"{[round(g, 5) for g in gaps]} of max|logits| (tol {TOL_LOGITS}; the serve phase's "
+        f"two paths agreed on {READINGS.get('serve_greedy_agree', 'n/a')} of their greedy "
+        f"tokens)")
+    if max(gaps) > TOL_LOGITS:
+        msg = (f"{tag}: a 1x2 greedy token is not one process's choice on its history: gaps "
+               f"{gaps} over {TOL_LOGITS}")
+        log(f"[{tag}] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+    pr = r0["probe"]
+    log(f"[{tag}] prefill logits (300 tokens, bucket 512), 1x2 against the serve phase's one "
+        f"process: shape {pr['shape']}, finite {pr['finite']}, rel to max|one| "
+        f"{pr['rel']:.3e} (tol {TOL_LOGITS}); argmax {pr['argmax']}")
+    if not pr["finite"] or pr["shape"] != [1, 151936] or pr["rel"] > TOL_LOGITS:
+        msg = f"{tag}: prefill logits: {pr}"
+        log(f"[{tag}] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+    sc = r0["serve_collectives"]
+    log(f"[{tag}] rank 0 serving: decode step {r0['decode_ms']:.2f} ms median (one process, "
+        f"serve phase: {READINGS.get('decode_step_ms', float('nan')):.2f} ms); prefill by "
+        f"bucket (ms) {({b: round(v, 2) for b, v in r0['prefill_ms'].items()})} (one process: "
+        f"{({b: round(v, 2) for b, v in READINGS.get('serve_prefill_ms', {}).items()})}); "
+        f"collectives of the run: bytes {sc['bytes_by_kind']}, calls {sc['calls_by_kind']}, "
+        f"seconds {({k: round(v, 3) for k, v in sc['seconds_by_kind'].items()})}; stats "
+        f"{r0['stats']}; peak {[round(o['serve_peak_gib'], 2) for o in outs]} GiB by rank")
+    for out in outs:
+        r, ms = out["rank"], out["metrics"]
+        gate_tap(tag, f"rank {r} train step 1", out["train_tap"], want=TRAIN_TAP)
+        missing = [k for k in TRAIN_KERNELS if out["train_launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{tag}: rank {r} never launched {missing} training")
+        for phase in ("fwd", "bwd"):
+            if out["train_tiers"].get(phase, {}).get("reference", 0):
+                raise AssertionError(f"{tag}: rank {r}'s {phase} dispatches fell to the "
+                                     f"reference tier: {out['train_tiers'][phase]}")
+        per = [{"model_s": round(m["model_s"], 3), "model_bytes": m["model_bytes"]} for m in ms]
+        last = out["train_collectives"][-1]
+        log(f"[{tag}] rank {r} train: losses {[round(m['loss'], 6) for m in ms]}, grad norms "
+            f"{[round(m['grad_norm'], 4) for m in ms]}; step times (ms) "
+            f"{[round(1e3 * m['step_time_s'], 1) for m in ms]}; the tensor axis's collectives "
+            f"a step (forward and backward; gloo through host memory on one card) {per}; by "
+            f"kind in the last step: bytes {last['bytes_by_kind']}, seconds "
+            f"{({k: round(v, 3) for k, v in last['seconds_by_kind'].items()})}; "
+            f"peak {out['train_peak_gib']:.2f} GiB; replicated leaves bit-identical across the "
+            f"ranks after each of {len(ms)} steps; launches {out['train_launches']}")
+    if [m["loss"] for m in outs[0]["metrics"]] != [m["loss"] for m in outs[1]["metrics"]]:
+        raise AssertionError(f"{tag}: the ranks report different losses")
+    g1 = r0["gate1"]
+    loss_rel = abs(g1["loss"] - g1["loss_one"]) / abs(g1["loss_one"])
+    limit = lambda n: TOL_GRAD_KBIAS if n.endswith("/mixer/k/b") else TOL_GRAD
+    over = [(round(r, 5), n) for r, n in zip(g1["rels"], g1["names"]) if r > limit(n)]
+    by_layer = collections.defaultdict(float)
+    for r, n in zip(g1["rels"], g1["names"]):
+        parts = n.split("/")
+        key = f"layer {parts[3]}" if parts[1] == "segments" else parts[1]
+        by_layer[key] = max(by_layer[key], r)
+    rels = sorted(g1["rels"])
+    log(f"[{tag}] step 1 against one process: loss {g1['loss']:.6f} vs {g1['loss_one']:.6f}, rel "
+        f"{loss_rel:.3e} (tol {TOL_LOSS}); ||g_tp - g_1|| / ||g_1|| over {len(rels)} leaves: "
+        f"median {rels[len(rels) // 2]:.3e}, the worst leaf by layer "
+        f"{({k: round(v, 5) for k, v in by_layer.items()})} (tol {TOL_GRAD}; k biases "
+        f"{TOL_GRAD_KBIAS})")
+    if loss_rel > TOL_LOSS or over:
+        msg = (f"{tag}: step-1 gate: the 1x2 step differs from one process's: loss rel "
+               f"{loss_rel:.3g}; leaves over their limit: {over[:8]}")
+        log(f"[{tag}] FAILED {msg}")
+        GATE_FAILURES.append(msg)
+    READINGS.update(tp_step_ms=[1e3 * m["step_time_s"] for m in r0["metrics"]],
+                    tp_decode_ms=r0["decode_ms"])
+    runs = ("serve_launches", "serve_fused_launches", "train_launches")
+    return [{k: sum(o[run].get(k, 0) for run in runs) for run in runs for k in o[run]}
+            for o in outs]
 
 
 def phase_hybrid_train(seed: int):
@@ -5315,7 +5840,7 @@ def main() -> int:
     xlstm_launches = timed("xlstm", phase_xlstm, args.seed)
     train_launches, heuristic_step_ms, heuristic_steps = timed("train", phase_train, args.seed)
     timed("resilience", phase_resilience, args.seed)
-    dp_launches = timed("dp", phase_dp, args.seed)
+    dp_launches, tp_launches = timed("dp", phase_dp, args.seed)
     pali_launches, pali_batch = timed("paligemma-train", phase_paligemma_train, args.seed)
     hybrid_train_launches, hybrid_batch = timed("hybrid-train", phase_hybrid_train, args.seed)
     moe_train_launches, moe_batch = timed("moe-train", phase_moe_train, args.seed)
@@ -5384,6 +5909,12 @@ def main() -> int:
                 "flash_attention": "q[2,8,2048,256] kv[2,1,2048,256] causal bf16",
                 "flash_attention_bwd": "q[2,8,2048,256] kv[2,1,2048,256] causal bf16"},
             "arctic": {"expert_gemm": "[128,10,7168]@[128,7168,4864] bf16"},
+            "tp": {"matmul": "[2048,896]@[896,75968] bf16",
+                   "softmax_xent": "[2048,75968] bf16", "softmax_xent_bwd": "[2048,75968] bf16",
+                   "flash_attention": "q[4,7,2048,64] kv[4,1,2048,64] causal bf16",
+                   "flash_attention_bwd": "q[4,7,2048,64] kv[4,1,2048,64] causal bf16",
+                   "matmul_bias_act": "[8192,896]@[896,2432] bf16 asilu",
+                   "rmsnorm_matmul": "[8,896]x[896,75968] bf16"},
             "xlstm": {"matmul": "[2048,2048]@[2048,2752] bf16", "rmsnorm": "[2048,2048] bf16"},
             "xlstm_train": {"matmul": "[2048,2048]@[2048,2752] bf16",
                             "rmsnorm": "[2048,2048] bf16", "rmsnorm_bwd": "[2048,2048] bf16",
@@ -5440,6 +5971,11 @@ def main() -> int:
         if dp_launches[0].get(name, 0):
             entry["dp"] = {"path": "dp", "launches": dp_launches[0][name],
                            "launches_by_rank": [by.get(name, 0) for by in dp_launches]}
+        if name in pick["tp"] or tp_launches[0].get(name, 0):
+            # the norms run at the train phase's shapes on a rank too
+            entry["tp"] = dict(at(name, "tp" if name in pick["tp"] else "train",
+                                  tp_launches[0]), path="tp",
+                               launches_by_rank=[by.get(name, 0) for by in tp_launches])
         if name in pick["xlstm"]:
             entry["xlstm"] = at(name, "xlstm", xlstm_launches)
         if name in pick["xlstm_train"]:

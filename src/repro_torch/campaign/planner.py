@@ -251,6 +251,21 @@ def _parse_mesh_axes(mesh_axes) -> Dict[str, int]:
     return {k: int(v) for k, v in dict(mesh_axes).items()}
 
 
+def _rank_widths(cfg: ArchConfig, sizes: Dict[str, int], layout) -> Dict[str, Any]:
+    """The widths one rank dispatches on a mesh of ``sizes`` under
+    ``layout`` (``tensor_parallel.rank_widths``, the global widths with no
+    tensor axis), and the scenario tag of its tensor axis."""
+    from ..distributed import tensor_parallel as tp
+
+    layout = layout if layout is not None else default_layout(cfg)
+    t = tp.tensor_size(sizes, layout) if sizes else 1
+    w = tp.rank_widths(cfg, sizes if t > 1 else {}, layout)
+    w["tag"] = f"@tp{t}" if t > 1 else ""
+    # a row-parallel product's key: fp32 out (models/layers.py:row_parallel)
+    w["row"] = "o32" if t > 1 else ""
+    return w
+
+
 def plan_training_jobs(
     cfg: ArchConfig,
     shape: ShapeSpec,
@@ -269,7 +284,12 @@ def plan_training_jobs(
     give the step's data-parallel degree, as JAX's planner computes it:
     from the microbatch's global batch. A data-parallel rank of the Trainer
     runs its share of each microbatch's rows, so the planned rows are the
-    rank's; the scenarios read ``@dp{degree}``, ``@dp1`` with no mesh.
+    rank's; the scenarios read ``@dp{degree}``, ``@dp1`` with no mesh. A
+    tensor axis of t > 1 ranks plans the widths a rank dispatches
+    (``tensor_parallel.rank_widths``): the column-parallel gemms' ``n`` and
+    the row-parallel ones' ``k`` over t (their forward keyed ``o32``, the
+    fp32-out product), flash at the rank's heads, the unembed and both cross
+    entropy kernels at ``vocab / t``; the scenarios add ``@tp{t}``.
 
     Each gemm site adds its two gradients, dL/dx = ct[m,n] @ wT[n,k] and
     dL/dw = xT[k,m] @ ct[m,n]; each norm, loss and attention site adds its
@@ -291,7 +311,8 @@ def plan_training_jobs(
     b_mb = max(1, B // max(1, int(run.microbatches)))     # per-microbatch global batch
     dp = data_parallel_degree(sizes, layout, b_mb) if sizes else 1
     b_loc = max(1, b_mb // dp)                            # a rank's rows of it
-    scen = f"{cfg.name}/{shape.name}@dp{dp}"
+    rw = _rank_widths(cfg, sizes, layout)
+    scen = f"{cfg.name}/{shape.name}@dp{dp}" + rw["tag"]
     s = min(S, max_seq)
     T = min(b_loc * s, max_tokens)
     counts = _site_counts(cfg)
@@ -299,8 +320,8 @@ def plan_training_jobs(
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
 
-    def add_gemm(m, kdim, n, weight, dtype=f):
-        add("matmul", [(m, kdim), (kdim, n)], [dtype, dtype], weight, scen)
+    def add_gemm(m, kdim, n, weight, dtype=f, extra=""):
+        add("matmul", [(m, kdim), (kdim, n)], [dtype, dtype], weight, scen, extra=extra)
         add("matmul", [(m, n), (n, kdim)], [dtype, dtype], weight, scen)     # dL/dx
         add("matmul", [(kdim, m), (m, n)], [dtype, dtype], weight, scen)     # dL/dw
 
@@ -311,16 +332,17 @@ def plan_training_jobs(
         add("expert_gemm", [(e, c, n), (e, n, kdim)], [f, f], weight, scen)
         add("expert_gemm", [(e, kdim, c), (e, c, n)], [f, f], weight, scen)
 
-    add_gemm(T, d, H * hd, n_attn)                                   # q proj
-    add_gemm(T, d, KV * hd, 2 * n_attn)                              # k, v proj
-    add_gemm(T, H * hd, d, n_attn)                                   # o proj
+    add_gemm(T, d, rw["q"], n_attn)                                  # q proj
+    add_gemm(T, d, rw["kv"], 2 * n_attn)                             # k, v proj
+    add_gemm(T, rw["o"], d, n_attn, extra=rw["row"])                 # o proj
     if cfg.d_ff > 0 and n_ffn > 0:
         n_up = 2 if cfg.ffn_kind in ("swiglu", "geglu") else 1
-        add_gemm(T, d, cfg.d_ff, n_up * n_ffn)
-        add_gemm(T, cfg.d_ff, d, n_ffn)
+        ff = rw["ff"]
+        add_gemm(T, d, ff, n_up * n_ffn)
+        add_gemm(T, ff, d, n_ffn, extra=rw["row"])
         act = _ACT_OF_FFN.get(cfg.ffn_kind)
         if act:
-            add("matmul_bias_act", [(T, d), (d, cfg.d_ff), (cfg.d_ff,)], [f, f, f], n_ffn,
+            add("matmul_bias_act", [(T, d), (d, ff), (ff,)], [f, f, f], n_ffn,
                 scen, extra=f"a{act}")
     # Norm rows: the layers' norms and the final norm, with the backward's
     # cotangent, x, weight and the saved per-row fp32 inverse rms.
@@ -330,14 +352,15 @@ def plan_training_jobs(
         chunk = max(1, min(int(run.loss_chunk), s))
         rows = min(b_loc * chunk, max_tokens)
         n_chunks = max(1.0, s / chunk)
-        add_gemm(rows, d, cfg.vocab_size, n_chunks)
-        add("softmax_xent", [(rows, cfg.vocab_size), (rows,)], [f, "int32"], n_chunks, scen)
-        add("softmax_xent_bwd", [(rows,), (rows, cfg.vocab_size), (rows,), (rows,)],
+        vocab = rw["vocab"]
+        add_gemm(rows, d, vocab, n_chunks)
+        add("softmax_xent", [(rows, vocab), (rows,)], [f, "int32"], n_chunks, scen)
+        add("softmax_xent_bwd", [(rows,), (rows, vocab), (rows,), (rows,)],
             ["float32", f, "int32", "float32"], n_chunks, scen)
     b_att = max(1, min(b_loc, max_tokens // max(1, s)))
-    q = (b_att, H, s, hd)
-    kv = (b_att, KV, s, hd)
-    lse_s = (b_att, H, s)
+    q = (b_att, rw["heads"], s, hd)
+    kv = (b_att, rw["kv_heads"], s, hd)
+    lse_s = (b_att, rw["heads"], s)
     for w, n in sorted(counts["windows"].items()):
         add("flash_attention", [q, kv, kv], [f, f, f], n, scen, extra=f"cTruew{w}")
         add("flash_attention_bwd", [q, q, kv, kv, q, lse_s], [f, f, f, f, f, "float32"], n,
@@ -402,6 +425,8 @@ def plan_serving_jobs(
     max_seq: int = 256,
     kernels: Sequence[str] = DEFAULT_KERNELS,
     max_tokens: int = MAX_TOKENS,
+    mesh_axes=None,
+    layout=None,
 ) -> List[TuningJob]:
     """Kernel jobs for every slot-pool bucket a ServingEngine runs.
 
@@ -413,7 +438,10 @@ def plan_serving_jobs(
     for each distinct window of the layer pattern, as in training: the JAX
     planner plans ``cTruew0`` alone, a key a windowed layer never looks up.
     An arch with a frontend is not served (the engine refuses it), so it
-    plans nothing, as in JAX.
+    plans nothing, as in JAX. ``mesh_axes`` (a size map or a "DATAxMODEL"
+    spec) and ``layout`` plan the widths a rank of a tensor axis
+    dispatches, as :func:`plan_training_jobs` does; the scenarios add
+    ``@tp{t}``.
     """
     if cfg.frontend is not None:
         return []
@@ -431,16 +459,19 @@ def plan_serving_jobs(
     jobs: List[TuningJob] = []
     add = _adder(jobs, kernels)
     B = max_batch
+    rw = _rank_widths(cfg, _parse_mesh_axes(mesh_axes), layout)
+    qw, kvw, ow, ffw, V = rw["q"], rw["kv"], rw["o"], rw["ff"], rw["vocab"]
+    H, KV = rw["heads"], rw["kv_heads"]
     for s in _seq_buckets(max_seq):
         if s <= max_tokens:
-            scen = f"{cfg.name}/serve_prefill_b1s{s}"
-            add("matmul", [(s, d), (d, H * hd)], [f, f], n_attn, scen)
-            add("matmul", [(s, d), (d, KV * hd)], [f, f], 2 * n_attn, scen)
-            add("matmul", [(s, H * hd), (H * hd, d)], [f, f], n_attn, scen)
+            scen = f"{cfg.name}/serve_prefill_b1s{s}" + rw["tag"]
+            add("matmul", [(s, d), (d, qw)], [f, f], n_attn, scen)
+            add("matmul", [(s, d), (d, kvw)], [f, f], 2 * n_attn, scen)
+            add("matmul", [(s, ow), (ow, d)], [f, f], n_attn, scen, extra=rw["row"])
             if cfg.d_ff > 0:
-                add("matmul", [(s, d), (d, cfg.d_ff)], [f, f], n_up * n_ffn, scen)
-                add("matmul", [(s, cfg.d_ff), (cfg.d_ff, d)], [f, f], n_ffn, scen)
-            add("matmul", [(1, d), (d, cfg.vocab_size)], [f, f], 1.0, scen)
+                add("matmul", [(s, d), (d, ffw)], [f, f], n_up * n_ffn, scen)
+                add("matmul", [(s, ffw), (ffw, d)], [f, f], n_ffn, scen, extra=rw["row"])
+            add("matmul", [(1, d), (d, V)], [f, f], 1.0, scen)
             add("rmsnorm", [(s, d), (d,)], [f, f], n_norm, scen)
             q, kv = (1, H, s, hd), (1, KV, s, hd)
             for w, n in sorted(counts["windows"].items()):
@@ -467,16 +498,16 @@ def plan_serving_jobs(
             add("expert_gemm", [(e, cap, cfg.d_ff), (e, cfg.d_ff, d)], [f, f], n_moe, scen)
         if B * s > max_tokens:
             continue
-        scen = f"{cfg.name}/serve_decode_b{B}s{s}"
-        add("matmul", [(B, d), (d, H * hd)], [f, f], n_attn * s, scen)
-        add("matmul", [(B, d), (d, KV * hd)], [f, f], 2 * n_attn * s, scen)
-        add("matmul", [(B, H * hd), (H * hd, d)], [f, f], n_attn * s, scen)
+        scen = f"{cfg.name}/serve_decode_b{B}s{s}" + rw["tag"]
+        add("matmul", [(B, d), (d, qw)], [f, f], n_attn * s, scen)
+        add("matmul", [(B, d), (d, kvw)], [f, f], 2 * n_attn * s, scen)
+        add("matmul", [(B, ow), (ow, d)], [f, f], n_attn * s, scen, extra=rw["row"])
         if cfg.d_ff > 0:
-            add("matmul", [(B, d), (d, cfg.d_ff)], [f, f], n_up * n_ffn * s, scen)
-            add("matmul", [(B, cfg.d_ff), (cfg.d_ff, d)], [f, f], n_ffn * s, scen)
-        add("matmul", [(B, d), (d, cfg.vocab_size)], [f, f], float(s), scen)
+            add("matmul", [(B, d), (d, ffw)], [f, f], n_up * n_ffn * s, scen)
+            add("matmul", [(B, ffw), (ffw, d)], [f, f], n_ffn * s, scen, extra=rw["row"])
+        add("matmul", [(B, d), (d, V)], [f, f], float(s), scen)
         add("rmsnorm", [(B, d), (d,)], [f, f], n_norm * s, scen)
-        add("rmsnorm_matmul", [(B, d), (d,), (d, cfg.vocab_size)], [f, f, f], float(s), scen)
+        add("rmsnorm_matmul", [(B, d), (d,), (d, V)], [f, f, f], float(s), scen)
         # Mamba in the pool: the projections at B rows and one ssm_update
         add("matmul", [(B, d), (d, 2 * di)], [f, f], n_mamba * s, scen)
         add("matmul", [(B, di), (di, dtr + 2 * ds)], [f, f], n_mamba * s, scen)
@@ -500,7 +531,7 @@ def plan_serving_jobs(
     s_max = _seq_buckets(max_seq)[-1]
     if B * s_max <= max_tokens:
         add("attn_chunks", [(B, H, 1, hd), (B, KV, s_max, hd), (B, KV, s_max, hd)], [f, f, f],
-            n_attn * s_max, f"{cfg.name}/serve_decode_b{B}s{s_max}")
+            n_attn * s_max, f"{cfg.name}/serve_decode_b{B}s{s_max}" + rw["tag"])
     return jobs
 
 
@@ -514,13 +545,15 @@ def plan_jobs(
     max_seq: int = 4096,
     run: Optional[RunConfig] = None,
     train_mesh=None,
+    serving_mesh=None,
 ) -> List[TuningJob]:
     """The whole campaign workload, in a fixed order: each arch's training
     step (every dispatch site, forward and backward) for each train shape
     and, with ``serving=(max_batch, max_seq)``, its serving buckets.
     ``reduced`` plans the small smoke configs; ``train_mesh`` (an axis ->
     size map or a "DATAxMODEL" spec) plans the training step of one rank on
-    that mesh under each arch's ``default_layout``."""
+    that mesh under each arch's ``default_layout``, ``serving_mesh`` the
+    serving buckets of one rank of a tensor axis."""
     _register_tunables()
     jobs: List[TuningJob] = []
     for name in arch_names:
@@ -533,6 +566,6 @@ def plan_jobs(
                                            max_seq=max_seq))
         if serving is not None:
             jobs.extend(plan_serving_jobs(cfg, serving[0], serving[1], kernels=kernels,
-                                          max_tokens=max_tokens))
+                                          max_tokens=max_tokens, mesh_axes=serving_mesh))
     jobs.sort(key=lambda j: (j.kernel, j.arg_shapes, j.key_extra, j.scenarios))
     return jobs

@@ -71,6 +71,8 @@ def call_kwargs(job: TuningJob) -> Dict[str, Any]:
     """The call's keyword arguments, read back from the job's key extra."""
     if job.kernel == "matmul_bias_act" and job.key_extra.startswith("a"):
         return {"act": job.key_extra[1:]}
+    if job.kernel == "matmul" and job.key_extra == "o32":
+        return {"out": "float32"}
     m = re.fullmatch(r"c(True|False)w(\d+)", job.key_extra)
     if job.kernel in ("flash_attention", "flash_attention_bwd") and m:
         return {"causal": m.group(1) == "True", "window": int(m.group(2))}

@@ -5,7 +5,10 @@ The caller turns the JAX ``lm.init_params`` tree into numpy arrays (e.g.
 builds the port's tree from it. Names and layouts are the same; the one
 structural change is that each segment's leading ``layers`` (scan) axis is
 unstacked into a list of super-blocks, since the port loops over layers.
-:func:`batch_to_tensors` carries a batch dict across the same way.
+:func:`batch_to_tensors` carries a batch dict across the same way. Given a
+mesh and a layout, :func:`from_jax_params` returns a rank's pieces of the
+same tree (``lm.rank_params``: ``sharding.shard_of`` of each leaf the specs
+cut over the tensor axis).
 """
 from __future__ import annotations
 
@@ -36,8 +39,16 @@ def _tree(x, fn):
 
 
 def from_jax_params(np_params, cfg: ArchConfig,
-                    device: Union[str, torch.device, None] = None) -> Any:
-    """The port's parameters from the JAX parameter tree in numpy."""
+                    device: Union[str, torch.device, None] = None, mesh=None,
+                    layout=None) -> Any:
+    """The port's parameters from the JAX parameter tree in numpy; with
+    ``mesh`` (and ``layout``, default ``launch.defaults.default_layout``)
+    this rank's pieces of them."""
+    if mesh is not None:
+        from .models import lm
+
+        host = lm.rank_params(from_jax_params(np_params, cfg, "cpu"), cfg, mesh, layout)
+        return _to(host, resolve_device(device))
     dev = resolve_device(device)
     segments = []
     for seg, stacked in zip(cfg.segments(), np_params["segments"]):
@@ -49,6 +60,18 @@ def from_jax_params(np_params, cfg: ArchConfig,
            for k, v in np_params.items() if k != "segments"}
     out["segments"] = tuple(segments)
     return out
+
+
+def _to(tree, dev):
+    """A tree of (tagged) tensors moved to ``dev``, the tags kept."""
+    from .distributed import tensor_parallel as tp
+
+    def one(t):
+        info = tp.shard_info(t)
+        out = t.to(dev)
+        return out if info is None else tp.mark(out, *info)
+
+    return _tree(tree, one)
 
 
 def batch_to_tensors(batch, device: Union[str, torch.device, None] = None):

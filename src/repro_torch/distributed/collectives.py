@@ -18,9 +18,12 @@ The port of ``repro.distributed.collectives``, over ``torch.distributed``:
   all-gather hops, each moving 1/n of the padded row.
 
 Every collective adds the bytes it moved to a count by kind, with JAX's
-HLO kind names (``all-reduce``: the reduced payload; ``collective-permute``:
-each hop's chunk): :func:`collective_counts`, which the cost model prices
+HLO kind names (``all-reduce``: the reduced payload; ``all-gather``: the
+gathered result; ``collective-permute``: each hop's chunk):
+:func:`collective_counts`, which the cost model prices
 (``core.evaluate.collective_stats``, ``tools.analytic.analytic_roofline``).
+The tensor-parallel collectives (``distributed.tensor_parallel``) also add
+their host seconds by kind (:func:`collective_seconds`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ import torch.nn.functional as F
 # Bytes and calls of every collective, by kind; reset by callers.
 COLLECTIVE_BYTES: "collections.Counter[str]" = collections.Counter()
 COLLECTIVE_CALLS: "collections.Counter[str]" = collections.Counter()
+# Host seconds of the collectives that time themselves, by kind.
+COLLECTIVE_SECONDS: "collections.Counter[str]" = collections.Counter()
 
 # The trainer's gradient buckets: 256 MiB of fp32 each (10 calls for
 # qwen2_0_5b's 2.52 GB of fp32 gradients).
@@ -47,9 +52,15 @@ def collective_counts() -> Dict[str, Dict[str, int]]:
     return {"bytes_by_kind": dict(COLLECTIVE_BYTES), "calls_by_kind": dict(COLLECTIVE_CALLS)}
 
 
+def collective_seconds() -> Dict[str, float]:
+    """Host seconds by kind since the last :func:`reset_collective_counts`."""
+    return dict(COLLECTIVE_SECONDS)
+
+
 def reset_collective_counts() -> None:
     COLLECTIVE_BYTES.clear()
     COLLECTIVE_CALLS.clear()
+    COLLECTIVE_SECONDS.clear()
 
 
 def _count(kind: str, nbytes: int) -> None:
@@ -88,7 +99,8 @@ def _dequant_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compress_grads(grads, ef_state, mode: str = "none",
-                   scale_groups: Optional[Sequence[Sequence[int]]] = None):
+                   scale_groups: Optional[Sequence[Sequence[int]]] = None,
+                   cut: Optional[Sequence[bool]] = None):
     """(compressed grads, new error-feedback state), JAX's numerics.
     ``grads`` is a tree (or a list) of tensors, ``ef_state`` the same tree
     from :func:`ef_init` for ``int8_ef`` and unused otherwise. ``bf16`` and
@@ -98,7 +110,10 @@ def compress_grads(grads, ef_state, mode: str = "none",
     layers into one tensor a leaf, where the port keeps a leaf a layer:
     ``scale_groups`` (for a list of gradients) names the leaves that are one
     JAX tensor, which then share its scale (every leaf in exactly one
-    group; the Trainer passes its stacked groups)."""
+    group; the Trainer passes its stacked groups). ``cut`` flags the leaves
+    that are a rank's pieces of a tensor cut over the tensor axis: their
+    group's max is taken over the axis's ranks (a collective of the ambient
+    mesh context), so the scale is the global tensor's."""
     if mode == "none":
         return grads, ef_state
     if mode == "bf16":
@@ -111,11 +126,24 @@ def compress_grads(grads, ef_state, mode: str = "none",
     for group in scale_groups:
         g32 = {i: grads[i].float() + ef_state[i] for i in group}
         amax = torch.stack([g.abs().max() for g in g32.values()]).max()
+        if cut is not None and any(cut[i] for i in group):
+            amax = _max_over_tensor_axis(amax)
         scale = torch.clamp_min(amax, 1e-12) / 127.0
         for i, g in g32.items():
             out[i] = _dequant_int8(_quant_int8_at(g, scale), scale)
             new_ef[i] = g - out[i]
     return out, new_ef
+
+
+def _max_over_tensor_axis(x: torch.Tensor) -> torch.Tensor:
+    """The max of a scalar over the ambient tensor axis's ranks."""
+    from . import tensor_parallel as tp
+
+    ax = tp.model_axis()
+    if ax.size <= 1:
+        return x
+    buf = x.reshape(1).to(comm_device(x.device, ax.group))
+    return all_reduce(buf, "max", group=ax.group).to(x.device)[0]
 
 
 def _quant_int8_at(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -158,6 +186,18 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     dist.all_reduce(t, op=ops[op], group=group)
     _count("all-reduce", t.numel() * t.element_size())
     return t
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The group's ``t`` stacked along a new leading dim in group-rank
+    order (``all_gather_into_tensor``), counted by the gathered bytes."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out.view(-1), t.contiguous().view(-1), group=group)
+    _count("all-gather", out.numel() * out.element_size())
+    return out
 
 
 @torch.no_grad()

@@ -15,11 +15,21 @@ the host mesh of :func:`repro_torch.launch.mesh.make_host_mesh`, or a plain
 ``{axis: size}`` map, so the campaign planner solves for a mesh no process
 group exists for.
 
-What the port does with the specs: the Trainer runs data parallelism, one
-process a rank over replicated parameters (it refuses a spec that shards a
-parameter, which waits for the tensor-parallel slice). :func:`constrain`
-and :func:`constrain_heads` are identities here: the port has no SPMD
-compiler to hint, and the tensor-parallel slice gives them meaning.
+What the port does with the specs: one process a rank. The Trainer runs
+data parallelism over the data axes and tensor parallelism over the tensor
+axis (``distributed.tensor_parallel``): a rank holds :func:`shard_of` of
+every parameter whose spec cuts it over the tensor axis, and the layers run
+column-parallel, row-parallel and vocab-parallel from those cuts. The
+serving engine runs the tensor axis (a data axis of one rank). What still
+raises ``NotImplementedError``: FSDP (a parameter cut over a data axis),
+and on a tensor axis of more than one rank experts, recurrent mixers,
+frontends and a pod axis (``tensor_parallel.check_supported``).
+:func:`constrain` and :func:`constrain_heads` are where an activation's
+layout is made what the spec says: a rank holding a shard of an activation
+whose spec wants it replicated all-gathers it; where the two agree they do
+nothing. :func:`cache_shardings` is JAX's and is kept as it is; the port's
+cache follows the heads a rank computes instead (``tensor_parallel.
+head_plan``), the same results in another layout.
 
 Local-shape keys: in JAX, dispatch under ``jit`` sees global shapes and
 :func:`localize_shapes` divides them by the ambient degree. A port rank's
@@ -168,6 +178,43 @@ def param_shardings(axes_tree, shapes_tree, mesh, layout: Layout):
     sizes = mesh_axis_sizes(mesh)
     return _map_axes(lambda ax, leaf: spec_for_dims(ax, tuple(leaf.shape), sizes, layout),
                      axes_tree, shapes_tree)
+
+
+def _axes_of(part) -> Tuple[str, ...]:
+    return tuple(a for a in (part if isinstance(part, tuple) else (part,)) if a is not None)
+
+
+def shard_of(tensor, spec: PartitionSpec, sizes, coord: Mapping[str, int]):
+    """This rank's shard of the global ``tensor`` under ``spec``: each dim
+    the spec cuts over mesh axes is cut into the product of their sizes,
+    and the rank keeps the piece its ``coord`` (``{axis: coordinate}``)
+    names, the axes read as digits, the first the most significant (JAX's
+    order). A contiguous copy, or ``tensor`` itself when the spec cuts
+    nothing."""
+    sizes = mesh_axis_sizes(sizes)
+    out = tensor
+    for dim, part in enumerate(spec):
+        axes = [a for a in _axes_of(part) if sizes.get(a, 1) > 1]
+        if not axes:
+            continue
+        count, index = 1, 0
+        for a in axes:
+            count *= sizes[a]
+            index = index * sizes[a] + int(coord[a])
+        if out.shape[dim] % count:
+            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not split {count} ways")
+        n = out.shape[dim] // count
+        out = out.narrow(dim, index * n, n)
+    return tensor if out is tensor else out.contiguous().clone()
+
+
+def gather_full(tensor, ax=None):
+    """The global tensor of this rank's tagged shard (the inverse of
+    :func:`shard_of` over the tensor axis): an all-gather over it, so every
+    rank of the axis calls it. An untagged tensor is returned as it is."""
+    from . import tensor_parallel as tp
+
+    return tp.gather_full(tensor, ax)
 
 
 def spec_leaves(tree):
@@ -388,13 +435,45 @@ def current_dp_approx() -> bool:
     return bool(_DP_APPROX.get())
 
 
-def constrain(x, *dims):
-    """JAX's sharding hint; the identity in the port, which has no SPMD
-    compiler to hint (the tensor-parallel slice gives it meaning)."""
+def constrain(x, *dims, full_shape: Optional[Sequence[int]] = None):
+    """JAX's sharding hint, given meaning on a rank's activation ``x``:
+    ``dims`` names a mesh axis (or None) a dim, ``full_shape`` is the global
+    shape (default ``x``'s: a replicated activation). A dim the rank holds a
+    piece of (shorter than ``full_shape``) whose hint is not the tensor axis
+    is all-gathered; a whole dim whose hint is the tensor axis is cut to the
+    rank's piece; a dim whose layout agrees with its hint is left. The
+    identity outside a mesh context or on a tensor axis of one rank."""
+    from . import tensor_parallel as tp
+
+    ctx = _MESH_CTX.get()
+    ax = tp.model_axis()
+    if ctx is None or ax.size <= 1:
+        return x
+    t_axis = ctx[1].tensor_axis
+    full = tuple(full_shape) if full_shape is not None else tuple(x.shape)
+    for i in range(x.dim()):
+        want = i < len(dims) and dims[i] == t_axis
+        cut = x.shape[i] < full[i]
+        if cut and not want:
+            x = tp.gather_from_model(x, i, ax)
+        elif want and not cut and x.shape[i] % ax.size == 0:
+            x = tp.scatter_to_model(x, i, ax)
     return x
 
 
-def constrain_heads(x, n_units: int, unit_dim: int):
-    """JAX's head-aware sharding hint around the head split and merge; the
-    identity in the port, as :func:`constrain`."""
-    return x
+def constrain_heads(x, n_units: int, unit_dim: int, full: Optional[int] = None):
+    """JAX's head-aware hint around the head split and merge, on a rank's
+    activation ``x`` whose dim ``unit_dim`` carries ``n_units`` heads of a
+    global width ``full`` (default: ``x``'s, replicated). The hint keeps the
+    dim cut over the tensor axis only when the cut falls between heads
+    (``n_units`` divisible by its size); a rank holding a cut that splits a
+    head gathers the whole dim (XLA's "involuntary full rematerialization":
+    exact, not fast). The batch dim is the rank's already."""
+    if full is None or x.shape[unit_dim] == full:
+        return x
+    from . import tensor_parallel as tp
+
+    ax = tp.model_axis()
+    if ax.size > 1 and n_units % ax.size == 0:
+        return x
+    return tp.gather_from_model(x, unit_dim, ax)

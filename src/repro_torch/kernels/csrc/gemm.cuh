@@ -80,6 +80,11 @@
 //   increasing order from 0.f, so at one split its bits are the first
 //   port's loop's (gemm_simt_loop, kept behind GEMM_LOOP as the yardstick).
 //
+// fp32 out (tc, decode, wmma; matmul.cu with no C): the same raw fp32
+// partial sums go to the workspace, one split or several, and the caller
+// adds them (a tensor-parallel rank's row-parallel product, summed over the
+// ranks in fp32 and rounded once). A kernel writes partials exactly when it
+// is given a workspace, which the wrappers allocate for a split or fp32 out.
 // Split-k (tc, decode, simt): the k slices are cut into `splits` ranges of
 // kps whole slices each (kernels/matmul.py:split_k), one range a CTA on
 // blockIdx.z / batch. Each writes its raw fp32 partial sums to a workspace
@@ -460,7 +465,7 @@ gemm_tc(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtens
   reg_fence(acc);
 
   const int r0 = row0 + 64 * wg;
-  if (gridDim.z > batch) {                                   // a split: fp32 partials
+  if (ws != nullptr) {                        // a split, or fp32 out: raw fp32 partials
     store_partial<BN>(ws + ((size_t)split * batch + z) * m * n, acc, m, n, r0, col0);
     return;
   }
@@ -610,7 +615,7 @@ gemm_decode(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
     for (int j = 0; j < 8; ++j) so[acc_col(j) * C::LDO + 64 * t + acc_row(j)] = acc[t][j];
   named_sync(1, 128);
   constexpr int VPR = BN / 8;                               // 8-element vectors a row
-  const bool split_out = gridDim.z > batch;
+  const bool split_out = ws != nullptr;                     // a split, or fp32 out
   for (int i = threadIdx.x; i < DEC_ROWS * VPR; i += 128) {
     const int r = i / VPR, gr = row0 + r, gc = col0 + 8 * (i % VPR);
     if (gr >= m || gc >= n) continue;
@@ -889,7 +894,7 @@ gemm_simt_loop(const float* __restrict__ A, const float* __restrict__ B, float* 
   const int z = blockIdx.z % batch, split = blockIdx.z / batch;
   A += z * sa;
   B += z * sb;
-  const bool partial = gridDim.z > batch;
+  const bool partial = ws != nullptr;                       // a split, or fp32 out
   float* out = partial ? ws + ((size_t)split * batch + z) * m * n : C + (size_t)z * m * n;
   const int kb = split * kps * bk, ke = min(k, kb + kps * bk);
   // Shared tiles in the stored layout, as in the bf16 kernel.
@@ -1699,7 +1704,8 @@ static int launch(const Problem& p) {
         return cudaErrorInvalidValue;
     }
   }
-  if (err != cudaSuccess || p.splits == 1) return err;
+  // fp32 out (no C): the raw partials stay in the workspace for the caller
+  if (err != cudaSuccess || p.splits == 1 || p.c == nullptr) return err;
   const long long count = (long long)p.batch * p.m * p.n;
   const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
   if (bf)

@@ -98,7 +98,8 @@ __global__ void __launch_bounds__(512) xent_fwd(const T* __restrict__ logits, co
     for (int j = 0; j < N; ++j) acc += expf(v[j] - m_new);
     l = l * expf(m - m_new) + acc;
     m = m_new;
-    if (label >= c0 && label < c0 + BV) {
+    // a label past the row (in the masked tail of the last step) is off it
+    if (label >= c0 && label < c0 + BV && label < V) {
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (col_of<T, VEC>(j, c0, lane) == label) ll = v[j];

@@ -46,6 +46,15 @@ stored (row-major or transposed, with its own leading dimension; the
 tensor-core routes through the descriptors' transpose bits), so the
 transposed views are never copied.
 
+``out="float32"`` (a call kwarg, keyed ``o32``) returns bf16 operands'
+product in fp32, unrounded: the tc and decode routes write their raw fp32
+partial sums to the workspace they write split-k partials to, with no C
+and no sum kernel, and the wrapper adds the splits in order. A
+tensor-parallel rank's row-parallel projection takes it, so that the
+ranks' partial products are summed in fp32 and rounded once, as one
+device's product is. Its backward is the usual one on the cotangent in the
+operands' dtype.
+
 On a CPU tensor the wrapper runs :func:`matmul_plain`, the kernel's
 function in plain PyTorch; on a CUDA tensor it launches a kernel or raises.
 """
@@ -270,14 +279,18 @@ def _matmul_canon(x, w):
             lambda out: out.reshape(*lead, out.shape[-1]))
 
 
-def _matmul_bwd(ct, x, w, **kwargs):
+def _matmul_bwd(ct, x, w, out: str = "", **kwargs):
     """Backward plan: dL/dx = ct [m,n] @ w^T [n,k] and dL/dw = x^T [k,m] @
     ct [m,n], each a ``matmul`` dispatch site with its own database key (the
     keys of ``repro.kernels.matmul._matmul_bwd``). ``dp_dims`` names the
     token dim of the transposed operand for sharded keying in the JAX
-    package; on one device it changes nothing."""
+    package; on one device it changes nothing. An fp32-out product's
+    cotangent is taken in the operands' dtype, so its gradients are the
+    usual product's."""
     from ..core.runtime import dispatch
 
+    del out
+    ct = ct.to(x.dtype)
     dx = dispatch("matmul", ct, w.T, **kwargs)
     dw = dispatch("matmul", x.T, ct, dp_dims={0: 1, 1: 0}, **kwargs)
     return dx, dw
@@ -500,16 +513,24 @@ def workspace(p: dict, batch: int, m: int, n: int, device):
     return torch.empty((p["splits"], batch, m, n), dtype=torch.float32, device=device)
 
 
-def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: fp32 accumulation, cast."""
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+def _out_dtype(x: torch.Tensor, out: str) -> torch.dtype:
+    if out not in ("", "float32"):
+        raise ValueError(f"matmul out={out!r}: '' (the operands' dtype) or 'float32'")
+    return torch.float32 if out else x.dtype
+
+
+def matmul_plain(x: torch.Tensor, w: torch.Tensor, out: str = "") -> torch.Tensor:
+    """The kernel's function in plain PyTorch: fp32 accumulation, cast (to
+    the operands' dtype, or kept in fp32 for ``out="float32"``)."""
+    return torch.matmul(x.float(), w.float()).to(_out_dtype(x, out))
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int, bk: int, stages: int,
-                splits: int, force_loop: bool = False) -> torch.Tensor:
+                splits: int, force_loop: bool = False, out: str = "") -> torch.Tensor:
     """Launch csrc/matmul.cu on CUDA tensors; either operand may be a
     transposed view. ``force_loop`` runs the first port's tile loop whatever
-    the rule says (a before-and-after of the same call)."""
+    the rule says (a before-and-after of the same call). ``out="float32"``:
+    bf16 operands' product unrounded, in fp32 (the module docstring)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul takes [m,k] @ [k,n], got {tuple(x.shape)} @ {tuple(w.shape)}")
     if x.dtype != w.dtype or x.dtype not in _DTYPES:
@@ -520,17 +541,29 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int, bk: int, 
     m, k = x.shape
     n = w.shape[1]
     p = plan(x, w, dict(bm=bm, bn=bn, bk=bk, stages=stages, splits=splits), force_loop)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ws = workspace(p, 1, m, n, x.device)
+    raw = _out_dtype(x, out) != x.dtype          # fp32 out of bf16 operands
+    if raw and p["route"] not in ("tc", "decode"):
+        raise ValueError(f"matmul out=float32 runs on the tc and decode routes, not "
+                         f"{p['route']}")
+    c = None if raw else torch.empty((m, n), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((p["splits"], 1, m, n), dtype=torch.float32, device=x.device) if raw
+          else workspace(p, 1, m, n, x.device))
     fn = _build.entry("matmul", "repro_matmul",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+    err = fn(x.data_ptr(), w.data_ptr(), None if c is None else c.data_ptr(),
+             None if ws is None else ws.data_ptr(),
              m, n, k, int(ta), int(tb), lda, ldb, _DTYPES[x.dtype], p["code"], p["bm"],
              p["bn"], p["bk"], p["stages"], p["splits"], p["kps"], _build.stream_ptr(x.device))
     _build.check("matmul", err, f"matmul {m}x{k}x{n} ta={ta} tb={tb} {p}")
     count_launch("matmul", p, ta or tb)
-    return out
+    if not raw:
+        return c
+    _build.LAUNCHES["matmul_fp32_out"] += 1
+    acc = ws[0, 0]
+    for s in range(1, p["splits"]):          # the splits in order, as the sum kernel adds them
+        acc = acc + ws[s, 0]
+    return acc
 
 
 @tunable(
@@ -538,13 +571,14 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int, bk: int, 
     space=MATMUL_SPACE,
     reference=ref.matmul,
     heuristic=_matmul_heuristic,
-    dispatch=DispatchSpec(canonicalize=_matmul_canon, vjp="dispatch", bwd=_matmul_bwd),
+    dispatch=DispatchSpec(canonicalize=_matmul_canon, vjp="dispatch", bwd=_matmul_bwd,
+                          key_extra=lambda kw: "o32" if kw.get("out") else ""),
 )
-def matmul(x, w, *, bm: int, bn: int, bk: int, stages: int, splits: int):
+def matmul(x, w, *, bm: int, bn: int, bk: int, stages: int, splits: int, out: str = ""):
     if x.is_cuda:
-        return matmul_cuda(x, w, bm=bm, bn=bn, bk=bk, stages=stages, splits=splits)
+        return matmul_cuda(x, w, bm=bm, bn=bn, bk=bk, stages=stages, splits=splits, out=out)
     if x.device.type == "cpu":
-        return matmul_plain(x, w)
+        return matmul_plain(x, w, out)
     raise _build.KernelUnavailable(f"matmul has no kernel for device {x.device}")
 
 

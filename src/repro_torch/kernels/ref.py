@@ -18,9 +18,10 @@ import torch
 import torch.nn.functional as F
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[m, k] @ [k, n] -> [m, n], fp32 accumulation, output in x.dtype."""
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+def matmul(x: torch.Tensor, w: torch.Tensor, out: str = "") -> torch.Tensor:
+    """[m, k] @ [k, n] -> [m, n], fp32 accumulation, output in x.dtype (in
+    fp32 for ``out="float32"``)."""
+    return torch.matmul(x.float(), w.float()).to(torch.float32 if out else x.dtype)
 
 
 def _invrms(x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -70,6 +70,24 @@ class HostMesh:
         return [0] * len(self.mesh_dim_names)
 
 
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (0 for an axis the mesh lacks)."""
+    names = tuple(mesh.mesh_dim_names)
+    return int(mesh.get_coordinate()[names.index(axis)]) if axis in names else 0
+
+
+def axis_group(mesh, axis: str):
+    """The process group of ``axis`` (the ranks whose coordinates differ on
+    it alone), or ``None`` where it holds one rank: an axis of size 1, an
+    axis the mesh lacks, or the host mesh."""
+    names = tuple(getattr(mesh, "mesh_dim_names", ()) or ())
+    if isinstance(mesh, HostMesh) or axis not in names:
+        return None
+    if int(mesh.mesh.shape[names.index(axis)]) <= 1:
+        return None
+    return mesh.get_group(axis)
+
+
 def make_host_mesh() -> HostMesh:
     """The degenerate 1 x 1 mesh for one process (CPU tests, one card)."""
     return HostMesh()

@@ -22,11 +22,24 @@ plain path prints so and the launcher exits 1.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --smoke --device cpu
     # a campaign's database, every bucket resolved up front:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --db h100.db.json --warmup
+    # tensor parallel, one card a rank (rank, world size and local rank from
+    # torchrun's environment; --device cuda puts a rank on cuda:LOCAL_RANK):
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m repro_torch.launch.serve --arch qwen2_0_5b --mesh 1x2 --backend nccl
+    # two ranks sharing one card (NCCL refuses two ranks on one device):
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m repro_torch.launch.serve --arch qwen2_0_5b --mesh 1x2 --backend gloo --device cuda:0
+
+``--mesh 1xT`` makes each of T ranks one rank of the tensor axis
+(``ServingEngine(mesh=...)``); a mesh with a data axis of more than one
+rank is refused. A rank prints its lines after ``[rank N]``; every rank
+emits the same tokens (rank 0 decides them).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import sys
 from typing import Optional, Sequence
@@ -43,6 +56,8 @@ from ..models import lm
 from ..models.transformer import RunConfig
 from ..obs.metrics import percentile_row
 from ..serving.engine import EngineConfig, Request, ServingEngine
+from . import defaults
+from .mesh import init_ranks, make_host_mesh, make_mesh_from_spec, parse_mesh_spec, rank_env
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -65,12 +80,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "(render with `python -m repro_torch.obs report --metrics <file>`)")
     ap.add_argument("--metrics-sample", type=float, default=1.0,
                     help="obs sample rate of the high-frequency sites (1.0 = all)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL mesh of the torchrun ranks (1xT: tensor parallel)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="process group backend of a --mesh run (gloo for ranks that "
+                         "share a card)")
     args = ap.parse_args(argv)
     if args.db and not os.path.exists(args.db):
         # a typo'd path would open as an empty database and every bucket
         # would silently resolve at the heuristic tier
         ap.error(f"--db {args.db}: no such file")
-    device = resolve_device(args.device)
+    env = rank_env()
+    if env.world_size > 1 and not args.mesh:
+        ap.error(f"{env.world_size} ranks need a --mesh")
+    mesh, device = None, args.device
+    if args.mesh:
+        shape, _ = parse_mesh_spec(args.mesh)
+        if math.prod(shape[:-1]) > 1:
+            ap.error(f"--mesh {args.mesh}: serving with a data axis of more than one rank is "
+                     "not ported; use 1xT")
+        if math.prod(shape) > 1:
+            init_ranks(args.backend, env=env)
+            mesh = make_mesh_from_spec(args.mesh)
+        else:
+            mesh = make_host_mesh()
+        if device == "cuda":
+            device = f"cuda:{env.local_rank}"
+    tag = f"[rank {env.rank}] " if env.world_size > 1 else ""
+    if env.world_size > 1:
+        sys.stdout.reconfigure(line_buffering=True)
+    device = resolve_device(device)
 
     cfg = get_config(args.arch)
     if cfg.frontend is not None:
@@ -82,7 +121,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rt = runtime(db=TuningDatabase(args.db) if args.db else None, mode=args.mode,
                  platform=args.platform, name="serve")
     engine = ServingEngine(cfg, RunConfig(), params,
-                           EngineConfig(max_batch=8, max_seq=args.max_seq), runtime=rt)
+                           EngineConfig(max_batch=8, max_seq=args.max_seq), runtime=rt,
+                           mesh=mesh, layout=defaults.default_layout(cfg) if mesh else None)
     # without --metrics-out the ambient collector is the disabled default
     col = (obs.collect(name="serve", sample_rate=args.metrics_sample)
            if args.metrics_out else None)
@@ -102,10 +142,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         kernels.reset_launch_counts()
         done = engine.serve()
     st = engine.stats
-    print(f"served {len(done)} requests / {st['tokens_out']} tokens on {device}; "
-          f"{st['decode_steps']} pool decode steps, {st['prefill_calls']} prefills")
+    print(f"{tag}served {len(done)} requests / {st['tokens_out']} tokens on {device}; "
+          f"{st['decode_steps']} pool decode steps, {st['prefill_calls']} prefills"
+          + (f", mesh {args.mesh}" if mesh is not None else ""))
     for r in done:
-        print(f"  request {r._order}: {r.output.tolist()}")
+        print(f"{tag}  request {r._order}: {r.output.tolist()}")
     if col is not None:
         snap = col.snapshot()
         for name, label in (("serve.admission_s", "admission"),
@@ -118,13 +159,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         col.write(args.metrics_out)
         print(f"wrote metrics -> {args.metrics_out}")
     print(rt.telemetry.report())
-    print("kernel launches:", kernels.launch_counts())
+    print(f"{tag}kernel launches:", kernels.launch_counts())
     if len(rt.health):
         print(f"quarantined buckets: {rt.health.snapshot()}")
     if engine.degraded:
         print(f"DEGRADED: {st['degraded_calls']} prefills and decode steps ran on the plain "
               "path after a fault (see the serve.degraded warning)", file=sys.stderr)
         raise SystemExit(1)
+    if env.world_size > 1:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

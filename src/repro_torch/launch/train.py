@@ -38,6 +38,10 @@ and replays.
     PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 2 \\
         -m repro_torch.launch.train --arch qwen2_0_5b --mesh 2x1 --backend gloo \\
         --device cuda:0 --compression int8_ef --batch 2 --seq 512 --steps 2
+    # tensor parallel (--mesh 1xT; 2x2 adds a data axis), two ranks sharing one card:
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m repro_torch.launch.train --arch qwen2_0_5b --mesh 1x2 --backend gloo \\
+        --device cuda:0 --batch 2 --seq 512 --steps 2
 
 Without ``--smoke`` the run config and layout are ``launch.defaults``'s
 (``default_run``: ``remat="dots"`` and 4 microbatches for an arch under
@@ -97,7 +101,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--metrics-sample", type=float, default=1.0,
                     help="obs sample rate of the high-frequency sites (1.0 = all)")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL mesh of the torchrun ranks (e.g. 2x1): data parallel")
+                    help="DATAxMODEL mesh of the torchrun ranks (e.g. 2x1: data parallel, "
+                         "1x2: tensor parallel)")
     ap.add_argument("--compression", default="none", choices=MODES,
                     help="gradient compression, applied to the reduced gradient")
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
@@ -165,6 +170,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for i, m in enumerate(steps, start + 1):
         reduce = (f"; all-reduce {m['allreduce_bytes']} B in {m['allreduce_s']:.3f} s"
                   if "allreduce_s" in m else "")
+        if "model_s" in m:
+            reduce += f"; tensor axis {m['model_bytes']} B in {m['model_s']:.3f} s"
         print(f"{tag}step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
               f"lr {m['lr']:.3g} ({m['step_time_s']:.3f} s{reduce})")
     print(f"{tag}trained {cfg.name} on {trainer.device}: {trainer.step} steps of {batch} x "

@@ -12,6 +12,15 @@ Cache layout is the JAX package's: ``[b, clen, kv, hd]`` per layer; full
 attention writes row ``pos``, window layers write ``pos % window``. Decode
 writes the new row into the cache tensor in place (the pool is allocated
 once; copying it per token would move the whole cache every step).
+
+On a tensor axis of several ranks each rank computes the heads of its
+``tensor_parallel.head_plan``, read from its q and k weights' cuts: q, k
+and v column-parallel from one entry of the layer's input into the model
+region, a projection whose cut splits a head gathered whole by
+``sharding.constrain_heads`` before the head split, the kv heads its
+queries read taken from whole k and v (which then enter the model region
+themselves: each rank's queries give part of their gradient), and ``o``
+row-parallel. Its cache holds the kv heads its attention takes.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core import runtime as rt
+from ..distributed import sharding as shd
+from ..distributed import tensor_parallel as tp
 from .layers import Axes, Params, apply_rope, dense, dense_axes, dense_init
 
 NEG_INF = -1e30
@@ -125,6 +136,36 @@ def _split_heads(x, n, hd):
     return x.reshape(b, s, n, hd)
 
 
+def _rank_qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int):
+    """(q, k, v) as [b, s, heads, hd] of the heads this rank computes, and
+    its head plan (all heads on one rank)."""
+    plan = tp.attention_plan(p, n_heads, n_kv)
+    xc = tp.copy_to_model(x) if plan.q_sharded else x
+    q = dense(p["q"], xc)
+    q = shd.constrain_heads(q, n_heads, -1, full=n_heads * head_dim)
+    kv = []
+    for name in ("k", "v"):
+        t = dense(p[name], xc if plan.kv_sharded else x)
+        t = shd.constrain_heads(t, n_kv, -1, full=n_kv * head_dim)
+        if plan.kv_pick is not None:
+            # whole k/v, of which the rank's queries read some heads
+            t = _split_heads(tp.copy_to_model(t), n_kv, head_dim)
+            idx = torch.tensor(plan.kv_pick, dtype=torch.long, device=t.device)
+            t = t.index_select(2, idx).reshape(t.shape[0], t.shape[1], -1)
+        kv.append(t)
+    return (_split_heads(q, plan.q_n, head_dim), _split_heads(kv[0], plan.kv_n, head_dim),
+            _split_heads(kv[1], plan.kv_n, head_dim), plan)
+
+
+def _rank_out(p: Params, y: torch.Tensor, plan) -> torch.Tensor:
+    """``o`` over the attention output [b, s, q heads * hd]: row-parallel on
+    a cut ``o``, on the rank's slice of a whole output where the cut split a
+    head."""
+    if plan.o_slice:
+        y = tp.scatter_to_model(y, -1)
+    return dense(p["o"], y)
+
+
 def attention_forward(
     p: Params,
     x: torch.Tensor,            # [b, s, d_model]
@@ -150,13 +191,13 @@ def attention_forward(
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q = apply_rope(_split_heads(dense(p["q"], x), n_heads, head_dim), positions, rope_theta)
-    k = apply_rope(_split_heads(dense(p["k"], x), n_kv, head_dim), positions, rope_theta)
-    v = _split_heads(dense(p["v"], x), n_kv, head_dim)
+    q, k, v, plan = _rank_qkv(p, x, n_heads, n_kv, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     y = _attend(qh, kh, vh, causal=True, window=window, use_kernel=True,
                 q_chunk=q_chunk, k_chunk=k_chunk)
-    out = dense(p["o"], y.transpose(1, 2).reshape(b, s, n_heads * head_dim))
+    out = _rank_out(p, y.transpose(1, 2).reshape(b, s, plan.q_n * head_dim), plan)
     if not return_cache:
         return out
     clen = cache_len or s
@@ -186,6 +227,8 @@ def attention_forward(
 
 def attention_cache_shape(batch: int, cache_len: int, n_kv: int, head_dim: int,
                           window: int):
+    """One layer's cache: ``n_kv`` is the kv heads the rank's attention
+    takes (``HeadPlan.kv_n``; all of them on one rank)."""
     clen = min(cache_len, window) if window > 0 else cache_len
     return (batch, clen, n_kv, head_dim)
 
@@ -210,9 +253,8 @@ def attention_decode(
     the validity mask are per row.
     """
     b = x.shape[0]
-    q = _split_heads(dense(p["q"], x), n_heads, head_dim)
-    k = _split_heads(dense(p["k"], x), n_kv, head_dim)
-    v = _split_heads(dense(p["v"], x), n_kv, head_dim)
+    q, k, v, plan = _rank_qkv(p, x, n_heads, n_kv, head_dim)
+    n_heads, n_kv = plan.q_n, plan.kv_n
     posv = torch.as_tensor(pos, device=x.device).expand(b)
     q = apply_rope(q, posv[:, None], rope_theta)
     k = apply_rope(k, posv[:, None], rope_theta)
@@ -241,4 +283,4 @@ def attention_decode(
         y = chunked_attention(qh, kh, vh, causal=False, k_chunk=k_chunk,
                               kv_valid_len=posv + 1)
     y = y.transpose(1, 2).reshape(b, 1, n_heads * head_dim)
-    return dense(p["o"], y), cache
+    return _rank_out(p, y, plan), cache

@@ -7,6 +7,18 @@ operands in both packages. Each ``*_init`` has an ``*_axes`` beside it:
 the same tree with every leaf's *logical* dim names (``("d_model",
 "ff")``), the names the JAX package's inits return and the sharding solver
 (:mod:`repro_torch.distributed.sharding`) reads.
+
+On a tensor axis of several ranks a leaf may be this rank's piece of the
+global tensor, tagged by ``distributed.tensor_parallel.shard_params``; the
+layers read the tag. A dense weight cut on its output dim runs
+column-parallel: its input is the caller's, entered into the model region
+once (``tensor_parallel.copy_to_model``) for every projection that shares
+it, and its output is the rank's columns. One cut on its input dim runs
+row-parallel: the rank's partial product, in fp32 (``matmul``'s
+``out="float32"``), is summed over the ranks (``reduce_from_model``) and
+rounded once, as one device's product is, before the bias. A table cut on its vocabulary rows
+is looked up vocab-parallel; an unembed cut on its vocabulary columns gives
+the rank's columns of the logits.
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.runtime import dispatch, fusion_wins
+from ..distributed import tensor_parallel as tp
 
 Params = Dict[str, Any]
 Axes = Dict[str, Any]
@@ -45,13 +58,26 @@ def dense_axes(in_axis: str, out_axis: str, bias: bool = False) -> Axes:
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ b): the projection gemm goes through the ``matmul`` dispatch."""
+    """x @ w (+ b): the projection gemm goes through the ``matmul`` dispatch.
+    A weight cut on its input dim (row-parallel) sums the ranks' partial
+    products, then adds the bias; one cut on its output dim gives the
+    rank's columns (its input entered by the caller)."""
+    if tp.shard_dim(p["w"]) == 0:
+        y = row_parallel(x, p["w"])
+        return y + p["b"] if "b" in p else y
     if "b" in p and fusion_wins("matmul_bias_act", x, p["w"], p["b"]):
         return dispatch("matmul_bias_act", x, p["w"], p["b"])
     y = dispatch("matmul", x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for a weight cut on its input dim: the rank's partial product
+    in fp32, summed over the tensor axis in fp32 and rounded once to x's
+    dtype."""
+    return tp.reduce_from_model(dispatch("matmul", x, w, out="float32")).to(x.dtype)
 
 
 def norm_init(d: int, dtype, device) -> Params:
@@ -67,7 +93,10 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rmsnorm_dense(pn: Params, pd: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm(x) through a dense layer: the final-norm -> unembed pair."""
+    """rmsnorm(x) through a dense layer: the final-norm -> unembed pair
+    (the rank's columns for a weight cut on its output dim)."""
+    if tp.shard_dim(pd["w"]) == 1:
+        x = tp.copy_to_model(x)
     if "b" not in pd and fusion_wins("rmsnorm_matmul", x, pn["scale"], pd["w"], eps=eps):
         return dispatch("rmsnorm_matmul", x, pn["scale"], pd["w"], eps=eps)
     return dense(pd, rmsnorm(pn, x, eps))
@@ -110,17 +139,23 @@ def _act_matmul(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def ffn_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The FFN; with its ff dim cut over the tensor axis, the up
+    projections column-parallel and the down projection row-parallel."""
+    if tp.shard_dim(p["wu"]) == 1:
+        x = tp.copy_to_model(x)
     mm = lambda a, w: dispatch("matmul", a, w)
     if kind == "swiglu":
-        return mm(_act_matmul(x, p["wg"], "silu") * mm(x, p["wu"]), p["wd"])
-    if kind == "geglu":
-        return mm(_act_matmul(x, p["wg"], "gelu") * mm(x, p["wu"]), p["wd"])
-    if kind == "gelu":
-        return mm(_act_matmul(x, p["wu"], "gelu"), p["wd"])
-    if kind == "relu2":
+        h = _act_matmul(x, p["wg"], "silu") * mm(x, p["wu"])
+    elif kind == "geglu":
+        h = _act_matmul(x, p["wg"], "gelu") * mm(x, p["wu"])
+    elif kind == "gelu":
+        h = _act_matmul(x, p["wu"], "gelu")
+    elif kind == "relu2":
         h = F.relu(mm(x, p["wu"]))
-        return mm(h * h, p["wd"])
-    raise ValueError(kind)
+        h = h * h
+    else:
+        raise ValueError(kind)
+    return row_parallel(h, p["wd"]) if tp.shard_dim(p["wd"]) == 0 else mm(h, p["wd"])
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -154,7 +189,10 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     Indexing's backward adds each repeat of a token into the bf16 gradient
     row one at a time, rounding each sum: a frequent token's row then
     depends on how many rows the batch holds, and one process and two
-    data-parallel ranks part."""
+    data-parallel ranks part. A table cut on its vocabulary rows is looked
+    up vocab-parallel (``tensor_parallel.vocab_parallel_embed``)."""
+    if tp.shard_dim(p["table"]) == 0:
+        return tp.vocab_parallel_embed(p["table"], tokens)
     return F.embedding(tokens, p["table"])
 
 
@@ -167,4 +205,6 @@ def unembed_axes() -> Axes:
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The logits, or the rank's vocabulary columns of them for a weight cut
+    on its output dim (``x`` entered into the model region by the caller)."""
     return dispatch("matmul", x, p["w"])

@@ -10,11 +10,19 @@ Public surface, plain functions over dicts of tensors, as in
     prefill(params, batch, cfg, run, ...)         -> (last_logits, caches)
     decode_step(params, tokens, caches, pos, ...) -> (logits, caches)
     init_cache / insert_cache                     -> the slot-pool cache
+    param_specs / rank_params                     -> a mesh rank's pieces
 
 The loss never holds [batch, seq, vocab] logits at once: they are made and
 consumed one sequence chunk at a time (``RunConfig.loss_chunk``), each
 chunk an unembed ``matmul`` dispatch followed by a ``softmax_xent``
 dispatch.
+
+On a tensor axis of several ranks (``distributed.tensor_parallel``) the
+parameters are the rank's pieces: the embedding is looked up
+vocab-parallel, the loss is the vocab-parallel cross entropy over the
+rank's unembed columns, and :func:`prefill` and :func:`decode_step` return
+the whole ``[b, vocab]`` logits, gathered over the axis, so a host sampler
+sees what one process sees.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..core.platform import resolve_device
 from ..core.runtime import dispatch
+from ..distributed import sharding as shd
+from ..distributed import tensor_parallel as tp
 from . import transformer as tf
 from .layers import (embed, embedding_axes, embedding_init, norm_axes, norm_init, rmsnorm,
                      rmsnorm_dense, unembed, unembed_axes, unembed_init)
@@ -34,13 +44,40 @@ Batch = Dict[str, torch.Tensor]
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
-                device: Union[str, torch.device, None] = None) -> Dict[str, Any]:
+                device: Union[str, torch.device, None] = None, mesh=None,
+                layout=None) -> Dict[str, Any]:
     """Random parameters from an explicit ``torch.Generator`` seeded with
     ``seed``, made on ``device`` (default ``cuda``), with the JAX package's
     init scales. The numbers differ from JAX's for the same seed: tests carry
-    JAX parameters across with :func:`repro_torch.convert.from_jax_params`."""
+    JAX parameters across with :func:`repro_torch.convert.from_jax_params`.
+    With ``mesh`` and ``layout``, this rank's pieces (:func:`rank_params`)
+    of the same numbers: the whole tree is drawn on ``device`` and cut,
+    which at the archs tensor parallelism runs (qwen2_0_5b's 1 GB in bf16)
+    costs one tree's memory for the moment of the cut."""
     dev = resolve_device(device)
-    return _init_tree(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    params = _init_tree(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    return params if mesh is None else rank_params(params, cfg, mesh, layout)
+
+
+def param_specs(cfg: ArchConfig, mesh, layout):
+    """The solver's spec tree of ``cfg``'s parameters on ``mesh`` (a mesh
+    or a size map) under ``layout``."""
+    return shd.param_shardings(param_axes(cfg), abstract_params(cfg),
+                               shd.mesh_axis_sizes(mesh), layout)
+
+
+def rank_params(params, cfg: ArchConfig, mesh, layout):
+    """This rank's tree of the global ``params`` on ``mesh``: every leaf
+    the specs cut over the tensor axis becomes its tagged piece
+    (``tensor_parallel.shard_params``); raises ``NotImplementedError`` for
+    what the port does not run on a mesh (``tensor_parallel.
+    check_supported``)."""
+    if layout is None:
+        from ..launch.defaults import default_layout
+
+        layout = default_layout(cfg)
+    tp.check_supported(cfg, mesh, layout)
+    return tp.shard_params(params, param_specs(cfg, mesh, layout), mesh, layout)
 
 
 def _init_tree(cfg: ArchConfig, gen, dev) -> Dict[str, Any]:
@@ -72,6 +109,8 @@ def reinit_params_(params: Dict[str, Any], cfg: ArchConfig, seed: int = 0) -> No
 
 
 def _copy_tree_(dst, src) -> None:
+    """Copy ``src`` into ``dst``; a rank's piece takes its piece of the drawn
+    tensor."""
     if isinstance(dst, dict):
         for k in dst:
             _copy_tree_(dst[k], src[k])
@@ -79,7 +118,7 @@ def _copy_tree_(dst, src) -> None:
         for d, s in zip(dst, src):
             _copy_tree_(d, s)
     else:
-        dst.copy_(src)
+        dst.copy_(tp.take_shard(src, tp.shard_info(dst)))
 
 
 def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
@@ -155,11 +194,16 @@ def _chunked_xent(lm_head, x, labels, mask, loss_chunk: int):
         mask = F.pad(mask, (0, pad))
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    vocab_cut = tp.shard_dim(lm_head["w"]) == 1
+    if vocab_cut:
+        x = tp.copy_to_model(x)
     for c0 in range(0, x.shape[1], chunk):
         xx = x[:, c0:c0 + chunk].reshape(b * chunk, d)
         mm = mask[:, c0:c0 + chunk].reshape(-1)
         logits = unembed(lm_head, xx)
-        losses = dispatch("softmax_xent", logits, labels[:, c0:c0 + chunk].reshape(-1))
+        lab = labels[:, c0:c0 + chunk].reshape(-1)
+        losses = (tp.vocab_parallel_xent(logits, lab) if vocab_cut
+                  else dispatch("softmax_xent", logits, lab))
         tot = tot + (losses * mm).sum()
         cnt = cnt + mm.sum()
     return tot / cnt.clamp_min(1.0)
@@ -198,7 +242,17 @@ def prefill(params, batch: Batch, cfg: ArchConfig, run: tf.RunConfig,
     x, _, caches = forward(params, batch, cfg, run, mode="prefill",
                            cache_len=cache_len or seq, true_len=tl)
     last = x[:, -1] if tl is None else x[:, tl - 1]
-    return unembed(params["lm_head"], last), caches
+    if tp.shard_dim(params["lm_head"]["w"]) == 1:
+        last = tp.copy_to_model(last)
+    return _whole_logits(params, unembed(params["lm_head"], last)), caches
+
+
+def _whole_logits(params, logits):
+    """The logits over the whole vocabulary: the ranks' columns gathered
+    where the unembed is cut over the tensor axis."""
+    if tp.shard_dim(params["lm_head"]["w"]) == 1:
+        return tp.gather_from_model(logits, -1)
+    return logits
 
 
 def decode_step(params, tokens, caches, pos, cfg: ArchConfig, run: tf.RunConfig):
@@ -214,19 +268,34 @@ def decode_step(params, tokens, caches, pos, cfg: ArchConfig, run: tf.RunConfig)
     x, _, caches = tf.stack_apply(params["segments"], x, cfg, run, mode="decode",
                                   caches=caches, pos=pos, pending=pending)
     logits = rmsnorm_dense(params["final_norm"], params["lm_head"], x[:, 0], cfg.norm_eps)
+    logits = _whole_logits(params, logits)
     tf.commit_states(pending)
     return logits, caches
 
 
-def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device, params=None):
     """Zero-filled cache for a ``batch``-slot decode pool (JAX layout), each
-    leaf in its own dtype (the Mamba state ``h`` in fp32)."""
+    leaf in its own dtype (the Mamba state ``h`` in fp32). Given a rank's
+    ``params``, an attention layer's cache holds the kv heads its head plan
+    takes (the heads, not JAX's ``cache_shardings``, decide the layout)."""
     dev = torch.device(device)
     return tuple(
         {name: {kk: torch.zeros(shape, dtype=dt, device=dev) for kk, (shape, dt) in leaves.items()}
          for name, leaves in seg.items()}
-        for seg in tf.cache_shapes(cfg, batch, cache_len)
+        for seg in tf.cache_shapes(cfg, batch, cache_len, _rank_kv_heads(params, cfg))
     )
+
+
+def _rank_kv_heads(params, cfg: ArchConfig) -> Optional[int]:
+    """The kv heads a rank's attention layers take (None: all of them)."""
+    if params is None:
+        return None
+    for seg, blocks in zip(cfg.segments(), params["segments"]):
+        for i, spec in enumerate(seg.pattern):
+            if spec.mixer == "attn" and blocks:
+                return tp.attention_plan(blocks[0][f"l{i}"]["mixer"], cfg.num_heads,
+                                         cfg.num_kv_heads).kv_n
+    return None
 
 
 def insert_cache(pool, new, slot: int):

@@ -24,11 +24,19 @@ returns its MoE load-balancing loss (0 without experts), and
 ``stack_apply`` sums them; prefill passes
 ``true_len`` to the MoE layers too, so bucket pads take no expert capacity,
 and decode passes none.
+
+On a tensor axis of several ranks a layer's widths are the rank's: its
+parameters are its pieces (``distributed.tensor_parallel``), the attention
+computes the heads of its head plan and the FFN its ff columns, each
+summing over the ranks where JAX's partitioner would. Remat recomputes a
+layer with its collectives, in the same order on every rank, since every
+rank runs the same layers.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.utils.checkpoint
@@ -304,9 +312,10 @@ def commit_states(pending) -> None:
             c[kk].copy_(t)
 
 
-def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):
+def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, kv_heads: Optional[int] = None):
     """Per segment ``{"l{i}": {leaf: (stacked shape, dtype)}}``: ``k`` and
-    ``v`` in the model dtype for attention, ``h`` (fp32) and ``conv`` for
+    ``v`` in the model dtype for attention (``kv_heads`` of them, the
+    rank's on a tensor axis; default all), ``h`` (fp32) and ``conv`` for
     Mamba, the fp32 state leaves for mLSTM and sLSTM."""
     out = []
     for seg in cfg.segments():
@@ -314,7 +323,8 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):
         for i, spec in enumerate(seg.pattern):
             _check_spec(spec)
             if spec.mixer == "attn":
-                shape = attn.attention_cache_shape(batch, cache_len, cfg.num_kv_heads, cfg.hd,
+                shape = attn.attention_cache_shape(batch, cache_len,
+                                                   kv_heads or cfg.num_kv_heads, cfg.hd,
                                                    spec.window)
                 leaves = {"k": (shape, cfg.tdtype), "v": (shape, cfg.tdtype)}
             elif spec.mixer == "mamba":

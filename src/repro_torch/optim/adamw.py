@@ -9,6 +9,12 @@ Where the JAX package returns new trees, the port updates the parameters
 and the state in place (no second copy of any leaf); the state holds one
 tensor per parameter leaf, in :func:`leaves` order. The trainer runs
 :func:`update` under ``dispatch_phase("opt")``.
+
+On a tensor axis of several ranks (a rank's leaves are its pieces,
+``distributed.tensor_parallel``) the clipping norm is the global
+gradient's: the cut leaves' squares are summed over the axis and each
+replicated leaf counts once, so every rank clips as one process does and
+the elementwise update of its pieces is one process's.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+
+from ..distributed import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +76,19 @@ def init(cfg: AdamWConfig, params) -> Dict[str, Any]:
     return state
 
 
-def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+def global_norm(grads, params=None) -> torch.Tensor:
+    """The l2 norm of the gradient. Given the ``params`` (their
+    :func:`leaves` order), the leaves tagged as pieces cut over the tensor
+    axis have their squares summed over its ranks (a collective of the
+    ambient mesh context), so the norm is the global gradient's."""
+    sq = lambda g: (g.float() * g.float()).sum()
+    if params is None:
+        return torch.sqrt(sum(sq(g) for g in grads))
+    cut = [tp.shard_info(p) is not None for p in leaves(params)]
+    whole = sum((sq(g) for g, c in zip(grads, cut) if not c), torch.zeros(()).to(grads[0].device))
+    if any(cut):
+        whole = whole + tp.reduce_from_model(sum(sq(g) for g, c in zip(grads, cut) if c))
+    return torch.sqrt(whole)
 
 
 @torch.no_grad()
@@ -82,7 +101,7 @@ def update(cfg: AdamWConfig, grads, state, params):
         raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     scale = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step

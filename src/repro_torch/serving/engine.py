@@ -56,6 +56,19 @@ gauges ``serve.queue_depth``, ``serve.slots_active`` and
 configs up front, typically against a campaign's exported database.
 :class:`LockStepEngine` is the JAX package's static batcher, kept as the
 baseline the slot pool is measured against.
+
+On a mesh (JAX's ``mesh`` and ``layout`` arguments, keyword and optional
+here) each process is one rank of the tensor axis: it holds its pieces of
+the parameters (``lm.rank_params``) and a cache pool of the kv heads its
+attention computes, runs every prefill and decode step in the mesh's
+context, and gets the whole vocabulary's logits back (``lm.prefill`` and
+``lm.decode_step`` gather them). Every rank runs the same admission
+schedule, which ticks count, not the host clock, and samples from the same
+logits; rank 0 of the axis then broadcasts the tokens it sampled, and every
+rank takes them, so a difference in a host's arithmetic can never split
+the ranks. A mesh whose data axes hold more than one rank raises
+``NotImplementedError`` (serving with a data axis is a later slice), as do
+the archs ``tensor_parallel.check_supported`` refuses.
 """
 from __future__ import annotations
 
@@ -70,6 +83,9 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.database import TuningDatabase, shape_bucket
 from ..core.runtime import TunedRuntime, current_runtime, raises_through
+from ..distributed import sharding as shd
+from ..distributed import tensor_parallel as tp
+from ..launch import steps
 from ..models import lm
 from ..models.transformer import RunConfig
 from ..obs.collect import current_collector as _obs_collector
@@ -124,11 +140,51 @@ class _Slot:
     t_admit: float
 
 
+class _MeshRank:
+    """A serving rank's mesh: its pieces of the parameters and the tensor
+    axis over which rank 0 decides the sampled tokens."""
+
+    def __init__(self, cfg: ArchConfig, params, mesh, layout):
+        if layout is None:
+            from ..launch.defaults import default_layout
+
+            layout = default_layout(cfg)
+        sizes = shd.mesh_axis_sizes(mesh)
+        data = [a for a in sizes if a != layout.tensor_axis and sizes[a] > 1]
+        if data:
+            raise NotImplementedError(f"serving on mesh {sizes}: a data axis of more than one "
+                                      "rank is a later slice; the engine runs the tensor axis")
+        tp.check_supported(cfg, sizes, layout)
+        self.mesh, self.layout = mesh, layout
+        self.params = lm.rank_params(params, cfg, mesh, layout)
+        with self.scope():
+            self.axis = tp.model_axis()
+
+    def scope(self):
+        return shd.mesh_context(self.mesh, self.layout)
+
+    def agree(self, tokens: List[int]) -> List[int]:
+        """Rank 0's tokens, on every rank of the tensor axis."""
+        if self.axis.size <= 1:
+            return tokens
+        import torch.distributed as dist
+
+        from ..distributed.collectives import comm_device
+
+        group = self.axis.group
+        dev = comm_device(self.params["embed"]["table"].device, group)
+        t = torch.tensor(tokens, dtype=torch.int64, device=dev)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return t.tolist()
+
+
 class ServingEngine:
     """Slot-pool continuous-batching engine (see module docstring).
 
     Runs on the device the parameters live on. ``runtime`` pins the
-    dispatch scope (database, mode, telemetry) of every prefill and decode.
+    dispatch scope (database, mode, telemetry) of every prefill and decode;
+    ``mesh`` and ``layout`` make this process one rank of a tensor axis
+    (the module docstring).
     """
 
     def __init__(
@@ -139,17 +195,26 @@ class ServingEngine:
         ecfg: EngineConfig = EngineConfig(),
         clock: Callable[[], float] = time.perf_counter,
         runtime: Optional[TunedRuntime] = None,
+        *,
+        mesh=None,
+        layout=None,
     ):
         if cfg.frontend is not None:
             raise NotImplementedError("the engine serves token-in/token-out archs")
         self.cfg, self.run, self.ecfg = cfg, run, ecfg
-        self.params = params
-        self.device = params["embed"]["table"].device
+        self._mesh = _MeshRank(cfg, params, mesh, layout) if mesh is not None else None
+        self.mesh = mesh
+        self.layout = self._mesh.layout if self._mesh is not None else layout
+        self.params = self._mesh.params if self._mesh is not None else params
+        self.device = self.params["embed"]["table"].device
         self.clock = clock
         self.runtime = runtime
         self._has_ssm = any(spec.mixer != "attn" for seg in cfg.segments()
                             for spec in seg.pattern)
-        self._caches = lm.init_cache(cfg, ecfg.max_batch, ecfg.max_seq, self.device)
+        self._caches = lm.init_cache(cfg, ecfg.max_batch, ecfg.max_seq, self.device,
+                                     params=self.params)
+        self._prefill = steps.make_prefill_step(cfg, run, cache_len=ecfg.max_seq)
+        self._decode = steps.make_serve_step(cfg, run)
         self._slots: List[Optional[_Slot]] = [None] * ecfg.max_batch
         self.queue: List[Request] = []
         self._order = 0
@@ -173,7 +238,15 @@ class ServingEngine:
         self.timings: Dict[str, Any] = {"prefill_s": {}, "decode_s": []}
 
     def _scope(self):
-        return self.runtime if self.runtime is not None else contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        if self.runtime is not None:
+            stack.enter_context(self.runtime)
+        if self._mesh is not None:
+            stack.enter_context(self._mesh.scope())
+        return stack
+
+    def _agree(self, tokens: List[int]) -> List[int]:
+        return tokens if self._mesh is None else self._mesh.agree(tokens)
 
     # --------------------------------------------------------- degraded path
     def reset_degraded(self) -> None:
@@ -216,8 +289,7 @@ class ServingEngine:
         """(logits on the host as fp32 numpy, cache) of one admission."""
         def prefill():
             with _obs_span("serve.admit.prefill"), torch.inference_mode():
-                logits, cache = lm.prefill(self.params, {"tokens": toks}, self.cfg, self.run,
-                                           cache_len=self.ecfg.max_seq, true_len=L)
+                logits, cache = self._prefill(self.params, {"tokens": toks}, true_len=L)
                 return logits.float().cpu().numpy(), cache
 
         return self._run("prefill", prefill)
@@ -226,8 +298,7 @@ class ServingEngine:
         """The pool's logits on the host as fp32 numpy; the pool updated."""
         def decode():
             with torch.inference_mode():
-                logits, self._caches = lm.decode_step(self.params, tokens, self._caches,
-                                                      pos, self.cfg, self.run)
+                logits, self._caches = self._decode(self.params, self._caches, tokens, pos)
                 return logits.float().cpu().numpy()
 
         return self._run("decode", decode)
@@ -277,7 +348,7 @@ class ServingEngine:
         req.queue_steps = max(0, now - int(np.ceil(req.arrival_time)))
         req.slot = slot
         rng = np.random.default_rng(req.seed)
-        first = _sample_one(logits_np[0], req, rng)
+        first = self._agree([_sample_one(logits_np[0], req, rng)])[0]
         col = _obs_collector()
         if col.enabled:
             # admission -> first token: the prefill and the first sample
@@ -355,10 +426,12 @@ class ServingEngine:
                 col.gauge("serve.queue_depth", len(pending))
                 col.gauge("serve.slots_active", n_act)
             now += 1
+            sampled = self._agree([_sample_one(logits_np[i], s.req, s.rng) if s is not None
+                                   else 0 for i, s in enumerate(self._slots)])
             for i, s in enumerate(self._slots):
                 if s is None:
                     continue
-                nxt = _sample_one(logits_np[i], s.req, s.rng)
+                nxt = sampled[i]
                 s.emitted.append(nxt)
                 s.pos += 1
                 s.cur = nxt
@@ -420,7 +493,9 @@ class ServingEngine:
         if allow_tune:
             rt.clear_cache()       # cached resolutions would shadow TuneNow
         jobs = plan_serving_jobs(self.cfg, self.ecfg.max_batch, self.ecfg.max_seq,
-                                 max_tokens=max_tokens)
+                                 max_tokens=max_tokens,
+                                 mesh_axes=None if self.mesh is None else
+                                 shd.mesh_axis_sizes(self.mesh), layout=self.layout)
         resolved: Dict[str, Optional[Dict]] = {}
         for job in jobs:
             if allow_tune:
@@ -446,7 +521,9 @@ class LockStepEngine:
     member finishes; new traffic waits for the whole batch.
     ``stats["decode_steps"]`` counts the same unit as
     :class:`ServingEngine`'s, so the two compare directly. It dispatches
-    through whichever runtime is active when it serves.
+    through whichever runtime is active when it serves. ``mesh`` and
+    ``layout`` make it a rank of a tensor axis, as :class:`ServingEngine`'s
+    do.
     """
 
     def __init__(
@@ -456,12 +533,16 @@ class LockStepEngine:
         params,
         ecfg: EngineConfig = EngineConfig(),
         clock: Callable[[], float] = time.perf_counter,
+        *,
+        mesh=None,
+        layout=None,
     ):
         if cfg.frontend is not None:
             raise NotImplementedError("token-in/token-out archs only")
         self.cfg, self.run, self.ecfg = cfg, run, ecfg
-        self.params = params
-        self.device = params["embed"]["table"].device
+        self._mesh = _MeshRank(cfg, params, mesh, layout) if mesh is not None else None
+        self.params = self._mesh.params if self._mesh is not None else params
+        self.device = self.params["embed"]["table"].device
         self.clock = clock
         self.queue: List[Request] = []
         self.stats: Dict[str, int] = {"decode_steps": 0, "tokens_out": 0}
@@ -469,7 +550,18 @@ class LockStepEngine:
     def submit(self, req: Request) -> None:
         self.queue.append(req)
 
+    def _scope(self):
+        return self._mesh.scope() if self._mesh is not None else contextlib.nullcontext()
+
+    def _sample(self, logits_np, reqs, rngs) -> np.ndarray:
+        toks = [_sample_one(logits_np[i], r, rngs[i]) for i, r in enumerate(reqs)]
+        return np.asarray(toks if self._mesh is None else self._mesh.agree(toks), np.int64)
+
     def run_batch(self, reqs: List[Request]) -> List[Request]:
+        with self._scope():
+            return self._run_batch(reqs)
+
+    def _run_batch(self, reqs: List[Request]) -> List[Request]:
         t0 = self.clock()
         B = len(reqs)
         plen = max(len(r.prompt) for r in reqs)
@@ -485,8 +577,7 @@ class LockStepEngine:
 
         outs = np.zeros((B, max_new), np.int32)
         rngs = [np.random.default_rng(r.seed) for r in reqs]
-        cur = np.asarray([_sample_one(logits_np[i], r, rngs[i]) for i, r in enumerate(reqs)],
-                         np.int64)
+        cur = self._sample(logits_np, reqs, rngs)
         done_at = np.zeros((B,), np.float64)
         for step in range(max_new):
             outs[:, step] = cur
@@ -501,8 +592,7 @@ class LockStepEngine:
                     self.cfg, self.run)
                 logits_np = logits.float().cpu().numpy()
             self.stats["decode_steps"] += 1
-            cur = np.asarray([_sample_one(logits_np[i], r, rngs[i])
-                              for i, r in enumerate(reqs)], np.int64)
+            cur = self._sample(logits_np, reqs, rngs)
 
         dt = self.clock() - t0
         for i, r in enumerate(reqs):

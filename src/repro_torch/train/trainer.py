@@ -38,16 +38,19 @@ own parameters re-initialises them from ``tcfg.seed``, in place
 (:func:`lm.reinit_params_`); one that was handed ``params=`` has nothing
 to restart from and raises.
 
-**Data parallelism** (``mesh=``, a ``DeviceMesh`` of
+**Data and tensor parallelism** (``mesh=``, a ``DeviceMesh`` of
 :func:`repro_torch.launch.mesh.make_mesh_from_spec` over an initialised
 process group; ``layout=`` defaults to ``launch.defaults.default_layout``):
-one process a rank, each on its own rows of the global batch, with
-replicated parameters. The parameter specs are solved with
-``param_shardings`` as in JAX, and a spec that shards a parameter (a tensor
-axis of size > 1, or FSDP over a data axis of size > 1) raises
-``NotImplementedError``: tensor parallelism and FSDP are the next slice.
-An arch with experts raises too (its load-balancing loss is not additive
-over ranks). Each step:
+one process a rank. The parameter specs are solved with
+``param_shardings`` as in JAX. A rank holds its piece of every parameter
+the specs cut over the tensor axis (``lm.rank_params``; the layers run
+column-, row- and vocab-parallel from the cuts, ``distributed.
+tensor_parallel``) and a whole copy of the others; ``params=`` may be the
+global tree, which the rank cuts, or the rank's pieces already. What still
+raises ``NotImplementedError``: FSDP (a cut over a data axis of more than
+one rank), an arch with experts on more than one rank (its load-balancing
+loss is not additive over ranks), and a recurrent mixer, a frontend or a
+pod axis on a tensor axis of more than one rank. Each step:
 
 * every rank draws the *global* batch (the pipeline with ``host_index=0,
   host_count=1``, what JAX's one process feeds) and keeps its rows: of
@@ -55,25 +58,32 @@ over ranks). Each step:
   b/dp)`` of its data shard ``s``; with one microbatch, ``[s B/dp, (s+1)
   B/dp)``. ``dp`` is computed once, as JAX does, from the microbatch's
   batch (``data_parallel_degree``), so a rank's dispatch keys are its true
-  shard; ranks whose coordinates on unused data axes differ replicate;
+  shard; ranks whose coordinates on unused data axes differ replicate, and
+  the ranks of one tensor axis take the same rows;
 * each microbatch's loss and gradients are weighted by the rank's share of
   that microbatch's loss tokens and accumulated; then the gradients are
-  summed over the ranks in fp32 buckets (``collectives.reduce_grads``), once
-  a step, and the loss with them: the global mean, equal to JAX's at any
-  world size, masks included;
+  summed over the ranks that hold the same pieces (the data group; a mesh
+  with one rank on its data axes has no gradient reduce) in fp32 buckets
+  (``collectives.reduce_grads``), once a step, and the loss with them: the
+  global mean, equal to JAX's at any world size, masks included;
 * ``grad_compression`` applies to the reduced gradient, where JAX applies it
   to its global one (the wire carries fp32), with ``int8_ef``'s scale a
-  JAX tensor's (a segment's layers stacked); every rank then runs the same
-  AdamW update, so the replicas stay bit-identical
-  (:meth:`Trainer.check_replicas`, also run at construction);
+  JAX tensor's (a segment's layers stacked, the pieces of a cut tensor
+  together); the clipping norm is the global gradient's
+  (``adamw.global_norm``); every rank then runs the same AdamW update, so
+  the replicas stay bit-identical (:meth:`Trainer.check_replicas`, also run
+  at construction: each piece across the ranks that hold it, each
+  replicated leaf across all ranks);
 * the reported loss and grad norm are global; ``allreduce_s`` and
-  ``allreduce_bytes`` report the step's gradient reduce.
+  ``allreduce_bytes`` report the step's gradient reduce, ``model_s`` and
+  ``model_bytes`` the tensor axis's collectives.
 
 Checkpoints hold the error-feedback state under ``"ef"``, as JAX's do. On
-a mesh rank 0 writes, and every rank waits at a barrier for the commit;
-every rank restores. Recovery is per process: a step that fails on one
-rank only leaves the others waiting in the all-reduce until the process
-group's timeout.
+a mesh the pieces are gathered over the tensor axis, rank 0 writes the
+global tree (JAX's layout byte for byte), and every rank waits at a
+barrier for the commit; every rank restores, cutting its pieces from it.
+Recovery is per process: a step that fails on one rank only leaves the
+others waiting in a collective until the process group's timeout.
 """
 from __future__ import annotations
 
@@ -93,6 +103,8 @@ from ..core.runtime import TunedRuntime, dispatch_phase, raises_through
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..distributed import collectives
 from ..distributed import sharding as shd
+from ..distributed import tensor_parallel as tp
+from ..launch import steps
 from ..models import lm
 from ..models.transformer import RunConfig
 from ..obs.collect import current_collector as _obs_collector
@@ -103,6 +115,15 @@ from . import checkpoint as ckpt_mod
 from .resilience import RestartPolicy, StragglerMonitor, run_with_recovery
 
 log = logging.getLogger("repro_torch.trainer")
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a state tree, its structure kept."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,16 +156,22 @@ def _stacked_groups(params) -> List[List[int]]:
 
 @dataclasses.dataclass(frozen=True)
 class _DataParallel:
-    """A rank's place in the data-parallel step: ``ranks`` processes, the
-    batch split ``degree`` ways (``approx``: JAX's microbatch degree differs
-    from the full batch's), this rank on data shard ``shard`` of it, each
-    shard held by ``replicas`` ranks."""
+    """A rank's place in the step: ``ranks`` processes, ``tensor`` of them on
+    its tensor axis, the rest its data group (``data_group``, the ranks
+    holding the same pieces: ``data_ranks`` of them, the whole world with a
+    tensor axis of one rank); the batch split ``degree`` ways (``approx``:
+    JAX's microbatch degree differs from the full batch's), this rank on
+    data shard ``shard`` of it, each shard held by ``replicas`` ranks of
+    the data group."""
 
     ranks: int
     degree: int
     approx: bool
     shard: int
     replicas: int
+    tensor: int = 1
+    data_ranks: int = 1
+    data_group: object = None
 
 
 class Trainer:
@@ -181,16 +208,32 @@ class Trainer:
                 self.layout = default_layout(cfg)
             self._dp = self._data_parallel(cfg, run, data_cfg)
         self.data = SyntheticPipeline(cfg, data_cfg)
+        self._loss_and_grads = steps.make_loss_and_grads(cfg, run)
         self._own_init = params is None
-        self.params = (params if params is not None
-                       else lm.init_params(cfg, self.tcfg.seed, self.device))
+        if params is None:
+            params = lm.init_params(cfg, self.tcfg.seed, self.device,
+                                    mesh=mesh if self._tensor_parallel else None,
+                                    layout=self.layout)
+        elif self._tensor_parallel:
+            params = lm.rank_params(params, cfg, mesh, self.layout)
+        self.params = params
         self._leaves = adamw.leaves(self.params)
         for p in self._leaves:
             p.requires_grad_(True)
         self.opt_state = adamw.init(self.opt_cfg, self.params)
         self.ef_state = (collectives.ef_init(self._leaves)
                          if self.tcfg.grad_compression == "int8_ef" else None)
+        for i, p in enumerate(self._leaves):
+            # a piece's optimizer and error-feedback state are pieces alike
+            info = tp.shard_info(p)
+            if info is not None:
+                for k in ("m", "v", "master"):
+                    if k in self.opt_state:
+                        tp.mark(self.opt_state[k][i], *info)
+                if self.ef_state is not None:
+                    tp.mark(self.ef_state[i], *info)
         self._scale_groups = _stacked_groups(self.params)
+        self._cut = [tp.shard_info(p) is not None for p in self._leaves]
         self.ckpt = ckpt_mod.Checkpointer(self.tcfg.checkpoint_dir,
                                           keep=self.tcfg.checkpoint_keep)
         self.monitor = StragglerMonitor()
@@ -205,6 +248,10 @@ class Trainer:
         return self._dp is not None and self._dp.ranks > 1
 
     @property
+    def _tensor_parallel(self) -> bool:
+        return self._dp is not None and self._dp.tensor > 1
+
+    @property
     def rank(self) -> int:
         import torch.distributed as dist
 
@@ -215,17 +262,11 @@ class Trainer:
         """The rank's place, after refusing what this slice does not run."""
         mesh, layout = self.mesh, self.layout
         sizes = shd.mesh_axis_sizes(mesh)
-        specs = shd.param_shardings(lm.param_axes(cfg), lm.abstract_params(cfg), sizes, layout)
-        sharded = sum(not shd.is_replicated(sp, sizes) for sp in shd.spec_leaves(specs))
-        if sharded:
-            raise NotImplementedError(
-                f"{cfg.name} on mesh {sizes} under layout {layout.name!r}: {sharded} parameter "
-                "specs shard a parameter (tensor parallelism or FSDP), which the next slice "
-                "ports; this one runs data parallelism over replicated parameters")
+        tp.check_supported(cfg, sizes, layout)
         ranks = mesh.size()
         if ranks > 1 and cfg.num_experts:
             raise NotImplementedError(f"{cfg.name} has experts: expert parallelism and its "
-                                      "load-balancing loss across ranks are the next slice")
+                                      "load-balancing loss across ranks are a later slice")
         if ranks > 1 and (data_cfg.host_index, data_cfg.host_count) != (0, 1):
             raise ValueError("every rank draws the global batch: host_index=0, host_count=1")
         # the degree, once, from the microbatch's batch dim (JAX's trainer)
@@ -237,8 +278,17 @@ class Trainer:
         shard = 0
         for a in use:
             shard = shard * sizes[a] + coord[a]
+        t = tp.tensor_size(sizes, layout)
+        data_ranks = ranks // t
+        group = None
+        if t > 1 and data_ranks > 1:
+            from ..launch.mesh import axis_group
+
+            others = [a for a in mesh.mesh_dim_names if a != layout.tensor_axis]
+            group = axis_group(mesh, others[0])
         return _DataParallel(ranks=ranks, degree=degree, approx=approx, shard=shard,
-                             replicas=ranks // degree)
+                             replicas=data_ranks // degree, tensor=t, data_ranks=data_ranks,
+                             data_group=group)
 
     def _scope(self):
         stack = contextlib.ExitStack()
@@ -250,12 +300,10 @@ class Trainer:
                                                  dp_approx=self._dp.approx))
         return stack
 
-    def _grads(self, loss) -> List[torch.Tensor]:
-        """d loss / d leaves; zeros for a leaf the loss does not read (the
-        token embedding of an arch whose frontend feeds embeddings), as
-        ``jax.grad`` gives."""
-        grads = torch.autograd.grad(loss, self._leaves, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(self._leaves, grads)]
+    def _batch_grads(self, batch) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """One batch's loss and d loss / d leaves (``launch.steps.
+        make_loss_and_grads``, the step the trainer is built on)."""
+        return self._loss_and_grads(self.params, self._leaves, batch)
 
     def loss_and_grads(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List]:
         """The loss of one batch and its gradients in :func:`adamw.leaves`
@@ -263,17 +311,16 @@ class Trainer:
         k = self.run.microbatches
         with self._scope():
             if k == 1:
-                loss, _ = lm.loss_fn(self.params, batch, self.cfg, self.run)
-                return loss.detach(), self._grads(loss)
+                return self._batch_grads(batch)
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in self._leaves]
             total = torch.zeros((), dtype=torch.float32, device=self.device)
             for mb in range(k):
                 part = {n: t.chunk(k, dim=0)[mb] for n, t in batch.items()}
-                loss, _ = lm.loss_fn(self.params, part, self.cfg, self.run)
-                for a, g in zip(acc, self._grads(loss)):
+                loss, grads = self._batch_grads(part)
+                for a, g in zip(acc, grads):
                     a.add_(g.float())
-                total = total + loss.detach()
+                total = total + loss
             return total / k, [a / k for a in acc]
 
     def rank_rows(self, batch_np: Dict[str, np.ndarray]):
@@ -307,35 +354,44 @@ class Trainer:
         if not self.distributed:
             return self.loss_and_grads(batch_to_tensors(batch_np, self.device))
         parts, weights = self.rank_rows(batch_np)
+        m_bytes, m_s = (sum(collectives.COLLECTIVE_BYTES.values()),
+                        sum(collectives.COLLECTIVE_SECONDS.values()))
         with self._scope():
             if len(parts) == 1:
-                loss, _ = lm.loss_fn(self.params, batch_to_tensors(parts[0], self.device),
-                                     self.cfg, self.run)
-                grads, scale = self._grads(loss), weights[0]
-                total = loss.detach().float() * scale
+                loss, grads = self._batch_grads(batch_to_tensors(parts[0], self.device))
+                scale = weights[0]
+                total = loss.float() * scale
             else:
                 grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                          for p in self._leaves]
                 total = torch.zeros((), dtype=torch.float32, device=self.device)
                 for part, w in zip(parts, weights):
-                    loss, _ = lm.loss_fn(self.params, batch_to_tensors(part, self.device),
-                                         self.cfg, self.run)
-                    for a, g in zip(grads, self._grads(loss)):
+                    loss, g_part = self._batch_grads(batch_to_tensors(part, self.device))
+                    for a, g in zip(grads, g_part):
                         a.add_(g.float(), alpha=w)
-                    total = total + loss.detach().float() * w
+                    total = total + loss.float() * w
                 scale = 1.0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # the tensor axis's collectives of the forward and backward
+        self.last_model_bytes = sum(collectives.COLLECTIVE_BYTES.values()) - m_bytes
+        self.last_model_s = sum(collectives.COLLECTIVE_SECONDS.values()) - m_s
         before = collectives.COLLECTIVE_BYTES["all-reduce"]
         t0 = time.perf_counter()
-        collectives.reduce_grads(grads, scale=scale)
-        total = total.reshape(1).to(collectives.comm_device(self.device))
-        collectives.all_reduce(total)
+        if self._dp.data_ranks > 1:
+            group = self._dp.data_group
+            collectives.reduce_grads(grads, group=group, scale=scale)
+            total = total.reshape(1).to(collectives.comm_device(self.device, group))
+            collectives.all_reduce(total, group=group)
+            total = total[0]
+        elif scale != 1.0:
+            for g in grads:
+                g.mul_(scale)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_allreduce_s = time.perf_counter() - t0
         self.last_allreduce_bytes = collectives.COLLECTIVE_BYTES["all-reduce"] - before
-        return total[0], grads
+        return total.reshape(()), grads
 
     @torch.no_grad()
     def replica_checksums(self) -> torch.Tensor:
@@ -354,14 +410,26 @@ class Trainer:
         return torch.tensor(out, dtype=torch.int64)
 
     def check_replicas(self) -> None:
-        """Raise unless every rank holds the same parameters, bit for bit:
-        the checksums of :meth:`replica_checksums` reduced as a min and a
-        max over the ranks must agree (a collective)."""
+        """Raise unless the ranks that hold a leaf hold the same bits: each
+        piece of a cut leaf across its data group, each replicated leaf
+        across every rank (the checksums of :meth:`replica_checksums`
+        reduced as a min and a max; a collective)."""
         if not self.distributed:
             return
-        sums = self.replica_checksums().to(collectives.comm_device(self.device))
-        lo, hi = collectives.all_reduce(sums.clone(), "min"), collectives.all_reduce(sums, "max")
-        diff = (lo != hi).nonzero().reshape(-1).tolist()
+        sums = self.replica_checksums()
+        whole = torch.tensor([not c for c in self._cut for _ in range(2)])
+        diff = torch.zeros(sums.shape, dtype=torch.bool)
+        groups = [(None, whole)]
+        if self._dp.data_ranks > 1:
+            groups.append((self._dp.data_group if self._tensor_parallel else None, ~whole))
+        for group, keep in groups:
+            if not bool(keep.any()):
+                continue
+            part = sums[keep].to(collectives.comm_device(self.device, group))
+            lo = collectives.all_reduce(part.clone(), "min", group=group)
+            hi = collectives.all_reduce(part, "max", group=group)
+            diff[keep.nonzero().reshape(-1)] = (lo != hi).cpu()
+        diff = diff.nonzero().reshape(-1).tolist()
         if diff:
             names = [n for n, _ in adamw.named_leaves(self.params)]
             raise RuntimeError(f"rank {self.rank}: replicas differ in {len(diff) // 2 or 1} "
@@ -383,8 +451,10 @@ class Trainer:
                 loss, grads = self.global_loss_and_grads(batch_np)
             else:
                 loss, grads = self.loss_and_grads(batch)
-            grads, self.ef_state = collectives.compress_grads(
-                grads, self.ef_state, self.tcfg.grad_compression, self._scale_groups)
+            with self._scope():
+                grads, self.ef_state = collectives.compress_grads(
+                    grads, self.ef_state, self.tcfg.grad_compression, self._scale_groups,
+                    cut=self._cut)
             with self._scope(), dispatch_phase("opt"):
                 _, _, om = adamw.update(self.opt_cfg, grads, self.opt_state, self.params)
             metrics = {"loss": float(loss), "grad_norm": float(om["grad_norm"]),
@@ -392,6 +462,8 @@ class Trainer:
             if self.distributed:
                 metrics.update(allreduce_s=self.last_allreduce_s,
                                allreduce_bytes=self.last_allreduce_bytes)
+            if self._tensor_parallel:
+                metrics.update(model_s=self.last_model_s, model_bytes=self.last_model_bytes)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -425,12 +497,27 @@ class Trainer:
             tree["ef"] = self.ef_state
         return tree
 
+    def _global_state_tree(self) -> Dict:
+        """The state tree with every piece of a cut leaf gathered over the
+        tensor axis (its parameter, AdamW's ``m``, ``v`` and ``master``, and
+        ``ef``, tagged alike): the global tree one process would hold (a
+        collective)."""
+        tree = self._state_tree()
+        if not self._tensor_parallel:
+            return tree
+        ax = self._axis()
+        return _tree_map(lambda t: tp.gather_full(t, ax) if tp.shard_info(t) else t, tree)
+
+    def _axis(self):
+        with shd.mesh_context(self.mesh, self.layout):
+            return tp.model_axis()
+
     def save_checkpoint(self) -> None:
         """Checkpoint the state at ``self.step`` (async unless
-        ``tcfg.async_checkpoint`` is off). A rank of several: rank 0 writes
-        and waits for the commit, and every rank waits for it at a
-        barrier."""
-        tree = self._state_tree()
+        ``tcfg.async_checkpoint`` is off). A rank of several: the pieces are
+        gathered over the tensor axis, rank 0 writes and waits for the
+        commit, and every rank waits for it at a barrier."""
+        tree = self._global_state_tree()
         if self.rank == 0:
             if self.tcfg.async_checkpoint:
                 self.ckpt.save_async(self.step, tree)
@@ -446,10 +533,11 @@ class Trainer:
     @torch.no_grad()
     def restore_checkpoint(self, step: Optional[int] = None) -> int:
         """Roll the state back to checkpoint ``step`` (the latest committed
-        one by default), copying into the tensors the trainer holds; returns
-        the step to resume from. With no checkpoint: restart from scratch,
-        re-initialised from ``tcfg.seed``, or raise when the trainer was
-        handed its parameters."""
+        one by default), copying into the tensors the trainer holds (a
+        rank's pieces cut from the global leaves); returns the step to
+        resume from. With no checkpoint: restart from scratch, re-initialised
+        from ``tcfg.seed``, or raise when the trainer was handed its
+        parameters."""
         self.ckpt.wait()
         step = step if step is not None else self.ckpt.latest_step()
         if step is None:
@@ -469,7 +557,7 @@ class Trainer:
             self.step = self.data.step = 0
             return 0
         live = self._state_tree()
-        tree = self.ckpt.restore(step, live, device="cpu")
+        tree = self.ckpt.restore(step, self._global_template(live), device="cpu")
         self._copy_into(live, tree)
         self.opt_state["step"] = tree["opt"]["step"]
         self.data.step = tree["data"]["step"]
@@ -478,10 +566,20 @@ class Trainer:
         return self.step
 
     @staticmethod
+    def _global_template(live):
+        """``live`` with each piece of a cut leaf replaced by an empty tensor
+        of the global shape on the meta device: what the checkpoint holds."""
+        return _tree_map(lambda t: torch.empty(tp.global_shape(t), dtype=t.dtype,
+                                                   device="meta")
+                             if tp.shard_info(t) else t, live)
+
+    @staticmethod
     def _copy_into(live, tree) -> None:
         for (_, dst), (_, src) in zip(ckpt_mod.flatten_with_paths(live),
                                       ckpt_mod.flatten_with_paths(tree)):
             if isinstance(dst, torch.Tensor):
+                if tuple(src.shape) != tuple(dst.shape):
+                    src = tp.take_shard(src, tp.shard_info(dst))
                 dst.copy_(src)
 
     def train(self, fail_hook: Optional[Callable[[int], None]] = None
